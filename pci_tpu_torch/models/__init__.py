@@ -1,0 +1,6 @@
+"""Models of the port (counterpart of ``pci_tpu.models``)."""
+
+from .flownet3d import FlowNet3D
+from .pointinet import PointINet
+
+__all__ = ["FlowNet3D", "PointINet"]

@@ -1,0 +1,19 @@
+"""Point-cloud ops of the port (counterpart of ``pci_tpu.ops``)."""
+
+from .ball import ball_query
+from .distance import square_distance
+from .fps import fps, fps_points
+from .gather import index_points
+from .interpolate import three_nn_interpolate
+from .knn import knn, knn_prefix
+
+__all__ = [
+    "ball_query",
+    "fps",
+    "fps_points",
+    "index_points",
+    "knn",
+    "knn_prefix",
+    "square_distance",
+    "three_nn_interpolate",
+]
