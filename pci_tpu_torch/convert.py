@@ -1,12 +1,14 @@
 """Flax variables -> the port's ``state_dict``.
 
 The JAX package's models keep ``{"params": ..., "batch_stats": ...}``
-trees; the port's modules mirror their names with three renames:
+trees; the port's modules mirror their names with four renames:
 ``PointMLP_0`` -> ``mlp``, ``Dense_i`` -> ``dense.i``, ``BatchNorm_i`` ->
-``bn.i`` (SetUpConv's ``conv1`` / ``conv2`` keep theirs).  Dense
-``kernel [in, out]`` becomes ``weight [out, in]``; BatchNorm ``scale`` /
-``bias`` / ``mean`` / ``var`` become ``weight`` / ``bias`` /
-``running_mean`` / ``running_var``.
+``bn.i``, ``GroupNorm_i`` -> ``gn.i`` (named modules such as SetUpConv's
+``conv1``, PointNet++'s ``scale0`` or the transformer's ``w_qs`` keep
+theirs).  Dense ``kernel [in, out]`` becomes ``weight [out, in]``;
+BatchNorm ``scale`` / ``bias`` / ``mean`` / ``var`` become ``weight`` /
+``bias`` / ``running_mean`` / ``running_var``; GroupNorm ``scale`` /
+``bias`` become ``weight`` / ``bias``.
 """
 
 from __future__ import annotations
@@ -29,9 +31,10 @@ _LEAF = {
 def _module_name(part: str) -> str:
     if part == "PointMLP_0":
         return "mlp"
-    m = re.fullmatch(r"(Dense|BatchNorm)_(\d+)", part)
+    m = re.fullmatch(r"(Dense|BatchNorm|GroupNorm)_(\d+)", part)
     if m:
-        return f"{'dense' if m.group(1) == 'Dense' else 'bn'}.{m.group(2)}"
+        short = {"Dense": "dense", "BatchNorm": "bn", "GroupNorm": "gn"}[m.group(1)]
+        return f"{short}.{m.group(2)}"
     return part
 
 
@@ -70,3 +73,28 @@ def load_npz_tree(path: str | Path) -> dict:
                 node = node.setdefault(p, {})
             node[leaf] = z[key]
     return tree
+
+
+def load_subtrees(model: torch.nn.Module, variables: dict) -> list:
+    """Load flax ``variables`` into ``model``, whole top-level sub-trees at
+    a time, and return the names of the sub-trees loaded.
+
+    Every key must name a tensor of ``model`` of the same shape, and each
+    top-level module the variables touch must be covered completely, so a
+    PointINet tree (``flow`` and ``fusion``) loads into ISAPCInet's
+    ``flow`` and ``fusion`` and leaves the rest as it was.
+    """
+    sd = flax_to_state_dict(variables)
+    own = model.state_dict()
+    unknown = sorted(set(sd) - set(own))
+    if unknown:
+        raise KeyError(f"weights the model does not have: {unknown[:5]}")
+    tops = sorted({key.split(".")[0] for key in sd})
+    missing = sorted(k for k in own if k.split(".")[0] in tops and k not in sd)
+    if missing:
+        raise KeyError(f"sub-trees {tops} lack {missing[:5]}")
+    bad = [k for k, v in sd.items() if tuple(v.shape) != tuple(own[k].shape)]
+    if bad:
+        raise ValueError(f"shapes differ for {bad[:5]}")
+    model.load_state_dict(sd, strict=False)
+    return tops

@@ -60,6 +60,31 @@ __device__ __forceinline__ float sqdist3(float ax, float ay, float az,
                    __fmul_rn(dz, dz));
 }
 
+// The ball scan shared by csrc/ball.cu and csrc/setconv.cu: one warp a
+// query walks the keys in index order, 32 at a time (lane l holds key
+// j = base + l).  One step places this step's in-radius keys in the
+// query's slots count, count + 1, ... by a ballot and a popc prefix, so
+// the slots hold the first K hits in index order; hits past K are
+// dropped.  Returns the hit count after the step (it may exceed K; the
+// count is warp-uniform, so `count >= K` is a uniform early exit).
+template <typename T>
+__device__ __forceinline__ int ball_place(bool hit, int j, int count, int K,
+                                          T* id) {
+  const unsigned m = __ballot_sync(0xffffffffu, hit);
+  const int slot = count + __popc(m & ((1u << (threadIdx.x & 31)) - 1u));
+  if (hit && slot < K) id[slot] = static_cast<T>(j);
+  return count + __popc(m);
+}
+
+// Finishes a scanned row: never-filled slots repeat the first hit; a row
+// with no hit at all holds `empty` in every slot.
+template <typename T>
+__device__ __forceinline__ void ball_pad(T* id, int count, int K, T empty) {
+  __syncwarp();
+  const T fill = count > 0 ? id[0] : empty;
+  for (int s = min(count, K) + (threadIdx.x & 31); s < K; s += 32) id[s] = fill;
+}
+
 // One dense layer over R rows held in shared memory:
 //   hout[r][o] = act(b[o] + sum_i hin[r][i] * W[i][o])
 // W is [cin][cout] in global memory (read through L1/L2: the widest layer

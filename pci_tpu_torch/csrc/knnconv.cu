@@ -6,8 +6,10 @@
 // n_final linear tail is not ported: FlowNet3D's classifier stays plain).
 // It serves FlowEmbedding, SetUpConv and FeaturePropagation.  A slot's
 // MLP1 input is [key_xyz - query, key_feats, query_feats]; the MLP2 input
-// is [pooled, skip].  Interp weights are 1 / max(d, 1e-10) from distances
-// recomputed from the chosen keys ("clamp", pci_tpu/ops/interpolate.py).
+// is [pooled, skip].  Interp weights come from distances recomputed from
+// the chosen keys: 1 / max(d, 1e-10) ("clamp", FlowNet3D's
+// FeaturePropagation) or 1 / (d + 1e-8) ("eps", PointNet++'s
+// FeaturePropagationP2; pci_tpu/ops/interpolate.py).
 //
 // Selection is exact: k rounds of a warp-wide lexicographic argmin over
 // (squared distance, key index), each round taking the least pair after
@@ -18,7 +20,9 @@
 // What bounds it on the H100: keys are at most 1,024 on FlowNet3D's path
 // and the work is small (FE, the largest, ~2.2 GFLOP and ~0.3 MB), so
 // neither bytes nor FLOPs: the per-slot MLP's shared-memory traffic and
-// the k serial selection rounds decide its time.  The design keeps the
+// the k serial selection rounds decide its time.  PointNet++'s FP levels
+// (eps interpolation, up to 65,536 queries into 1,024 keys) are the
+// three selection rounds over the keys and a gather of the keys' rows.  The design keeps the
 // grouped rows in shared memory, never writes the [S, k, C] block to
 // device memory, and runs MLP1 over chunks of R rows with a running max,
 // then MLP2 over the block's Q pooled rows.
@@ -29,8 +33,8 @@ knnconv_kernel(const float* __restrict__ qxyz, const float* __restrict__ kxyz,
                const float* __restrict__ kfeat, const float* __restrict__ qfeat,
                const float* __restrict__ skip, const float* __restrict__ wbuf,
                MlpSpec m1, MlpSpec m2, float* __restrict__ out, int N, int S,
-               int D, int C1, int Cs, int k, int interp, int Q, int R, int ld1,
-               int ld2) {
+               int D, int C1, int Cs, int k, int interp, int recip_eps, int Q,
+               int R, int ld1, int ld2) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int RR = round_up(R, 8), QR = round_up(Q, 8);
@@ -83,7 +87,7 @@ knnconv_kernel(const float* __restrict__ qxyz, const float* __restrict__ kxyz,
       const int j = sidx[e];
       const float d = sqdist3(KX[j * 3], KX[j * 3 + 1], KX[j * 3 + 2],
                               QX[q * 3], QX[q * 3 + 1], QX[q * 3 + 2]);
-      wts[e] = 1.f / fmaxf(d, 1e-10f);
+      wts[e] = recip_eps ? 1.f / (d + 1e-8f) : 1.f / fmaxf(d, 1e-10f);
     }
     __syncthreads();
     cm = D;
@@ -152,7 +156,8 @@ extern "C" int pci_knnconv(const void* qxyz, const void* kxyz,
                            const void* skip, const void* wbuf, const int* dims1,
                            int n1, const int* dims2, int n2, void* out, int B,
                            int N, int S, int D, int C1, int Cs, int k,
-                           int interp, int Q, int R, void* stream) {
+                           int interp, int recip_eps, int Q, int R,
+                           void* stream) {
   if (n1 < 0 || n1 > PCI_MAX_LAYERS || n2 < 0 || n2 > PCI_MAX_LAYERS ||
       k < 1 || k > N || (interp && (n1 || C1)))
     return (int)cudaErrorInvalidValue;
@@ -179,6 +184,7 @@ extern "C" int pci_knnconv(const void* qxyz, const void* kxyz,
       static_cast<const float*>(qxyz), static_cast<const float*>(kxyz),
       static_cast<const float*>(kfeat), static_cast<const float*>(qfeat),
       static_cast<const float*>(skip), static_cast<const float*>(wbuf), m1, m2,
-      static_cast<float*>(out), N, S, D, C1, Cs, k, interp, Q, R, ld1, ld2);
+      static_cast<float*>(out), N, S, D, C1, Cs, k, interp, recip_eps, Q, R,
+      ld1, ld2);
   return (int)cudaGetLastError();
 }

@@ -51,14 +51,9 @@ setconv_kernel(const float* __restrict__ xyz, const float* __restrict__ feats,
       const int j = base + lane;
       bool hit = false;
       if (j < N) hit = sqdist3(X[j * 3], X[j * 3 + 1], X[j * 3 + 2], qx, qy, qz) <= r2;
-      const unsigned m = __ballot_sync(0xffffffffu, hit);
-      const int slot = count + __popc(m & ((1u << lane) - 1u));
-      if (hit && slot < K) id[slot] = j;
-      count += __popc(m);
+      count = ball_place(hit, j, count, K, id);
     }
-    __syncwarp();
-    const int first = count > 0 ? id[0] : 0;
-    for (int s = min(count, K) + lane; s < K; s += 32) id[s] = first;
+    ball_pad(id, count, K, 0);  // an empty query reads key 0
   }
   for (int t = threadIdx.x; t < Q * cout; t += blockDim.x) best[t] = -CUDART_INF_F;
   __syncthreads();

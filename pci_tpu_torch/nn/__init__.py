@@ -1,6 +1,7 @@
 """Layers of the port (counterpart of ``pci_tpu.nn``)."""
 
 from .fusion import PointsFusion
+from .heads import Outputer, Tnet
 from .layers import (
     Classifier,
     FeaturePropagation,
@@ -8,18 +9,35 @@ from .layers import (
     SetConv,
     SetUpConv,
     fold_pointmlp_vars,
+    fps_start,
+    gather_split,
 )
 from .mlp import PointMLP
-from .norm import BatchNorm
+from .norm import BatchNorm, GroupNorm
+from .pointnet2 import (
+    FeaturePropagationP2,
+    Pointnet2FeatureAbstract,
+    SetAbstractionMsg,
+)
+from .transformer import TransformerLayer
 
 __all__ = [
     "BatchNorm",
     "Classifier",
     "FeaturePropagation",
+    "FeaturePropagationP2",
     "FlowEmbedding",
+    "GroupNorm",
+    "Outputer",
     "PointMLP",
+    "Pointnet2FeatureAbstract",
     "PointsFusion",
+    "SetAbstractionMsg",
     "SetConv",
     "SetUpConv",
+    "Tnet",
+    "TransformerLayer",
     "fold_pointmlp_vars",
+    "fps_start",
+    "gather_split",
 ]

@@ -1,5 +1,6 @@
 """FlowNet3D building blocks (counterpart of ``pci_tpu/nn/layers.py``):
-SetConv, FlowEmbedding, SetUpConv, FeaturePropagation, Classifier.
+SetConv, FlowEmbedding, SetUpConv, FeaturePropagation, Classifier, and the
+helpers ``fps_start`` and ``gather_split``.
 
 Eval only: every stage folds its BatchNorms into the Dense weights and
 runs as ONE fused kernel call (a CUDA kernel on the card, its plain
@@ -23,6 +24,21 @@ from .mlp import PointMLP
 from .norm import BatchNorm
 
 
+def fps_start(module: nn.Module) -> int:
+    """FPS start index: 0 at eval.  The JAX package draws a random start
+    per sample only in training, which the port does not run."""
+    if module.training:
+        raise RuntimeError(f"{type(module).__name__}: the port runs eval only; call .eval()")
+    return 0
+
+
+def gather_split(xyz: torch.Tensor, feats: torch.Tensor, idx: torch.Tensor):
+    """Neighbour rows of ``[xyz | feats]`` by ONE fused row gather (the JAX
+    package's fp32 route) -> ``(g_xyz [B, ..., 3], g_feats [B, ..., D])``."""
+    g = ops.index_points(torch.cat([xyz.float(), feats.float()], -1), idx)
+    return g[..., :3], g[..., 3:]
+
+
 def fold_pointmlp_vars(mlp: PointMLP | None):
     """Folded ``[(W, b), ...]`` of a BatchNorm PointMLP (empty for None)."""
     return mlp.folded() if mlp is not None else []
@@ -42,7 +58,7 @@ class SetConv(nn.Module):
         ``new_feats [B,S,C']``)."""
         # exact=False: interleaved FPS chains at N >= 4096, the JAX
         # package's accelerator route (SetConv.fps_exact defaults to False)
-        new_xyz = ops.fps_points(xyz, self.npoint, 0, exact=False)
+        new_xyz = ops.fps_points(xyz, self.npoint, fps_start(self), exact=False)
         pooled = setconv_fused(xyz, feats, new_xyz, self.radius, self.nsample,
                                self.mlp.folded())
         return new_xyz, pooled

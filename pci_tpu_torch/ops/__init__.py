@@ -1,6 +1,6 @@
 """Point-cloud ops of the port (counterpart of ``pci_tpu.ops``)."""
 
-from .ball import ball_query
+from .ball import ball_query, ball_query_multi
 from .distance import square_distance
 from .fps import fps, fps_points
 from .gather import index_points
@@ -9,6 +9,7 @@ from .knn import knn, knn_prefix
 
 __all__ = [
     "ball_query",
+    "ball_query_multi",
     "fps",
     "fps_points",
     "index_points",

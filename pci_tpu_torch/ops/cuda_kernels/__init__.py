@@ -1,5 +1,6 @@
 """Hand-written CUDA kernels for Hopper (``sm_90a``), one per TPU kernel of
-the PointINet eval path, each beside its plain PyTorch version.
+the port's eval paths (PointINet and ISAPCInet), each beside its plain
+PyTorch version.
 
 Every kernel wrapper (``*_kernel``) counts its launches in a
 ``launches`` attribute.  Nothing here builds or loads a kernel when it is
@@ -7,8 +8,11 @@ imported: :func:`_build.library` does, at the first launch.
 """
 
 from ._build import build_seconds, plain_versions
+from .attention_cuda import attention_kernel, vector_attention
+from .ball_cuda import ball_kernel, ball_query_multi
 from .fps_cuda import fps_kernel
 from .fusion_knn_cuda import fusion_kernel, knn_fusion_attention
+from .knn_cuda import knn, knn_kernel
 from .knnconv_cuda import knnconv_fused, knnconv_kernel
 from .setconv_cuda import fold_bn_layers, setconv_fused, setconv_kernel
 
@@ -17,6 +21,9 @@ KERNELS = {
     "setconv": setconv_kernel,
     "knnconv": knnconv_kernel,
     "fusion": fusion_kernel,
+    "ball": ball_kernel,
+    "knn": knn_kernel,
+    "attention": attention_kernel,
 }
 
 
@@ -31,11 +38,16 @@ def launch_counts() -> dict:
 
 __all__ = [
     "KERNELS",
+    "attention_kernel",
+    "ball_kernel",
+    "ball_query_multi",
     "build_seconds",
     "fold_bn_layers",
     "fps_kernel",
     "fusion_kernel",
+    "knn",
     "knn_fusion_attention",
+    "knn_kernel",
     "knnconv_fused",
     "knnconv_kernel",
     "launch_counts",
@@ -43,4 +55,5 @@ __all__ = [
     "reset_launch_counts",
     "setconv_fused",
     "setconv_kernel",
+    "vector_attention",
 ]

@@ -1,7 +1,8 @@
 """Build, load and bind the hand-written CUDA kernels of ``pci_tpu_torch``.
 
-All sources in ``pci_tpu_torch/csrc`` compile in ONE ``nvcc`` call, at
-first use, into a shared library with a plain C interface
+Every source in ``pci_tpu_torch/csrc`` compiles at first use, one
+``nvcc`` process a source, all started together, and one more ``nvcc``
+links the objects into a shared library with a plain C interface
 (``build/libpci_kernels_<hash>.so`` at the repository root, keyed by a
 hash of the sources and flags), loaded with :mod:`ctypes`.  Nothing is
 built or loaded when a module is imported: the CPU tests import every
@@ -32,18 +33,22 @@ _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
-NVCC_FLAGS = ("-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC") + ARCH_FLAGS
+NVCC_FLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC") + ARCH_FLAGS
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _IP = ctypes.POINTER(ctypes.c_int)
+_FP = ctypes.POINTER(ctypes.c_float)
 # C entry points: name -> argtypes (every function returns cudaGetLastError)
 _SIGNATURES = {
     "pci_fps": [_P, _P, _P, _I, _I, _I, _I, _P],
     "pci_setconv": [_P, _P, _P, _P, _IP, _I, _P, _I, _I, _I, _I, _F, _I, _I,
                     _I, _P],
     "pci_knnconv": [_P, _P, _P, _P, _P, _P, _IP, _I, _IP, _I, _P, _I, _I, _I,
-                    _I, _I, _I, _I, _I, _I, _I, _P],
+                    _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "pci_fusion": [_P, _P, _P, _I, _I, _I, _P, _I, _I, _P],
+    "pci_ball": [_P, _P, _P, _FP, _IP, _I, _I, _I, _I, _P],
+    "pci_knn": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "pci_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
 }
 
 _PLAIN = contextvars.ContextVar("pci_tpu_torch_plain", default=False)
@@ -111,13 +116,25 @@ def library() -> ctypes.CDLL:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp.so")
         cu, _ = _sources()
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, cu)]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n"
-                f"{res.stdout}\n{res.stderr}"
-            )
+        objs = [tmp.with_name(f"{tmp.stem}.{src.stem}.o") for src in cu]
+        cmds = [[_nvcc(), *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+                for src, obj in zip(cu, objs)]
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True) for c in cmds]
+        results = []
+        for c, p in zip(cmds, procs):
+            so, se = p.communicate()  # waits: no nvcc outlives the build
+            results.append((c, p.returncode, so, se))
+        link = [_nvcc(), "-shared", *ARCH_FLAGS, "-o", str(tmp), *map(str, objs)]
+        if all(r[1] == 0 for r in results):
+            res = subprocess.run(link, capture_output=True, text=True)
+            results.append((link, res.returncode, res.stdout, res.stderr))
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+        failed = [r for r in results if r[1] != 0]
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(
+                f"({rc}) {' '.join(c)}\n{so}\n{se}" for c, rc, so, se in failed))
         os.replace(tmp, out)
     lib = ctypes.CDLL(str(out))
     for name, argtypes in _SIGNATURES.items():
@@ -138,6 +155,11 @@ def build_seconds() -> float:
 def int_array(values) -> ctypes.Array:
     values = [int(v) for v in values]
     return (ctypes.c_int * max(len(values), 1))(*values)
+
+
+def float_array(values) -> ctypes.Array:
+    values = [float(v) for v in values]
+    return (ctypes.c_float * max(len(values), 1))(*values)
 
 
 def stream_ptr(device: torch.device) -> int:

@@ -17,7 +17,8 @@ from . import _build
 
 
 def knnconv_fused(q_xyz, k_xyz, k_feats, q_feats, skip_feats, k, mlp1, mlp2,
-                  interp: bool = False, n_final: int = 0) -> torch.Tensor:
+                  interp: bool = False, n_final: int = 0,
+                  recip: str = "clamp") -> torch.Tensor:
     """Group each query's exact ``k`` nearest keys (ties to the lower
     index) and pool them, then MLP2 over ``[pooled | skip]``.
 
@@ -27,10 +28,12 @@ def knnconv_fused(q_xyz, k_xyz, k_feats, q_feats, skip_feats, k, mlp1, mlp2,
       every slot, FlowEmbedding); skip_feats ``[B, S, Cs]`` or None.
       mlp1 / mlp2: folded ``[(W, b), ...]`` chains, either may be empty;
       every layer ends in ReLU.
-      interp: pool by 3-NN inverse distance, weights
-        ``1 / max(d, 1e-10)`` from distances recomputed off the chosen
-        keys (needs ``k == 3``, ``mlp1 == []`` and no q_feats).
+      interp: pool by 3-NN inverse distance, with weights from distances
+        recomputed off the chosen keys (needs ``k == 3``, ``mlp1 == []``
+        and no q_feats).
       n_final: not supported (the TPU kernel's linear classifier tail).
+      recip: the interp weights, ``"clamp"`` ``1 / max(d, 1e-10)``
+        (FlowNet3D) or ``"eps"`` ``1 / (d + 1e-8)`` (PointNet++).
 
     Returns ``[B, S, C_out]`` fp32.
     """
@@ -38,6 +41,8 @@ def knnconv_fused(q_xyz, k_xyz, k_feats, q_feats, skip_feats, k, mlp1, mlp2,
         raise NotImplementedError("knnconv_fused: the n_final linear tail is not ported")
     if interp and (k != 3 or mlp1 or q_feats is not None):
         raise ValueError("knnconv_fused: interp mode is 3-NN with no MLP1 or q_feats")
+    if recip not in ("clamp", "eps"):
+        raise ValueError(f"knnconv_fused: unknown recip {recip!r}")
     _build.check_eval_only(
         "knnconv_fused", q_xyz, k_xyz, k_feats, q_feats, skip_feats,
         *[t for wb in list(mlp1) + list(mlp2) for t in wb])
@@ -45,13 +50,13 @@ def knnconv_fused(q_xyz, k_xyz, k_feats, q_feats, skip_feats, k, mlp1, mlp2,
         prep = lambda t: None if t is None else t.float().contiguous()  # noqa: E731
         return knnconv_kernel(prep(q_xyz), prep(k_xyz), prep(k_feats),
                               prep(q_feats), prep(skip_feats), k, mlp1, mlp2,
-                              interp)
+                              interp, recip)
     return knnconv_plain(q_xyz, k_xyz, k_feats, q_feats, skip_feats, k, mlp1,
-                         mlp2, interp)
+                         mlp2, interp, recip)
 
 
 def knnconv_kernel(q_xyz, k_xyz, k_feats, q_feats, skip_feats, k, mlp1, mlp2,
-                   interp):
+                   interp, recip):
     dev = q_xyz.device
     B, S, _ = q_xyz.shape
     N, D = k_xyz.shape[1], k_feats.shape[-1]
@@ -73,7 +78,10 @@ def knnconv_kernel(q_xyz, k_xyz, k_feats, q_feats, skip_feats, k, mlp1, mlp2,
                          f"the {c0} grouped and {Cs} skip channels")
     wbuf = torch.cat([w1, w2]).contiguous()
     if interp:
-        Q, R = 32, 8
+        # the block's [Q, D + Cs] pooled rows (two buffers) in shared memory:
+        # 32 rows up to 256 channels, fewer for PointNet++'s fp4 (D = 1,024)
+        ld2 = -(-max(dims2 + [cm + Cs]) // 4) * 4
+        Q, R = max(8, min(32, (96 * 1024 // (2 * ld2 * 4)) // 8 * 8)), 8
     else:
         Q = max(1, min(8, 32 // k))
         ld1 = -(-max(dims1 + [c0]) // 4) * 4
@@ -89,7 +97,7 @@ def knnconv_kernel(q_xyz, k_xyz, k_feats, q_feats, skip_feats, k, mlp1, mlp2,
         wbuf.data_ptr() if wbuf.numel() else null,
         _build.int_array(dims1 or [c0]), len(mlp1),
         _build.int_array(dims2 or [cm + Cs]), len(mlp2),
-        out.data_ptr(), B, N, S, D, C1, Cs, k, int(interp), Q, R,
+        out.data_ptr(), B, N, S, D, C1, Cs, k, int(interp), int(recip == "eps"), Q, R,
         _build.stream_ptr(dev),
     )
     _build.check_launch("knnconv", err)
@@ -101,9 +109,9 @@ knnconv_kernel.launches = 0
 
 
 def knnconv_plain(q_xyz, k_xyz, k_feats, q_feats, skip_feats, k, mlp1, mlp2,
-                  interp):
+                  interp, recip="clamp"):
     if interp:
-        h = three_nn_interpolate(q_xyz, k_xyz, k_feats.float(), "clamp")
+        h = three_nn_interpolate(q_xyz, k_xyz, k_feats.float(), recip)
     else:
         _, idx = knn(q_xyz, k_xyz, k)  # [B, S, k]
         parts = [index_points(k_xyz, idx) - q_xyz[:, :, None, :],

@@ -9,9 +9,9 @@ from __future__ import annotations
 
 import torch
 
-from ..ball import ball_query
 from ..gather import index_points
 from . import _build
+from .ball_cuda import ball_plain
 
 
 def fold_bn_layers(linears, norms):
@@ -84,7 +84,9 @@ setconv_kernel.launches = 0
 
 
 def setconv_plain(xyz, feats, new_xyz, radius, nsample, layers):
-    idx = ball_query(radius, nsample, xyz, new_xyz)  # [B, S, K]
+    # an all-empty row reads key 0, as setconv_tpu does (the ball query
+    # itself gives N - 1 there)
+    (idx,) = ball_plain(xyz, new_xyz, [radius], [nsample], empty="first")
     h = torch.cat([index_points(xyz, idx) - new_xyz[:, :, None, :],
                    index_points(feats.float(), idx)], dim=-1)
     return _build.mlp_plain(h, layers).amax(dim=2)

@@ -3,26 +3,18 @@
 
 Selection is a stable sort of the fp32 squared distances, so ties go to
 the lower key index (``torch.topk`` leaves the order of ties unspecified).
+``knn`` launches the kNN kernel (``cuda_kernels.knn_cuda``) on a CUDA
+tensor.
 """
 
 from __future__ import annotations
 
 import torch
 
+from .cuda_kernels.knn_cuda import knn, select_min_k
 from .distance import square_distance
 
 _SENTINEL = 1e30
-
-
-def _select_min_k(d: torch.Tensor, k: int):
-    vals, idx = torch.sort(d, dim=-1, stable=True)
-    return vals[..., :k], idx[..., :k]
-
-
-def knn(query: torch.Tensor, points: torch.Tensor, k: int):
-    """``query [B, S, C]``, ``points [B, N, C]`` -> ``(sq_dists [B, S, k],
-    idx [B, S, k] int64)`` ascending by distance."""
-    return _select_min_k(square_distance(query.detach(), points.detach()), k)
 
 
 def knn_prefix(query: torch.Tensor, points: torch.Tensor, k: int,
@@ -37,4 +29,7 @@ def knn_prefix(query: torch.Tensor, points: torch.Tensor, k: int,
     pos = torch.arange(points.shape[1], device=points.device)
     mask = pos[None, None, :] < valid_n.to(points.device)[:, None, None]
     d = torch.where(mask, d, torch.tensor(_SENTINEL, device=d.device))
-    return _select_min_k(d, k)
+    return select_min_k(d, k)
+
+
+__all__ = ["knn", "knn_prefix"]

@@ -150,3 +150,142 @@ def test_folded_weights_follow_updates():
     assert second is not first
     torch.testing.assert_close(second[0][1], m.folded()[0][1])
     assert not torch.equal(second[0][0], first[0][0])
+
+
+# ---- the ISAPCInet layers: GroupNorm chains, PointNet++, transformer, heads
+# Clouds sit on a 1/64 grid where a ball query runs, so squared distances
+# are exact under both the port's direct formula and the JAX package's
+# expansion and ball membership is the same on both sides.  Tolerance 1e-4
+# (fp32, another summation order in the GroupNorm statistics).
+GN_TOL = dict(atol=1e-4, rtol=1e-4)
+
+
+def grid_cloud(rng, b, n, scale):
+    return (np.round(rng.standard_normal((b, n, 3)) * scale * 64) / 64).astype(np.float32)
+
+
+@pytest.mark.parametrize("shape", [(2, 40, 8, 16), (2, 300, 16), (3, 64)])
+def test_group_norm_matches_flax(shape):
+    """Statistics over every axis but the batch axis, per channel group,
+    with flax's fast variance; scale and bias shifted off 1 and 0."""
+    from pci_tpu.nn.norm import group_norm
+
+    rng = np.random.default_rng(210)
+    x = (rng.standard_normal(shape) * 0.7 + 0.2).astype(np.float32)
+    jm = group_norm(4)
+    v = shifted(jm.init(jax.random.key(0), jnp.asarray(x)))
+    want = np.asarray(jm.apply(v, jnp.asarray(x)))
+    np.testing.assert_allclose(run(port(tnn.GroupNorm(4, shape[-1]), v), x), want, **GN_TOL)
+
+
+@pytest.mark.parametrize("norm", ["group", "group_div"])
+def test_group_point_mlp_matches_flax(norm):
+    rng = np.random.default_rng(211)
+    x = cloud(rng, 2, 60, 7, scale=1.0)
+    jm = jnn.PointMLP((16, 32), norm=norm, groups=4)
+    v = shifted(jm.init(jax.random.key(0), jnp.asarray(x)))
+    want = np.asarray(jm.apply(v, jnp.asarray(x)))
+    tm = port(tnn.PointMLP(7, (16, 32), norm=norm), v)
+    np.testing.assert_allclose(run(tm, x), want, **GN_TOL)
+    with pytest.raises(ValueError, match="cannot fold"):
+        tm.folded()
+
+
+@pytest.mark.parametrize("with_feats", [False, True])
+def test_set_abstraction_msg_matches_flax(with_feats):
+    """Two scales from one ball query; [feats, dxyz] (features first), or
+    dxyz alone as at sa1."""
+    rng = np.random.default_rng(212)
+    xyz = grid_cloud(rng, 2, 400, 0.4)
+    feats = cloud(rng, 2, 400, 6, scale=1.0) if with_feats else None
+    jm = jnn.SetAbstractionMsg(64, [0.15, 0.3], [8, 16], [[16, 16], [16, 24]])
+    J = lambda a: None if a is None else jnp.asarray(a)  # noqa: E731
+    v = shifted(jm.init(jax.random.key(0), J(xyz), J(feats)))
+    jx, jf = jm.apply(v, J(xyz), J(feats))
+    tm = port(tnn.SetAbstractionMsg(64, [0.15, 0.3], [8, 16], [[16, 16], [16, 24]],
+                                    6 if with_feats else 0), v)
+    with torch.inference_mode():
+        tx, tf = tm(torch.from_numpy(xyz), None if feats is None else torch.from_numpy(feats))
+    np.testing.assert_array_equal(tx.numpy(), np.asarray(jx))
+    np.testing.assert_allclose(tf.numpy(), np.asarray(jf), **GN_TOL)
+
+
+@pytest.mark.parametrize("with_dense", [False, True])
+def test_feature_propagation_p2_matches_flax(with_dense):
+    """eps-mode 3-NN interpolation (exact key hits included) + [skip,
+    interp] + GroupNorm MLP."""
+    rng = np.random.default_rng(213)
+    dense, sub = cloud(rng, 2, 160), cloud(rng, 2, 40)
+    dense[:, :5] = sub[:, :5]
+    sf = cloud(rng, 2, 40, 12, scale=1.0)
+    df = cloud(rng, 2, 160, 5, scale=1.0) if with_dense else None
+    J = lambda a: None if a is None else jnp.asarray(a)  # noqa: E731
+    jm = jnn.pointnet2.FeaturePropagationP2([24, 16])
+    v = shifted(jm.init(jax.random.key(0), J(dense), J(sub), J(df), J(sf)))
+    want = np.asarray(jm.apply(v, J(dense), J(sub), J(df), J(sf)))
+    tm = port(tnn.FeaturePropagationP2([24, 16], 12, 5 if with_dense else 0), v)
+    with torch.inference_mode():
+        got = tm(torch.from_numpy(dense), torch.from_numpy(sub),
+                 None if df is None else torch.from_numpy(df), torch.from_numpy(sf))
+    np.testing.assert_allclose(got.numpy(), want, **GN_TOL)
+
+
+def test_pointnet2_feature_abstract_matches_flax():
+    """The whole MSG encoder-decoder (4 SA, 4 FP, conv1 + GroupNorm(8)) on
+    a dense 2,048-point cloud (sigma 0.1): sa1 takes 1,024 centres at radii
+    0.1/0.2 and its balls fill, as on a real flow cloud.  (A sparse cloud
+    leaves most slots repeating the centre, and GroupNorm's fast variance
+    of nearly constant rows then differs at 1e-3 between any two
+    summation orders.)  Off the grid: on it, the FP stages' 3-NN meets
+    exact distance ties, which the JAX package's approximate top-k breaks
+    in another order."""
+    rng = np.random.default_rng(214)
+    xyz = cloud(rng, 1, 2048, scale=0.1)
+    jm = jnn.Pointnet2FeatureAbstract(16)
+    v = shifted(jax.jit(jm.init)(jax.random.key(0), jnp.asarray(xyz)))
+    want = np.asarray(jax.jit(jm.apply)(v, jnp.asarray(xyz)))
+    got = run(port(tnn.Pointnet2FeatureAbstract(16), v), xyz)
+    np.testing.assert_allclose(got, want, **GN_TOL)
+
+
+def test_transformer_layer_matches_flax():
+    """Self-kNN (k=8), fused [xyz | K | V] gather, the attention tail, fc2
+    and the residual; the port returns no attention maps."""
+    rng = np.random.default_rng(215)
+    xyz, f = cloud(rng, 2, 300, scale=0.5), cloud(rng, 2, 300, 16, scale=1.0)
+    jm = jnn.TransformerLayer(16, 8)
+    v = shifted(jm.init(jax.random.key(0), jnp.asarray(xyz), jnp.asarray(f)))
+    want, _ = jm.apply(v, jnp.asarray(xyz), jnp.asarray(f))
+    tm = port(tnn.TransformerLayer(16, 16, 8), v)
+    with torch.inference_mode():
+        got, attn = tm(torch.from_numpy(xyz), torch.from_numpy(f))
+    assert attn is None
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **GN_TOL)
+
+
+def test_tnet_and_outputer_match_flax():
+    rng = np.random.default_rng(216)
+    t = np.array([[0.2], [0.9]], np.float32)
+    jm = jnn.Tnet(field=2)
+    v = shifted(jm.init(jax.random.key(0), jnp.asarray(t)))
+    np.testing.assert_allclose(run(port(tnn.Tnet(2), v), t),
+                               np.asarray(jm.apply(v, jnp.asarray(t))), **GN_TOL)
+    x = cloud(rng, 2, 70, 48, scale=1.0)
+    jm = jnn.Outputer()
+    v = shifted(jm.init(jax.random.key(0), jnp.asarray(x)))
+    np.testing.assert_allclose(run(port(tnn.Outputer(48), v), x),
+                               np.asarray(jm.apply(v, jnp.asarray(x))), **GN_TOL)
+
+
+def test_isapci_layers_refuse_train_mode():
+    rng = np.random.default_rng(217)
+    xyz = torch.from_numpy(cloud(rng, 1, 64))
+    for m, args in ((tnn.SetAbstractionMsg(8, [0.5], [4], [[8]], 0), (xyz, None)),
+                    (tnn.TransformerLayer(3, 8, 4), (xyz, xyz)),
+                    (tnn.Tnet(1), (torch.ones(1, 1),))):
+        with torch.no_grad(), pytest.raises((RuntimeError, NotImplementedError),
+                                            match="eval only"):
+            m(*args)
+        m.eval()
+        with torch.no_grad():
+            m(*args)

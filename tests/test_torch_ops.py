@@ -23,8 +23,11 @@ import jax.numpy as jnp
 from pci_tpu_torch import ops as tops
 from pci_tpu_torch.ops import cuda_kernels as tk
 from pci_tpu_torch.ops.cuda_kernels import (
+    attention_cuda,
+    ball_cuda,
     fps_cuda,
     fusion_knn_cuda,
+    knn_cuda,
     knnconv_cuda,
     setconv_cuda,
 )
@@ -105,9 +108,9 @@ def test_fps_interleaved_matches_strided_jax_chains():
 
 
 def test_ball_query_matches_jax():
-    """Exact indices on every query with a hit.  A query with none reads
-    key 0 (the documented contract, and what setconv_tpu does); the JAX
-    XLA path clips such a row to N - 1 instead."""
+    """Exact indices on every row, the empty ones included: a query with
+    no key in radius holds N - 1, as the JAX package's XLA path clips its
+    sentinel (its docstring says 0)."""
     from pci_tpu import ops as jops
 
     rng = np.random.default_rng(103)
@@ -117,8 +120,106 @@ def test_ball_query_matches_jax():
     want = np.asarray(jops.ball_query(0.8, 8, jnp.asarray(xyz), jnp.asarray(q)))
     hit = (((q[:, :, None] - xyz[:, None]) ** 2).sum(-1) <= 0.64).any(-1)
     assert hit.sum() > 40 and (~hit[:, :3]).all()
-    np.testing.assert_array_equal(got[hit], want[hit])
-    assert (got[~hit] == 0).all() and (want[~hit] == 299).all()
+    np.testing.assert_array_equal(got, want)
+    assert (got[~hit] == 299).all()
+
+
+def grid_cloud(rng, b, n, scale=1.0):
+    """Coordinates on a 1/64 grid: squared distances are exact in fp32 by
+    both the direct and the expanded formula, so ball membership cannot
+    differ between the port and the JAX package at a radius shell."""
+    return (np.round(rng.standard_normal((b, n, 3)) * scale * 64) / 64).astype(np.float32)
+
+
+def test_ball_query_multi_matches_jax_and_pallas():
+    """ball_query_multi vs pci_tpu.ops.ball_query_multi and vs
+    ball_query_pallas (interpret) + finish_ball_idx: exact indices at two
+    radii with K=16/32, N=300 (not a multiple of the 256-key tile), a row
+    with no hit and a row with fewer than K hits."""
+    from pci_tpu import ops as jops
+    from pci_tpu.ops.pallas_kernels.ball_tpu import ball_query_pallas, finish_ball_idx
+
+    rng = np.random.default_rng(111)
+    N = 300
+    xyz, q = grid_cloud(rng, 2, N, 0.3), grid_cloud(rng, 2, 40, 0.3)
+    q[:, 0] = 40.0  # no hit
+    q[:, 1] = [6.0, 0.0, 0.0]  # one hit at r=0.3, two at r=0.6
+    xyz[:, 7] = [6.25, 0.0, 0.0]
+    xyz[:, 8] = [6.0, 0.5, 0.0]
+    radii, ks = [0.3, 0.6], [16, 32]
+    got = [i.numpy() for i in tops.ball_query_multi(radii, ks, t_(xyz), t_(q))]
+    J = jnp.asarray
+    want = [np.asarray(i) for i in jops.ball_query_multi(radii, ks, J(xyz), J(q))]
+    raw = ball_query_pallas(J(xyz), J(q), J(np.float32(radii)), tuple(ks), True)
+    pallas = [np.asarray(finish_ball_idx(i, N)) for i in raw]
+    d = ((q[:, :, None] - xyz[:, None]) ** 2).sum(-1)
+    hits = [(d <= r * r).sum(-1) for r in radii]
+    assert (hits[1][:, 0] == 0).all() and (0 < hits[0][:, 1]).all() and (hits[1][:, 1] < 32).all()
+    assert (hits[0] >= 16).any() and (hits[1] >= 32).any()
+    for g, w, p in zip(got, want, pallas):
+        np.testing.assert_array_equal(g, w)
+        np.testing.assert_array_equal(g, p)
+    assert (got[0][:, 0] == N - 1).all()
+    np.testing.assert_array_equal(got[1][:, 1], np.broadcast_to([[7, 8] + [7] * 30], (2, 32)))  # pad: the first hit
+
+
+def test_knn_chunked_matches_jax_exact(monkeypatch):
+    """The plain knn, forced into 7-row query blocks, vs
+    pci_tpu.ops.knn(exact=True) on a cloud with duplicated points: equal
+    indices (ties to the lower key index)."""
+    from pci_tpu import ops as jops
+
+    rng = np.random.default_rng(112)
+    p = cloud(rng, 2, 200)
+    p[:, 100:140] = p[:, 20:60]  # exact duplicates
+    q = p[:, ::3].copy()
+    monkeypatch.setattr(knn_cuda, "_PLAIN_BLOCK", 7 * 200)
+    d, i = tops.knn(t_(q), t_(p), 12)
+    jd, ji = jops.knn(jnp.asarray(q), jnp.asarray(p), 12, exact=True)
+    np.testing.assert_array_equal(i.numpy(), np.asarray(ji))
+    np.testing.assert_allclose(d.numpy(), np.asarray(jd), rtol=1e-5, atol=1e-4)
+    assert (d.numpy()[..., 0] == 0).all()
+
+
+def test_knn_cells_never_beats_exact():
+    """knn_cells (the TPU kernel, interpret) is approximate: on the same
+    self-cloud each rank of its neighbours' distances (recomputed exactly
+    from its indices) is >= the port's exact distance at that rank."""
+    from pci_tpu.ops.pallas_kernels.knn_cells_tpu import knn_cells
+
+    rng = np.random.default_rng(113)
+    x = cloud(rng, 1, 1024)
+    xj = jnp.asarray(x)
+    _, ci = knn_cells(xj, xj, 8, interpret=True)
+    ci = t_(np.array(ci)).long()
+    d_cells = ((tops.index_points(t_(x), ci) - t_(x)[:, :, None]) ** 2).sum(-1)
+    d_exact, _ = tops.knn(t_(x), t_(x), 8)
+    d_cells = torch.sort(d_cells, -1).values
+    assert (d_cells >= d_exact - 1e-6).all()
+    assert (d_cells == d_exact).float().mean() > 0.5
+
+
+def test_vector_attention_plain_matches_pallas():
+    """The plain attention tail vs fused_vector_attention (interpret) at
+    N=600 (padded to the 512-query grain there), k=16, d=32.  q and K|V
+    are rounded to bf16 first, so the TPU kernel's bf16 cast is exact;
+    then both are fp32: tolerance 1e-5."""
+    from pci_tpu.ops.pallas_kernels.attention_tpu import fused_vector_attention
+
+    rng = np.random.default_rng(114)
+    N, k, d = 600, 16, 32
+    bf = lambda x: t_(x).to(torch.bfloat16).float().numpy()  # noqa: E731
+    q = bf(cloud(rng, 1, N, d, scale=0.5))
+    g = bf((rng.standard_normal((1, N, k, 2 * d)) * 0.5).astype(np.float32))
+    delta = (rng.standard_normal((1, N, k, 3)) * 0.3).astype(np.float32)
+    ws = [(rng.standard_normal((cin, d)) / np.sqrt(cin)).astype(np.float32) for cin in (3, d, d, d)]
+    bs = [(0.1 * rng.standard_normal(d)).astype(np.float32) for _ in range(4)]
+    J = jnp.asarray
+    flat = [J(a) for wb in zip(ws, bs) for a in wb]
+    want = np.asarray(fused_vector_attention(J(q), J(g), J(delta), *flat, True))
+    tail = [(t_(w.T.copy()), t_(b)) for w, b in zip(ws, bs)]
+    got = attention_cuda.vector_attention(t_(q), t_(g), t_(delta), tail).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
 
 
 def test_knn_and_knn_prefix_match_jax():
@@ -171,14 +272,17 @@ def test_setconv_plain_matches_pallas(far):
 
 
 @pytest.mark.parametrize("stage", ["flow_embedding", "upconv_no_mlp1",
-                                   "upconv_mlp1", "fp_interp"])
+                                   "upconv_mlp1", "fp_interp", "fp_interp_eps"])
 def test_knnconv_plain_matches_pallas(stage):
     """knnconv_fused (plain) vs knnconv_tpu.knnconv_fused (interpret) in
-    each mode FlowNet3D uses."""
+    each mode FlowNet3D uses, and the ``eps`` interpolation PointNet++'s
+    FeaturePropagationP2 uses (no MLPs, no skip, D=1,024 key channels as
+    at fp4, and exact key hits)."""
     from pci_tpu.ops.pallas_kernels.knnconv_tpu import knnconv_fused as jkc
 
     rng = np.random.default_rng({"flow_embedding": 12, "upconv_no_mlp1": 13,
-                                 "upconv_mlp1": 14, "fp_interp": 15}[stage])
+                                 "upconv_mlp1": 14, "fp_interp": 15,
+                                 "fp_interp_eps": 16}[stage])
     q, keys = cloud(rng, 2, 128), cloud(rng, 2, 48)
     kf = cloud(rng, 2, 48, 10, scale=1.0)
     qf = cloud(rng, 2, 128, 6, scale=1.0)
@@ -196,14 +300,19 @@ def test_knnconv_plain_matches_pallas(stage):
         f1, l1 = folded_layers(rng, (13, 16, 24))
         f2, l2 = folded_layers(rng, (24 + 5, 16))
         args, interp = (q, keys, kf, None, skip, 4), False
-    else:
+    elif stage == "fp_interp":
         f1, l1 = (), []
         f2, l2 = folded_layers(rng, (10 + 5, 24, 16))
         args, interp = (q, keys, kf, None, skip, 3), True
+    else:
+        f1, l1, f2, l2 = (), [], (), []
+        q[:, :5] = keys[:, :5]
+        args, interp = (q, keys, cloud(rng, 2, 48, 1024, scale=1.0), None, None, 3), True
+    recip = "eps" if stage == "fp_interp_eps" else "clamp"
     tq = [None if a is None else t_(a) for a in args[:5]]
-    got = knnconv_cuda.knnconv_fused(*tq, args[5], l1, l2, interp=interp)
+    got = knnconv_cuda.knnconv_fused(*tq, args[5], l1, l2, interp=interp, recip=recip)
     jq = [None if a is None else J(a) for a in args[:5]]
-    want = jkc(*jq, args[5], f1, f2, len(l1), len(l2), True, interp)
+    want = jkc(*jq, args[5], f1, f2, len(l1), len(l2), True, interp, recip)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-4, rtol=2e-4)
 
 
@@ -271,16 +380,24 @@ def _grad_calls():
     f = t_(cloud(rng, 1, 64))
     _, sc = folded_layers(rng, (6, 8))
     _, fu = folded_layers(rng, (4, 64, 64, 128))
+    _, tail = folded_layers(rng, (3, 8, 8, 8, 8))
+    tail = [(w, b) for w, b in tail]
     seg = torch.tensor([[32, 64]])
+    g = t_(cloud(rng, 1, 64 * 4, 16)).reshape(1, 64, 4, 16)
     return {
         "fps": lambda: fps_cuda.fps_index(x, 8, torch.zeros(1, dtype=torch.long), 1),
         "setconv": lambda: setconv_cuda.setconv_fused(x, f, x[:, :8], 0.5, 4, sc),
         "knnconv": lambda: knnconv_cuda.knnconv_fused(x, x, f, None, None, 4, sc, []),
         "fusion": lambda: fusion_knn_cuda.knn_fusion_attention(x, seg, torch.tensor([[16, 16]]), fu, 32),
+        "ball": lambda: ball_cuda.ball_query_multi([0.5, 1.0], [4, 8], x, x[:, :8]),
+        "knn": lambda: knn_cuda.knn(x, x, 4),
+        "attention": lambda: attention_cuda.vector_attention(
+            t_(cloud(rng, 1, 64, 8)), g, x[:, :, None].expand(-1, -1, 4, -1), tail),
     }
 
 
-@pytest.mark.parametrize("kernel", ["fps", "setconv", "knnconv", "fusion"])
+@pytest.mark.parametrize("kernel", ["fps", "setconv", "knnconv", "fusion", "ball",
+                                    "knn", "attention"])
 def test_eval_only_kernels_refuse_grad(kernel):
     call = _grad_calls()[kernel]
     with pytest.raises(RuntimeError, match="eval-only"):
@@ -295,7 +412,8 @@ def test_kernel_routes_by_device():
     for call in _grad_calls().values():
         with torch.no_grad():
             call()
-    assert tk.launch_counts() == {"fps": 0, "setconv": 0, "knnconv": 0, "fusion": 0}
+    assert tk.launch_counts() == {"fps": 0, "setconv": 0, "knnconv": 0, "fusion": 0,
+                                  "ball": 0, "knn": 0, "attention": 0}
     with pytest.raises(ValueError):
         tk._build.use_kernel(torch.empty(1, device="meta"))
 
