@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (pci_tpu_torch) of PointINet and ISAPCInet
-(field=2) on one NVIDIA card.
+(field=2, served and trained) on one NVIDIA card.
 
 Run from the repository root on a machine with a CUDA card:
 
@@ -9,7 +9,7 @@ Run from the repository root on a machine with a CUDA card:
 Phases, each printing its own lines:
   1. device: the card's name and power limit, torch and CUDA versions;
      TF32 off for matmuls and convolutions (the plain versions run fp32).
-  2. build: the seven CUDA kernels from pci_tpu_torch/csrc with nvcc.
+  2. build: the CUDA kernels from pci_tpu_torch/csrc with nvcc.
   3. kernels: each kernel against its plain PyTorch version on the card at
      every PointINet shape, recorded from one plain forward of a
      16,384-point request (plus FPS with P=1 at 16,384 and fusion at
@@ -27,6 +27,17 @@ Phases, each printing its own lines:
      with the launch counts of PER_REQUEST_ISAPCI each, the frame against
      the plain versions, latency and the device's busy share; one request
      at the default 16,000 points.
+  6. ISAPCInet field=2 training (the trainer's defaults: 16,000 points,
+     batch 2, t = 0.5 and 0.3, Adam lr 0.01, BN momentum 0.5, the flow
+     frozen; two seeded synthetic windows): every kernel against its plain
+     version at every shape of one plain training step (the attention
+     backward at the gradient that step gives it; the residual kNN also
+     at three segments, PointsFusionMulti's form, and the chamfer's kNN
+     over key prefixes, knn_pallas's valid_n), then one step's loss
+     and gradients through the kernels against the plain versions from the
+     same flows, permutations and FPS starts, then five steps with the
+     launch counts of PER_STEP each, finite losses, the flow bit-unchanged
+     and every other parameter moved; ms/step, peak memory, busy share.
 Then the kernels JSON line, the card line, and {"ok": true, ...} last.
 Exits non-zero, with no result line, when CUDA is missing or a phase fails.
 """
@@ -62,16 +73,41 @@ KERNEL_INFO = {  # name -> (source, TPU kernel it replaces)
             "pci_tpu/ops/pallas_kernels/knn_cells_tpu.py:242"),
     "attention": ("pci_tpu_torch/csrc/attention.cu",
                   "pci_tpu/ops/pallas_kernels/attention_tpu.py:85"),
+    "fusion_resi": ("pci_tpu_torch/csrc/fusion_knn.cu",
+                    "pci_tpu/ops/pallas_kernels/fusion_knn_tpu.py:489"),
+    "nearest": ("pci_tpu_torch/csrc/knn.cu",  # the kNN kernel's k=1 form
+                "pci_tpu/ops/pallas_kernels/knn_tpu.py:132"),
+    "attention_bwd": ("pci_tpu_torch/csrc/attention_bwd.cu",
+                      "pci_tpu/ops/pallas_kernels/attention_tpu.py:358"),
 }
-PER_REQUEST = {"fps": 8, "setconv": 8, "knnconv": 10, "fusion": 1,
-               "ball": 0, "knn": 0, "attention": 0}
+
+
+def per(**counts) -> dict:
+    """Launch counts by kernel, 0 for each kernel not named."""
+    return {name: counts.get(name, 0) for name in KERNEL_INFO}
+
+
+PER_REQUEST = per(fps=8, setconv=8, knnconv=10, fusion=1)
 # ISAPCInet field=2: 6 encodings (2 set-convs, 2 FPS each) and 8 decodes
 # (2 set-convs, 2 FPS, 5 kNN-convs each) of FlowNet3D, two PointNet++
 # passes (4 FPS, 4 ball queries, 4 FP interpolations each), two
 # transformers (1 kNN, 1 attention tail each), one fusion
-PER_REQUEST_ISAPCI = {"fps": 36, "setconv": 28, "knnconv": 48, "fusion": 1,
-                      "ball": 8, "knn": 2, "attention": 2}
+PER_REQUEST_ISAPCI = per(fps=36, setconv=28, knnconv=48, fusion=1, ball=8, knn=2,
+                         attention=2)
+# ISAPCInet field=2, one training step: the frozen flows as at eval (28
+# FPS, 28 set-conv, 40 kNN-conv: 6 encodings x (2 set-convs, 2 FPS), 8
+# decodes x (2 set-convs, 2 FPS, 5 kNN-convs)); PointNet++ twice (4 FPS
+# with random starts, 4 ball queries, and 4 FP interpolations under
+# autograd whose 3-NN runs on the kNN kernel, not on kNN-conv); the
+# transformers (2 kNNs, 2 attention forwards, 2 attention backwards); the
+# fusion's residual kNN; the chamfer loss's two directions on the kNN
+# kernel's k=1 form; the one-shot fusion is eval only
+PER_STEP = per(fps=28 + 8, setconv=28, knnconv=40, ball=8, knn=8 + 2, attention=2,
+               attention_bwd=2, fusion_resi=1, nearest=2)
 FIELD = 2
+TRAIN_N, TRAIN_T = 16000, (0.5, 0.3)  # the trainer's npoints; t a sample
+TRAIN_LR, TRAIN_MOMENTUM = 0.01, 0.5  # init_lr; bn_momentum_schedule(epoch 0)
+STEPS_PER_EPOCH = 1000  # nominal: the lr schedule steps by epoch
 
 
 class PhaseError(RuntimeError):
@@ -111,23 +147,42 @@ def cuda_ms(fn, reps: int) -> float:
 
 @contextlib.contextmanager
 def record_calls(calls: list):
-    """Record the arguments of every kernel dispatch the model makes."""
+    """Record the arguments of every kernel dispatch the model makes, and of
+    the trainable attention's backward (at the gradient it receives)."""
+    from pci_tpu_torch.ops.cuda_kernels import attention_bwd
+
     mods = {name: importlib.import_module(f"pci_tpu_torch.{name}")
             for name in ("nn.fusion", "nn.layers", "nn.pointnet2",
-                         "nn.transformer", "ops.fps")}  # ops.fps: the module
+                         "nn.transformer", "ops.fps", "ops.chamfer",
+                         "ops.interpolate")}  # ops.fps: the module
     sites = [(mods["ops.fps"], "fps_index", "fps"),
              (mods["nn.layers"], "setconv_fused", "setconv"),
              (mods["nn.layers"], "knnconv_fused", "knnconv"),
              (mods["nn.fusion"], "knn_fusion_attention", "fusion"),
+             (mods["nn.fusion"], "fusion_resi_knn", "fusion_resi"),
              (mods["nn.pointnet2"], "ball_query_multi", "ball"),
              (mods["nn.pointnet2"], "knnconv_fused", "knnconv"),
+             (mods["ops.interpolate"], "knn", "knn"),
              (mods["nn.transformer"], "knn", "knn"),
-             (mods["nn.transformer"], "vector_attention", "attention")]
+             (mods["nn.transformer"], "vector_attention", "attention"),
+             (mods["nn.transformer"], "vector_attention_trainable", "attention"),
+             (mods["ops.chamfer"], "knn", "nearest")]
     saved = [getattr(mod, attr) for mod, attr, _ in sites]
+    depth = [0]  # a plain version's own dispatches are not the model's
     for (mod, attr, name), fn in zip(sites, saved):
-        def rec(*args, _fn=fn, _name=name, **kw):
+        def rec(*args, _fn=fn, _name=name, _attr=attr, **kw):
+            if depth[0]:
+                return _fn(*args, **kw)
             calls.append((_name, _fn, args, kw))
-            return _fn(*args, **kw)
+            depth[0] += 1
+            try:
+                out = _fn(*args, **kw)
+            finally:
+                depth[0] -= 1
+            if _attr == "vector_attention_trainable" and out.requires_grad:
+                out.register_hook(lambda gout, a=args: calls.append(
+                    ("attention_bwd", attention_bwd, (*a, gout.contiguous()), {})))
+            return out
         setattr(mod, attr, rec)
     try:
         yield
@@ -192,10 +247,28 @@ def work(name, args, kw, out):
         # 8 flops a distance and one compare a scale, per key scanned
         ops = (8.0 + len(ks)) * scanned_keys(new_xyz, xyz, radii, ks)
         return nbytes(xyz, new_xyz, *out), ops
-    if name == "knn":
-        query, points, k = args
+    if name in ("knn", "nearest"):
+        query, points, k = args[:3]
         B, S, _ = query.shape
-        return nbytes(query, points, *out), 8.0 * B * S * points.shape[1]
+        valid = args[3] if len(args) > 3 and args[3] is not None else None
+        keys = float(valid.clamp(max=points.shape[1]).sum()) if valid is not None \
+            else B * points.shape[1]
+        return nbytes(query, points, valid, *out), 8.0 * S * keys
+    if name == "fusion_resi":
+        combined, seg_ends, budgets, k = args
+        B, N, _ = combined.shape
+        # every (row, key) distance, then a subtraction a slot coordinate
+        return nbytes(combined, seg_ends, budgets, *out), 8.0 * B * N * N + 3.0 * B * N * k
+    if name == "attention_bwd":
+        q, g, delta, tail, gout = args
+        B, N, d = q.shape
+        R = B * N * g.shape[2]
+        w = [t for wb in tail for t in wb]
+        # the recomputed forward, then six [R, d] x [d, d] products (three
+        # for the inputs' gradients, three for the weights'), the 3-wide
+        # ones, and ~20 elementwise operations a (row, channel)
+        ops = 2.0 * R * (3 * d + 3 * d * d) + 2.0 * R * (6 * d * d + 6 * d) + 20.0 * R * d
+        return nbytes(q, g, delta, gout, *w, *out), ops
     if name == "attention":
         q, g, delta, tail = args
         B, N, d = q.shape
@@ -223,14 +296,73 @@ def label(name, args, kw) -> str:
         return f"S={args[0].shape[1]} N={args[1].shape[1]} k={args[5]}{mode}"
     if name == "ball":
         return f"N={args[2].shape[1]} S={args[3].shape[1]} r={list(args[0])} K={list(args[1])}"
-    if name == "knn":
-        return f"S={args[0].shape[1]} N={args[1].shape[1]} k={args[2]}"
-    if name == "attention":
-        return f"N={args[0].shape[1]} k={args[1].shape[2]} d={args[0].shape[2]}"
+    if name in ("knn", "nearest"):
+        valid = f" valid_n={args[3].tolist()}" if len(args) > 3 and args[3] is not None else ""
+        return f"B={args[0].shape[0]} S={args[0].shape[1]} N={args[1].shape[1]} k={args[2]}{valid}"
+    if name in ("attention", "attention_bwd"):
+        return f"B={args[0].shape[0]} N={args[0].shape[1]} k={args[1].shape[2]} d={args[0].shape[2]}"
+    if name == "fusion_resi":
+        return f"B={args[0].shape[0]} N={args[0].shape[1]} k={args[3]} ends={args[1].tolist()} " \
+               f"budgets={args[2].tolist()}"
     return f"N={args[0].shape[1]} k={args[4]} budgets={args[2].tolist()}"
 
 
-def compare(name, got, want, where: str) -> float:
+def relu_gates(q, g, delta, tail, rel: float = 1e-6, chunk: int = 4096):
+    """``[M]`` bool: the queries of the attention tail with a hidden
+    pre-activation (either ReLU, any slot and channel) within ``rel`` of
+    its layer's largest magnitude of 0, where two summation orders can
+    round the gate apart; the plain forward in chunks of queries."""
+    lin = torch.nn.functional.linear
+    (wd0, bd0), (wd1, bd1), (wg0, bg0), _ = tail
+    d = q.shape[-1]
+    qf, gf, df = q.reshape(-1, d), g.reshape(q.shape[0] * q.shape[1], -1, 2 * d), \
+        delta.reshape(q.shape[0] * q.shape[1], -1, 3)
+    mins, top = [], [0.0, 0.0]
+    with torch.no_grad():
+        for s in range(0, qf.shape[0], chunk):
+            pre1 = lin(df[s:s + chunk], wd0, bd0)
+            pos = lin(torch.relu(pre1), wd1, bd1)
+            pre2 = lin(qf[s:s + chunk, None, :] - gf[s:s + chunk, :, :d] + pos, wg0, bg0)
+            mins.append(torch.stack([pre1.abs().amin(dim=(1, 2)), pre2.abs().amin(dim=(1, 2))]))
+            top = [max(top[0], pre1.abs().max().item()), max(top[1], pre2.abs().max().item())]
+    m = torch.cat(mins, 1)
+    return (m[0] < rel * top[0]) | (m[1] < rel * top[1])
+
+
+def compare_attention_bwd(got, want, args, where: str) -> float:
+    """dq, dg, ddelta within 1e-4 of their largest magnitude, on the
+    queries whose ReLU gates no rounding can flip (a flipped gate is a
+    jump in the derivative, not a rounding error: a query has 2 k d
+    pre-activations, so 1-2% of them hold one within 1e-6 of the largest;
+    they are counted, at most 5% of the queries); the eight weight and bias gradients within 1e-3 of their
+    layer's largest weight or bias gradient (each sums ~2M (query, slot)
+    rows, in blocks on the card and in chunks in the plain version; the
+    last bias's gradient is zero in exact arithmetic, the softmax over k
+    cancelling it, so its own magnitude is rounding noise)."""
+    q = args[0]
+    M = q.shape[0] * q.shape[1]
+    gate = relu_gates(*args[:4])
+    keep = ~gate
+    check(int(gate.sum()) <= 0.05 * M, f"attention_bwd {where}: {int(gate.sum())} of {M} "
+                                       f"queries at a ReLU gate")
+    err = 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        if i < 3:
+            e = (g.reshape(M, -1)[keep] - w.reshape(M, -1)[keep]).abs().max().item()
+            tol = 1e-4 * w.abs().max().item()
+        else:
+            e = (g - w).abs().max().item()
+            layer = want[3 + 2 * ((i - 3) // 2):5 + 2 * ((i - 3) // 2)]
+            tol = 1e-3 * max(t.abs().max().item() for t in layer)
+        check(e <= tol, f"attention_bwd {where}: output {i} max |kernel - plain| {e} > {tol}")
+        err = max(err, e)
+    print(f"attention_bwd {where}: {int(gate.sum())} of {M} queries at a ReLU gate left out "
+          f"of dq/dg/ddelta; max |kernel - plain| over all queries "
+          f"{max((g - w).abs().max().item() for g, w in zip(got[:3], want[:3])):.3g}")
+    return err
+
+
+def compare(name, got, want, where: str, args=()) -> float:
     """Hold a kernel's result against its plain version's; returns the
     max abs error (0 for exact index results)."""
     if name == "fps":
@@ -240,30 +372,47 @@ def compare(name, got, want, where: str) -> float:
         for g, w in zip(got, want):
             check(torch.equal(g, w), f"ball {where}: indices differ")
         return 0.0
-    if name == "knn":
-        check(torch.equal(got[1], want[1]), f"knn {where}: indices differ")
-        check(torch.equal(got[0], want[0]), f"knn {where}: distances not bit-equal")
+    if name in ("knn", "nearest"):
+        check(torch.equal(got[1], want[1]), f"{name} {where}: indices differ")
+        check(torch.equal(got[0], want[0]), f"{name} {where}: distances not bit-equal")
         return 0.0
+    if name == "fusion_resi":
+        check(torch.equal(got[0], want[0]), f"fusion_resi {where}: indices differ")
+        check(torch.equal(got[1], want[1]), f"fusion_resi {where}: residuals not bit-equal")
+        return 0.0
+    if name == "attention_bwd":
+        return compare_attention_bwd(got, want, args, where)
     err = (got - want).abs().max().item()
     ok = torch.allclose(got, want, atol=1e-4, rtol=1e-4)
     check(ok, f"{name} {where}: max |kernel - plain| {err}")
     return err
 
 
+def library_call(name, args):
+    """One PyTorch call computing the kernel's function on the same
+    inputs, where there is one (timed only; the port never uses it):
+    ``torch.cdist(...).argmin`` for the nearest neighbour over all keys."""
+    if name == "nearest" and args[2] == 1 and (len(args) < 4 or args[3] is None):
+        query, points = args[0], args[1]
+        return lambda: torch.cdist(query, points).argmin(-1)
+    return None
+
+
 def new_totals():
     return {n: {"ms": 0.0, "plain_ms": 0.0, "err": 0.0, "bytes_ms": 0.0,
-                "ops_ms": 0.0} for n in KERNEL_INFO}
+                "ops_ms": 0.0, "library_ms": None} for n in KERNEL_INFO}
 
 
-def hold_kernels(calls, request: int, expected: dict, totals: dict, path: str):
+def hold_kernels(calls, request: int, expected: dict, totals: dict, path: str,
+                 unit: str = "request"):
     """Each recorded call: kernel vs plain on the card, timed; the first
-    ``request`` calls are one request's launches.  Prints the path's sums
-    a request and adds them to ``totals`` (both paths' requests)."""
+    ``request`` calls are one request's (or step's) launches.  Prints the
+    path's sums a request and adds them to ``totals`` (every path's)."""
     from pci_tpu_torch.ops.cuda_kernels import plain_versions
 
     own = new_totals()
     counts = {n: sum(1 for c in calls[:request] if c[0] == n) for n in KERNEL_INFO}
-    check(counts == expected, f"{path} dispatches {counts} a request, expected {expected}")
+    check(counts == expected, f"{path} dispatches {counts} a {unit}, expected {expected}")
     with torch.inference_mode():
         for i, (name, fn, args, kw) in enumerate(calls):
             got = fn(*args, **kw)
@@ -271,16 +420,19 @@ def hold_kernels(calls, request: int, expected: dict, totals: dict, path: str):
             with plain_versions():
                 want = fn(*args, **kw)
             torch.cuda.synchronize()
-            err = compare(name, got, want, label(name, args, kw))
+            err = compare(name, got, want, label(name, args, kw), args)
             ms = cuda_ms(lambda: fn(*args, **kw), 10)
             with plain_versions():
                 plain_ms = cuda_ms(lambda: fn(*args, **kw), 3)
+            lib = library_call(name, args)
+            lib_ms = cuda_ms(lib, 3) if lib is not None else None
             nb, ops = work(name, args, kw, got)
             bytes_ms, ops_ms = nb / HBM_BYTES_PER_S * 1e3, ops / FP32_FLOPS * 1e3
             print(f"kernel {name:9s} {label(name, args, kw):52s} ms={ms:.4f} "
                   f"plain_ms={plain_ms:.4f} bound_ms={max(bytes_ms, ops_ms):.6f} "
                   f"({'bytes' if bytes_ms > ops_ms else 'operations'}) "
-                  f"max_abs_err={err:.3g}")
+                  f"max_abs_err={err:.3g}"
+                  + (f" library_ms={lib_ms:.4f}" if lib_ms is not None else ""))
             t = own[name]
             t["err"] = max(t["err"], err)
             if i < request:  # one request's worth of launches
@@ -288,16 +440,24 @@ def hold_kernels(calls, request: int, expected: dict, totals: dict, path: str):
                 t["plain_ms"] += plain_ms
                 t["bytes_ms"] += bytes_ms
                 t["ops_ms"] += ops_ms
+                if lib_ms is not None:
+                    t["library_ms"] = (t["library_ms"] or 0.0) + lib_ms
     for name in KERNEL_INFO:
         for key, val in own[name].items():
-            totals[name][key] = max(totals[name][key], val) if key == "err" \
-                else totals[name][key] + val
+            if key == "err":
+                totals[name][key] = max(totals[name][key], val)
+            elif key == "library_ms":
+                if val is not None:
+                    totals[name][key] = (totals[name][key] or 0.0) + val
+            else:
+                totals[name][key] += val
         if counts[name]:
             t = own[name]
-            print(f"{path} kernel {name}: {counts[name]} launches a request, "
-                  f"{t['ms']:.4f} ms a request (plain {t['plain_ms']:.4f} ms, bound "
+            lib = f", library {t['library_ms']:.4f} ms" if t["library_ms"] is not None else ""
+            print(f"{path} kernel {name}: {counts[name]} launches a {unit}, "
+                  f"{t['ms']:.4f} ms a {unit} (plain {t['plain_ms']:.4f} ms, bound "
                   f"{max(t['bytes_ms'], t['ops_ms']):.6f} ms by "
-                  f"{'bytes' if t['bytes_ms'] > t['ops_ms'] else 'operations'}), "
+                  f"{'bytes' if t['bytes_ms'] > t['ops_ms'] else 'operations'}{lib}), "
                   f"max_abs_err {t['err']:.3g}")
 
 
@@ -322,9 +482,9 @@ def phase_kernels(model, a, b, totals):
     return perms
 
 
-def device_share(serve, requests: int = 5):
-    """torch.profiler over a few requests: device time by kernel name and
-    the share of the window the device was busy."""
+def device_share(serve, requests: int = 5, unit: str = "request"):
+    """torch.profiler over a few requests (or steps): device time by
+    kernel name and the share of the window the device was busy."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -334,15 +494,22 @@ def device_share(serve, requests: int = 5):
             serve()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = [(e.key, e.self_device_time_total / 1e3) for e in prof.key_averages()]
+    # the device's own events (kernels, copies, fills): a CPU-side op row
+    # carries the time of the kernels it launched again, and so does a
+    # record_function range's device-side copy (same name as its CPU row)
+    cuda = torch.autograd.DeviceType.CUDA
+    events = prof.key_averages()
+    host = {e.key for e in events if e.device_type != cuda}
+    rows = [(e.key, e.self_device_time_total / 1e3) for e in events
+            if e.device_type == cuda and e.key not in host]
     rows = sorted((r for r in rows if r[1] > 0), key=lambda r: -r[1])
     busy_ms = sum(ms for _, ms in rows)
     if busy_ms == 0:
         print("device busy share: not measured (the profiler saw no device time)")
         return
     print(f"device busy {busy_ms / requests:.3f} ms of {wall_ms / requests:.3f} ms a "
-          f"request ({100 * busy_ms / wall_ms:.1f}% busy, "
-          f"{100 * (1 - busy_ms / wall_ms):.1f}% idle), top device time per request:")
+          f"{unit} ({100 * busy_ms / wall_ms:.1f}% busy, "
+          f"{100 * (1 - busy_ms / wall_ms):.1f}% idle), top device time per {unit}:")
     for key, ms in rows[:10]:
         print(f"  {ms / requests:8.4f} ms  {key[:90]}")
 
@@ -401,20 +568,22 @@ def synthetic_pair():
     return a, b
 
 
-def synthetic_window(n: int = NPOINTS):
+def synthetic_window(n: int = NPOINTS, seed: int = 0, t: float = 0.5):
     """Seeded six-frame window ``frame_i = a + i * v + 0.05 noise`` at
     times -2, -1 (the forward context, nearest first), 0, 1 (the key
-    pair), 2, 3 (the backward context): ``a`` as in synthetic_pair, ``v``
-    a per-point velocity of 0.5 m a frame that turns with the position
-    (a slow rotation plus a drift), so the flows spread over a metre."""
-    rng = np.random.default_rng(0)
+    pair), 2, 3 (the backward context): ``a`` as in synthetic_pair (for
+    seed 0), ``v`` a per-point velocity of 0.5 m a frame that turns with
+    the position (a slow rotation plus a drift), so the flows spread over
+    a metre; then the ground truth, the same formula at time ``t``."""
+    rng = np.random.default_rng(seed)
     a = (rng.standard_normal((n, 3)) * 10).astype(np.float32)
     v = 0.05 * np.stack([-a[:, 1], a[:, 0], np.zeros(n, np.float32)], 1) + np.float32([0.3, 0.1, 0.0])
     frame = {i: (a + i * v + 0.05 * rng.standard_normal((n, 3))).astype(np.float32)
              for i in range(-FIELD, FIELD + 2)}
     fwd = [frame[-1 - j] for j in range(FIELD)]
     bwd = [frame[2 + j] for j in range(FIELD)]
-    return fwd, (frame[0], frame[1]), bwd
+    gt = (a + np.float32(t) * v + 0.05 * rng.standard_normal((n, 3))).astype(np.float32)
+    return fwd, (frame[0], frame[1]), bwd, gt
 
 
 def phase_isapci(card: str, totals: dict) -> dict:
@@ -426,7 +595,7 @@ def phase_isapci(card: str, totals: dict) -> dict:
     interp = Interpolator.isapci(field=FIELD, npoints=NPOINTS, weights=DEFAULT_WEIGHTS,
                                  device="cuda")
     model = interp.model
-    fwd, (k0, k1), bwd = synthetic_window()
+    fwd, (k0, k1), bwd, _ = synthetic_window()
     context = (fwd, bwd)
     dev = torch.device("cuda")
     T = lambda x: torch.from_numpy(x)[None].to(dev)  # noqa: E731
@@ -481,6 +650,161 @@ def phase_isapci(card: str, totals: dict) -> dict:
     return counts
 
 
+def train_batch(dev):
+    """The trainer's batch of two: sample b is synthetic_window(TRAIN_N,
+    seed=b) with its ground truth at t = TRAIN_T[b]."""
+    wins = [synthetic_window(TRAIN_N, seed=b, t=t) for b, t in enumerate(TRAIN_T)]
+    stack = lambda xs: torch.from_numpy(np.stack(xs)).to(dev)  # noqa: E731
+    return {"forward": [stack([w[0][j] for w in wins]) for j in range(FIELD)],
+            "keys": [stack([w[1][j] for w in wins]) for j in range(2)],
+            "backward": [stack([w[2][j] for w in wins]) for j in range(FIELD)],
+            "t": torch.tensor(TRAIN_T, dtype=torch.float32, device=dev),
+            "gt": stack([w[3] for w in wins]),
+            "ini": torch.zeros((len(wins), TRAIN_N, 3), device=dev)}
+
+
+def compare_grads(got: dict, want: dict) -> None:
+    """Each trainable gradient through the kernels against the plain
+    step's: within 1e-2 of its largest magnitude, plus 1e-5 of the largest
+    gradient magnitude in the model G, and with cosine >= 0.999 where its
+    magnitude exceeds 1e-3 G (a fusion neighbour can still swap on a 1e-6
+    tie, and the attention backward sums ~2M rows in another order).  The
+    floor is for gradients that are zero in exact arithmetic and rounding
+    noise on both sides: the Dense biases before a train-mode BatchNorm
+    (the batch mean cancels them) and the last attention bias (the softmax
+    over k cancels it)."""
+    G = max(w.abs().max().item() for w in want.values())
+    worst, worst_cos, held = (0.0, ""), (1.0, ""), 0
+    for name, w in want.items():
+        g = got[name]
+        scale = w.abs().max().item()
+        err = (g - w).abs().max().item()
+        check(err <= 1e-2 * scale + 1e-5 * G,
+              f"train: gradient of {name} differs by {err:.3g}, its max {scale:.3g}")
+        worst = max(worst, (err / max(scale, 1e-30), name))
+        if scale > 1e-3 * G:
+            g64, w64 = g.flatten().double(), w.flatten().double()
+            cos = (g64 @ w64 / (g64.norm() * w64.norm())).item()
+            check(cos >= 0.999, f"train: gradient of {name} has cosine {cos:.6f}")
+            worst_cos = min(worst_cos, (cos, name))
+            held += 1
+    print(f"train step kernels vs plain, same flows/permutations/FPS starts: "
+          f"{len(want)} gradients (largest magnitude {G:.4g}), worst max|diff|/max|g| "
+          f"{worst[0]:.3g} ({worst[1]}), least cosine {worst_cos[0]:.8f} "
+          f"({worst_cos[1]}) over the {held} above 1e-3 of it")
+
+
+def phase_train(card: str, totals: dict) -> dict:
+    """ISAPCInet field=2 training at the trainer's defaults: kernels at
+    every shape of one plain step, one step kernels vs plain, five steps
+    with their launch counts, ms/step, peak memory, busy share."""
+    import copy
+
+    from pci_tpu_torch.convert import load_npz_tree, load_subtrees
+    from pci_tpu_torch.models import ISAPCInet
+    from pci_tpu_torch.ops.cuda_kernels import (
+        launch_counts, plain_versions, reset_launch_counts)
+    from pci_tpu_torch.serving import DEFAULT_WEIGHTS, init_weights
+    from pci_tpu_torch.train import (
+        bn_momentum_schedule, clipped_step_lr, make_interp_train_step, make_optimizer)
+
+    dev = torch.device("cuda")
+    batch = train_batch(dev)
+    # ISAPCInet(field=2, ff_out_c=64, tr_out_c=64, Tnet, frozen flow): a
+    # seeded init, then the flow and fusion of the trained PointINet
+    base = ISAPCInet(FIELD)
+    init_weights(base, 0)
+    load_subtrees(base, load_npz_tree(DEFAULT_WEIGHTS))
+    base = base.to(dev)
+    lr_sched = clipped_step_lr(TRAIN_LR, 100, 0.9, 1e-6)
+    momentum = bn_momentum_schedule(0.5, 0.5, 100, 0.01)(0)
+    check(momentum == TRAIN_MOMENTUM, f"bn momentum {momentum} at epoch 0")
+
+    def trainer():
+        model = copy.deepcopy(base)
+        opt = make_optimizer(lambda step: lr_sched(step // STEPS_PER_EPOCH), model, ("flow",))
+        return model, make_interp_train_step(model, opt, ("flow",))
+
+    def draws():  # the permutations and FPS starts of a step
+        return torch.Generator(device=dev).manual_seed(7)
+
+    # every kernel at every shape of one plain step
+    calls = []
+    _, step = trainer()
+    with plain_versions(), record_calls(calls):
+        step(batch, draws(), momentum)
+    request = len(calls)
+    # and the residual kNN at three segments, PointsFusionMulti's form
+    name, fn, (combined, _, _, k), _ = next(c for c in calls if c[0] == "fusion_resi")
+    B, N = combined.shape[:2]
+    calls.append((name, fn, (combined, torch.tensor([[N // 3, 2 * N // 3, N]] * B),
+                             torch.tensor([[12, 10, 10], [8, 16, 8]][:B]), k), {}))
+    # and the chamfer's kNN over key prefixes (knn_pallas's valid_n), at
+    # k=1 and at k=8 with one prefix shorter than k
+    name, fn, (a, b, _), _ = next(c for c in calls if c[0] == "nearest")
+    calls.append((name, fn, (a, b, 1, torch.tensor([N // 2, N - 5][:B], device=dev)), {}))
+    calls.append(("knn", fn, (a, b, 8, torch.tensor([5, N][:B], device=dev)), {}))
+    hold_kernels(calls, request, PER_STEP, totals, "train", unit="step")
+    del calls
+
+    # one step through the kernels against one through the plain versions,
+    # from the same flows, permutations and FPS starts
+    with torch.no_grad():
+        flows = base.window_flows(batch["forward"], batch["keys"], batch["backward"],
+                                  batch["ini"])
+    losses, grads = [], []
+    for plain in (False, True):
+        model, step = trainer()
+        model.window_flows = lambda *a, f=flows: f
+        with plain_versions() if plain else contextlib.nullcontext():
+            losses.append(step(batch, draws(), momentum).item())
+        grads.append({n: p.grad for n, p in model.named_parameters() if p.requires_grad})
+        del model, step
+    rel = abs(losses[0] - losses[1]) / abs(losses[1])
+    print(f"train step loss: kernels {losses[0]!r}, plain {losses[1]!r} (rel {rel:.3g})")
+    check(rel <= 1e-4, "train: the step's loss disagrees with the plain step's")
+    compare_grads(*grads)
+    del grads
+
+    # five steps on the card: launch counts, losses, the frozen flow
+    model, step = trainer()
+    gen = torch.Generator(device=dev).manual_seed(11)
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    flow_before = {k: v.clone() for k, v in model.flow.state_dict().items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    marks, out = [], []
+    for _ in range(5):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out.append(step(batch, gen, momentum))
+        end.record()
+        marks.append((start, end))
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = [s.elapsed_time(e) for s, e in marks]
+    losses = [float(x) for x in out]
+    print(f"train: 5 steps, losses {losses}, launches {counts}")
+    check(all(np.isfinite(losses)), "train: a loss is not finite")
+    check(counts == {k: v * 5 for k, v in PER_STEP.items()},
+          f"train launch counts {counts} != {PER_STEP} x 5")
+    for k, v in model.flow.state_dict().items():
+        check(torch.equal(v, flow_before[k]), f"train: the frozen flow's {k} changed")
+    for n, p in model.named_parameters():
+        if n.startswith("flow."):
+            check(not p.requires_grad and torch.equal(p, before[n]), f"train: {n} trained")
+        else:
+            check(not torch.equal(p, before[n]), f"train: {n} did not move")
+    print(f"train step on {card}: {statistics.median(step_ms[1:]):.3f} ms/step (CUDA events, "
+          f"median of steps 2-5; step 1 {step_ms[0]:.3f} ms), peak memory "
+          f"{peak / 2**30:.3f} GiB (torch.cuda.max_memory_allocated)")
+    device_share(lambda: step(batch, gen, momentum), requests=3, unit="step")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -497,7 +821,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     # 2. build
-    print(f"build: {build_seconds():.1f} s (nvcc, sm_90a, {len(KERNEL_INFO)} kernels)")
+    sources = len({source for source, _ in KERNEL_INFO.values()})
+    print(f"build: {build_seconds():.1f} s (nvcc, sm_90a, {sources} sources)")
 
     # 3. kernels at PointINet's shapes
     totals = new_totals()
@@ -524,17 +849,20 @@ def main() -> int:
     # 5. ISAPCInet field=2
     counts_isapci = phase_isapci(card, totals)
 
+    # 6. ISAPCInet field=2 training
+    counts_train = phase_train(card, totals)
+
     kernels = []
     for kname, (source, replaces) in KERNEL_INFO.items():
         t = totals[kname]
         kernels.append({
             "name": kname, "route": "cuda", "source": source,
             "replaces": replaces,
-            "launches": counts[kname] + counts_isapci[kname],
+            "launches": counts[kname] + counts_isapci[kname] + counts_train[kname],
             "max_abs_err": t["err"], "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": max(t["bytes_ms"], t["ops_ms"]),
             "bound_by": "bytes" if t["bytes_ms"] > t["ops_ms"] else "operations",
-            "library_ms": None,
+            "library_ms": t["library_ms"],
         })
     print(json.dumps({"kernels": kernels}))
     print(card)

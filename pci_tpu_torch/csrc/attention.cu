@@ -26,12 +26,6 @@
 
 #define PCI_ATTN_SLOTS 4
 
-// Weight buffer layout (fp32, row-major [in][out]): Wd0 [3][d], bd0 [d],
-// Wd1 [d][d], bd1 [d], Wg0 [d][d], bg0 [d], Wg1 [d][d], bg1 [d].
-__host__ __device__ inline int attn_weight_floats(int d) {
-  return 3 * d + d + 3 * (d * d + d);
-}
-
 // acc[ci][s] += sum_i h[i][s] * W[i][c] for the lane's channels; h is a
 // [d][4] slot-minor buffer, so h[i][0..3] is one float4 broadcast.
 template <int CPL>

@@ -47,6 +47,13 @@ static inline long long mlp_floats(const int* dims, int n) {
 
 __host__ __device__ inline int round_up(int x, int m) { return (x + m - 1) / m * m; }
 
+// The vector-attention tail's weight buffer (csrc/attention.cu and
+// csrc/attention_bwd.cu), fp32, row-major [in][out]: Wd0 [3][d], bd0 [d],
+// Wd1 [d][d], bd1 [d], Wg0 [d][d], bg0 [d], Wg1 [d][d], bg1 [d].
+__host__ __device__ inline int attn_weight_floats(int d) {
+  return 3 * d + d + 3 * (d * d + d);
+}
+
 // Squared distance with every product and sum rounded on its own (no FMA
 // contraction): bit-identical to the plain PyTorch versions, which compute
 // (dx*dx + dy*dy) + dz*dz as separate elementwise ops.  Selection (FPS

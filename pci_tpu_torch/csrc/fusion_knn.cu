@@ -23,6 +23,16 @@
 // (51 KB) in shared memory and the activations in registers, and the
 // softmax over k is a warp max and a warp sum: the [N, k, 3] residual block
 // never exists.
+//
+// The same file holds the training route's kernel, fusion_resi_kernel: it
+// replaces fusion_knn_tpu.py:knn_fusion_adaptive / knn_fusion_multi
+// (_fusion_core, the residual-emitting call with the fixed-neighbour VJP)
+// by the same budgeted extraction (budgeted_slot) over F <= 4 segments,
+// writing idx [B, N, k] and resi = neighbour - row [B, N, k, 3]; a slot its
+// segment cannot fill holds the row itself (zero residual).  Its backward
+// is a scatter-add of the residual gradient, outside any kernel, as in the
+// JAX package.  Bound: the 16,000^2 distances a cloud (8 flops each), so
+// operations; the extraction costs the same as in the one-shot kernel.
 #include "common.cuh"
 
 #define FUS_TILE 2048
@@ -52,6 +62,77 @@ __device__ __forceinline__ void list_insert(float& dL, int& iL, float& thr,
   thr = __shfl_sync(FULL, dL, cap - 1);
 }
 
+// The budgeted F-segment self-kNN of one query, one warp a query: slots
+// [cum_f, cum_f + cap_f) hold segment f's cap_f nearest keys in ascending
+// (distance, index) order, segment f being rows [ends[f-1], ends[f]) and
+// cap_f its budget (clipped so the slots fit in the warp).  Each lane keeps
+// entry `lane` of one sorted list a segment in registers; the block streams
+// the keys through the shared tiles tx/ty/tz (every warp of the block takes
+// part, so all of them call this), every lane tests one key against its
+// segment's current cap-th distance, and the few keys that pass are
+// inserted by list_insert.  Returns the key index of slot `lane`, -1 for a
+// slot its segment could not fill (fewer keys than budget) or past the
+// budgets.
+template <int FM>
+__device__ __forceinline__ int budgeted_slot(const float* __restrict__ P,
+                                             int N, const int (&ends)[FM],
+                                             const int (&buds)[FM], int F,
+                                             float qx, float qy, float qz,
+                                             float* tx, float* ty, float* tz,
+                                             int lane) {
+  float dL[FM], thr[FM];
+  int iL[FM], cap[FM], cum[FM], lo[FM];
+  int used = 0, start = 0;
+#pragma unroll
+  for (int f = 0; f < FM; ++f) {
+    cap[f] = f < F ? max(0, min(buds[f], 32 - used)) : 0;
+    cum[f] = used;
+    used += cap[f];
+    lo[f] = start;
+    start = f < F ? max(start, ends[f]) : start;
+    dL[f] = CUDART_INF_F;
+    iL[f] = -1;
+    thr[f] = cap[f] > 0 ? CUDART_INF_F : -CUDART_INF_F;
+  }
+  for (int t0 = 0; t0 < N; t0 += FUS_TILE) {
+    const int tn = min(FUS_TILE, N - t0);
+    __syncthreads();
+    for (int e = threadIdx.x; e < tn; e += blockDim.x) {
+      tx[e] = P[(size_t)(t0 + e) * 3];
+      ty[e] = P[(size_t)(t0 + e) * 3 + 1];
+      tz[e] = P[(size_t)(t0 + e) * 3 + 2];
+    }
+    __syncthreads();
+    for (int base = 0; base < tn; base += 32) {
+      const int jl = base + lane;
+      const int j = t0 + jl;
+      float d = CUDART_INF_F, th = -CUDART_INF_F;
+      if (jl < tn) d = sqdist3(tx[jl], ty[jl], tz[jl], qx, qy, qz);
+#pragma unroll
+      for (int f = 0; f < FM; ++f)
+        if (f < F && j >= lo[f] && j < ends[f]) th = thr[f];
+      unsigned mask = __ballot_sync(FULL, d < th);
+      while (mask) {
+        const int src = __ffs(mask) - 1;
+        mask &= mask - 1;
+        const float dn = __shfl_sync(FULL, d, src);
+        const int jn = t0 + base + src;
+#pragma unroll
+        for (int f = 0; f < FM; ++f)  // one segment holds jn (warp-uniform)
+          if (f < F && jn >= lo[f] && jn < ends[f])
+            list_insert(dL[f], iL[f], thr[f], cap[f], dn, jn, lane);
+      }
+    }
+  }
+  int idx = -1;
+#pragma unroll
+  for (int f = 0; f < FM; ++f) {
+    const int v = __shfl_sync(FULL, iL[f], min(max(lane - cum[f], 0), 31));
+    if (lane >= cum[f] && lane < cum[f] + cap[f]) idx = v;
+  }
+  return idx;
+}
+
 template <int H1, int H2, int H3>
 __global__ void __launch_bounds__(256)
 fusion_kernel(const float* __restrict__ pts, const int* __restrict__ seg,
@@ -71,45 +152,16 @@ fusion_kernel(const float* __restrict__ pts, const int* __restrict__ seg,
   const int q = blockIdx.x * (blockDim.x >> 5) + warp;
   const int qq = min(q, N - 1);
   const float* P = pts + (size_t)b * N * 3;
-  const int N1 = seg[b * 4 + 0];
-  const int k1 = min(seg[b * 4 + 2], 32);
-  const int k2 = min(seg[b * 4 + 3], 32 - k1);
+  const int ends[2] = {seg[b * 4 + 0], seg[b * 4 + 1]};
+  const int buds[2] = {seg[b * 4 + 2], seg[b * 4 + 3]};
+  const int k1 = min(buds[0], 32);
+  const int k2 = min(buds[1], 32 - k1);
   const float qx = P[qq * 3], qy = P[qq * 3 + 1], qz = P[qq * 3 + 2];
-
-  float dA = CUDART_INF_F, dB = CUDART_INF_F;
-  int iA = -1, iB = -1;
-  float thrA = k1 > 0 ? CUDART_INF_F : -CUDART_INF_F;
-  float thrB = k2 > 0 ? CUDART_INF_F : -CUDART_INF_F;
-  for (int t0 = 0; t0 < N; t0 += FUS_TILE) {
-    const int tn = min(FUS_TILE, N - t0);
-    __syncthreads();
-    for (int e = threadIdx.x; e < tn; e += blockDim.x) {
-      tx[e] = P[(size_t)(t0 + e) * 3];
-      ty[e] = P[(size_t)(t0 + e) * 3 + 1];
-      tz[e] = P[(size_t)(t0 + e) * 3 + 2];
-    }
-    __syncthreads();
-    for (int base = 0; base < tn; base += 32) {
-      const int jl = base + lane;
-      const int j = t0 + jl;
-      float d = CUDART_INF_F;
-      if (jl < tn) d = sqdist3(tx[jl], ty[jl], tz[jl], qx, qy, qz);
-      unsigned mask = __ballot_sync(FULL, d < (j < N1 ? thrA : thrB));
-      while (mask) {
-        const int src = __ffs(mask) - 1;
-        mask &= mask - 1;
-        const float dn = __shfl_sync(FULL, d, src);
-        const int jn = t0 + base + src;
-        if (jn < N1) list_insert(dA, iA, thrA, k1, dn, jn, lane);
-        else list_insert(dB, iB, thrB, k2, dn, jn, lane);
-      }
-    }
-  }
+  const int idx = budgeted_slot<2>(P, N, ends, buds, 2, qx, qy, qz, tx, ty,
+                                   tz, lane);
 
   // slot `lane`: [0, k1) from segment A, [k1, k1 + k2) from segment B
-  const int iBs = __shfl_sync(FULL, iB, max(lane - k1, 0));
   const bool active = lane < k1 + k2;
-  const int idx = lane < k1 ? iA : iBs;
   float rx = 0.f, ry = 0.f, rz = 0.f;
   if (active && idx >= 0) {
     rx = P[(size_t)idx * 3] - qx;
@@ -201,5 +253,60 @@ extern "C" int pci_fusion(const void* pts, const void* seg, const void* wbuf,
                                static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(pts), static_cast<const int*>(seg),
       static_cast<const float*>(wbuf), static_cast<float*>(out), N);
+  return (int)cudaGetLastError();
+}
+
+template <int FM>
+__global__ void __launch_bounds__(256)
+fusion_resi_kernel(const float* __restrict__ pts, const int* __restrict__ ends_g,
+                   const int* __restrict__ buds_g, int F,
+                   long long* __restrict__ out_i, float* __restrict__ out_r,
+                   int N, int k) {
+  __shared__ float tx[FUS_TILE], ty[FUS_TILE], tz[FUS_TILE];
+  const int b = blockIdx.y;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int q = blockIdx.x * (blockDim.x >> 5) + warp;
+  const int qq = min(q, N - 1);
+  const float* P = pts + (size_t)b * N * 3;
+  int ends[FM], buds[FM];
+#pragma unroll
+  for (int f = 0; f < FM; ++f) {
+    ends[f] = f < F ? ends_g[b * F + f] : N;
+    buds[f] = f < F ? buds_g[b * F + f] : 0;
+  }
+  const float qx = P[qq * 3], qy = P[qq * 3 + 1], qz = P[qq * 3 + 2];
+  const int idx = budgeted_slot<FM>(P, N, ends, buds, F, qx, qy, qz, tx, ty,
+                                    tz, lane);
+  if (q < N && lane < k) {
+    const int j = idx >= 0 ? idx : q;  // unfilled slot: the row itself
+    const size_t o = ((size_t)b * N + q) * k + lane;
+    out_i[o] = j;
+    out_r[o * 3] = __fsub_rn(P[(size_t)j * 3], qx);
+    out_r[o * 3 + 1] = __fsub_rn(P[(size_t)j * 3 + 1], qy);
+    out_r[o * 3 + 2] = __fsub_rn(P[(size_t)j * 3 + 2], qz);
+  }
+}
+
+// pts [B, N, 3] fp32; ends, buds: device int32 [B, F] (cumulative segment
+// ends, the last == N; budgets summing to k) -> out_i [B, N, k] int64,
+// out_r [B, N, k, 3] fp32.  1 <= F <= 4, 1 <= k <= 32.
+extern "C" int pci_fusion_resi(const void* pts, const void* ends,
+                               const void* buds, int F, void* out_i,
+                               void* out_r, int B, int N, int k,
+                               void* stream) {
+  if (F < 1 || F > 4 || k < 1 || k > 32 || N < 1)
+    return (int)cudaErrorInvalidValue;
+  const int warps = 8;
+  dim3 grid((N + warps - 1) / warps, B);
+  const float* p = static_cast<const float*>(pts);
+  const int* e = static_cast<const int*>(ends);
+  const int* bu = static_cast<const int*>(buds);
+  long long* oi = static_cast<long long*>(out_i);
+  float* orr = static_cast<float*>(out_r);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (F <= 2)
+    fusion_resi_kernel<2><<<grid, warps * 32, 0, st>>>(p, e, bu, F, oi, orr, N, k);
+  else
+    fusion_resi_kernel<4><<<grid, warps * 32, 0, st>>>(p, e, bu, F, oi, orr, N, k);
   return (int)cudaGetLastError();
 }

@@ -11,6 +11,14 @@
 // bit for bit.  It takes queries and keys separately, so it also serves a
 // cross-cloud kNN.
 //
+// It also replaces pci_tpu/ops/pallas_kernels/knn_tpu.py:knn_pallas, the
+// flat kNN with an optional key prefix valid_n [B] (the chamfer loss's
+// nearest neighbour, k = 1, and ops.knn with valid_n): keys at or after valid_n
+// are never scanned, and when valid_n < k the surplus slots hold the
+// sentinel distance 1e30 with the indices valid_n, valid_n + 1, ..., as a
+// stable sort of the plain version's masked distances orders them.  At
+// k = 1 the top list is one running minimum a thread.
+//
 // What bounds it on the H100: operations.  An exhaustive scan is 8 flops
 // per (query, key) pair, 3.4e10 at 65,536 x 65,536, about 0.5 ms at the
 // card's 67 TFLOP/s fp32; the bytes (786 KB of keys) are nothing.  The
@@ -28,10 +36,11 @@
 template <int KM>
 __global__ void __launch_bounds__(128)
 knn_kernel(const float* __restrict__ query, const float* __restrict__ points,
-           float* __restrict__ out_d, long long* __restrict__ out_i, int N,
-           int S, int k) {
+           const int* __restrict__ valid_n, float* __restrict__ out_d,
+           long long* __restrict__ out_i, int N, int S, int k) {
   __shared__ float4 keys[PCI_KNN_TILE];
   const int b = blockIdx.y;
+  const int Nb = valid_n ? max(0, min(valid_n[b], N)) : N;
   const int s = blockIdx.x * blockDim.x + threadIdx.x;
   const int ss = min(s, S - 1);
   const float* QX = query + ((size_t)b * S + ss) * 3;
@@ -45,8 +54,8 @@ knn_kernel(const float* __restrict__ query, const float* __restrict__ points,
     bd[i] = CUDART_INF_F;
     bi[i] = 0x7fffffff;
   }
-  for (int base = 0; base < N; base += PCI_KNN_TILE) {
-    const int n = min(PCI_KNN_TILE, N - base);
+  for (int base = 0; base < Nb; base += PCI_KNN_TILE) {
+    const int n = min(PCI_KNN_TILE, Nb - base);
     __syncthreads();
     for (int t = threadIdx.x; t < n; t += blockDim.x) {
       const float* p = P + (size_t)(base + t) * 3;
@@ -81,35 +90,39 @@ knn_kernel(const float* __restrict__ query, const float* __restrict__ points,
 #pragma unroll
     for (int i = 0; i < KM; ++i) {
       if (i < k) {
-        od[i] = bd[i];
-        oi[i] = bi[i];
+        // slots past the prefix: the masked keys in index order
+        od[i] = i < Nb ? bd[i] : 1e30f;
+        oi[i] = i < Nb ? bi[i] : i;
       }
     }
   }
 }
 
 template <int KM>
-static cudaError_t launch_knn(const float* q, const float* p, float* od,
-                              long long* oi, int B, int N, int S, int k,
-                              cudaStream_t stream) {
+static cudaError_t launch_knn(const float* q, const float* p, const int* vn,
+                              float* od, long long* oi, int B, int N, int S,
+                              int k, cudaStream_t stream) {
   dim3 grid((S + 127) / 128, B);
-  knn_kernel<KM><<<grid, 128, 0, stream>>>(q, p, od, oi, N, S, k);
+  knn_kernel<KM><<<grid, 128, 0, stream>>>(q, p, vn, od, oi, N, S, k);
   return cudaGetLastError();
 }
 
-// query [B, S, 3], points [B, N, 3] fp32 -> out_d [B, S, k] fp32,
-// out_i [B, S, k] int64; 1 <= k <= min(64, N).
-extern "C" int pci_knn(const void* query, const void* points, void* out_d,
-                       void* out_i, int B, int N, int S, int k, void* stream) {
+// query [B, S, 3], points [B, N, 3] fp32, valid_n [B] int32 or null ->
+// out_d [B, S, k] fp32, out_i [B, S, k] int64; 1 <= k <= min(64, N).
+extern "C" int pci_knn(const void* query, const void* points,
+                       const void* valid_n, void* out_d, void* out_i, int B,
+                       int N, int S, int k, void* stream) {
   if (k < 1 || k > 64 || k > N || S < 1) return (int)cudaErrorInvalidValue;
   const float* q = static_cast<const float*>(query);
   const float* p = static_cast<const float*>(points);
+  const int* vn = static_cast<const int*>(valid_n);
   float* od = static_cast<float*>(out_d);
   long long* oi = static_cast<long long*>(out_i);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (k <= 4) return (int)launch_knn<4>(q, p, od, oi, B, N, S, k, st);
-  if (k <= 8) return (int)launch_knn<8>(q, p, od, oi, B, N, S, k, st);
-  if (k <= 16) return (int)launch_knn<16>(q, p, od, oi, B, N, S, k, st);
-  if (k <= 32) return (int)launch_knn<32>(q, p, od, oi, B, N, S, k, st);
-  return (int)launch_knn<64>(q, p, od, oi, B, N, S, k, st);
+  if (k == 1) return (int)launch_knn<1>(q, p, vn, od, oi, B, N, S, k, st);
+  if (k <= 4) return (int)launch_knn<4>(q, p, vn, od, oi, B, N, S, k, st);
+  if (k <= 8) return (int)launch_knn<8>(q, p, vn, od, oi, B, N, S, k, st);
+  if (k <= 16) return (int)launch_knn<16>(q, p, vn, od, oi, B, N, S, k, st);
+  if (k <= 32) return (int)launch_knn<32>(q, p, vn, od, oi, B, N, S, k, st);
+  return (int)launch_knn<64>(q, p, vn, od, oi, B, N, S, k, st);
 }

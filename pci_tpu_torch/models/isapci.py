@@ -1,8 +1,15 @@
-"""ISAPCInet eval path (counterpart of ``pci_tpu/models/isapci.py``
-``ISAPCInet`` with the flow frozen): 4*field FlowNet3D flows over the
-window (each distinct frame encoded once), Tnet time weighting, PointNet++
-feature abstraction and a point transformer over the 2*field*N-point flow
-cloud, flow regression, linear warp, adaptive attentive fusion.
+"""ISAPCInet (counterpart of ``pci_tpu/models/isapci.py`` ``ISAPCInet``
+with the flow frozen): 4*field FlowNet3D flows over the window (each
+distinct frame encoded once), Tnet time weighting, PointNet++ feature
+abstraction and a point transformer over the 2*field*N-point flow cloud,
+flow regression, linear warp, adaptive attentive fusion.
+
+In train mode the flows are computed as at eval (FlowNet3D stays in eval
+mode with its running statistics, under ``torch.no_grad()``: the JAX
+model's ``flow_train = train and not freeze_flow`` with ``freeze_flow``
+set, and its ``stop_gradient``), and everything after them trains:
+random FPS starts in PointNet++, the trainable attention, the fusion's
+residual kNN and its BatchNorms on batch statistics.
 
 Both of the JAX module's deliberate deviations from its reference are
 kept: the stacked flows become one cloud by CHUNK concatenation along the
@@ -41,8 +48,8 @@ def flow_pair_plan(field: int):
 
 
 class ISAPCInet(nn.Module):
-    """Eval-only ISAPCInet (with Tnet, fusion k=32); submodule names are the
-    flax module's."""
+    """ISAPCInet with Tnet and fusion k=32 and the flow frozen (the JAX
+    model's ``freeze_flow=True``); submodule names are the flax module's."""
 
     def __init__(self, field: int, ff_out_c: int = 64, tr_out_c: int = 64):
         super().__init__()
@@ -56,6 +63,14 @@ class ISAPCInet(nn.Module):
         self.flow_tr_backward = TransformerLayer(ff_out_c, tr_out_c, 16)
         self.outputer = Outputer(ff_out_c * max(2 * field, 1))
         self.fusion = PointsFusion()
+        self.train()  # the frozen flow starts in eval mode too
+
+    def train(self, mode: bool = True):
+        """Train mode for everything but the frozen flow, which stays in
+        eval mode (running statistics, FPS start 0)."""
+        super().train(mode)
+        self.flow.eval()
+        return self
 
     def window_flows(self, forward_pcds, key_pcds, backward_pcds, ini_feature):
         """The flow candidates ``(flows_fwd, flows_bwd)``, each ``[B, C, N,
@@ -83,13 +98,13 @@ class ISAPCInet(nn.Module):
         return flows[:n2f].movedim(0, 1), flows[n2f:].movedim(0, 1)
 
     def from_flows(self, flows_fwd, flows_bwd, key_pcds, t, perms=None,
-                   generator: torch.Generator | None = None):
+                   generator: torch.Generator | None = None, momentum: float = 0.1):
         """Everything after the flows: Tnet weighting, the flows as one
         ``C*N``-point cloud (Tnet-weighted into PointNet++, unweighted into
         the transformer), the chunk-major fold ``[B, C*N, ch] -> [B, N,
-        C*ch]``, Outputer, warp and fusion -> ``[B, N, 3]``."""
-        if self.training:
-            raise RuntimeError("ISAPCInet: the port runs eval only; call .eval()")
+        C*ch]``, Outputer, warp and fusion -> ``[B, N, 3]``.  In training
+        ``generator`` also draws PointNet++'s FPS starts, and ``momentum``
+        is the fusion's BatchNorm momentum."""
         B, C, N, _ = flows_fwd.shape
         t32 = t.float()
         if self.field >= 1:
@@ -100,7 +115,7 @@ class ISAPCInet(nn.Module):
         nets = []
         for weighted, flows, tr in ((weighted_fwd, flows_fwd, self.flow_tr_forward),
                                     (weighted_bwd, flows_bwd, self.flow_tr_backward)):
-            feats = self.ffab(weighted.reshape(B, C * N, 3))
+            feats = self.ffab(weighted.reshape(B, C * N, 3), generator)
             r, _ = tr(flows.reshape(B, C * N, 3), feats)
             r = r.reshape(B, C, N, self.ff_out_c).movedim(1, 2).reshape(B, N, C * self.ff_out_c)
             nets.append(self.outputer(r))
@@ -108,16 +123,18 @@ class ISAPCInet(nn.Module):
         warped_fwd = key_pcds[0] + nets[0] * tb
         warped_bwd = key_pcds[1] + nets[1] * (1.0 - tb)
         return self.fusion(warped_fwd, warped_bwd, FUSION_K, t32,
-                           perms=perms, generator=generator)
+                           perms=perms, generator=generator, momentum=momentum)
 
     def forward(self, forward_pcds, key_pcds, backward_pcds, t, ini_feature,
-                perms=None, generator: torch.Generator | None = None):
+                perms=None, generator: torch.Generator | None = None,
+                momentum: float = 0.1):
         """``forward_pcds``: ``field`` frames ``[B, N, 3]`` before the key
         pair (nearest first), ``key_pcds``: 2 frames, ``backward_pcds``:
         ``field`` frames after it, ``t [B]`` in (0, 1), ``ini_feature
         [B, N, 3]`` zeros -> interpolated cloud ``[B, N, 3]``.  ``perms`` /
-        ``generator``: the fusion's permutations (see ``PointsFusion``)."""
-        if self.training:
-            raise RuntimeError("ISAPCInet: the port runs eval only; call .eval()")
-        flows = self.window_flows(forward_pcds, key_pcds, backward_pcds, ini_feature)
-        return self.from_flows(*flows, key_pcds, t, perms=perms, generator=generator)
+        ``generator``: the fusion's permutations (see ``PointsFusion``);
+        ``generator`` and ``momentum`` as in :meth:`from_flows`."""
+        with torch.no_grad():
+            flows = self.window_flows(forward_pcds, key_pcds, backward_pcds, ini_feature)
+        return self.from_flows(*flows, key_pcds, t, perms=perms, generator=generator,
+                               momentum=momentum)

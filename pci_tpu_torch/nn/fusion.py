@@ -5,8 +5,12 @@ Adaptive sampling takes ``N1 = N - N2`` points of warped cloud 1 and
 ``N2 ~ N * t`` (aligned to ``_ALIGN``) of warped cloud 2, each through its
 own random permutation, into one combined cloud; each combined point then
 takes ``k1 = k - floor(k * t)`` neighbours from the cloud-1 segment and
-``k2`` from the cloud-2 segment, and the attention head fuses them
-(``ops.cuda_kernels.knn_fusion_attention``: one kernel on the card).
+``k2`` from the cloud-2 segment, and the attention head fuses them.  At
+eval that is one kernel on the card
+(``ops.cuda_kernels.knn_fusion_attention``); in training, as on the TPU,
+the residual kNN kernel (``fusion_resi_knn``: indices and residuals, with
+the fixed-neighbour backward) and then the head in PyTorch, its BatchNorms
+on batch statistics (``fusion_head``).
 
 The permutations come from ``torch.randperm`` with the caller's
 ``torch.Generator``: torch cannot reproduce ``jax.random``'s draws, so a
@@ -18,7 +22,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from ..ops.cuda_kernels import knn_fusion_attention
+from ..ops.cuda_kernels import fusion_resi_knn, knn_fusion_attention
+from ..ops.cuda_kernels.fusion_knn_cuda import fusion_head
 from .mlp import PointMLP
 
 # N2 rounds to a multiple of _ALIGN; with k <= _ALIGN a segment with a
@@ -69,17 +74,18 @@ def random_perms(B: int, N: int, generator: torch.Generator | None,
 
 class PointsFusion(nn.Module):
     """Fuse two warped clouds with adaptive sampling and learned attention
-    over ``k`` adaptive neighbours (eval only)."""
+    over ``k`` adaptive neighbours."""
 
     def __init__(self):
         super().__init__()
         self.mlp = PointMLP(4, (64, 64, 128))  # the score MLP
 
     def forward(self, points1, points2, k: int, t, perms=None,
-                generator: torch.Generator | None = None):
+                generator: torch.Generator | None = None, momentum: float = 0.1):
         """``points1/2 [B, N, 3]`` warped clouds, ``t [B]`` in (0, 1) ->
         fused ``[B, N, 3]``.  ``perms``: optional ``(perm1, perm2)``
-        ``[B, N]``; otherwise drawn from ``generator``."""
+        ``[B, N]``; otherwise drawn from ``generator``.  ``momentum``: the
+        score MLP's BatchNorm momentum in training."""
         B, N, _ = points1.shape
         N1, N2, k1, k2 = _adaptive_budgets(N, k, t)
         if perms is None:
@@ -91,5 +97,9 @@ class PointsFusion(nn.Module):
         )
         seg_ends = torch.stack([N1, torch.full_like(N1, N)], dim=1)
         budgets = torch.stack([k1, k2], dim=1)
+        if self.training:
+            _, resi = fusion_resi_knn(combined, seg_ends, budgets, k)
+            # the head in PyTorch (pci_tpu/nn/fusion.py:282-292)
+            return fusion_head(combined, resi, lambda h: self.mlp(h, momentum))
         return knn_fusion_attention(combined, seg_ends, budgets,
                                     self.mlp.folded(), k)

@@ -2,9 +2,11 @@
 SetConv, FlowEmbedding, SetUpConv, FeaturePropagation, Classifier, and the
 helpers ``fps_start`` and ``gather_split``.
 
-Eval only: every stage folds its BatchNorms into the Dense weights and
-runs as ONE fused kernel call (a CUDA kernel on the card, its plain
-PyTorch version on the CPU).  Channel concat orders follow the JAX
+Eval only (FlowNet3D is frozen while the port trains ISAPCInet; its
+training waits for backward paths of the set-conv and kNN-conv kernels):
+every stage folds its BatchNorms into the Dense weights and runs as ONE
+fused kernel call (a CUDA kernel on the card, its plain PyTorch version on
+the CPU).  Channel concat orders follow the JAX
 package, because they define the weight layout: SetConv groups
 ``[dxyz, feats]``; FlowEmbedding appends the query cloud's features last;
 SetUpConv concats the skip features after the max-pool;
@@ -24,12 +26,25 @@ from .mlp import PointMLP
 from .norm import BatchNorm
 
 
-def fps_start(module: nn.Module) -> int:
-    """FPS start index: 0 at eval.  The JAX package draws a random start
-    per sample only in training, which the port does not run."""
+def fps_start(module: nn.Module, xyz: torch.Tensor,
+              generator: torch.Generator | None = None):
+    """FPS start index: 0 at eval; in training a per-sample ``randint(0,
+    N)`` ``[B]`` from ``generator`` (on its device; the default generator
+    of ``xyz``'s device for None), as ``pci_tpu/nn/layers.py:fps_start``
+    draws one from the ``sample`` stream.  Tests replace this function to
+    give both packages the same starts."""
+    if not module.training:
+        return 0
+    B, N, _ = xyz.shape
+    dev = generator.device if generator is not None else xyz.device
+    return torch.randint(0, N, (B,), generator=generator, device=dev)
+
+
+def require_eval(module: nn.Module) -> None:
+    """FlowNet3D's layers run eval only."""
     if module.training:
-        raise RuntimeError(f"{type(module).__name__}: the port runs eval only; call .eval()")
-    return 0
+        raise RuntimeError(f"{type(module).__name__}: FlowNet3D runs eval only "
+                           "(frozen); call .eval()")
 
 
 def gather_split(xyz: torch.Tensor, feats: torch.Tensor, idx: torch.Tensor):
@@ -56,9 +71,10 @@ class SetConv(nn.Module):
     def forward(self, xyz, feats):
         """``xyz [B,N,3]``, ``feats [B,N,D]`` -> (``new_xyz [B,S,3]``,
         ``new_feats [B,S,C']``)."""
+        require_eval(self)
         # exact=False: interleaved FPS chains at N >= 4096, the JAX
         # package's accelerator route (SetConv.fps_exact defaults to False)
-        new_xyz = ops.fps_points(xyz, self.npoint, fps_start(self), exact=False)
+        new_xyz = ops.fps_points(xyz, self.npoint, 0, exact=False)
         pooled = setconv_fused(xyz, feats, new_xyz, self.radius, self.nsample,
                                self.mlp.folded())
         return new_xyz, pooled
@@ -74,6 +90,7 @@ class FlowEmbedding(nn.Module):
         self.mlp = PointMLP(3 + c2 + c1, mlp)
 
     def forward(self, xyz1, xyz2, feats1, feats2):
+        require_eval(self)
         return knnconv_fused(xyz1, xyz2, feats2, feats1, None, self.nsample,
                              self.mlp.folded(), [])
 
@@ -92,6 +109,7 @@ class SetUpConv(nn.Module):
         self.conv2 = PointMLP(cm + dense_channels, mlp2)
 
     def forward(self, coarse_xyz, dense_xyz, coarse_feats, dense_feats):
+        require_eval(self)
         return knnconv_fused(dense_xyz, coarse_xyz, coarse_feats, None,
                              dense_feats, self.nsample,
                              fold_pointmlp_vars(self.conv1),
@@ -107,6 +125,7 @@ class FeaturePropagation(nn.Module):
         self.mlp = PointMLP(sub_channels + dense_channels, mlp)
 
     def forward(self, sub_xyz, dense_xyz, sub_feats, dense_feats):
+        require_eval(self)
         return knnconv_fused(dense_xyz, sub_xyz, sub_feats, None, dense_feats,
                              3, [], self.mlp.folded(), interp=True)
 
@@ -122,5 +141,6 @@ class Classifier(nn.Module):
         self.bn = nn.ModuleList([BatchNorm(128)])
 
     def forward(self, feats: torch.Tensor) -> torch.Tensor:
+        require_eval(self)
         h = torch.relu(self.bn[0](self.dense[0](feats)))
         return self.dense[1](h)

@@ -21,7 +21,9 @@ class PointMLP(nn.Module):
     ``dense.i`` / ``bn.i`` / ``gn.i`` are flax's ``Dense_i`` /
     ``BatchNorm_i`` / ``GroupNorm_i``.  The dense layers are
     ``torch.matmul``s (XLA's on the TPU); only a BatchNorm chain folds into
-    a kernel (:meth:`folded`).
+    a kernel (:meth:`folded`, eval only).  In train mode the BatchNorms use
+    the batch's statistics and update their running ones with the
+    ``momentum`` given to :meth:`forward`.
     """
 
     def __init__(self, in_channels: int, features: Sequence[int],
@@ -47,10 +49,13 @@ class PointMLP(nn.Module):
     def out_channels(self) -> int:
         return self.dense[-1].out_features
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        norms = self.bn if self.norm == "batch" else self.gn
-        for dense, norm in zip(self.dense, norms):
-            x = torch.relu(norm(dense(x)))
+    def forward(self, x: torch.Tensor, momentum: float = 0.1) -> torch.Tensor:
+        if self.norm == "batch":
+            for dense, bn in zip(self.dense, self.bn):
+                x = torch.relu(bn(dense(x), momentum))
+            return x
+        for dense, gn in zip(self.dense, self.gn):
+            x = torch.relu(gn(dense(x)))
         return x
 
     def folded(self) -> PackedLayers:
@@ -62,7 +67,8 @@ class PointMLP(nn.Module):
             raise ValueError("PointMLP.folded: a GroupNorm chain cannot fold "
                              "(its statistics depend on the input)")
         if self.training:
-            raise RuntimeError("PointMLP.folded: the port runs eval only; call .eval()")
+            raise RuntimeError("PointMLP.folded: a fold takes the running statistics "
+                               "(eval only); call .eval()")
         tensors = (*self.parameters(), *self.buffers())
         if any(t.is_inference() for t in tensors):
             # made under inference_mode: no version counter to key a cache on

@@ -2,12 +2,17 @@
 (counterpart of ``pci_tpu/nn/pointnet2.py``, the route with the ``pn2mid``
 megakernel off: every SA and FP level is a stage of its own).
 
-Eval only.  Channel concat orders follow the JAX package, because they
-define the weight layout: MSG groups concat ``[feats, dxyz]`` (features
-FIRST, unlike FlowNet3D's SetConv); FP concats ``[skip, interpolated]``.
-The GroupNorm MLPs cannot fold into a kernel, so they run as
-``torch.matmul`` + GroupNorm; the ball query, FPS and the FP
-interpolation run on their kernels.
+Channel concat orders follow the JAX package, because they define the
+weight layout: MSG groups concat ``[feats, dxyz]`` (features FIRST, unlike
+FlowNet3D's SetConv); FP concats ``[skip, interpolated]``.  The GroupNorm
+MLPs cannot fold into a kernel, so they run as ``torch.matmul`` +
+GroupNorm; the ball query and FPS run on their kernels (on detached
+clouds: their indices carry no gradient), and the gathers they feed are
+differentiable.  The FP interpolation runs on the kNN-conv kernel at eval
+and, as the JAX package routes it at train, through
+``ops.three_nn_interpolate`` under autograd in training (its 3-NN on the
+kNN kernel).  In training each SA level draws its FPS start from the
+``generator`` (``layers.fps_start``).
 """
 
 from __future__ import annotations
@@ -37,12 +42,13 @@ class SetAbstractionMsg(nn.Module):
         for i, mlp in enumerate(mlp_list):
             self.add_module(f"scale{i}", PointMLP(in_channels + 3, mlp, norm="group", groups=4))
 
-    def forward(self, xyz, feats):
+    def forward(self, xyz, feats, generator: torch.Generator | None = None):
         """``xyz [B, N, 3]``, ``feats [B, N, D]`` or None -> (``new_xyz
         [B, S, 3]``, ``new_feats [B, S, sum of the last widths]``)."""
         # exact=False: interleaved FPS chains at N >= 4096, the JAX
         # package's accelerator route (SetAbstractionMsg.fps_exact=False)
-        new_xyz = ops.fps_points(xyz, self.npoint, fps_start(self), exact=False)
+        new_xyz = ops.fps_points(xyz, self.npoint, fps_start(self, xyz, generator),
+                                 exact=False)
         idx_list = ball_query_multi(self.radius_list, self.nsample_list, xyz, new_xyz)
         outs = []
         for i, idx in enumerate(idx_list):
@@ -69,6 +75,8 @@ class FeaturePropagationP2(nn.Module):
         [B, N, D]`` or None, ``sub_feats [B, S, C]`` -> ``[B, N, C']``."""
         if sub_xyz.shape[1] == 1:
             interp = sub_feats.expand(-1, dense_xyz.shape[1], -1)
+        elif self.training:
+            interp = ops.three_nn_interpolate(dense_xyz, sub_xyz, sub_feats, "eps")
         else:
             interp = knnconv_fused(dense_xyz, sub_xyz, sub_feats, None, None, 3,
                                    [], [], interp=True, recip="eps")
@@ -95,12 +103,13 @@ class Pointnet2FeatureAbstract(nn.Module):
         self.conv1 = nn.Linear(128, out_channels)
         self.gn = nn.ModuleList([GroupNorm(8, out_channels)])
 
-    def forward(self, xyz):
-        """``xyz [B, M, 3]`` (flow vectors as a cloud) -> ``[B, M, out]``."""
-        l1_xyz, l1_f = self.sa1(xyz, None)
-        l2_xyz, l2_f = self.sa2(l1_xyz, l1_f)
-        l3_xyz, l3_f = self.sa3(l2_xyz, l2_f)
-        l4_xyz, l4_f = self.sa4(l3_xyz, l3_f)
+    def forward(self, xyz, generator: torch.Generator | None = None):
+        """``xyz [B, M, 3]`` (flow vectors as a cloud) -> ``[B, M, out]``;
+        ``generator``: the training FPS starts' (see ``layers.fps_start``)."""
+        l1_xyz, l1_f = self.sa1(xyz, None, generator)
+        l2_xyz, l2_f = self.sa2(l1_xyz, l1_f, generator)
+        l3_xyz, l3_f = self.sa3(l2_xyz, l2_f, generator)
+        l4_xyz, l4_f = self.sa4(l3_xyz, l3_f, generator)
         l3_f = self.fp4(l3_xyz, l4_xyz, l3_f, l4_f)
         l2_f = self.fp3(l2_xyz, l3_xyz, l2_f, l3_f)
         l1_f = self.fp2(l1_xyz, l2_xyz, l1_f, l2_f)

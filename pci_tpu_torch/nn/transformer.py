@@ -1,13 +1,15 @@
-"""Point-transformer self-attention layer, eval (counterpart of
+"""Point-transformer self-attention layer (counterpart of
 ``pci_tpu/nn/transformer.py:TransformerLayer``, its default unsharded
 route).
 
-kNN(k) neighbourhoods of each point in its own cloud, one fused
-``[xyz | K | V]`` row gather, offsets ``delta = xyz - knn_xyz``, then the
-vector-attention tail (one kernel on the card) and ``fc2`` plus the
-residual.  Returns ``(out, None)``, as the TPU eval route does: the
-``[B, N, k, d]`` attention maps are what the tail kernel exists not to
-write.  The dense layers are ``torch.matmul``s.
+kNN(k) neighbourhoods of each point in its own cloud (on the detached
+cloud), one fused ``[xyz | K | V]`` row gather, offsets ``delta = xyz -
+knn_xyz``, then the vector-attention tail and ``fc2`` plus the residual.
+The tail is one kernel on the card: the eval kernel, or in training the
+trainable route (the same forward kernel and a backward kernel), as the
+TPU's ``vector_attention_trainable``.  Returns ``(out, None)``, as the TPU
+routes do: the ``[B, N, k, d]`` attention maps are what the tail kernels
+exist not to write.  The dense layers are ``torch.matmul``s.
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from ..ops.cuda_kernels import knn, vector_attention
+from ..ops.cuda_kernels import knn, vector_attention, vector_attention_trainable
 from .layers import gather_split
 
 
@@ -39,8 +41,6 @@ class TransformerLayer(nn.Module):
     def forward(self, xyz: torch.Tensor, feats: torch.Tensor):
         """``xyz [B, N, 3]``, ``feats [B, N, d_points]`` -> (``[B, N,
         d_points]``, None)."""
-        if self.training:
-            raise RuntimeError("TransformerLayer: the port runs eval only; call .eval()")
         x = self.fc1(feats)
         kv = torch.cat([self.w_ks(x), self.w_vs(x)], -1)
         _, idx = knn(xyz, xyz, self.k)
@@ -48,5 +48,6 @@ class TransformerLayer(nn.Module):
         delta = xyz[:, :, None, :] - knn_xyz  # [B, N, k, 3]
         tail = [(m.weight, m.bias) for m in (self.fc_delta_0, self.fc_delta_1,
                                             self.fc_gamma_0, self.fc_gamma_1)]
-        res = vector_attention(self.w_qs(x), g, delta, tail)
+        tail_fn = vector_attention_trainable if self.training else vector_attention
+        res = tail_fn(self.w_qs(x), g, delta, tail)
         return self.fc2(res) + feats.float(), None

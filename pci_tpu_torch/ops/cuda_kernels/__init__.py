@@ -1,18 +1,30 @@
 """Hand-written CUDA kernels for Hopper (``sm_90a``), one per TPU kernel of
-the port's eval paths (PointINet and ISAPCInet), each beside its plain
-PyTorch version.
+the port's paths (PointINet and ISAPCInet eval, ISAPCInet training), each
+beside its plain PyTorch version.
 
 Every kernel wrapper (``*_kernel``) counts its launches in a
-``launches`` attribute.  Nothing here builds or loads a kernel when it is
+``launches`` attribute (the kNN kernel's k=1 form in
+``nearest_launches``).  Nothing here builds or loads a kernel when it is
 imported: :func:`_build.library` does, at the first launch.
 """
 
 from ._build import build_seconds, plain_versions
-from .attention_cuda import attention_kernel, vector_attention
+from .attention_cuda import (
+    attention_bwd,
+    attention_bwd_kernel,
+    attention_kernel,
+    vector_attention,
+    vector_attention_trainable,
+)
 from .ball_cuda import ball_kernel, ball_query_multi
 from .fps_cuda import fps_kernel
-from .fusion_knn_cuda import fusion_kernel, knn_fusion_attention
-from .knn_cuda import knn, knn_kernel
+from .fusion_knn_cuda import (
+    fusion_kernel,
+    fusion_resi_kernel,
+    fusion_resi_knn,
+    knn_fusion_attention,
+)
+from .knn_cuda import knn, knn_kernel, nearest_launches
 from .knnconv_cuda import knnconv_fused, knnconv_kernel
 from .setconv_cuda import fold_bn_layers, setconv_fused, setconv_kernel
 
@@ -24,6 +36,9 @@ KERNELS = {
     "ball": ball_kernel,
     "knn": knn_kernel,
     "attention": attention_kernel,
+    "fusion_resi": fusion_resi_kernel,
+    "nearest": nearest_launches,
+    "attention_bwd": attention_bwd_kernel,
 }
 
 
@@ -38,6 +53,8 @@ def launch_counts() -> dict:
 
 __all__ = [
     "KERNELS",
+    "attention_bwd",
+    "attention_bwd_kernel",
     "attention_kernel",
     "ball_kernel",
     "ball_query_multi",
@@ -45,15 +62,19 @@ __all__ = [
     "fold_bn_layers",
     "fps_kernel",
     "fusion_kernel",
+    "fusion_resi_kernel",
+    "fusion_resi_knn",
     "knn",
     "knn_fusion_attention",
     "knn_kernel",
     "knnconv_fused",
     "knnconv_kernel",
     "launch_counts",
+    "nearest_launches",
     "plain_versions",
     "reset_launch_counts",
     "setconv_fused",
     "setconv_kernel",
     "vector_attention",
+    "vector_attention_trainable",
 ]

@@ -47,8 +47,10 @@ _SIGNATURES = {
                     _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "pci_fusion": [_P, _P, _P, _I, _I, _I, _P, _I, _I, _P],
     "pci_ball": [_P, _P, _P, _FP, _IP, _I, _I, _I, _I, _P],
-    "pci_knn": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "pci_knn": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "pci_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "pci_fusion_resi": [_P, _P, _P, _I, _P, _P, _I, _I, _I, _P],
+    "pci_attention_bwd": [_P] * 10 + [_I, _I, _I, _I, _P],
 }
 
 _PLAIN = contextvars.ContextVar("pci_tpu_torch_plain", default=False)
@@ -75,7 +77,8 @@ def use_kernel(t: torch.Tensor) -> bool:
 
 
 def check_eval_only(name: str, *tensors) -> None:
-    """The kernels define no backward: refuse a call that could need one."""
+    """An eval kernel of differentiable values defines no backward: refuse
+    a call that could need one."""
     if torch.is_grad_enabled() and any(
         isinstance(t, torch.Tensor) and t.requires_grad for t in tensors
     ):

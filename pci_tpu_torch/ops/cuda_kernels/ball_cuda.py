@@ -23,13 +23,13 @@ def ball_query_multi(radius_list, nsample_list, xyz: torch.Tensor,
                      new_xyz: torch.Tensor) -> list:
     """``xyz [B, N, 3]`` keys, ``new_xyz [B, S, 3]`` queries -> one
     ``[B, S, K_s]`` int64 index tensor per (radius, K) scale, all scales
-    from one scan of the keys."""
+    from one scan of the keys.  Indices carry no gradient: the clouds are
+    detached."""
     if len(radius_list) != len(nsample_list) or not 1 <= len(radius_list) <= MAX_SCALES:
         raise ValueError(f"ball query: 1 to {MAX_SCALES} (radius, K) scales")
-    _build.check_eval_only("ball_query", xyz, new_xyz)
+    xyz, new_xyz = xyz.detach(), new_xyz.detach()
     if _build.use_kernel(xyz):
-        return ball_kernel(xyz.detach().float().contiguous(),
-                           new_xyz.detach().float().contiguous(),
+        return ball_kernel(xyz.float().contiguous(), new_xyz.float().contiguous(),
                            radius_list, nsample_list)
     return ball_plain(xyz, new_xyz, radius_list, nsample_list, empty="last")
 

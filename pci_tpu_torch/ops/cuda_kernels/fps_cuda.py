@@ -18,8 +18,9 @@ from . import _build
 def fps_index(xyz: torch.Tensor, npoint: int, start: torch.Tensor,
               P: int) -> torch.Tensor:
     """``xyz [B, N, 3]`` fp32, ``start [B]`` int -> ``[B, npoint]`` int32
-    selection order.  Kernel on a CUDA tensor, plain version on the CPU."""
-    _build.check_eval_only("fps", xyz)
+    selection order.  Kernel on a CUDA tensor, plain version on the CPU.
+    Indices carry no gradient: ``xyz`` is detached."""
+    xyz = xyz.detach()
     if npoint % P:
         raise ValueError(f"npoint={npoint} must divide into P={P} chains")
     if _build.use_kernel(xyz):

@@ -220,8 +220,16 @@ def test_interpolator_isapci_needs_cuda_unless_told(monkeypatch):
 
 
 def test_isapci_refuses_train_mode():
-    model = ISAPCInet(1, ff_out_c=16, tr_out_c=16)
+    """Train mode runs with the flow frozen: FlowNet3D stays in eval mode
+    through ``train()`` and ``eval()`` toggles, and gets no gradient."""
     fwd, keys, bwd = (list(map(T, c)) for c in window(440, 1, 64))
     z = torch.zeros_like(keys[0])
-    with torch.no_grad(), pytest.raises(RuntimeError, match="eval only"):
-        model(fwd, keys, bwd, torch.tensor([0.5]), z)
+    model = ISAPCInet(1, ff_out_c=16, tr_out_c=16)
+    assert model.training and not model.flow.training
+    assert not any(m.training for m in model.eval().modules())
+    out = model.train()(fwd, keys, bwd, torch.tensor([0.5]), z)
+    assert out.requires_grad and model.ffab.training and not model.flow.training
+    assert not any(m.training for m in model.flow.modules())
+    out.sum().backward()
+    assert all(p.grad is None for p in model.flow.parameters())
+    assert model.outputer.gn[0].weight.grad is not None

@@ -68,6 +68,60 @@ def test_point_mlp_fold_matches_flax():
     np.testing.assert_allclose(h.numpy(), want, **TOL)
 
 
+def test_point_mlp_train_matches_flax():
+    """A BatchNorm PointMLP in train mode at momentum 0.5: the output, the
+    updated running statistics and every parameter's gradient against
+    flax's apply(train=True, mutable=["batch_stats"]) and jax.grad."""
+    rng = np.random.default_rng(218)
+    x = cloud(rng, 2, 50, 7, scale=1.0)
+    cot = cloud(rng, 2, 50, 8, scale=1.0)
+    jm = jnn.PointMLP((16, 24, 8))
+    v = shifted(jm.init(jax.random.key(0), jnp.asarray(x)))
+
+    def loss(params):
+        out, upd = jm.apply({"params": params, "batch_stats": v["batch_stats"]},
+                            jnp.asarray(x), train=True, momentum=0.5, mutable=["batch_stats"])
+        return jnp.sum(out * cot), (out, upd)
+
+    (_, (want, upd)), grads = jax.value_and_grad(loss, has_aux=True)(v["params"])
+    tm = port(tnn.PointMLP(7, (16, 24, 8)), v).train()
+    got = tm(torch.from_numpy(x), 0.5)
+    (got * torch.from_numpy(cot)).sum().backward()
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), atol=1e-5, rtol=1e-5)
+    new_stats = flax_to_state_dict(jax.tree_util.tree_map(np.asarray, upd))
+    want_grads = flax_to_state_dict(jax.tree_util.tree_map(np.asarray, {"params": grads}))
+    for name, buf in tm.named_buffers():
+        np.testing.assert_allclose(buf.numpy(), new_stats[name].numpy(), atol=1e-5, rtol=1e-5)
+    for name, p in tm.named_parameters():
+        np.testing.assert_allclose(p.grad.numpy(), want_grads[name].numpy(), atol=1e-4,
+                                   rtol=1e-4, err_msg=name)
+
+
+def test_transformer_layer_train_grads_match_flax():
+    """TransformerLayer in train mode (the trainable attention's plain
+    route): the output and every parameter's gradient against jax.grad of
+    the flax layer at train=True."""
+    rng = np.random.default_rng(219)
+    xyz, f = cloud(rng, 2, 300, scale=0.5), cloud(rng, 2, 300, 16, scale=1.0)
+    cot = cloud(rng, 2, 300, 16, scale=1.0)
+    jm = jnn.TransformerLayer(16, 8)
+    v = shifted(jm.init(jax.random.key(0), jnp.asarray(xyz), jnp.asarray(f)))
+
+    def loss(params):
+        out, _ = jm.apply({"params": params}, jnp.asarray(xyz), jnp.asarray(f), train=True)
+        return jnp.sum(out * cot), out
+
+    (_, want), grads = jax.value_and_grad(loss, has_aux=True)(v["params"])
+    tm = port(tnn.TransformerLayer(16, 16, 8), v).train()
+    got, _ = tm(torch.from_numpy(xyz), torch.from_numpy(f))
+    (got * torch.from_numpy(cot)).sum().backward()
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), **GN_TOL)
+    want_grads = flax_to_state_dict(jax.tree_util.tree_map(np.asarray, {"params": grads}))
+    for name, p in tm.named_parameters():
+        np.testing.assert_allclose(p.grad.numpy(), want_grads[name].numpy(), atol=1e-4,
+                                   rtol=1e-4, err_msg=name)
+
+
 def test_set_conv_matches_flax():
     rng = np.random.default_rng(201)
     xyz, feats = cloud(rng, 2, 512), cloud(rng, 2, 512, 5, scale=1.0)
@@ -278,14 +332,31 @@ def test_tnet_and_outputer_match_flax():
 
 
 def test_isapci_layers_refuse_train_mode():
+    """What of ISAPCInet's layers still refuses train mode: only folding a
+    BatchNorm chain (its running statistics).  SetAbstractionMsg,
+    TransformerLayer and Tnet now train: in train mode each runs under
+    autograd and gives every parameter a gradient; Tnet (GroupNorm keeps
+    no running statistics) and the transformer (no norm) compute what they
+    compute in eval mode, and SetAbstractionMsg does too from an FPS start
+    of 0."""
+    import pci_tpu_torch.nn.pointnet2 as tpn2
+
     rng = np.random.default_rng(217)
     xyz = torch.from_numpy(cloud(rng, 1, 64))
+    with pytest.raises(RuntimeError, match="eval only"):
+        tnn.PointMLP(4, (8,)).train().folded()
     for m, args in ((tnn.SetAbstractionMsg(8, [0.5], [4], [[8]], 0), (xyz, None)),
                     (tnn.TransformerLayer(3, 8, 4), (xyz, xyz)),
                     (tnn.Tnet(1), (torch.ones(1, 1),))):
-        with torch.no_grad(), pytest.raises((RuntimeError, NotImplementedError),
-                                            match="eval only"):
-            m(*args)
-        m.eval()
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(tpn2, "fps_start", lambda module, x, gen=None: 0)
+            out = m.train()(*args)
+        out = out[-1] if isinstance(m, tnn.SetAbstractionMsg) else out
+        out = out[0] if isinstance(out, tuple) else out
+        out.square().sum().backward()
+        assert all(p.grad is not None for p in m.parameters()), type(m).__name__
         with torch.no_grad():
-            m(*args)
+            want = m.eval()(*args)
+        want = want[-1] if isinstance(m, tnn.SetAbstractionMsg) else want
+        want = want[0] if isinstance(want, tuple) else want
+        torch.testing.assert_close(out.detach(), want, atol=1e-6, rtol=1e-6)

@@ -232,7 +232,7 @@ def test_knn_and_knn_prefix_match_jax():
     np.testing.assert_array_equal(i.numpy(), np.asarray(ji))
     np.testing.assert_allclose(d.numpy(), np.asarray(jd), rtol=1e-5, atol=1e-4)
     valid = np.array([37, 200], np.int32)
-    _, i = tops.knn_prefix(t_(q), t_(p), 8, t_(valid))
+    _, i = tops.knn(t_(q), t_(p), 8, t_(valid))
     _, ji = jops.knn_prefix(jnp.asarray(q), jnp.asarray(p), 8, jnp.asarray(valid), exact=True)
     np.testing.assert_array_equal(i.numpy(), np.asarray(ji))
     assert (i.numpy()[0] < 37).all()
@@ -250,6 +250,42 @@ def test_three_nn_interpolate_matches_jax(mode):
     want = np.asarray(jops.three_nn_interpolate(
         jnp.asarray(dense), jnp.asarray(sub), jnp.asarray(f), mode))
     np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-4)
+
+
+def test_knn_gather_and_scatter_add_rows_match_jax():
+    """knn_gather, and its transpose scatter_add_rows with duplicate
+    targets (the fusion backward's), against the JAX package's."""
+    from pci_tpu.ops import gather as jgather
+
+    rng = np.random.default_rng(106)
+    x = cloud(rng, 2, 50, 5)
+    idx = rng.integers(0, 50, (2, 30, 4)).astype(np.int32)
+    got = tops.knn_gather(t_(x), t_(idx).long()).numpy()
+    np.testing.assert_array_equal(got, np.asarray(jgather.knn_gather(jnp.asarray(x),
+                                                                     jnp.asarray(idx))))
+    g = cloud(rng, 2, 120, 3)
+    flat = idx.reshape(2, 120)
+    got = tops.scatter_add_rows(t_(flat), t_(g), 50).numpy()
+    want = np.asarray(jgather.scatter_add_rows(jnp.asarray(flat), jnp.asarray(g), 50))
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("mode", ["clamp", "eps"])
+def test_three_nn_interpolate_grads_match_jax(mode):
+    """The training route of FeaturePropagationP2: gradients in the
+    features and in both clouds (distances recomputed from the indices)
+    against jax.grad."""
+    from pci_tpu import ops as jops
+
+    rng = np.random.default_rng(107)
+    dense, sub = cloud(rng, 2, 120), cloud(rng, 2, 30)
+    f, cot = cloud(rng, 2, 30, 7, scale=1.0), cloud(rng, 2, 120, 7, scale=1.0)
+    want = jax.grad(lambda a, b, c: jnp.sum(jops.three_nn_interpolate(a, b, c, mode) * cot),
+                    argnums=(0, 1, 2))(jnp.asarray(dense), jnp.asarray(sub), jnp.asarray(f))
+    args = [t_(a).requires_grad_() for a in (dense, sub, f)]
+    (tops.three_nn_interpolate(*args, mode) * t_(cot)).sum().backward()
+    for a, w in zip(args, want):
+        np.testing.assert_allclose(a.grad.numpy(), np.asarray(w), rtol=1e-4, atol=1e-5)
 
 
 @pytest.mark.parametrize("far", [False, True])
@@ -399,7 +435,21 @@ def _grad_calls():
 @pytest.mark.parametrize("kernel", ["fps", "setconv", "knnconv", "fusion", "ball",
                                     "knn", "attention"])
 def test_eval_only_kernels_refuse_grad(kernel):
+    """The eval kernels of differentiable values (set-conv, kNN-conv, the
+    one-shot fusion, the eval attention) define no backward and refuse an
+    input that needs a gradient; the index-only ones (FPS, ball query,
+    kNN) take such an input detached, as their JAX counterparts
+    stop-gradient theirs."""
     call = _grad_calls()[kernel]
+    if kernel in ("fps", "ball", "knn"):
+        got = call()
+        with torch.no_grad():
+            want = call()
+        for g, w in zip(got if isinstance(got, (list, tuple)) else [got],
+                        want if isinstance(want, (list, tuple)) else [want]):
+            assert not g.requires_grad
+            torch.testing.assert_close(g, w, atol=0, rtol=0)
+        return
     with pytest.raises(RuntimeError, match="eval-only"):
         call()
     with torch.no_grad():
@@ -412,8 +462,13 @@ def test_kernel_routes_by_device():
     for call in _grad_calls().values():
         with torch.no_grad():
             call()
+    x = t_(cloud(np.random.default_rng(111), 1, 64)).requires_grad_()
+    fusion_knn_cuda.fusion_resi_knn(x, torch.tensor([[32, 64]]), torch.tensor([[16, 16]]),
+                                    32)[1].sum().backward()
+    tops.chamfer_distance(x, x.detach() + 0.1).backward()
     assert tk.launch_counts() == {"fps": 0, "setconv": 0, "knnconv": 0, "fusion": 0,
-                                  "ball": 0, "knn": 0, "attention": 0}
+                                  "ball": 0, "knn": 0, "attention": 0, "fusion_resi": 0,
+                                  "nearest": 0, "attention_bwd": 0}
     with pytest.raises(ValueError):
         tk._build.use_kernel(torch.empty(1, device="meta"))
 
