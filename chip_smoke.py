@@ -6,20 +6,37 @@ Run from the repository root on a machine with a CUDA card:
 
     python3 chip_smoke.py
 
-Phases, each printing its own lines:
+Every path takes the JAX package's default eval route (its gates
+PCI_TPU_ENC_KERNEL, PCI_TPU_MID_KERNEL and PCI_TPU_FUSION_ONESHOT at "1"):
+FlowNet3D's encoder and decode megakernels, kNN-conv with the classifier
+inside, the one-shot fusion; phases 3 and 5 also serve the routes with the
+gates off.  Phases, each printing its own lines:
   1. device: the card's name and power limit, torch and CUDA versions;
      TF32 off for matmuls and convolutions (the plain versions run fp32).
   2. build: the CUDA kernels from pci_tpu_torch/csrc with nvcc.
   3. kernels: each kernel against its plain PyTorch version on the card at
      every PointINet shape, recorded from one plain forward of a
      16,384-point request (plus FPS with P=1 at 16,384 and fusion at
-     t=0.2); the times are medians of CUDA-event timings.
+     t=0.2), and again with all three gates off (set-conv and the
+     per-stage kNN-conv at every FlowNet3D shape, the residual kNN and the
+     attention tail); the times are medians of CUDA-event timings.
   4. serving: Interpolator.pointinet(npoints=16384) with the trained weights
      answers five requests (t=0.5, then upsample(factor=5)); the launch
-     counters must rise by 8 FPS, 8 set-conv, 10 kNN-conv and 1 fusion a
-     request, every frame must be [16384, 3] and finite, and one frame must
-     match the same forward through the plain versions.
-  5. ISAPCInet field=2 at 16,384 points a frame (a seeded six-frame window;
+     counters must rise by PER_REQUEST a request (2 FPS, 2 flowenc, 2
+     flowmid, 2 kNN-conv, 1 fusion), every frame must be [16384, 3] and
+     finite, and one frame must match the same forward through the plain
+     versions.
+  5. stream serving: Interpolator.stream_batch, 8 streams x 16,384 points
+     at eight distinct t: every kernel against its plain version at every
+     shape of one 8-stream call (the attention tail also with a payload
+     channel), the fused FlowNet3D route against the per-stage one on the
+     same pairs (p99.9 <= 1e-4 m), five calls with PER_STREAM_CALL
+     launches each, each stream's frame against a single request with the
+     same permutations, ms per call, frames/s, busy share, peak memory;
+     then PointINet served five requests on each route (all gates off:
+     PER_REQUEST_ALL_OFF; one-shot off: PER_REQUEST_ONESHOT_OFF) and each
+     route's ms/frame beside the default's.
+  6. ISAPCInet field=2 at 16,384 points a frame (a seeded six-frame window;
      flow and fusion weights from the trained PointINet, the rest from a
      seeded init): every kernel against its plain version at every shape
      of one plain request (ball query, kNN and FPS indices equal, kNN
@@ -27,7 +44,7 @@ Phases, each printing its own lines:
      with the launch counts of PER_REQUEST_ISAPCI each, the frame against
      the plain versions, latency and the device's busy share; one request
      at the default 16,000 points.
-  6. ISAPCInet field=2 training (the trainer's defaults: 16,000 points,
+  7. ISAPCInet field=2 training (the trainer's defaults: 16,000 points,
      batch 2, t = 0.5 and 0.3, Adam lr 0.01, BN momentum 0.5, the flow
      frozen; two seeded synthetic windows): every kernel against its plain
      version at every shape of one plain training step (the attention
@@ -47,6 +64,7 @@ from __future__ import annotations
 import contextlib
 import importlib
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -79,7 +97,17 @@ KERNEL_INFO = {  # name -> (source, TPU kernel it replaces)
                 "pci_tpu/ops/pallas_kernels/knn_tpu.py:132"),
     "attention_bwd": ("pci_tpu_torch/csrc/attention_bwd.cu",
                       "pci_tpu/ops/pallas_kernels/attention_tpu.py:358"),
+    "flowenc": ("pci_tpu_torch/csrc/flowenc.cu",
+                "pci_tpu/ops/pallas_kernels/flowenc_tpu.py:171"),
+    "flowmid": ("pci_tpu_torch/csrc/flowmid.cu",
+                "pci_tpu/ops/pallas_kernels/flowmid_tpu.py:241"),
+    "fusion_tail": ("pci_tpu_torch/csrc/fusion_tail.cu",
+                    "pci_tpu/ops/pallas_kernels/fusion_tail_tpu.py:95"),
 }
+# the JAX package's route gates, read at call time by both packages
+GATES = ("PCI_TPU_ENC_KERNEL", "PCI_TPU_MID_KERNEL", "PCI_TPU_FUSION_ONESHOT")
+ALL_OFF = dict.fromkeys(GATES, "0")
+ONESHOT_OFF = {"PCI_TPU_FUSION_ONESHOT": "0"}
 
 
 def per(**counts) -> dict:
@@ -87,23 +115,33 @@ def per(**counts) -> dict:
     return {name: counts.get(name, 0) for name in KERNEL_INFO}
 
 
-PER_REQUEST = per(fps=8, setconv=8, knnconv=10, fusion=1)
-# ISAPCInet field=2: 6 encodings (2 set-convs, 2 FPS each) and 8 decodes
-# (2 set-convs, 2 FPS, 5 kNN-convs each) of FlowNet3D, two PointNet++
-# passes (4 FPS, 4 ball queries, 4 FP interpolations each), two
+# PointINet, one request on the default route: 2 encodings (FPS of
+# set_conv1's centres, then flowenc) and 2 decodes (flowmid, then kNN-conv
+# with the classifier), the one-shot fusion; an 8-stream call launches the
+# same, each kernel once for all streams
+PER_REQUEST = per(fps=2, flowenc=2, flowmid=2, knnconv=2, fusion=1)
+PER_STREAM_CALL = PER_REQUEST
+# the per-stage route (all gates off): 2 set-convs and 2 FPS an encoding,
+# 2 set-convs, 2 FPS and 5 kNN-convs a decode; the residual kNN and the tail
+PER_REQUEST_ALL_OFF = per(fps=8, setconv=8, knnconv=10, fusion_resi=1, fusion_tail=1)
+PER_REQUEST_ONESHOT_OFF = per(fps=2, flowenc=2, flowmid=2, knnconv=2, fusion_resi=1,
+                              fusion_tail=1)
+# ISAPCInet field=2: 6 encodings and 8 decodes of FlowNet3D as above, two
+# PointNet++ passes (4 FPS, 4 ball queries, 4 FP interpolations each), two
 # transformers (1 kNN, 1 attention tail each), one fusion
-PER_REQUEST_ISAPCI = per(fps=36, setconv=28, knnconv=48, fusion=1, ball=8, knn=2,
-                         attention=2)
-# ISAPCInet field=2, one training step: the frozen flows as at eval (28
-# FPS, 28 set-conv, 40 kNN-conv: 6 encodings x (2 set-convs, 2 FPS), 8
-# decodes x (2 set-convs, 2 FPS, 5 kNN-convs)); PointNet++ twice (4 FPS
-# with random starts, 4 ball queries, and 4 FP interpolations under
-# autograd whose 3-NN runs on the kNN kernel, not on kNN-conv); the
-# transformers (2 kNNs, 2 attention forwards, 2 attention backwards); the
-# fusion's residual kNN; the chamfer loss's two directions on the kNN
-# kernel's k=1 form; the one-shot fusion is eval only
-PER_STEP = per(fps=28 + 8, setconv=28, knnconv=40, ball=8, knn=8 + 2, attention=2,
+PER_REQUEST_ISAPCI = per(fps=6 + 8, flowenc=6, flowmid=8, knnconv=8 + 8, fusion=1, ball=8,
+                         knn=2, attention=2)
+# ISAPCInet field=2, one training step: the frozen flows as at eval (6 FPS,
+# 6 flowenc, 8 flowmid, 8 kNN-convs); PointNet++ twice (4 FPS with random
+# starts, 4 ball queries, and 4 FP interpolations under autograd whose 3-NN
+# runs on the kNN kernel, not on kNN-conv); the transformers (2 kNNs, 2
+# attention forwards, 2 attention backwards); the fusion's residual kNN;
+# the chamfer loss's two directions on the kNN kernel's k=1 form; the
+# one-shot fusion is eval only
+PER_STEP = per(fps=6 + 8, flowenc=6, flowmid=8, knnconv=8, ball=8, knn=8 + 2, attention=2,
                attention_bwd=2, fusion_resi=1, nearest=2)
+STREAMS = 8
+STREAM_T = tuple((i + 1) / (STREAMS + 1) for i in range(STREAMS))
 FIELD = 2
 TRAIN_N, TRAIN_T = 16000, (0.5, 0.3)  # the trainer's npoints; t a sample
 TRAIN_LR, TRAIN_MOMENTUM = 0.01, 0.5  # init_lr; bn_momentum_schedule(epoch 0)
@@ -117,6 +155,22 @@ class PhaseError(RuntimeError):
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise PhaseError(msg)
+
+
+@contextlib.contextmanager
+def gates(values: dict):
+    """The route gates' environment variables set to ``values`` for the
+    block (the models read them at call time)."""
+    old = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
 
 
 def card_line() -> str:
@@ -152,10 +206,14 @@ def record_calls(calls: list):
     from pci_tpu_torch.ops.cuda_kernels import attention_bwd
 
     mods = {name: importlib.import_module(f"pci_tpu_torch.{name}")
-            for name in ("nn.fusion", "nn.layers", "nn.pointnet2",
+            for name in ("models.flownet3d", "nn.fusion", "nn.layers", "nn.pointnet2",
                          "nn.transformer", "ops.fps", "ops.chamfer",
                          "ops.interpolate")}  # ops.fps: the module
     sites = [(mods["ops.fps"], "fps_index", "fps"),
+             (mods["models.flownet3d"], "flowenc_fused", "flowenc"),
+             (mods["models.flownet3d"], "flowmid_fused", "flowmid"),
+             (mods["models.flownet3d"], "knnconv_fused", "knnconv"),
+             (mods["nn.fusion"], "fusion_attention_tail", "fusion_tail"),
              (mods["nn.layers"], "setconv_fused", "setconv"),
              (mods["nn.layers"], "knnconv_fused", "knnconv"),
              (mods["nn.fusion"], "knn_fusion_attention", "fusion"),
@@ -232,6 +290,46 @@ def work(name, args, kw, out):
         w = [t for wb in layers for t in wb]
         ops = 9.0 * scanned + mlp_flops(layers, B * S * K) + B * S * K * layers[-1][0].shape[0]
         return nbytes(xyz, feats, new_xyz, out, *w), ops
+    if name == "flowenc":
+        xyz, feats, c1, l1, l2, s2, r1, k1, r2, k2 = args
+        B, S1 = c1.shape[:2]
+        f1, f2, c2 = out
+        w = [t for wb in list(l1) + list(l2) for t in wb]
+        # two ball scans, the MLPs over every slot and a max a slot channel,
+        # and the FPS of set_conv2's centres (10 operations a point a pick)
+        ops = (9.0 * (scanned_keys(c1, xyz, [r1], [k1]) + scanned_keys(c2, c1, [r2], [k2]))
+               + mlp_flops(l1, B * S1 * k1) + mlp_flops(l2, B * s2 * k2)
+               + B * S1 * k1 * f1.shape[-1] + B * s2 * k2 * f2.shape[-1] + 10.0 * B * s2 * S1)
+        return nbytes(xyz, feats, c1, f1, f2, c2, *w), ops
+    if name == "flowmid":
+        from pci_tpu_torch.ops import index_points
+        from pci_tpu_torch.ops.cuda_kernels.fps_cuda import fps_plain
+
+        pa1, fa1, pa2, fa2, pb2, fb2, groups, s3, s4, k_fe, r3, ns3, r4, ns4, k_up = args
+        B, N1 = pa1.shape[:2]
+        N2 = pa2.shape[1]
+        fe, sc3, sc4, su1, su2a, su2b, su3a, su3b = groups
+        start = torch.zeros(1, dtype=torch.long, device=pa2.device)
+        x3 = index_points(pa2, fps_plain(pa2, s3, start, 1))
+        x4 = index_points(x3, fps_plain(x3, s4, start, 1))
+        w = [t for g in groups for wb in g for t in wb]
+        # the in-kernel FPS, then each stage as work() counts kNN-conv (8
+        # operations a query-key pair) and set-conv (the ball scans)
+        ops = (10.0 * B * (s3 * N2 + s4 * s3)
+               + 8.0 * B * N2 * N2 + mlp_flops(fe, B * N2 * k_fe)
+               + 9.0 * scanned_keys(x3, pa2, [r3], [ns3]) + mlp_flops(sc3, B * s3 * ns3)
+               + 9.0 * scanned_keys(x4, x3, [r4], [ns4]) + mlp_flops(sc4, B * s4 * ns4)
+               + 8.0 * B * s3 * s4 + mlp_flops(su1, B * s3)
+               + 8.0 * B * N2 * s3 + mlp_flops(su2a, B * N2 * k_up) + mlp_flops(su2b, B * N2)
+               + 8.0 * B * N1 * N2 + mlp_flops(su3a, B * N1 * k_up) + mlp_flops(su3b, B * N1))
+        return nbytes(pa1, fa1, pa2, fa2, pb2, fb2, out, *w), ops
+    if name == "fusion_tail":
+        combined, resi, extra, layers = args
+        B, N, k, _ = resi.shape
+        w = [t for wb in layers for t in wb]
+        # the score MLP a slot, then the norm, max, exp and weighted sums
+        ops = mlp_flops(layers, B * N * k) + 12.0 * B * N * k
+        return nbytes(combined, resi, extra, out, *w), ops
     if name == "knnconv":
         q_xyz, k_xyz, k_feats, q_feats, skip, k, mlp1, mlp2 = args[:8]
         interp = kw.get("interp", False)
@@ -287,13 +385,22 @@ def work(name, args, kw, out):
 
 def label(name, args, kw) -> str:
     if name == "fps":
-        return f"N={args[0].shape[1]} npoint={args[1]} P={args[3]}"
+        return f"B={args[0].shape[0]} N={args[0].shape[1]} npoint={args[1]} P={args[3]}"
     if name == "setconv":
-        return f"N={args[0].shape[1]} S={args[2].shape[1]} K={args[4]} C_in={3 + args[1].shape[-1]}"
+        return (f"B={args[0].shape[0]} N={args[0].shape[1]} S={args[2].shape[1]} K={args[4]} "
+                f"C_in={3 + args[1].shape[-1]}")
     if name == "knnconv":
         interp = kw.get("interp", False)
         mode = f" interp {kw.get('recip', 'clamp')} D={args[2].shape[-1]}" if interp else ""
-        return f"S={args[0].shape[1]} N={args[1].shape[1]} k={args[5]}{mode}"
+        tail = f" n_final={kw['n_final']}" if kw.get("n_final") else ""
+        return f"B={args[0].shape[0]} S={args[0].shape[1]} N={args[1].shape[1]} k={args[5]}{mode}{tail}"
+    if name == "flowenc":
+        return f"B={args[0].shape[0]} N={args[0].shape[1]} S1={args[2].shape[1]} S2={args[5]}"
+    if name == "flowmid":
+        return f"B={args[0].shape[0]} N1={args[0].shape[1]} N2={args[2].shape[1]}"
+    if name == "fusion_tail":
+        ce = args[2].shape[-1] if args[2] is not None else 0
+        return f"B={args[1].shape[0]} N={args[1].shape[1]} k={args[1].shape[2]} Ce={ce}"
     if name == "ball":
         return f"N={args[2].shape[1]} S={args[3].shape[1]} r={list(args[0])} K={list(args[1])}"
     if name in ("knn", "nearest"):
@@ -382,6 +489,9 @@ def compare(name, got, want, where: str, args=()) -> float:
         return 0.0
     if name == "attention_bwd":
         return compare_attention_bwd(got, want, args, where)
+    if name == "flowenc":
+        check(torch.equal(got[2], want[2]), f"flowenc {where}: set_conv2's centres differ")
+        return max(compare("setconv", g, w, where) for g, w in zip(got[:2], want[:2]))
     err = (got - want).abs().max().item()
     ok = torch.allclose(got, want, atol=1e-4, rtol=1e-4)
     check(ok, f"{name} {where}: max |kernel - plain| {err}")
@@ -462,7 +572,8 @@ def hold_kernels(calls, request: int, expected: dict, totals: dict, path: str,
 
 
 def phase_kernels(model, a, b, totals):
-    """PointINet's recorded main-path calls: kernel vs plain on the card."""
+    """PointINet's recorded main-path calls, kernel vs plain on the card: on
+    the default route, then with all gates off."""
     from pci_tpu_torch.ops.cuda_kernels import plain_versions
     from pci_tpu_torch.ops.cuda_kernels.fps_cuda import fps_index
 
@@ -479,6 +590,10 @@ def phase_kernels(model, a, b, totals):
     calls = calls[:request] + [c for c in calls[request:] if c[0] == "fusion"]
     calls.append(("fps", fps_index, (a, 1024, torch.zeros(1, dtype=torch.long, device=dev), 1), {}))
     hold_kernels(calls, request, PER_REQUEST, totals, "pointinet")
+    calls = []
+    with torch.inference_mode(), plain_versions(), record_calls(calls), gates(ALL_OFF):
+        model(a, b, z, z, torch.tensor([0.5], device=dev), perms=perms)
+    hold_kernels(calls, len(calls), PER_REQUEST_ALL_OFF, totals, "pointinet, all gates off")
     return perms
 
 
@@ -541,18 +656,19 @@ def agreement(got, want, what: str):
     return p999, float(err.max())
 
 
-def serve_counts(serve_all, expected: dict, path: str):
-    """Counts set to 0, five requests served, counts read: each kernel of
-    the path launched its per-request count, no other kernel launched."""
+def serve_counts(serve_all, expected: dict, path: str, frames_a_call: int = 1):
+    """Counts set to 0, five requests (calls) served, counts read: each
+    kernel of the path launched its per-request count, no other kernel
+    launched."""
     from pci_tpu_torch.ops.cuda_kernels import launch_counts, reset_launch_counts
 
     torch.cuda.synchronize()
     reset_launch_counts()
     frames = serve_all()
     counts = launch_counts()
-    n_req = len(frames)
-    print(f"{path} serving: {n_req} requests, launches {counts}")
-    check(n_req == 5, f"{n_req} frames served")
+    n_req = len(frames) // frames_a_call
+    print(f"{path} serving: {n_req} calls, {len(frames)} frames, launches {counts}")
+    check(len(frames) == 5 * frames_a_call, f"{len(frames)} frames served")
     check(counts == {k: v * n_req for k, v in expected.items()},
           f"{path} launch counts {counts} != {expected} x {n_req}")
     for f in frames:
@@ -560,12 +676,111 @@ def serve_counts(serve_all, expected: dict, path: str):
     return counts
 
 
-def synthetic_pair():
+def synthetic_pair(seed: int = 0):
     """Seeded synthetic 16,384-point pair (bench.py's fallback clouds)."""
-    rng = np.random.default_rng(0)
+    rng = np.random.default_rng(seed)
     a = (rng.standard_normal((NPOINTS, 3)) * 10).astype(np.float32)
     b = a + 0.5 * rng.standard_normal((NPOINTS, 3)).astype(np.float32)
     return a, b
+
+
+def phase_streams(interp, card: str, totals: dict):
+    """Stream serving, 8 streams x 16,384 points: kernels vs plain at one
+    call's shapes, the fused FlowNet3D route vs the per-stage one, five
+    calls with their launch counts, frames vs single requests, ms per call,
+    frames/s, busy share, peak memory; then PointINet served on the routes
+    with gates off, and each route's ms/frame."""
+    from pci_tpu_torch.ops.cuda_kernels import plain_versions
+
+    dev = torch.device("cuda")
+    model = interp.model
+    pairs = [synthetic_pair(seed) for seed in range(STREAMS)]
+    a = torch.from_numpy(np.stack([x for x, _ in pairs])).to(dev)
+    b = torch.from_numpy(np.stack([y for _, y in pairs])).to(dev)
+    z = torch.zeros_like(a)
+    t = torch.tensor(STREAM_T, device=dev)
+    g = torch.Generator().manual_seed(5)
+    perms = tuple(torch.stack([torch.randperm(NPOINTS, generator=g) for _ in pairs]).to(dev)
+                  for _ in range(2))
+
+    # every kernel at every shape of one call; the residual kNN and the
+    # tail (also with a payload channel) at the call's one-shot-off shape
+    calls = []
+    with torch.inference_mode(), plain_versions(), record_calls(calls):
+        model(a, b, z, z, t, perms=perms)
+        request = len(calls)
+        with gates(ONESHOT_OFF):
+            model(a, b, z, z, t, perms=perms)
+    calls = calls[:request] + [c for c in calls[request:] if c[0] in ("fusion_resi", "fusion_tail")]
+    name, fn, (combined, resi, _, layers), kw = next(c for c in calls if c[0] == "fusion_tail")
+    extra = torch.randn(*resi.shape[:3], 1, generator=torch.Generator().manual_seed(6)).to(dev)
+    calls.append((name, fn, (combined, resi, extra, layers), kw))
+    hold_kernels(calls, request, PER_STREAM_CALL, totals, f"stream x{STREAMS}", unit="call")
+    del calls, combined, resi, extra
+
+    # the fused FlowNet3D route against the per-stage route, same pairs
+    with torch.inference_mode():
+        fused = model.flow.bidirectional(a, b, z, z)
+        with gates(ALL_OFF):
+            staged = model.flow.bidirectional(a, b, z, z)
+    err = torch.cat([(f - s).abs().amax(-1).flatten() for f, s in zip(fused, staged)])
+    p999 = torch.quantile(err, 0.999).item()
+    print(f"flownet3d fused vs per-stage route, {STREAMS} pairs both ways: max "
+          f"{err.max().item():.3g} m, p99.9 {p999:.3g} m, bit-equal points "
+          f"{(err == 0).float().mean().item():.4f}")
+    check(p999 <= 1e-4, "flownet3d: the fused route disagrees with the per-stage route")
+
+    interp.stream_batch(pairs, STREAM_T)  # warm-up
+    counts = serve_counts(lambda: [f for _ in range(5) for f in interp.stream_batch(pairs, STREAM_T)],
+                          PER_STREAM_CALL, f"stream x{STREAMS}", frames_a_call=STREAMS)
+    frames = interp.stream_batch(pairs, STREAM_T, perms=perms)
+    worst, same = 0.0, True
+    for i, ((x, y), ti) in enumerate(zip(pairs, STREAM_T)):
+        single = interp(x, y, ti, perms=(perms[0][i:i + 1], perms[1][i:i + 1]))
+        worst = max(worst, float(np.abs(frames[i] - single).max()))
+        same &= bool(np.array_equal(frames[i], single))
+    print(f"stream frames vs single requests, same permutations: max |diff| {worst:.3g} m, "
+          f"bit-equal {same}")
+    check(worst <= 1e-5, "stream_batch: a stream's frame differs from its single request")
+
+    ms = []
+    for _ in range(10):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        interp.stream_batch(pairs, STREAM_T)
+        end.record()
+        end.synchronize()
+        ms.append(start.elapsed_time(end))
+    torch.cuda.reset_peak_memory_stats()
+    interp.stream_batch(pairs, STREAM_T)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    call_ms = statistics.median(ms)
+    print(f"stream serving on {card}: {call_ms:.3f} ms per call of {STREAMS} streams x "
+          f"{NPOINTS} points (CUDA events, median of 10), {1e3 * STREAMS / call_ms:.1f} "
+          f"frames/s, peak memory {peak / 2**30:.3f} GiB (torch.cuda.max_memory_allocated)")
+    device_share(lambda: interp.stream_batch(pairs, STREAM_T), requests=3, unit="call")
+
+    # PointINet on the routes with gates off: launches, frames, ms/frame
+    x, y = pairs[0]
+    one = (perms[0][:1], perms[1][:1])
+    base = interp(x, y, 0.5, perms=one)
+    route_counts = []
+    for route, env, expected in (("all gates off", ALL_OFF, PER_REQUEST_ALL_OFF),
+                                 ("one-shot off", ONESHOT_OFF, PER_REQUEST_ONESHOT_OFF)):
+        with gates(env):
+            interp(x, y, 0.5)  # warm-up
+            route_counts.append(serve_counts(
+                lambda: [interp(x, y, 0.5)] + interp.upsample(x, y, factor=5), expected,
+                f"pointinet, {route}"))
+            p, mx = agreement(interp(x, y, 0.5, perms=one), base,
+                              f"pointinet frame, {route} vs the default route")
+            check(p <= 1e-3 and mx <= 0.25, f"pointinet, {route}: frame disagrees")
+    for route, env in (("default", {}), ("one-shot off", ONESHOT_OFF), ("all gates off", ALL_OFF)):
+        with gates(env):
+            latency(lambda: interp(x, y, 0.5), card, f"pointinet route {route}")
+    return counts, route_counts
 
 
 def synthetic_window(n: int = NPOINTS, seed: int = 0, t: float = 0.5):
@@ -641,6 +856,9 @@ def phase_isapci(card: str, totals: dict) -> dict:
 
     latency(lambda: interp(k0, k1, 0.5, context=context), card, "isapci")
     device_share(lambda: interp(k0, k1, 0.5, context=context))
+    with gates(ALL_OFF):  # the per-stage route in the same process, for the A/B
+        interp(k0, k1, 0.5, context=context)
+        latency(lambda: interp(k0, k1, 0.5, context=context), card, "isapci, all gates off")
 
     default = Interpolator.isapci(field=FIELD, weights=DEFAULT_WEIGHTS, device="cuda")
     frame = default(k0, k1, 0.5, context=context)  # resampled to 16,000
@@ -846,24 +1064,30 @@ def main() -> int:
     latency(lambda: interp(a_np, b_np, 0.5), card, "pointinet")
     device_share(lambda: interp(a_np, b_np, 0.5))
 
-    # 5. ISAPCInet field=2
+    # 5. stream serving, and PointINet's routes with gates off
+    counts_stream, counts_routes = phase_streams(interp, card, totals)
+
+    # 6. ISAPCInet field=2
     counts_isapci = phase_isapci(card, totals)
 
-    # 6. ISAPCInet field=2 training
+    # 7. ISAPCInet field=2 training
     counts_train = phase_train(card, totals)
 
+    paths = [counts, counts_stream, *counts_routes, counts_isapci, counts_train]
     kernels = []
     for kname, (source, replaces) in KERNEL_INFO.items():
         t = totals[kname]
         kernels.append({
             "name": kname, "route": "cuda", "source": source,
             "replaces": replaces,
-            "launches": counts[kname] + counts_isapci[kname] + counts_train[kname],
+            "launches": sum(c[kname] for c in paths),
             "max_abs_err": t["err"], "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": max(t["bytes_ms"], t["ops_ms"]),
             "bound_by": "bytes" if t["bytes_ms"] > t["ops_ms"] else "operations",
             "library_ms": t["library_ms"],
         })
+    idle = [k["name"] for k in kernels if not k["launches"]]
+    check(not idle, f"kernels no served path launched: {idle}")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -147,13 +147,15 @@ __device__ void dense_rows(const float* __restrict__ W,
 
 // Runs the whole chain over R rows, ping-ponging between two buffers of
 // `ld` floats a row; returns the buffer that holds the last layer's output
-// (a == input when the chain is empty).  Every layer ends in ReLU.
+// (a == input when the chain is empty).  Every layer ends in ReLU but the
+// last n_linear, which are linear.
 __device__ __forceinline__ float* mlp_rows(const float* __restrict__ wbuf,
                                            const MlpSpec& m, float* a,
-                                           float* b, int ld, int R) {
+                                           float* b, int ld, int R,
+                                           int n_linear = 0) {
   for (int l = 0; l < m.n; ++l) {
     dense_rows<8>(wbuf + m.woff[l], wbuf + m.boff[l], a, ld, b, ld, R,
-                  m.dims[l], m.dims[l + 1], true);
+                  m.dims[l], m.dims[l + 1], l < m.n - n_linear);
     __syncthreads();
     float* t = a;
     a = b;

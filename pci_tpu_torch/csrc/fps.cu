@@ -16,7 +16,9 @@
 // device memory; interleaved chains run as independent blocks in parallel.
 // Ties go to the lowest index, as jnp.argmax breaks them; once every
 // distance is 0 (npoint > N) the argmax is index 0 again, as in the XLA loop.
-#include "common.cuh"
+// The chain is fps_chain (csrc/stages.cuh), which the FlowNet3D
+// megakernels run for their in-kernel centres.
+#include "stages.cuh"
 
 template <int PPT>
 __global__ void __launch_bounds__(1024)
@@ -29,9 +31,6 @@ fps_kernel(const float* __restrict__ xyz, const int* __restrict__ start,
   const int L = (N - s + P - 1) / P;  // points in subset s
   float* sy = sx + L;
   float* sz = sy + L;
-  __shared__ float wd[32];
-  __shared__ int wi[32];
-  __shared__ int far_s;
 
   const float* X = xyz + (size_t)b * N * 3;
   for (int j = threadIdx.x; j < L; j += blockDim.x) {
@@ -40,63 +39,11 @@ fps_kernel(const float* __restrict__ xyz, const int* __restrict__ start,
     sy[j] = X[g + 1];
     sz[j] = X[g + 2];
   }
-  float dist[PPT];
-#pragma unroll
-  for (int t = 0; t < PPT; ++t) dist[t] = CUDART_INF_F;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int nwarps = blockDim.x >> 5;
-  int far = min(start[b] / P, L - 1);
+  const int far = min(start[b] / P, L - 1);
   __syncthreads();
-
-  const int npsub = npoint / P;
-  for (int it = 0; it < npsub; ++it) {
-    if (threadIdx.x == 0) out[(size_t)b * npoint + (size_t)it * P + s] = far * P + s;
-    const float cx = sx[far], cy = sy[far], cz = sz[far];
-    float bd = -1.f;
-    int bi = 0x7fffffff;
-#pragma unroll
-    for (int t = 0; t < PPT; ++t) {
-      const int j = threadIdx.x + t * blockDim.x;
-      if (j < L) {
-        const float d = sqdist3(sx[j], sy[j], sz[j], cx, cy, cz);
-        dist[t] = fminf(dist[t], d);
-        if (dist[t] > bd) {  // j grows with t: the first maximum is kept
-          bd = dist[t];
-          bi = j;
-        }
-      }
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      const float od = __shfl_xor_sync(0xffffffffu, bd, off);
-      const int oi = __shfl_xor_sync(0xffffffffu, bi, off);
-      if (od > bd || (od == bd && oi < bi)) {
-        bd = od;
-        bi = oi;
-      }
-    }
-    if (lane == 0) {
-      wd[warp] = bd;
-      wi[warp] = bi;
-    }
-    __syncthreads();
-    if (warp == 0) {
-      bd = lane < nwarps ? wd[lane] : -1.f;
-      bi = lane < nwarps ? wi[lane] : 0x7fffffff;
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        const float od = __shfl_xor_sync(0xffffffffu, bd, off);
-        const int oi = __shfl_xor_sync(0xffffffffu, bi, off);
-        if (od > bd || (od == bd && oi < bi)) {
-          bd = od;
-          bi = oi;
-        }
-      }
-      if (lane == 0) far_s = bi;
-    }
-    __syncthreads();
-    far = far_s;
-  }
+  fps_chain<PPT>(sx, sy, sz, L, npoint / P, far, [&](int it, int f) {
+    out[(size_t)b * npoint + (size_t)it * P + s] = f * P + s;
+  });
 }
 
 template <int PPT>

@@ -33,10 +33,9 @@
 // is a scatter-add of the residual gradient, outside any kernel, as in the
 // JAX package.  Bound: the 16,000^2 distances a cloud (8 flops each), so
 // operations; the extraction costs the same as in the one-shot kernel.
-#include "common.cuh"
+#include "fusion_head.cuh"
 
 #define FUS_TILE 2048
-#define FULL 0xffffffffu
 
 __device__ __forceinline__ void list_insert(float& dL, int& iL, float& thr,
                                             int cap, float dn, int jn,
@@ -137,9 +136,7 @@ template <int H1, int H2, int H3>
 __global__ void __launch_bounds__(256)
 fusion_kernel(const float* __restrict__ pts, const int* __restrict__ seg,
               const float* __restrict__ wbuf, float* __restrict__ out, int N) {
-  constexpr int NW = 4 * H1 + H1 + H1 * H2 + H2 + H2 * H3 + H3;
-  constexpr int W1 = 0, B1 = W1 + 4 * H1, W2 = B1 + H1, B2 = W2 + H1 * H2,
-                W3 = B2 + H2, B3 = W3 + H2 * H3;
+  constexpr int NW = ScoreMlp<H1, H2, H3>::NW;
   extern __shared__ float4 smem4[];
   float* sw = reinterpret_cast<float*>(smem4);
   float* tx = sw + ((NW + 3) / 4) * 4;
@@ -170,65 +167,10 @@ fusion_kernel(const float* __restrict__ pts, const int* __restrict__ seg,
   }
   __syncthreads();  // weights loaded (the tile loop may have run zero times)
 
-  // score MLP for this lane's slot, activations in registers
-  const float f3 = sqrtf(rx * rx + ry * ry + rz * rz + 1e-12f);
-  float h1[H1];
-#pragma unroll
-  for (int o = 0; o < H1; ++o) {
-    float v = sw[B1 + o];
-    v = fmaf(rx, sw[W1 + 0 * H1 + o], v);
-    v = fmaf(ry, sw[W1 + 1 * H1 + o], v);
-    v = fmaf(rz, sw[W1 + 2 * H1 + o], v);
-    v = fmaf(f3, sw[W1 + 3 * H1 + o], v);
-    h1[o] = fmaxf(v, 0.f);
-  }
-  float h2[H2];
-#pragma unroll
-  for (int o = 0; o < H2; ++o) h2[o] = sw[B2 + o];
-#pragma unroll
-  for (int i = 0; i < H1; ++i) {
-#pragma unroll
-    for (int o = 0; o < H2; o += 4) {
-      const float4 w = *reinterpret_cast<const float4*>(sw + W2 + i * H2 + o);
-      h2[o] = fmaf(h1[i], w.x, h2[o]);
-      h2[o + 1] = fmaf(h1[i], w.y, h2[o + 1]);
-      h2[o + 2] = fmaf(h1[i], w.z, h2[o + 2]);
-      h2[o + 3] = fmaf(h1[i], w.w, h2[o + 3]);
-    }
-  }
-#pragma unroll
-  for (int o = 0; o < H2; ++o) h2[o] = fmaxf(h2[o], 0.f);
-  float score = -CUDART_INF_F;
-#pragma unroll 1
-  for (int o = 0; o < H3; o += 4) {
-    float a0 = sw[B3 + o], a1 = sw[B3 + o + 1], a2 = sw[B3 + o + 2],
-          a3 = sw[B3 + o + 3];
-#pragma unroll
-    for (int i = 0; i < H2; ++i) {
-      const float4 w = *reinterpret_cast<const float4*>(sw + W3 + i * H3 + o);
-      a0 = fmaf(h2[i], w.x, a0);
-      a1 = fmaf(h2[i], w.y, a1);
-      a2 = fmaf(h2[i], w.z, a2);
-      a3 = fmaf(h2[i], w.w, a3);
-    }
-    score = fmaxf(score, fmaxf(fmaxf(fmaxf(a0, 0.f), fmaxf(a1, 0.f)),
-                               fmaxf(fmaxf(a2, 0.f), fmaxf(a3, 0.f))));
-  }
-
-  // softmax over the k slots, weighted residual sum
-  float s = active ? score : -CUDART_INF_F;
-  float m = s;
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) m = fmaxf(m, __shfl_xor_sync(FULL, m, off));
-  const float w = active ? expf(s - m) : 0.f;
-  float sw_ = w, ax = w * rx, ay = w * ry, az = w * rz;
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    sw_ += __shfl_xor_sync(FULL, sw_, off);
-    ax += __shfl_xor_sync(FULL, ax, off);
-    ay += __shfl_xor_sync(FULL, ay, off);
-    az += __shfl_xor_sync(FULL, az, off);
-  }
+  // score MLP for this lane's slot, softmax over the k slots, weighted sum
+  const float w = slot_weight(slot_score<H1, H2, H3>(rx, ry, rz, sw), active);
+  const float sw_ = warp_sum(w), ax = warp_sum(w * rx), ay = warp_sum(w * ry),
+              az = warp_sum(w * rz);
   if (lane == 0 && q < N) {
     float* o = out + ((size_t)b * N + q) * 3;
     o[0] = qx + ax / sw_;
@@ -243,7 +185,7 @@ extern "C" int pci_fusion(const void* pts, const void* seg, const void* wbuf,
                           int h1, int h2, int h3, void* out, int B, int N,
                           void* stream) {
   if (h1 != 64 || h2 != 64 || h3 != 128) return (int)cudaErrorInvalidValue;
-  constexpr int NW = 4 * 64 + 64 + 64 * 64 + 64 + 64 * 128 + 128;
+  constexpr int NW = ScoreMlp<64, 64, 128>::NW;
   const size_t smem = sizeof(float) * (((NW + 3) / 4) * 4 + 3 * FUS_TILE);
   cudaError_t e = allow_smem(fusion_kernel<64, 64, 128>, smem);
   if (e != cudaSuccess) return (int)e;

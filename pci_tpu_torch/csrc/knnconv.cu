@@ -1,15 +1,18 @@
 // Fused kNN set-conv tail: exact k-nearest grouping + MLP1 + max over the
 // k slots + skip concat + MLP2, or (interp) 3-NN inverse-distance
-// interpolation + skip concat + MLP2.
+// interpolation + skip concat + MLP2; the last n_final MLP2 layers are
+// linear, so FlowNet3D's classifier (its BatchNorm folded) rides the
+// FeaturePropagation's chain.
 //
-// Replaces pci_tpu/ops/pallas_kernels/knnconv_tpu.py:knnconv_fused (its
-// n_final linear tail is not ported: FlowNet3D's classifier stays plain).
-// It serves FlowEmbedding, SetUpConv and FeaturePropagation.  A slot's
-// MLP1 input is [key_xyz - query, key_feats, query_feats]; the MLP2 input
-// is [pooled, skip].  Interp weights come from distances recomputed from
-// the chosen keys: 1 / max(d, 1e-10) ("clamp", FlowNet3D's
-// FeaturePropagation) or 1 / (d + 1e-8) ("eps", PointNet++'s
-// FeaturePropagationP2; pci_tpu/ops/interpolate.py).
+// Replaces pci_tpu/ops/pallas_kernels/knnconv_tpu.py:knnconv_fused.  It
+// serves FlowEmbedding, SetUpConv and FeaturePropagation (+ the classifier
+// with n_final=1, FlowNet3D's fused decode).  A slot's MLP1 input is
+// [key_xyz - query, key_feats, query_feats]; the MLP2 input is [pooled,
+// skip].  Interp weights come from distances recomputed from the chosen
+// keys: 1 / max(d, 1e-10) ("clamp", FlowNet3D's FeaturePropagation) or
+// 1 / (d + 1e-8) ("eps", PointNet++'s FeaturePropagationP2;
+// pci_tpu/ops/interpolate.py).  The body is knn_conv_tile
+// (csrc/stages.cuh), which csrc/flowmid.cu runs too.
 //
 // Selection is exact: k rounds of a warp-wide lexicographic argmin over
 // (squared distance, key index), each round taking the least pair after
@@ -26,127 +29,11 @@
 // grouped rows in shared memory, never writes the [S, k, C] block to
 // device memory, and runs MLP1 over chunks of R rows with a running max,
 // then MLP2 over the block's Q pooled rows.
-#include "common.cuh"
+#include "stages.cuh"
 
-__global__ void __launch_bounds__(256)
-knnconv_kernel(const float* __restrict__ qxyz, const float* __restrict__ kxyz,
-               const float* __restrict__ kfeat, const float* __restrict__ qfeat,
-               const float* __restrict__ skip, const float* __restrict__ wbuf,
-               MlpSpec m1, MlpSpec m2, float* __restrict__ out, int N, int S,
-               int D, int C1, int Cs, int k, int interp, int recip_eps, int Q,
-               int R, int ld1, int ld2) {
+__global__ void __launch_bounds__(256) knnconv_kernel(const __grid_constant__ KnnConvStage st) {
   extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  const int RR = round_up(R, 8), QR = round_up(Q, 8);
-  float* bufA = smem;                          // [RR][ld1] MLP1 rows
-  float* bufB = bufA + (size_t)RR * ld1;       // [RR][ld1]
-  float* h2a = bufB + (size_t)RR * ld1;        // [QR][ld2] pooled | skip
-  float* h2b = h2a + (size_t)QR * ld2;         // [QR][ld2]
-  float* wts = h2b + (size_t)QR * ld2;         // [Q][k] interp weights
-  int* sidx = reinterpret_cast<int*>(wts + round_up(Q * k, 4));  // [Q][k]
-
-  const int b = blockIdx.y;
-  const int q0 = blockIdx.x * Q;
-  const float* KX = kxyz + (size_t)b * N * 3;
-  const float* KF = kfeat + (size_t)b * N * D;
-  const float* QX = qxyz + (size_t)b * S * 3;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int nwarps = blockDim.x >> 5;
-
-  // 1. exact kNN: one warp a query, k lexicographic argmin rounds
-  for (int qi = warp; qi < Q; qi += nwarps) {
-    const int q = min(q0 + qi, S - 1);
-    const float qx = QX[q * 3], qy = QX[q * 3 + 1], qz = QX[q * 3 + 2];
-    float pd = -1.f;
-    int pi = -1;
-    for (int s = 0; s < k; ++s) {
-      float bd = CUDART_INF_F;
-      int bi = 0x7fffffff;
-      for (int j = lane; j < N; j += 32) {
-        const float d = sqdist3(KX[j * 3], KX[j * 3 + 1], KX[j * 3 + 2], qx, qy, qz);
-        const bool after = d > pd || (d == pd && j > pi);
-        if (after && d < bd) {  // j grows per lane: equal d keeps the lower j
-          bd = d;
-          bi = j;
-        }
-      }
-      warp_argmin(bd, bi);
-      if (lane == 0) sidx[qi * k + s] = bi;
-      pd = bd;
-      pi = bi;
-    }
-  }
-  __syncthreads();
-
-  // 2. pooled features into h2a[:, 0:cm]
-  int cm;
-  if (interp) {
-    for (int e = threadIdx.x; e < Q * k; e += blockDim.x) {
-      const int qi = e / k;
-      const int q = min(q0 + qi, S - 1);
-      const int j = sidx[e];
-      const float d = sqdist3(KX[j * 3], KX[j * 3 + 1], KX[j * 3 + 2],
-                              QX[q * 3], QX[q * 3 + 1], QX[q * 3 + 2]);
-      wts[e] = recip_eps ? 1.f / (d + 1e-8f) : 1.f / fmaxf(d, 1e-10f);
-    }
-    __syncthreads();
-    cm = D;
-    for (int e = threadIdx.x; e < Q * D; e += blockDim.x) {
-      const int qi = e / D, c = e - qi * D;
-      float num = 0.f, den = 0.f;
-      for (int s = 0; s < k; ++s) {
-        const float w = wts[qi * k + s];
-        num += w * KF[(size_t)sidx[qi * k + s] * D + c];
-        den += w;
-      }
-      h2a[(size_t)qi * ld2 + c] = num / den;
-    }
-  } else {
-    const int C0 = 3 + D + C1;
-    cm = m1.n ? m1.dims[m1.n] : C0;
-    for (int e = threadIdx.x; e < Q * cm; e += blockDim.x)
-      h2a[(size_t)(e / cm) * ld2 + (e % cm)] = -CUDART_INF_F;
-    const int rows = Q * k;
-    for (int r0 = 0; r0 < rows; r0 += R) {
-      const int nr = min(R, rows - r0);
-      __syncthreads();
-      for (int e = threadIdx.x; e < nr * C0; e += blockDim.x) {
-        const int r = e / C0, c = e - r * C0;
-        const int row = r0 + r;
-        const int q = min(q0 + row / k, S - 1);
-        const int j = sidx[row];
-        float v;
-        if (c < 3) v = KX[j * 3 + c] - QX[q * 3 + c];
-        else if (c < 3 + D) v = KF[(size_t)j * D + (c - 3)];
-        else v = qfeat[((size_t)b * S + q) * C1 + (c - 3 - D)];
-        bufA[(size_t)r * ld1 + c] = v;
-      }
-      __syncthreads();
-      const float* h = mlp_rows(wbuf, m1, bufA, bufB, ld1, nr);
-      const int qa = r0 / k, qb = (r0 + nr - 1) / k;
-      for (int e = threadIdx.x; e < (qb - qa + 1) * cm; e += blockDim.x) {
-        const int qi = qa + e / cm, o = e % cm;
-        const int ra = max(qi * k, r0) - r0, rb = min(qi * k + k, r0 + nr) - r0;
-        float m = h2a[(size_t)qi * ld2 + o];
-        for (int r = ra; r < rb; ++r) m = fmaxf(m, h[(size_t)r * ld1 + o]);
-        h2a[(size_t)qi * ld2 + o] = m;
-      }
-    }
-  }
-  // 3. skip concat, MLP2 over the block's Q rows
-  for (int e = threadIdx.x; e < Q * Cs; e += blockDim.x) {
-    const int qi = e / Cs, c = e - qi * Cs;
-    const int q = min(q0 + qi, S - 1);
-    h2a[(size_t)qi * ld2 + cm + c] = skip[((size_t)b * S + q) * Cs + c];
-  }
-  __syncthreads();
-  const float* h = mlp_rows(wbuf, m2, h2a, h2b, ld2, Q);
-  const int cout = m2.n ? m2.dims[m2.n] : cm + Cs;
-  for (int e = threadIdx.x; e < Q * cout; e += blockDim.x) {
-    const int qi = e / cout, o = e - qi * cout;
-    const int q = q0 + qi;
-    if (q < S) out[((size_t)b * S + q) * cout + o] = h[(size_t)qi * ld2 + o];
-  }
+  knn_conv_tile(st, blockIdx.y, blockIdx.x * st.Q, reinterpret_cast<float*>(smem4));
 }
 
 // dims1/dims2: host arrays of the MLP widths (n1 + 1 and n2 + 1 entries;
@@ -156,35 +43,27 @@ extern "C" int pci_knnconv(const void* qxyz, const void* kxyz,
                            const void* skip, const void* wbuf, const int* dims1,
                            int n1, const int* dims2, int n2, void* out, int B,
                            int N, int S, int D, int C1, int Cs, int k,
-                           int interp, int recip_eps, int Q, int R,
-                           void* stream) {
-  if (n1 < 0 || n1 > PCI_MAX_LAYERS || n2 < 0 || n2 > PCI_MAX_LAYERS ||
-      k < 1 || k > N || (interp && (n1 || C1)))
+                           int interp, int recip_eps, int n_final, void* stream) {
+  if (n1 < 0 || n1 > PCI_MAX_LAYERS || n2 < 0 || n2 > PCI_MAX_LAYERS)
     return (int)cudaErrorInvalidValue;
-  const int C0 = 3 + D + C1;
-  if (n1 && dims1[0] != C0) return (int)cudaErrorInvalidValue;
-  const int cm = interp ? D : (n1 ? dims1[n1] : C0);
-  if (n2 && dims2[0] != cm + Cs) return (int)cudaErrorInvalidValue;
-  const MlpSpec m1 = make_mlp_spec(dims1, n1, 0);
-  const MlpSpec m2 = make_mlp_spec(dims2, n2, mlp_floats(dims1, n1));
-  int ld1 = interp ? 0 : C0;
-  for (int l = 0; l <= n1 && !interp; ++l) ld1 = std::max(ld1, dims1[l]);
-  ld1 = round_up(ld1, 4);
-  int ld2 = cm + Cs;
-  for (int l = 0; l <= n2; ++l) ld2 = std::max(ld2, dims2[l]);
-  ld2 = round_up(ld2, 4);
-  const size_t smem =
-      sizeof(float) * (2 * (size_t)round_up(R, 8) * ld1 +
-                       2 * (size_t)round_up(Q, 8) * ld2 + round_up(Q * k, 4)) +
-      sizeof(int) * (size_t)Q * k;
+  KnnConvStage st;
+  st.qxyz = static_cast<const float*>(qxyz);
+  st.kxyz = static_cast<const float*>(kxyz);
+  st.kfeat = static_cast<const float*>(kfeat);
+  st.qfeat = static_cast<const float*>(qfeat);
+  st.skip = static_cast<const float*>(skip);
+  st.skip2 = nullptr;
+  st.w1 = st.w2 = static_cast<const float*>(wbuf);
+  st.out = static_cast<float*>(out);
+  st.m1 = make_mlp_spec(dims1, n1, 0);
+  st.m2 = make_mlp_spec(dims2, n2, mlp_floats(dims1, n1));
+  st.N = N, st.S = S, st.D = D, st.C1 = C1, st.Cs = Cs, st.Cs2 = 0, st.k = k;
+  st.interp = interp, st.recip_eps = recip_eps, st.n_final = n_final;
+  if (!knn_conv_plan(st, SIZE_MAX)) return (int)cudaErrorInvalidValue;
+  const size_t smem = knn_conv_smem(st);
   cudaError_t e = allow_smem(knnconv_kernel, smem);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid((S + Q - 1) / Q, B);
-  knnconv_kernel<<<grid, 256, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(qxyz), static_cast<const float*>(kxyz),
-      static_cast<const float*>(kfeat), static_cast<const float*>(qfeat),
-      static_cast<const float*>(skip), static_cast<const float*>(wbuf), m1, m2,
-      static_cast<float*>(out), N, S, D, C1, Cs, k, interp, recip_eps, Q, R,
-      ld1, ld2);
+  dim3 grid((S + st.Q - 1) / st.Q, B);
+  knnconv_kernel<<<grid, 256, smem, static_cast<cudaStream_t>(stream)>>>(st);
   return (int)cudaGetLastError();
 }

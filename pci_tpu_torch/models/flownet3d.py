@@ -3,22 +3,55 @@
 
 A 4-level set-conv encoder shared by both clouds (Siamese), a cross-cloud
 flow embedding, three up-convs, feature propagation and a regression
-head.  ``decode`` is the JAX package's non-fused branch
-(``models/flownet3d.py:141-150``): every stage is one kernel call.
+head.  Two routes, picked per call by the JAX package's gates:
+
+- fused (the default at eval on a CUDA tensor): ``encode`` is FPS then ONE
+  kernel for set_conv1 + set_conv2 (``flowenc_fused``); ``decode`` is ONE
+  kernel from the flow embedding to set_upconv3 (``flowmid_fused``), then
+  the FeaturePropagation with the classifier folded into its chain
+  (``knnconv_fused(..., n_final=1)``);
+- per stage (``PCI_TPU_ENC_KERNEL`` / ``PCI_TPU_MID_KERNEL`` set to
+  anything but "1", or a CPU tensor): every stage is one kernel call and
+  the classifier plain PyTorch.
+
+Both routes pick the same points: the megakernels run the per-stage
+kernels' bodies.
 """
 
 from __future__ import annotations
 
+import os
+
 import torch
 from torch import nn
 
+from .. import ops
 from ..nn.layers import (
     Classifier,
     FeaturePropagation,
     FlowEmbedding,
     SetConv,
     SetUpConv,
+    require_eval,
 )
+from ..nn.mlp import cached_fold
+from ..ops.cuda_kernels import flowenc_fused, flowmid_fused, knnconv_fused
+
+
+def _enc_ok(train: bool, x: torch.Tensor) -> bool:
+    """Route the Siamese encoder (set_conv1 + set_conv2) to the fused
+    two-stage kernel: eval on a CUDA tensor, unless ``PCI_TPU_ENC_KERNEL``
+    (read at call time, default "1", as the JAX package's ``_enc_ok``
+    reads it) says otherwise.  Module-level for tests and A/B flips."""
+    return x.is_cuda and not train and os.environ.get("PCI_TPU_ENC_KERNEL", "1") == "1"
+
+
+def _mid_ok(train: bool, x: torch.Tensor) -> bool:
+    """Route the decode (flow_embedding .. set_upconv3, then the
+    FeaturePropagation with the classifier) to the fused kernels: eval on
+    a CUDA tensor, unless ``PCI_TPU_MID_KERNEL`` (default "1") says
+    otherwise.  Module-level for tests and A/B flips."""
+    return x.is_cuda and not train and os.environ.get("PCI_TPU_MID_KERNEL", "1") == "1"
 
 
 class FlowNet3D(nn.Module):
@@ -41,14 +74,30 @@ class FlowNet3D(nn.Module):
     def encode(self, xyz, feats):
         """Two-level set-conv encoding of one cloud -> (xyz, feats, p_1,
         f_1, p_2, f_2), reusable across every pair the cloud is in."""
+        require_eval(self)
+        if _enc_ok(self.training, xyz):
+            return self._encode_fused(xyz, feats)
         p_1, f_1 = self.set_conv1(xyz, feats)
         p_2, f_2 = self.set_conv2(p_1, f_1)
         return (xyz, feats, p_1, f_1, p_2, f_2)
 
+    def _encode_fused(self, xyz, feats):
+        """set_conv1's centres by FPS, then one kernel: set_conv1, the FPS
+        of set_conv2's centres, set_conv2."""
+        sc1, sc2 = self.set_conv1, self.set_conv2
+        p_1 = ops.fps_points(xyz, sc1.npoint, 0, exact=False)
+        f_1, f_2, p_2 = flowenc_fused(xyz, feats, p_1, sc1.mlp.folded(), sc2.mlp.folded(),
+                                      sc2.npoint, sc1.radius, sc1.nsample, sc2.radius,
+                                      sc2.nsample)
+        return (xyz, feats, p_1, f_1, p_2, f_2)
+
     def decode(self, enc_a, enc_b):
         """Flow a -> b ``[B, N, 3]`` from the two clouds' encodings."""
+        require_eval(self)
         xyza, featsa, pa_1, fa_1, pa_2, fa_2 = enc_a
         pb_2, fb_2 = enc_b[4], enc_b[5]
+        if _mid_ok(self.training, xyza):
+            return self._decode_fused(xyza, featsa, pa_1, fa_1, pa_2, fa_2, pb_2, fb_2)
         emb = self.flow_embedding(pa_2, pb_2, fa_2, fb_2)
         pa_3, fa_3 = self.set_conv3(pa_2, emb)
         pa_4, fa_4 = self.set_conv4(pa_3, fa_3)
@@ -57,6 +106,27 @@ class FlowNet3D(nn.Module):
         nf_1 = self.set_upconv3(pa_2, pa_1, nf_2, fa_1)
         nf = self.fp(pa_1, xyza, nf_1, featsa)
         return self.classifier(nf)
+
+    def _decode_fused(self, xyza, featsa, pa_1, fa_1, pa_2, fa_2, pb_2, fb_2):
+        """Two kernels: the mid-section from the flow embedding to
+        set_upconv3, then the FeaturePropagation with the classifier's
+        folded layer and its linear last layer riding the chain."""
+        sc3, sc4 = self.set_conv3, self.set_conv4
+        su1, su2, su3 = self.set_upconv1, self.set_upconv2, self.set_upconv3
+        groups = [self.flow_embedding.mlp.folded(), sc3.mlp.folded(), sc4.mlp.folded(),
+                  su1.conv2.folded(), su2.conv1.folded(), su2.conv2.folded(),
+                  su3.conv1.folded(), su3.conv2.folded()]
+        nf_1 = flowmid_fused(pa_1, fa_1, pa_2, fa_2, pb_2, fb_2, groups, sc3.npoint,
+                             sc4.npoint, self.flow_embedding.nsample, sc3.radius,
+                             sc3.nsample, sc4.radius, sc4.nsample, su1.nsample)
+        return knnconv_fused(xyza, pa_1, nf_1, None, featsa, 3, [], self._tail(),
+                             interp=True, n_final=1)
+
+    def _tail(self):
+        """The FeaturePropagation's folded MLP, then the classifier's
+        folded layers: one chain, cached until a weight changes."""
+        return cached_fold(self, lambda: [*self.fp.mlp.folded(), *self.classifier.folded()],
+                           [self.fp, self.classifier])
 
     def multi(self, clouds, feats, pairs):
         """Flows for ``pairs`` of indices into ``clouds``; each cloud is

@@ -6,11 +6,13 @@ Adaptive sampling takes ``N1 = N - N2`` points of warped cloud 1 and
 own random permutation, into one combined cloud; each combined point then
 takes ``k1 = k - floor(k * t)`` neighbours from the cloud-1 segment and
 ``k2`` from the cloud-2 segment, and the attention head fuses them.  At
-eval that is one kernel on the card
-(``ops.cuda_kernels.knn_fusion_attention``); in training, as on the TPU,
-the residual kNN kernel (``fusion_resi_knn``: indices and residuals, with
-the fixed-neighbour backward) and then the head in PyTorch, its BatchNorms
-on batch statistics (``fusion_head``).
+eval on the card that is one kernel (``knn_fusion_attention``), or, with
+``PCI_TPU_FUSION_ONESHOT`` set to anything but "1", the JAX package's
+two-kernel route: the residual kNN (``fusion_resi_knn``) and the attention
+tail (``fusion_attention_tail``), which a CPU tensor also takes.  In
+training, as on the TPU, the residual kNN (with the fixed-neighbour
+backward) and then the head in PyTorch, its BatchNorms on batch
+statistics (``fusion_head``).
 
 The permutations come from ``torch.randperm`` with the caller's
 ``torch.Generator``: torch cannot reproduce ``jax.random``'s draws, so a
@@ -19,10 +21,12 @@ caller that needs given permutations passes ``perms=(perm1, perm2)``.
 
 from __future__ import annotations
 
+import os
+
 import torch
 from torch import nn
 
-from ..ops.cuda_kernels import fusion_resi_knn, knn_fusion_attention
+from ..ops.cuda_kernels import fusion_attention_tail, fusion_resi_knn, knn_fusion_attention
 from ..ops.cuda_kernels.fusion_knn_cuda import fusion_head
 from .mlp import PointMLP
 
@@ -64,6 +68,15 @@ def _composed_shuffle_merge(points_list, perms, n_all):
     return combined, gidx
 
 
+def _fusion_oneshot_ok(train: bool, x: torch.Tensor) -> bool:
+    """Route the eval fusion to the one-shot kernel (kNN and attention head
+    in one launch): eval on a CUDA tensor, unless
+    ``PCI_TPU_FUSION_ONESHOT`` (read at call time, default "1", as the JAX
+    package's gate reads it) says otherwise.  Module-level for tests and
+    A/B flips."""
+    return x.is_cuda and not train and os.environ.get("PCI_TPU_FUSION_ONESHOT", "1") == "1"
+
+
 def random_perms(B: int, N: int, generator: torch.Generator | None,
                  device) -> torch.Tensor:
     """``[B, N]`` int64 uniform permutations from ``generator``."""
@@ -97,9 +110,11 @@ class PointsFusion(nn.Module):
         )
         seg_ends = torch.stack([N1, torch.full_like(N1, N)], dim=1)
         budgets = torch.stack([k1, k2], dim=1)
+        if _fusion_oneshot_ok(self.training, combined):
+            return knn_fusion_attention(combined, seg_ends, budgets,
+                                        self.mlp.folded(), k)
+        _, resi = fusion_resi_knn(combined, seg_ends, budgets, k)
         if self.training:
-            _, resi = fusion_resi_knn(combined, seg_ends, budgets, k)
             # the head in PyTorch (pci_tpu/nn/fusion.py:282-292)
             return fusion_head(combined, resi, lambda h: self.mlp(h, momentum))
-        return knn_fusion_attention(combined, seg_ends, budgets,
-                                    self.mlp.folded(), k)
+        return fusion_attention_tail(combined, resi, None, self.mlp.folded())

@@ -6,7 +6,9 @@ Eval only (FlowNet3D is frozen while the port trains ISAPCInet; its
 training waits for backward paths of the set-conv and kNN-conv kernels):
 every stage folds its BatchNorms into the Dense weights and runs as ONE
 fused kernel call (a CUDA kernel on the card, its plain PyTorch version on
-the CPU).  Channel concat orders follow the JAX
+the CPU).  These are FlowNet3D's per-stage route; its fused route
+(``models/flownet3d.py``) runs the same folds through the megakernels.
+Channel concat orders follow the JAX
 package, because they define the weight layout: SetConv groups
 ``[dxyz, feats]``; FlowEmbedding appends the query cloud's features last;
 SetUpConv concats the skip features after the max-pool;
@@ -21,8 +23,8 @@ import torch
 from torch import nn
 
 from .. import ops
-from ..ops.cuda_kernels import knnconv_fused, setconv_fused
-from .mlp import PointMLP
+from ..ops.cuda_kernels import fold_bn_layers, knnconv_fused, setconv_fused
+from .mlp import PointMLP, cached_fold
 from .norm import BatchNorm
 
 
@@ -131,8 +133,10 @@ class FeaturePropagation(nn.Module):
 
 
 class Classifier(nn.Module):
-    """Flow regression head: Dense(128) + BN + ReLU + Dense(3), plain
-    PyTorch (one matmul each; not a kernel of the port)."""
+    """Flow regression head: Dense(128) + BN + ReLU + Dense(3).  Plain
+    PyTorch on FlowNet3D's per-stage route; on its fused decode the
+    :meth:`folded` layers ride the FeaturePropagation's kNN-conv chain
+    (``n_final=1``)."""
 
     def __init__(self):
         super().__init__()
@@ -144,3 +148,13 @@ class Classifier(nn.Module):
         require_eval(self)
         h = torch.relu(self.bn[0](self.dense[0](feats)))
         return self.dense[1](h)
+
+    def folded(self):
+        """``[(W, b), (W, b)]``: Dense_0 with its BatchNorm folded (ReLU
+        after it), then Dense_1 as it is (linear), as
+        ``pci_tpu/models/flownet3d.py:189-196`` builds the tail.  Eval
+        only; cached until a parameter or buffer changes."""
+        require_eval(self)
+        last = self.dense[1]
+        return cached_fold(self, lambda: fold_bn_layers(self.dense[:1], self.bn) + [
+            (last.weight.detach(), last.bias.detach())], [self])

@@ -42,8 +42,6 @@ class PointMLP(nn.Module):
             self.gn = nn.ModuleList(GroupNorm(max(f // groups_div, 1), f) for f in features)
         else:
             raise ValueError(f"unknown norm {norm!r}")
-        self._fold_key = None
-        self._folded = None
 
     @property
     def out_channels(self) -> int:
@@ -69,13 +67,21 @@ class PointMLP(nn.Module):
         if self.training:
             raise RuntimeError("PointMLP.folded: a fold takes the running statistics "
                                "(eval only); call .eval()")
-        tensors = (*self.parameters(), *self.buffers())
-        if any(t.is_inference() for t in tensors):
-            # made under inference_mode: no version counter to key a cache on
-            return PackedLayers(fold_bn_layers(self.dense, self.bn))
-        key = tuple((t.data_ptr(), t._version) for t in tensors)
-        if key != self._fold_key:
-            with torch.no_grad():
-                self._folded = PackedLayers(fold_bn_layers(self.dense, self.bn))
-            self._fold_key = key
-        return self._folded
+        return cached_fold(self, lambda: fold_bn_layers(self.dense, self.bn), [self])
+
+
+def cached_fold(holder: nn.Module, build, modules) -> PackedLayers:
+    """``PackedLayers(build())`` made under ``torch.no_grad()`` and cached on
+    ``holder`` until a parameter or buffer of ``modules`` changes (new
+    storage or an in-place write, e.g. ``load_state_dict`` or ``.to``).
+    Modules made under ``torch.inference_mode()`` have no version counter
+    to key a cache on: they fold on every call."""
+    tensors = [t for m in modules for t in (*m.parameters(), *m.buffers())]
+    if any(t.is_inference() for t in tensors):
+        return PackedLayers(build())
+    key = tuple((t.data_ptr(), t._version) for t in tensors)
+    if key != getattr(holder, "_fold_key", None):
+        with torch.no_grad():
+            holder._folded = PackedLayers(build())
+        holder._fold_key = key
+    return holder._folded

@@ -1,6 +1,7 @@
 """Hand-written CUDA kernels for Hopper (``sm_90a``), one per TPU kernel of
-the port's paths (PointINet and ISAPCInet eval, ISAPCInet training), each
-beside its plain PyTorch version.
+the port's paths (PointINet and ISAPCInet eval on the JAX package's default
+route and with its gates off, ISAPCInet training), each beside its plain
+PyTorch version.
 
 Every kernel wrapper (``*_kernel``) counts its launches in a
 ``launches`` attribute (the kNN kernel's k=1 form in
@@ -17,6 +18,8 @@ from .attention_cuda import (
     vector_attention_trainable,
 )
 from .ball_cuda import ball_kernel, ball_query_multi
+from .flowenc_cuda import flowenc_fused, flowenc_kernel
+from .flowmid_cuda import flowmid_fused, flowmid_kernel
 from .fps_cuda import fps_kernel
 from .fusion_knn_cuda import (
     fusion_kernel,
@@ -24,6 +27,7 @@ from .fusion_knn_cuda import (
     fusion_resi_knn,
     knn_fusion_attention,
 )
+from .fusion_tail_cuda import fusion_attention_tail, fusion_tail_kernel
 from .knn_cuda import knn, knn_kernel, nearest_launches
 from .knnconv_cuda import knnconv_fused, knnconv_kernel
 from .setconv_cuda import fold_bn_layers, setconv_fused, setconv_kernel
@@ -39,6 +43,9 @@ KERNELS = {
     "fusion_resi": fusion_resi_kernel,
     "nearest": nearest_launches,
     "attention_bwd": attention_bwd_kernel,
+    "flowenc": flowenc_kernel,
+    "flowmid": flowmid_kernel,
+    "fusion_tail": fusion_tail_kernel,
 }
 
 
@@ -59,11 +66,17 @@ __all__ = [
     "ball_kernel",
     "ball_query_multi",
     "build_seconds",
+    "flowenc_fused",
+    "flowenc_kernel",
+    "flowmid_fused",
+    "flowmid_kernel",
     "fold_bn_layers",
     "fps_kernel",
+    "fusion_attention_tail",
     "fusion_kernel",
     "fusion_resi_kernel",
     "fusion_resi_knn",
+    "fusion_tail_kernel",
     "knn",
     "knn_fusion_attention",
     "knn_kernel",

@@ -41,16 +41,19 @@ _FP = ctypes.POINTER(ctypes.c_float)
 # C entry points: name -> argtypes (every function returns cudaGetLastError)
 _SIGNATURES = {
     "pci_fps": [_P, _P, _P, _I, _I, _I, _I, _P],
-    "pci_setconv": [_P, _P, _P, _P, _IP, _I, _P, _I, _I, _I, _I, _F, _I, _I,
-                    _I, _P],
-    "pci_knnconv": [_P, _P, _P, _P, _P, _P, _IP, _I, _IP, _I, _P, _I, _I, _I,
-                    _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "pci_setconv": [_P, _P, _P, _P, _IP, _I, _P, _I, _I, _I, _I, _F, _I, _P],
+    "pci_knnconv": [_P, _P, _P, _P, _P, _P, _IP, _I, _IP, _I, _P] + [_I] * 10 + [_P],
     "pci_fusion": [_P, _P, _P, _I, _I, _I, _P, _I, _I, _P],
     "pci_ball": [_P, _P, _P, _FP, _IP, _I, _I, _I, _I, _P],
     "pci_knn": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "pci_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     "pci_fusion_resi": [_P, _P, _P, _I, _P, _P, _I, _I, _I, _P],
     "pci_attention_bwd": [_P] * 10 + [_I, _I, _I, _I, _P],
+    "pci_flowenc": [_P, _P, _P, _P, _IP, _I, _P, _IP, _I, _P, _P, _P, _P, _I, _I,
+                    _I, _I, _I, _F, _I, _F, _I, _P],
+    "pci_flowmid": [_P] * 6 + [ctypes.POINTER(_P), _IP, _IP, _IP] + [_P] * 9
+                   + [_I] * 8 + [_F, _I, _F, _I, _I, _P],
+    "pci_fusion_tail": [_P, _P, _P, _P, _I, _I, _I, _P, _I, _I, _I, _I, _P],
 }
 
 _PLAIN = contextvars.ContextVar("pci_tpu_torch_plain", default=False)
@@ -221,8 +224,11 @@ def _pack(layers, device: torch.device):
     return buf, dims
 
 
-def mlp_plain(h: torch.Tensor, layers) -> torch.Tensor:
-    """Plain folded MLP chain: ``relu(h @ W.T + b)`` per layer."""
-    for w, b in layers:
-        h = torch.relu(torch.nn.functional.linear(h, w, b))
+def mlp_plain(h: torch.Tensor, layers, n_final: int = 0) -> torch.Tensor:
+    """Plain folded MLP chain: ``relu(h @ W.T + b)`` per layer, the last
+    ``n_final`` layers linear."""
+    for i, (w, b) in enumerate(layers):
+        h = torch.nn.functional.linear(h, w, b)
+        if i < len(layers) - n_final:
+            h = torch.relu(h)
     return h

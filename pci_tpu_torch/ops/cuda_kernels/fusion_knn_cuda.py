@@ -91,13 +91,17 @@ def fusion_plain(combined, seg_ends, budgets, layers, k):
     return fusion_head(combined, resi, lambda h: _build.mlp_plain(h, layers))
 
 
-def fusion_head(combined, resi, score):
+def fusion_head(combined, resi, score, extra=None):
     """The attention head over given residuals ``resi [B, N, k, 3]``:
     ``s = max_c score([resi | safe_norm(resi)])`` with ``score`` the
-    per-slot MLP, ``w = softmax_k(s)``, ``combined + sum_k w * resi``."""
+    per-slot MLP, ``w = softmax_k(s)``, ``combined + sum_k w * resi``, and
+    ``sum_k w * extra`` appended for a payload ``extra [B, N, k, Ce]``."""
     h = score(torch.cat([resi, safe_norm(resi)], -1))
     w = torch.softmax(h.amax(dim=-1), dim=-1)[..., None]
-    return combined + (w * resi).sum(dim=2)
+    fused = combined + (w * resi).sum(dim=2)
+    if extra is None:
+        return fused
+    return torch.cat([fused, (w * extra).sum(dim=2)], dim=-1)
 
 
 def fusion_resi_knn(combined: torch.Tensor, seg_ends: torch.Tensor,

@@ -1,9 +1,11 @@
 """Fused kNN set-conv tail: exact kNN group + MLP1 + max + skip + MLP2, or
-3-NN inverse-distance interpolation + skip + MLP2.  The CUDA kernel
-(csrc/knnconv.cu) and its plain PyTorch version.
+3-NN inverse-distance interpolation + skip + MLP2, the last ``n_final``
+MLP2 layers linear.  The CUDA kernel (csrc/knnconv.cu) and its plain
+PyTorch version.
 
-Replaces ``pci_tpu/ops/pallas_kernels/knnconv_tpu.py:knnconv_fused``
-without its ``n_final`` linear tail (the classifier stays plain).
+Replaces ``pci_tpu/ops/pallas_kernels/knnconv_tpu.py:knnconv_fused``;
+with ``n_final=1`` FlowNet3D's classifier rides the FeaturePropagation's
+chain (its fused decode).
 """
 
 from __future__ import annotations
@@ -27,18 +29,20 @@ def knnconv_fused(q_xyz, k_xyz, k_feats, q_feats, skip_feats, k, mlp1, mlp2,
       k_feats ``[B, N, D]``; q_feats ``[B, S, C1]`` or None (appended to
       every slot, FlowEmbedding); skip_feats ``[B, S, Cs]`` or None.
       mlp1 / mlp2: folded ``[(W, b), ...]`` chains, either may be empty;
-      every layer ends in ReLU.
+      every layer ends in ReLU but the last ``n_final`` of MLP2.
       interp: pool by 3-NN inverse distance, with weights from distances
         recomputed off the chosen keys (needs ``k == 3``, ``mlp1 == []``
         and no q_feats).
-      n_final: not supported (the TPU kernel's linear classifier tail).
+      n_final: the trailing ``n_final`` MLP2 layers skip the ReLU (a
+        linear regression head, such as FlowNet3D's classifier with its
+        BatchNorm folded).
       recip: the interp weights, ``"clamp"`` ``1 / max(d, 1e-10)``
         (FlowNet3D) or ``"eps"`` ``1 / (d + 1e-8)`` (PointNet++).
 
     Returns ``[B, S, C_out]`` fp32.
     """
-    if n_final:
-        raise NotImplementedError("knnconv_fused: the n_final linear tail is not ported")
+    if not 0 <= n_final <= len(mlp2):
+        raise ValueError(f"knnconv_fused: n_final={n_final} of {len(mlp2)} MLP2 layers")
     if interp and (k != 3 or mlp1 or q_feats is not None):
         raise ValueError("knnconv_fused: interp mode is 3-NN with no MLP1 or q_feats")
     if recip not in ("clamp", "eps"):
@@ -50,13 +54,13 @@ def knnconv_fused(q_xyz, k_xyz, k_feats, q_feats, skip_feats, k, mlp1, mlp2,
         prep = lambda t: None if t is None else t.float().contiguous()  # noqa: E731
         return knnconv_kernel(prep(q_xyz), prep(k_xyz), prep(k_feats),
                               prep(q_feats), prep(skip_feats), k, mlp1, mlp2,
-                              interp, recip)
+                              interp, recip, n_final)
     return knnconv_plain(q_xyz, k_xyz, k_feats, q_feats, skip_feats, k, mlp1,
-                         mlp2, interp, recip)
+                         mlp2, interp, recip, n_final)
 
 
 def knnconv_kernel(q_xyz, k_xyz, k_feats, q_feats, skip_feats, k, mlp1, mlp2,
-                   interp, recip):
+                   interp, recip, n_final=0):
     dev = q_xyz.device
     B, S, _ = q_xyz.shape
     N, D = k_xyz.shape[1], k_feats.shape[-1]
@@ -76,17 +80,7 @@ def knnconv_kernel(q_xyz, k_xyz, k_feats, q_feats, skip_feats, k, mlp1, mlp2,
     if dims1 and dims1[0] != c0 or dims2 and dims2[0] != cm + Cs:
         raise ValueError(f"knnconv: MLP widths {dims1} / {dims2} do not fit "
                          f"the {c0} grouped and {Cs} skip channels")
-    wbuf = torch.cat([w1, w2]).contiguous()
-    if interp:
-        # the block's [Q, D + Cs] pooled rows (two buffers) in shared memory:
-        # 32 rows up to 256 channels, fewer for PointNet++'s fp4 (D = 1,024)
-        ld2 = -(-max(dims2 + [cm + Cs]) // 4) * 4
-        Q, R = max(8, min(32, (96 * 1024 // (2 * ld2 * 4)) // 8 * 8)), 8
-    else:
-        Q = max(1, min(8, 32 // k))
-        ld1 = -(-max(dims1 + [c0]) // 4) * 4
-        R = max(8, min(64, (96 * 1024 // (2 * ld1 * 4)) // 8 * 8))
-        R = min(R, -(-Q * k // 8) * 8)
+    wbuf = torch.cat([w1, w2]) if w1.numel() else w2
     c_out = dims2[-1] if dims2 else cm + Cs
     out = torch.empty((B, S, c_out), dtype=torch.float32, device=dev)
     null = 0
@@ -97,8 +91,8 @@ def knnconv_kernel(q_xyz, k_xyz, k_feats, q_feats, skip_feats, k, mlp1, mlp2,
         wbuf.data_ptr() if wbuf.numel() else null,
         _build.int_array(dims1 or [c0]), len(mlp1),
         _build.int_array(dims2 or [cm + Cs]), len(mlp2),
-        out.data_ptr(), B, N, S, D, C1, Cs, k, int(interp), int(recip == "eps"), Q, R,
-        _build.stream_ptr(dev),
+        out.data_ptr(), B, N, S, D, C1, Cs, k, int(interp), int(recip == "eps"),
+        n_final, _build.stream_ptr(dev),
     )
     _build.check_launch("knnconv", err)
     knnconv_kernel.launches += 1
@@ -109,7 +103,7 @@ knnconv_kernel.launches = 0
 
 
 def knnconv_plain(q_xyz, k_xyz, k_feats, q_feats, skip_feats, k, mlp1, mlp2,
-                  interp, recip="clamp"):
+                  interp, recip="clamp", n_final=0):
     if interp:
         h = three_nn_interpolate(q_xyz, k_xyz, k_feats.float(), recip)
     else:
@@ -121,4 +115,4 @@ def knnconv_plain(q_xyz, k_xyz, k_feats, q_feats, skip_feats, k, mlp1, mlp2,
         h = _build.mlp_plain(torch.cat(parts, dim=-1), mlp1).amax(dim=2)
     if skip_feats is not None:
         h = torch.cat([h, skip_feats.float()], dim=-1)
-    return _build.mlp_plain(h, mlp2)
+    return _build.mlp_plain(h, mlp2, n_final)

@@ -65,15 +65,11 @@ def setconv_kernel(xyz, feats, new_xyz, radius, nsample, layers):
     wbuf, dims = _build.pack_layers(layers, dev)
     if not dims or dims[0] != 3 + D:
         raise ValueError(f"setconv: MLP widths {dims} do not take 3 + {D} channels")
-    Q = 4 if B * S >= 512 else 1
-    ld = -(-max(dims) // 4) * 4
-    R = max(8, min(64, (96 * 1024 // (2 * ld * 4)) // 8 * 8))
-    R = min(R, -(-Q * nsample // 8) * 8)
     out = torch.empty((B, S, dims[-1]), dtype=torch.float32, device=dev)
     err = _build.library().pci_setconv(
         xyz.data_ptr(), feats.data_ptr(), new_xyz.data_ptr(), wbuf.data_ptr(),
         _build.int_array(dims), len(layers), out.data_ptr(), B, N, S, D,
-        float(radius) ** 2, nsample, Q, R, _build.stream_ptr(dev),
+        float(radius) ** 2, nsample, _build.stream_ptr(dev),
     )
     _build.check_launch("setconv", err)
     setconv_kernel.launches += 1

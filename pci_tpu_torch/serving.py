@@ -7,6 +7,9 @@ Example::
     mid = interp(cloud_a, cloud_b, t=0.5)                  # [N, 3] numpy
     frames = interp.upsample(cloud_a, cloud_b, factor=5)   # 4 in-betweens
 
+    # B independent streams in one forward, each at its own t
+    frames = interp.stream_batch([(a0, b0), (a1, b1)], [0.5, 0.3])
+
     # ISAPCInet field=2: two context frames on each side of the key pair
     interp = Interpolator.isapci(field=2, weights=DEFAULT_WEIGHTS)
     mid = interp(cloud_a, cloud_b, 0.5, context=([f1, f2], [b1, b2]))
@@ -143,6 +146,28 @@ class Interpolator:
         with torch.inference_mode():
             out = self.model(*args, perms=perms, generator=self.generator)
         return out[0].cpu().numpy()
+
+    def stream_batch(self, pairs, ts, mesh=None, perms=None) -> list:
+        """One forward for B independent ``(cloud_a, cloud_b)`` streams at
+        per-stream times ``ts``: the throughput serving shape, each kernel
+        launched once for all B streams.  Pair mode (PointINet) only.
+        ``perms``: optional fusion permutations ``(perm1, perm2)``, ``[B,
+        npoints]`` each.  Returns a list of B ``[npoints, 3]`` numpy
+        frames.  ``mesh`` (the JAX package's data-axis sharding) is not
+        ported: the port serves on one device."""
+        if mesh is not None:
+            raise NotImplementedError("stream_batch: sharding over a mesh is not ported")
+        if self.field is not None:
+            raise ValueError("stream_batch is pair-mode (PointINet) only")
+        if not pairs or len(pairs) != len(ts):
+            raise ValueError(f"stream_batch: {len(pairs)} pairs and {len(ts)} times")
+        a = torch.cat([self._prep(x) for x, _ in pairs])
+        b = torch.cat([self._prep(y) for _, y in pairs])
+        z = torch.zeros_like(a)
+        t = torch.tensor([float(v) for v in ts], dtype=torch.float32, device=self.device)
+        with torch.inference_mode():
+            out = self.model(a, b, z, z, t, perms=perms, generator=self.generator)
+        return list(out.cpu().numpy())
 
     def upsample(self, cloud_a, cloud_b, factor: int = 5, context=None):
         """``factor - 1`` in-between frames at ``t = i / factor``."""

@@ -25,8 +25,11 @@ from pci_tpu_torch.ops import cuda_kernels as tk
 from pci_tpu_torch.ops.cuda_kernels import (
     attention_cuda,
     ball_cuda,
+    flowenc_cuda,
+    flowmid_cuda,
     fps_cuda,
     fusion_knn_cuda,
+    fusion_tail_cuda,
     knn_cuda,
     knnconv_cuda,
     setconv_cuda,
@@ -352,13 +355,6 @@ def test_knnconv_plain_matches_pallas(stage):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-4, rtol=2e-4)
 
 
-def test_knnconv_n_final_is_refused():
-    rng = np.random.default_rng(107)
-    q = t_(cloud(rng, 1, 8))
-    with pytest.raises(NotImplementedError):
-        knnconv_cuda.knnconv_fused(q, q, q, None, None, 3, [], [], True, 1)
-
-
 @pytest.mark.parametrize("t", [0.5, 0.2, 0.02])
 def test_fusion_plain_matches_jax_points_fusion(monkeypatch, t):
     """knn_fusion_attention (plain, through the port's PointsFusion) vs
@@ -420,6 +416,10 @@ def _grad_calls():
     tail = [(w, b) for w, b in tail]
     seg = torch.tensor([[32, 64]])
     g = t_(cloud(rng, 1, 64 * 4, 16)).reshape(1, 64, 4, 16)
+    _, enc2 = folded_layers(rng, (3 + 8, 8))
+    mid = [folded_layers(rng, w)[1] for w in ((3 + 6 + 6, 8), (3 + 8, 8), (3 + 8, 8), (3 + 8 + 8, 8),
+                                              (3 + 8, 8), (8 + 6 + 8, 8), (3 + 8, 8), (8 + 6, 8))]
+    resi = x[:, :, None, :].expand(-1, -1, 8, -1) * 0.1
     return {
         "fps": lambda: fps_cuda.fps_index(x, 8, torch.zeros(1, dtype=torch.long), 1),
         "setconv": lambda: setconv_cuda.setconv_fused(x, f, x[:, :8], 0.5, 4, sc),
@@ -429,14 +429,22 @@ def _grad_calls():
         "knn": lambda: knn_cuda.knn(x, x, 4),
         "attention": lambda: attention_cuda.vector_attention(
             t_(cloud(rng, 1, 64, 8)), g, x[:, :, None].expand(-1, -1, 4, -1), tail),
+        "flowenc": lambda: flowenc_cuda.flowenc_fused(x, f, x[:, :16], sc, enc2, 8, 0.5, 4,
+                                                      1.0, 4),
+        "flowmid": lambda: flowmid_cuda.flowmid_fused(
+            x, f.repeat(1, 1, 2), x[:, :32], f.repeat(1, 1, 2)[:, :32], x[:, 32:],
+            f.repeat(1, 1, 2)[:, 32:], mid, 8, 4, 8, 1.0, 4, 2.0, 4, 4),
+        "fusion_tail": lambda: fusion_tail_cuda.fusion_attention_tail(x, resi, None, fu),
     }
 
 
 @pytest.mark.parametrize("kernel", ["fps", "setconv", "knnconv", "fusion", "ball",
-                                    "knn", "attention"])
+                                    "knn", "attention", "flowenc", "flowmid",
+                                    "fusion_tail"])
 def test_eval_only_kernels_refuse_grad(kernel):
     """The eval kernels of differentiable values (set-conv, kNN-conv, the
-    one-shot fusion, the eval attention) define no backward and refuse an
+    one-shot fusion, the eval attention, the FlowNet3D megakernels, the
+    fusion's attention tail) define no backward and refuse an
     input that needs a gradient; the index-only ones (FPS, ball query,
     kNN) take such an input detached, as their JAX counterparts
     stop-gradient theirs."""
@@ -468,7 +476,8 @@ def test_kernel_routes_by_device():
     tops.chamfer_distance(x, x.detach() + 0.1).backward()
     assert tk.launch_counts() == {"fps": 0, "setconv": 0, "knnconv": 0, "fusion": 0,
                                   "ball": 0, "knn": 0, "attention": 0, "fusion_resi": 0,
-                                  "nearest": 0, "attention_bwd": 0}
+                                  "nearest": 0, "attention_bwd": 0, "flowenc": 0,
+                                  "flowmid": 0, "fusion_tail": 0}
     with pytest.raises(ValueError):
         tk._build.use_kernel(torch.empty(1, device="meta"))
 
