@@ -1,16 +1,19 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port (pci_tpu_torch) of PointINet and ISAPCInet
-(field=2, served and trained) on one NVIDIA card.
+"""Drive the PyTorch/CUDA port (pci_tpu_torch) of PointINet (at 16,384,
+32,768 and 65,536 points) and ISAPCInet (field=2, served and trained) on
+one NVIDIA card.
 
 Run from the repository root on a machine with a CUDA card:
 
     python3 chip_smoke.py
 
 Every path takes the JAX package's default eval route (its gates
-PCI_TPU_ENC_KERNEL, PCI_TPU_MID_KERNEL and PCI_TPU_FUSION_ONESHOT at "1"):
-FlowNet3D's encoder and decode megakernels, kNN-conv with the classifier
-inside, the one-shot fusion; phases 3 and 5 also serve the routes with the
-gates off.  Phases, each printing its own lines:
+PCI_TPU_ENC_KERNEL, PCI_TPU_MID_KERNEL, PCI_TPU_FUSION_ONESHOT and
+PCI_TPU_PN2_KERNEL at "1"): FlowNet3D's encoder and decode megakernels,
+kNN-conv with the classifier inside, the one-shot fusion (on the
+cell-pruned kernel from 32,768 points on), PointNet++'s mid-section in one
+launch; phases 3, 5, 6 and 8 also serve routes with gates off.  Phases,
+each printing its own lines:
   1. device: the card's name and power limit, torch and CUDA versions;
      TF32 off for matmuls and convolutions (the plain versions run fp32).
   2. build: the CUDA kernels from pci_tpu_torch/csrc with nvcc.
@@ -39,11 +42,15 @@ gates off.  Phases, each printing its own lines:
   6. ISAPCInet field=2 at 16,384 points a frame (a seeded six-frame window;
      flow and fusion weights from the trained PointINet, the rest from a
      seeded init): every kernel against its plain version at every shape
-     of one plain request (ball query, kNN and FPS indices equal, kNN
-     distances bit-equal, the rest within 1e-4), then five served requests
+     of one plain request on each PointNet++ route (ball query, kNN and
+     FPS indices equal, kNN distances bit-equal, the rest within 1e-4; the
+     pn2mid route and, with PCI_TPU_PN2_KERNEL=0, the per-stage one's
+     sa2-fp2 FPS, ball queries and 3-NN), then five served requests
      with the launch counts of PER_REQUEST_ISAPCI each, the frame against
-     the plain versions, latency and the device's busy share; one request
-     at the default 16,000 points.
+     the plain versions, latency and the device's busy share; then with
+     PCI_TPU_PN2_KERNEL=0 (PointNet++ stage by stage): five requests with
+     PER_REQUEST_ISAPCI_PN2_OFF each, its frame against the default's,
+     both routes' ms/frame; one request at the default 16,000 points.
   7. ISAPCInet field=2 training (the trainer's defaults: 16,000 points,
      batch 2, t = 0.5 and 0.3, Adam lr 0.01, BN momentum 0.5, the flow
      frozen; two seeded synthetic windows): every kernel against its plain
@@ -55,6 +62,18 @@ gates off.  Phases, each printing its own lines:
      same flows, permutations and FPS starts, then five steps with the
      launch counts of PER_STEP each, finite losses, the flow bit-unchanged
      and every other parameter moved; ms/step, peak memory, busy share.
+  8. PointINet at 65,536 and 32,768 points (paper Table 6's other rows; the
+     fusion on the cell-pruned kernel): at each size every kernel against
+     its plain version at every shape of one request (t=0.5, the fusion
+     also at t=0.2) and of one one-shot-off request (the residual mode and
+     the tail); the cell-pruned kernel against the flat one on the same
+     combined cloud (indices identical, one-shot rows within 1e-6 m) with
+     the share of pairs it scanned; five requests with PER_REQUEST_CELLS
+     each, the frame against the plain forward, ms/frame (median of 20);
+     five with one-shot off (PER_REQUEST_CELLS_ONESHOT_OFF) in the same
+     process, its frame against the default's; busy share at 65,536; at
+     32,768 the residual mode's gradient into the cloud through the kernel
+     and the plain version (equal bit for bit, deterministic scatter).
 Then the kernels JSON line, the card line, and {"ok": true, ...} last.
 Exits non-zero, with no result line, when CUDA is missing or a phase fails.
 """
@@ -103,11 +122,17 @@ KERNEL_INFO = {  # name -> (source, TPU kernel it replaces)
                 "pci_tpu/ops/pallas_kernels/flowmid_tpu.py:241"),
     "fusion_tail": ("pci_tpu_torch/csrc/fusion_tail.cu",
                     "pci_tpu/ops/pallas_kernels/fusion_tail_tpu.py:95"),
+    "fusion_cells": ("pci_tpu_torch/csrc/fusion_cells.cu",
+                     "pci_tpu/ops/pallas_kernels/fusion_cells_tpu.py:255"),
+    "pn2mid": ("pci_tpu_torch/csrc/pn2mid.cu",
+               "pci_tpu/ops/pallas_kernels/pn2mid_tpu.py:266"),
 }
 # the JAX package's route gates, read at call time by both packages
-GATES = ("PCI_TPU_ENC_KERNEL", "PCI_TPU_MID_KERNEL", "PCI_TPU_FUSION_ONESHOT")
+GATES = ("PCI_TPU_ENC_KERNEL", "PCI_TPU_MID_KERNEL", "PCI_TPU_FUSION_ONESHOT",
+         "PCI_TPU_PN2_KERNEL")
 ALL_OFF = dict.fromkeys(GATES, "0")
 ONESHOT_OFF = {"PCI_TPU_FUSION_ONESHOT": "0"}
+PN2_OFF = {"PCI_TPU_PN2_KERNEL": "0"}
 
 
 def per(**counts) -> dict:
@@ -127,10 +152,20 @@ PER_REQUEST_ALL_OFF = per(fps=8, setconv=8, knnconv=10, fusion_resi=1, fusion_ta
 PER_REQUEST_ONESHOT_OFF = per(fps=2, flowenc=2, flowmid=2, knnconv=2, fusion_resi=1,
                               fusion_tail=1)
 # ISAPCInet field=2: 6 encodings and 8 decodes of FlowNet3D as above, two
-# PointNet++ passes (4 FPS, 4 ball queries, 4 FP interpolations each), two
-# transformers (1 kNN, 1 attention tail each), one fusion
-PER_REQUEST_ISAPCI = per(fps=6 + 8, flowenc=6, flowmid=8, knnconv=8 + 8, fusion=1, ball=8,
-                         knn=2, attention=2)
+# PointNet++ passes (sa1's FPS and ball query, the mid-section in one
+# launch, fp1's interpolation each), two transformers (1 kNN, 1 attention
+# tail each), one fusion (16,384 points: the flat kernel)
+PER_REQUEST_ISAPCI = per(fps=6 + 2, flowenc=6, flowmid=8, knnconv=8 + 2, fusion=1, ball=2,
+                         knn=2, attention=2, pn2mid=2)
+# with PCI_TPU_PN2_KERNEL=0: PointNet++ stage by stage (4 FPS, 4 ball
+# queries, 4 FP interpolations a pass)
+PER_REQUEST_ISAPCI_PN2_OFF = per(fps=6 + 8, flowenc=6, flowmid=8, knnconv=8 + 8, fusion=1,
+                                 ball=8, knn=2, attention=2)
+# PointINet at 32,768 points and more: the fusion on the cell-pruned kernel
+PER_REQUEST_CELLS = per(fps=2, flowenc=2, flowmid=2, knnconv=2, fusion_cells=1)
+PER_REQUEST_CELLS_ONESHOT_OFF = per(fps=2, flowenc=2, flowmid=2, knnconv=2, fusion_cells=1,
+                                    fusion_tail=1)
+LARGE_N = (65536, 32768)  # paper Table 6's other protocol rows
 # ISAPCInet field=2, one training step: the frozen flows as at eval (6 FPS,
 # 6 flowenc, 8 flowmid, 8 kNN-convs); PointNet++ twice (4 FPS with random
 # starts, 4 ball queries, and 4 FP interpolations under autograd whose 3-NN
@@ -218,6 +253,9 @@ def record_calls(calls: list):
              (mods["nn.layers"], "knnconv_fused", "knnconv"),
              (mods["nn.fusion"], "knn_fusion_attention", "fusion"),
              (mods["nn.fusion"], "fusion_resi_knn", "fusion_resi"),
+             (mods["nn.fusion"], "fusion_cells_attention", "fusion_cells"),
+             (mods["nn.fusion"], "fusion_cells_resi_knn", "fusion_cells"),
+             (mods["nn.pointnet2"], "pn2mid_fused", "pn2mid"),
              (mods["nn.pointnet2"], "ball_query_multi", "ball"),
              (mods["nn.pointnet2"], "knnconv_fused", "knnconv"),
              (mods["ops.interpolate"], "knn", "knn"),
@@ -274,10 +312,94 @@ def scanned_keys(queries, keys, radii, ks) -> float:
     return float(stop.sum().item())
 
 
+def sqdist(d: torch.Tensor) -> torch.Tensor:
+    return (d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]) + d[..., 2] * d[..., 2]
+
+
+def cells_pairs(combined, seg_ends, budgets, k) -> float:
+    """(query, key) pairs an exact cell-pruned scan must touch on these
+    inputs: for each query, every key of each chunk in which one segment's
+    box lies no farther than that query's final k_s-th distance (its
+    exact neighbours, from the plain version)."""
+    from pci_tpu_torch.ops.cuda_kernels.fusion_cells_cuda import (
+        CHUNK, cells_plan, fusion_cells_plain)
+
+    dev = combined.device
+    idx, _ = fusion_cells_plain(combined, seg_ends, budgets, k)
+    _, _, boxes, _, _ = cells_plan(combined, seg_ends[:, 0].to(dev))
+    total = 0.0
+    for b in range(combined.shape[0]):
+        x = combined[b].float()
+        d = sqdist(x[idx[b]] - x[:, None, :])  # [N, k], unfilled slots 0
+        k1 = min(int(budgets[b, 0]), k)
+        k2 = min(int(budgets[b, 1]), k - k1)
+        thr = [d[:, :k1].amax(-1) if k1 else None, d[:, k1:k1 + k2].amax(-1) if k2 else None]
+        for q0 in range(0, x.shape[0], 8192):
+            q = x[q0:q0 + 8192, None, :]
+            need = torch.zeros(q.shape[0], boxes.shape[1], dtype=torch.bool, device=dev)
+            for seg in range(2):
+                if thr[seg] is None:
+                    continue
+                lo, hi = boxes[b, :, 2 * seg, :3], boxes[b, :, 2 * seg + 1, :3]
+                gap = torch.clamp_min(torch.maximum(lo - q, q - hi), 0.0)
+                need |= (lo[:, 0] <= hi[:, 0]) & (sqdist(gap) <= thr[seg][q0:q0 + 8192, None])
+            total += float(need.sum()) * CHUNK
+    return total
+
+
+def pn2mid_work(l1x, l1f, groups, out):
+    """pn2mid's stages as work() counts their per-stage kernels: the FPS
+    (10 operations a point a pick), the ball scans, every dense layer
+    (2 a multiply-add) with ~8 operations a value for the bias, the
+    GroupNorm and the ReLU, the slot max, and the 3-NN (8 a pair) with
+    its interpolation."""
+    from pci_tpu_torch.ops import index_points
+    from pci_tpu_torch.ops.cuda_kernels.fps_cuda import fps_plain
+    from pci_tpu_torch.ops.cuda_kernels.pn2mid_cuda import KS, RADII, S_LIST
+
+    B, N1 = l1x.shape[:2]
+    start = torch.zeros(1, dtype=torch.long, device=l1x.device)
+    cs, src = [], l1x.float()
+    for n in S_LIST:
+        cs.append(index_points(src, fps_plain(src, n, start, 1)))
+        src = cs[-1]
+    keys = [l1x.float(), cs[0], cs[1]]
+    ops = 10.0 * B * (S_LIST[0] * N1 + S_LIST[1] * S_LIST[0] + S_LIST[2] * S_LIST[1])
+    rows = []
+    for lv in range(3):
+        ops += 10.0 * scanned_keys(cs[lv], keys[lv], RADII[lv], KS[lv])
+        rows += [B * S_LIST[lv] * K for K in KS[lv]]
+    out_w = [g[-1][0].shape[1] for g in groups]
+    skip_w = {2: out_w[2] + out_w[3], 1: out_w[0] + out_w[1], 0: l1f.shape[-1]}
+    for lv, nq in ((2, S_LIST[1]), (1, S_LIST[0]), (0, N1)):  # fp4, fp3, fp2
+        cf = groups[6 + (2 - lv)][0][0].shape[0] - skip_w[lv]  # the interpolated width
+        ops += 8.0 * B * nq * S_LIST[lv] + 6.0 * B * nq * cf
+        rows.append(B * nq)
+    for g, r in zip(groups, rows):
+        for w, _ in g:
+            ops += r * (2.0 * w.shape[0] * w.shape[1] + 8.0 * w.shape[1])
+        ops += r * g[-1][0].shape[1]  # the slot max (FP: the copy out)
+    w = [t for g in groups for wa in g for t in wa]
+    return nbytes(l1x, l1f, out, *w), ops
+
+
 def work(name, args, kw, out):
     """(bytes, operations) the function needs on these inputs: each input
     read once, each output written once; data-dependent loops counted as
     this run's data needs them."""
+    if name == "fusion_cells":
+        combined, seg_ends, budgets = args[:3]
+        B, N, _ = combined.shape
+        k = args[-1]
+        ops = 8.0 * cells_pairs(combined, seg_ends, budgets, k)
+        if len(args) == 5:  # one-shot: the score MLP a slot, the softmax and sums
+            layers = args[3]
+            ops += mlp_flops(layers, B * N * k) + 6.0 * B * N * k
+            w = [t for wb in layers for t in wb]
+            return nbytes(combined, seg_ends, budgets, out, *w), ops
+        return nbytes(combined, seg_ends, budgets, *out), ops + 3.0 * B * N * k
+    if name == "pn2mid":
+        return pn2mid_work(*args[:3], out)
     if name == "fps":
         xyz, npoint, _, P = args
         B, N, _ = xyz.shape
@@ -411,6 +533,11 @@ def label(name, args, kw) -> str:
     if name == "fusion_resi":
         return f"B={args[0].shape[0]} N={args[0].shape[1]} k={args[3]} ends={args[1].tolist()} " \
                f"budgets={args[2].tolist()}"
+    if name == "fusion_cells":
+        mode = "one-shot" if len(args) == 5 else "residual"
+        return f"{mode} N={args[0].shape[1]} k={args[-1]} budgets={args[2].tolist()}"
+    if name == "pn2mid":
+        return f"B={args[0].shape[0]} N1={args[0].shape[1]} C1={args[1].shape[-1]}"
     return f"N={args[0].shape[1]} k={args[4]} budgets={args[2].tolist()}"
 
 
@@ -483,10 +610,16 @@ def compare(name, got, want, where: str, args=()) -> float:
         check(torch.equal(got[1], want[1]), f"{name} {where}: indices differ")
         check(torch.equal(got[0], want[0]), f"{name} {where}: distances not bit-equal")
         return 0.0
-    if name == "fusion_resi":
-        check(torch.equal(got[0], want[0]), f"fusion_resi {where}: indices differ")
-        check(torch.equal(got[1], want[1]), f"fusion_resi {where}: residuals not bit-equal")
+    if name in ("fusion_resi", "fusion_cells") and isinstance(got, tuple):
+        check(torch.equal(got[0], want[0]), f"{name} {where}: indices differ")
+        check(torch.equal(got[1], want[1]), f"{name} {where}: residuals not bit-equal")
         return 0.0
+    if name == "pn2mid":
+        err, top = (got - want).abs().max().item(), want.abs().max().item()
+        print(f"pn2mid {where}: max |kernel - plain| {err:.3g}, {err / top:.3g} of the "
+              f"output's largest magnitude {top:.4g}")
+        check(err <= 1e-3 * top, f"pn2mid {where}: max |kernel - plain| {err} > 1e-3 x {top}")
+        return err
     if name == "attention_bwd":
         return compare_attention_bwd(got, want, args, where)
     if name == "flowenc":
@@ -498,13 +631,34 @@ def compare(name, got, want, where: str, args=()) -> float:
     return err
 
 
+def cdist_topk(query, points, k, chunk: int = 2048):
+    """``torch.topk(torch.cdist(q, p), k, largest=False)`` over chunks of
+    queries (the whole [S, N] matrix of a 65,536-point cloud is 17 GB)."""
+    return [torch.topk(torch.cdist(query[:, s:s + chunk], points), k, largest=False)
+            for s in range(0, query.shape[1], chunk)]
+
+
 def library_call(name, args):
     """One PyTorch call computing the kernel's function on the same
     inputs, where there is one (timed only; the port never uses it):
-    ``torch.cdist(...).argmin`` for the nearest neighbour over all keys."""
-    if name == "nearest" and args[2] == 1 and (len(args) < 4 or args[3] is None):
+    ``torch.cdist(...).argmin`` for the nearest neighbour over all keys,
+    ``torch.topk(torch.cdist(...), k, largest=False)`` for the kNN over all
+    keys, and for the cell-pruned fusion's residual mode the same per
+    segment (both chunked over queries)."""
+    valid = len(args) > 3 and args[3] is not None
+    if name == "nearest" and args[2] == 1 and not valid:
         query, points = args[0], args[1]
         return lambda: torch.cdist(query, points).argmin(-1)
+    if name == "knn" and not valid:
+        query, points, k = args[:3]
+        return lambda: cdist_topk(query, points, k)
+    if name == "fusion_cells" and len(args) == 4:
+        combined, seg_ends, budgets, k = args
+        n1, k1 = int(seg_ends[0, 0]), min(int(budgets[0, 0]), k)
+        if combined.shape[0] != 1 or not 0 < k1 < k:
+            return None
+        return lambda: (cdist_topk(combined, combined[:, :n1], k1),
+                        cdist_topk(combined, combined[:, n1:], k - k1))
     return None
 
 
@@ -656,7 +810,8 @@ def agreement(got, want, what: str):
     return p999, float(err.max())
 
 
-def serve_counts(serve_all, expected: dict, path: str, frames_a_call: int = 1):
+def serve_counts(serve_all, expected: dict, path: str, frames_a_call: int = 1,
+                 npoints: int = NPOINTS):
     """Counts set to 0, five requests (calls) served, counts read: each
     kernel of the path launched its per-request count, no other kernel
     launched."""
@@ -672,15 +827,15 @@ def serve_counts(serve_all, expected: dict, path: str, frames_a_call: int = 1):
     check(counts == {k: v * n_req for k, v in expected.items()},
           f"{path} launch counts {counts} != {expected} x {n_req}")
     for f in frames:
-        check(f.shape == (NPOINTS, 3) and np.isfinite(f).all(), f"{path}: bad frame")
+        check(f.shape == (npoints, 3) and np.isfinite(f).all(), f"{path}: bad frame")
     return counts
 
 
-def synthetic_pair(seed: int = 0):
-    """Seeded synthetic 16,384-point pair (bench.py's fallback clouds)."""
+def synthetic_pair(seed: int = 0, n: int = NPOINTS):
+    """Seeded synthetic ``n``-point pair (bench.py's fallback clouds)."""
     rng = np.random.default_rng(seed)
-    a = (rng.standard_normal((NPOINTS, 3)) * 10).astype(np.float32)
-    b = a + 0.5 * rng.standard_normal((NPOINTS, 3)).astype(np.float32)
+    a = (rng.standard_normal((n, 3)) * 10).astype(np.float32)
+    b = a + 0.5 * rng.standard_normal((n, 3)).astype(np.float32)
     return a, b
 
 
@@ -824,6 +979,11 @@ def phase_isapci(card: str, totals: dict) -> dict:
     with torch.inference_mode(), plain_versions(), record_calls(calls):
         model(fwd_t, keys_t, bwd_t, tt, z, perms=perms)
     hold_kernels(calls, len(calls), PER_REQUEST_ISAPCI, totals, "isapci")
+    calls = []
+    with torch.inference_mode(), plain_versions(), record_calls(calls), gates(PN2_OFF):
+        model(fwd_t, keys_t, bwd_t, tt, z, perms=perms)
+    hold_kernels(calls, len(calls), PER_REQUEST_ISAPCI_PN2_OFF, totals, "isapci, pn2mid off")
+    del calls
 
     interp(k0, k1, 0.5, context=context)  # warm-up
     counts = serve_counts(
@@ -856,6 +1016,21 @@ def phase_isapci(card: str, totals: dict) -> dict:
 
     latency(lambda: interp(k0, k1, 0.5, context=context), card, "isapci")
     device_share(lambda: interp(k0, k1, 0.5, context=context))
+
+    # PointNet++ stage by stage (PCI_TPU_PN2_KERNEL=0) in the same process
+    with gates(PN2_OFF):
+        interp(k0, k1, 0.5, context=context)  # warm-up
+        counts_off = serve_counts(
+            lambda: [interp(k0, k1, 0.5, context=context)]
+            + interp.upsample(k0, k1, factor=5, context=context),
+            PER_REQUEST_ISAPCI_PN2_OFF, "isapci, pn2mid off")
+        off = interp(k0, k1, 0.5, context=context, perms=perms)
+    p999, mx = agreement(served, off, "isapci frame, pn2mid on vs off (same permutations)")
+    check(p999 <= 1e-3 and mx <= 0.25, "isapci: the pn2mid route's frame disagrees with "
+                                       "the per-stage route's")
+    for route, env in (("pn2mid on", {}), ("pn2mid off", PN2_OFF)):
+        with gates(env):
+            latency(lambda: interp(k0, k1, 0.5, context=context), card, f"isapci, {route}")
     with gates(ALL_OFF):  # the per-stage route in the same process, for the A/B
         interp(k0, k1, 0.5, context=context)
         latency(lambda: interp(k0, k1, 0.5, context=context), card, "isapci, all gates off")
@@ -865,7 +1040,7 @@ def phase_isapci(card: str, totals: dict) -> dict:
     check(frame.shape == (16000, 3) and np.isfinite(frame).all(),
           "isapci at the default 16,000 points: bad frame")
     print(f"isapci at npoints=16000: frame {frame.shape}, finite")
-    return counts
+    return counts, counts_off
 
 
 def train_batch(dev):
@@ -1023,6 +1198,141 @@ def phase_train(card: str, totals: dict) -> dict:
     return counts
 
 
+def cells_vs_flat(combined, seg_ends, budgets, layers, k: int, n: int) -> None:
+    """The cell-pruned kernel against the flat one on one combined cloud:
+    residual-mode indices (and residuals) identical, one-shot rows within
+    1e-6 m; prints the share of pairs each scanned and both kernels' ms."""
+    from pci_tpu_torch.ops.cuda_kernels.fusion_cells_cuda import fusion_cells_kernel
+    from pci_tpu_torch.ops.cuda_kernels.fusion_knn_cuda import fusion_kernel, fusion_resi_kernel
+
+    B, N = combined.shape[:2]
+    with torch.inference_mode():
+        scanned = torch.zeros(1, dtype=torch.int64, device=combined.device)
+        ci, cr = fusion_cells_kernel(combined, seg_ends, budgets, k, scanned=scanned)
+        fi, fr = fusion_resi_kernel(combined, seg_ends, budgets, k)
+        co = fusion_cells_kernel(combined, seg_ends, budgets, k, layers)
+        fo = fusion_kernel(combined, seg_ends, budgets, layers, k)
+        torch.cuda.synchronize()
+        check(torch.equal(ci, fi), f"fusion_cells at {n}: indices differ from the flat kernel's")
+        err = (co - fo).abs().max().item()
+        print(f"fusion_cells vs flat at {n} points, budgets {budgets.tolist()}: indices "
+              f"identical, residuals bit-equal {torch.equal(cr, fr)}, one-shot rows max "
+              f"|diff| {err:.3g} m; pairs scanned {scanned.item()} of {B * N * N} "
+              f"({scanned.item() / (B * N * N):.4f}; the flat kernels scan all)")
+        check(err <= 1e-6, f"fusion_cells at {n}: one-shot rows differ from the flat kernel's")
+        times = {name: cuda_ms(fn, 3) for name, fn in (
+            ("cells residual", lambda: fusion_cells_kernel(combined, seg_ends, budgets, k)),
+            ("flat residual", lambda: fusion_resi_kernel(combined, seg_ends, budgets, k)),
+            ("cells one-shot", lambda: fusion_cells_kernel(combined, seg_ends, budgets, k, layers)),
+            ("flat one-shot", lambda: fusion_kernel(combined, seg_ends, budgets, layers, k)))}
+        print(f"fusion kernels at {n} points (ms, median of 3): "
+              + ", ".join(f"{name} {ms:.4f}" for name, ms in times.items()))
+
+
+def cells_grad_check(combined, seg_ends, budgets, k: int) -> None:
+    """The residual mode's gradient into the cloud, by autograd through the
+    kernel and through the plain version: equal bit for bit (the scatter
+    of the fixed-neighbour backward made deterministic for both)."""
+    from pci_tpu_torch.ops.cuda_kernels import fusion_cells_resi_knn, plain_versions
+
+    g = torch.randn(*combined.shape[:2], k, 3, generator=torch.Generator().manual_seed(9))
+    g = g.to(combined.device)
+    grads = []
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        for plain in (False, True):
+            x = combined.detach().clone().requires_grad_()
+            with plain_versions() if plain else contextlib.nullcontext():
+                _, resi = fusion_cells_resi_knn(x, seg_ends, budgets, k)
+            (resi * g).sum().backward()
+            grads.append(x.grad)
+    finally:
+        torch.use_deterministic_algorithms(was)
+    print(f"fusion_cells residual-mode gradient at {combined.shape[1]} points, kernel vs "
+          f"plain: bit-equal {torch.equal(*grads)}, max |diff| "
+          f"{(grads[0] - grads[1]).abs().max().item():.3g}, max |g| "
+          f"{grads[1].abs().max().item():.4g}")
+    check(torch.equal(*grads), "fusion_cells: the residual mode's gradient differs from "
+                               "the plain version's")
+
+
+def phase_large(card: str, totals: dict) -> list:
+    """PointINet at 65,536 and 32,768 points on the cell-pruned fusion:
+    every kernel against its plain version at every shape of one request,
+    of the t=0.2 fusion and of one one-shot-off request; the cells kernel
+    against the flat one; five requests with their launch counts on the
+    default route and with one-shot off, the frames against the plain
+    forward and each other, ms/frame; busy share at 65,536; the residual
+    mode's gradient at 32,768."""
+    from pci_tpu_torch.ops.cuda_kernels import plain_versions
+    from pci_tpu_torch.serving import DEFAULT_WEIGHTS, Interpolator
+
+    dev = torch.device("cuda")
+    paths = []
+    for n in LARGE_N:
+        interp = Interpolator.pointinet(npoints=n, weights=DEFAULT_WEIGHTS, device="cuda")
+        model = interp.model
+        a_np, b_np = synthetic_pair(0, n)
+        a = torch.from_numpy(a_np)[None].to(dev)
+        b = torch.from_numpy(b_np)[None].to(dev)
+        z = torch.zeros_like(a)
+        perms = tuple(torch.randperm(n, generator=torch.Generator().manual_seed(s))[None].to(dev)
+                      for s in (1, 2))
+        calls = []
+        with torch.inference_mode(), plain_versions(), record_calls(calls):
+            model(a, b, z, z, torch.tensor([0.5], device=dev), perms=perms)
+            request = len(calls)
+            model(a, b, z, z, torch.tensor([0.2], device=dev), perms=perms)
+            second = len(calls)
+            with gates(ONESHOT_OFF):
+                model(a, b, z, z, torch.tensor([0.5], device=dev), perms=perms)
+        off = {name: sum(1 for c in calls[second:] if c[0] == name) for name in KERNEL_INFO}
+        check(off == PER_REQUEST_CELLS_ONESHOT_OFF,
+              f"pointinet at {n}, one-shot off: dispatches {off}, expected "
+              f"{PER_REQUEST_CELLS_ONESHOT_OFF}")
+        fusion = [c for c in calls if c[0] == "fusion_cells"]
+        check(len(fusion) == 3 and not any(c[0] == "fusion" for c in calls),
+              f"pointinet at {n}: the fusion did not take the cell-pruned kernel")
+        layers = model.fusion.mlp.folded()
+        for _, _, args, _ in fusion[:2]:
+            cells_vs_flat(args[0], args[1], args[2], layers, args[-1], n)
+        # the request, the t=0.2 fusion, and the whole one-shot-off request
+        calls = (calls[:request] + [c for c in calls[request:second] if c[0] == "fusion_cells"]
+                 + calls[second:])
+        hold_kernels(calls, request, PER_REQUEST_CELLS, totals, f"pointinet {n}")
+        if n == 32768:
+            cells_grad_check(*fusion[0][2][:3], fusion[0][2][-1])
+        del calls, fusion
+
+        interp(a_np, b_np, 0.5)  # warm-up
+        paths.append(serve_counts(lambda: [interp(a_np, b_np, 0.5)]
+                                  + interp.upsample(a_np, b_np, factor=5),
+                                  PER_REQUEST_CELLS, f"pointinet {n}", npoints=n))
+        got = interp(a_np, b_np, 0.5, perms=perms)
+        with plain_versions():
+            want = interp(a_np, b_np, 0.5, perms=perms)
+        p999, mx = agreement(got, want, f"pointinet {n} frame vs plain")
+        check(p999 <= 1e-3 and mx <= 0.25, f"pointinet {n}: frame disagrees with the plain forward")
+        latency(lambda: interp(a_np, b_np, 0.5), card, f"pointinet {n}")
+        if n == 65536:
+            device_share(lambda: interp(a_np, b_np, 0.5))
+        with gates(ONESHOT_OFF):
+            interp(a_np, b_np, 0.5)  # warm-up
+            paths.append(serve_counts(lambda: [interp(a_np, b_np, 0.5)]
+                                      + interp.upsample(a_np, b_np, factor=5),
+                                      PER_REQUEST_CELLS_ONESHOT_OFF,
+                                      f"pointinet {n}, one-shot off", npoints=n))
+            p999, mx = agreement(interp(a_np, b_np, 0.5, perms=perms), got,
+                                 f"pointinet {n} frame, one-shot off vs default")
+            check(p999 <= 1e-3 and mx <= 0.25, f"pointinet {n}, one-shot off: frame "
+                                               "disagrees")
+            latency(lambda: interp(a_np, b_np, 0.5), card, f"pointinet {n}, one-shot off")
+        del interp, model
+        torch.cuda.empty_cache()
+    return paths
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1073,7 +1383,10 @@ def main() -> int:
     # 7. ISAPCInet field=2 training
     counts_train = phase_train(card, totals)
 
-    paths = [counts, counts_stream, *counts_routes, counts_isapci, counts_train]
+    # 8. PointINet at 65,536 and 32,768 points
+    counts_large = phase_large(card, totals)
+
+    paths = [counts, counts_stream, *counts_routes, *counts_isapci, counts_train, *counts_large]
     kernels = []
     for kname, (source, replaces) in KERNEL_INFO.items():
         t = totals[kname]

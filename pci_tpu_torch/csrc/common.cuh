@@ -10,6 +10,7 @@
 #include <stdint.h>
 
 #include <algorithm>
+#include <mutex>
 
 #define PCI_MAX_LAYERS 8
 
@@ -177,10 +178,41 @@ __device__ __forceinline__ void warp_argmin(float& d, int& i) {
   }
 }
 
-// Shared memory past 48 KB needs an opt-in per kernel.
+// Shared memory past 48 KB, the kernel's static arrays counted, needs an
+// opt-in per kernel and device.  The static size is queried and the
+// opt-in raised once per (kernel, device) and kept, so a launch that needs
+// no more than before makes no runtime call here.  The lock covers
+// launches from autograd's backward thread.
 template <typename K>
 static inline cudaError_t allow_smem(K kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)bytes);
+  struct Seen {
+    const void* fn;
+    int dev;
+    size_t static_bytes;
+    size_t allowed;  // dynamic bytes the kernel may take without a new opt-in
+  };
+  static std::mutex mu;
+  static Seen seen[16];
+  static int n_seen = 0;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const void* fn = reinterpret_cast<const void*>(kernel);
+  std::lock_guard<std::mutex> lock(mu);
+  Seen* s = nullptr;
+  for (int i = 0; i < n_seen && s == nullptr; ++i)
+    if (seen[i].fn == fn && seen[i].dev == dev) s = &seen[i];
+  Seen fresh;
+  if (s == nullptr) {
+    cudaFuncAttributes a;
+    e = cudaFuncGetAttributes(&a, kernel);
+    if (e != cudaSuccess) return e;
+    size_t free48 = a.sharedSizeBytes < 48 * 1024 ? 48 * 1024 - a.sharedSizeBytes : 0;
+    fresh = {fn, dev, a.sharedSizeBytes, free48};
+    s = n_seen < 16 ? &(seen[n_seen++] = fresh) : &fresh;
+  }
+  if (bytes <= s->allowed) return cudaSuccess;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (e == cudaSuccess) s->allowed = bytes;
+  return e;
 }

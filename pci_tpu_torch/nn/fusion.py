@@ -12,7 +12,11 @@ two-kernel route: the residual kNN (``fusion_resi_knn``) and the attention
 tail (``fusion_attention_tail``), which a CPU tensor also takes.  In
 training, as on the TPU, the residual kNN (with the fixed-neighbour
 backward) and then the head in PyTorch, its BatchNorms on batch
-statistics (``fusion_head``).
+statistics (``fusion_head``).  At N >= ``_CELLS_FUSION_N`` points on the
+card the same two routes run on the cell-pruned kernel
+(``fusion_cells_attention`` / ``fusion_cells_resi_knn``), as the JAX
+package routes its 65,536-point protocol row; it gives the flat kernels'
+neighbours while scanning a small share of the pairs.
 
 The permutations come from ``torch.randperm`` with the caller's
 ``torch.Generator``: torch cannot reproduce ``jax.random``'s draws, so a
@@ -26,13 +30,23 @@ import os
 import torch
 from torch import nn
 
-from ..ops.cuda_kernels import fusion_attention_tail, fusion_resi_knn, knn_fusion_attention
+from ..ops.cuda_kernels import (
+    fusion_attention_tail,
+    fusion_cells_attention,
+    fusion_cells_resi_knn,
+    fusion_resi_knn,
+    knn_fusion_attention,
+)
 from ..ops.cuda_kernels.fusion_knn_cuda import fusion_head
 from .mlp import PointMLP
 
 # N2 rounds to a multiple of _ALIGN; with k <= _ALIGN a segment with a
 # positive neighbour budget always holds at least k points
 _ALIGN = 32
+
+# From this many points on the fusion runs on the cell-pruned kernel
+# (pci_tpu/nn/fusion.py:_CELLS_FUSION_N): the flat kernels' scan grows as N^2
+_CELLS_FUSION_N = 32768
 
 
 def _adaptive_budgets(N: int, k: int, t: torch.Tensor):
@@ -77,6 +91,16 @@ def _fusion_oneshot_ok(train: bool, x: torch.Tensor) -> bool:
     return x.is_cuda and not train and os.environ.get("PCI_TPU_FUSION_ONESHOT", "1") == "1"
 
 
+def _cells_route_ok(points: torch.Tensor, k: int, train: bool, n_seg: int = 2) -> bool:
+    """Route the fusion's kNN to the cell-pruned kernel: a CUDA tensor of
+    at least ``_CELLS_FUSION_N`` points and ``k <= 32``, in training only
+    for two segments (``pci_tpu/nn/fusion.py:_cells_route_ok``; the port's
+    ``PointsFusion`` always has two).  No environment variable, as in the
+    JAX package.  Module-level for tests."""
+    return (points.is_cuda and points.shape[-2] >= _CELLS_FUSION_N and k <= 32
+            and (n_seg == 2 or not train))
+
+
 def random_perms(B: int, N: int, generator: torch.Generator | None,
                  device) -> torch.Tensor:
     """``[B, N]`` int64 uniform permutations from ``generator``."""
@@ -110,10 +134,12 @@ class PointsFusion(nn.Module):
         )
         seg_ends = torch.stack([N1, torch.full_like(N1, N)], dim=1)
         budgets = torch.stack([k1, k2], dim=1)
+        cells = _cells_route_ok(combined, k, self.training)
         if _fusion_oneshot_ok(self.training, combined):
-            return knn_fusion_attention(combined, seg_ends, budgets,
-                                        self.mlp.folded(), k)
-        _, resi = fusion_resi_knn(combined, seg_ends, budgets, k)
+            oneshot = fusion_cells_attention if cells else knn_fusion_attention
+            return oneshot(combined, seg_ends, budgets, self.mlp.folded(), k)
+        knn = fusion_cells_resi_knn if cells else fusion_resi_knn
+        _, resi = knn(combined, seg_ends, budgets, k)
         if self.training:
             # the head in PyTorch (pci_tpu/nn/fusion.py:282-292)
             return fusion_head(combined, resi, lambda h: self.mlp(h, momentum))

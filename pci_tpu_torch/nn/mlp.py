@@ -70,18 +70,19 @@ class PointMLP(nn.Module):
         return cached_fold(self, lambda: fold_bn_layers(self.dense, self.bn), [self])
 
 
-def cached_fold(holder: nn.Module, build, modules) -> PackedLayers:
-    """``PackedLayers(build())`` made under ``torch.no_grad()`` and cached on
+def cached_fold(holder: nn.Module, build, modules, pack=PackedLayers):
+    """``pack(build())`` (``PackedLayers`` by default) made under
+    ``torch.no_grad()`` and cached on
     ``holder`` until a parameter or buffer of ``modules`` changes (new
     storage or an in-place write, e.g. ``load_state_dict`` or ``.to``).
     Modules made under ``torch.inference_mode()`` have no version counter
     to key a cache on: they fold on every call."""
     tensors = [t for m in modules for t in (*m.parameters(), *m.buffers())]
     if any(t.is_inference() for t in tensors):
-        return PackedLayers(build())
+        return pack(build())
     key = tuple((t.data_ptr(), t._version) for t in tensors)
     if key != getattr(holder, "_fold_key", None):
         with torch.no_grad():
-            holder._folded = PackedLayers(build())
+            holder._folded = pack(build())
         holder._fold_key = key
     return holder._folded

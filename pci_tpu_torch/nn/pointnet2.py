@@ -1,6 +1,9 @@
 """PointNet++ multi-scale-grouping encoder/decoder over flow fields
-(counterpart of ``pci_tpu/nn/pointnet2.py``, the route with the ``pn2mid``
-megakernel off: every SA and FP level is a stage of its own).
+(counterpart of ``pci_tpu/nn/pointnet2.py``).  Two routes, picked per call
+by the JAX package's gate ``PCI_TPU_PN2_KERNEL`` (``_pn2mid_ok``): at eval
+on a CUDA tensor that needs no gradient, sa2 .. fp2 (everything on sa1's
+1,024 points) is ONE kernel (``pn2mid_fused``); otherwise, and always in
+training, every SA and FP level is a stage of its own.
 
 Channel concat orders follow the JAX package, because they define the
 weight layout: MSG groups concat ``[feats, dxyz]`` (features FIRST, unlike
@@ -17,6 +20,7 @@ kNN kernel).  In training each SA level draws its FPS start from the
 
 from __future__ import annotations
 
+import os
 from typing import Sequence
 
 import torch
@@ -24,8 +28,9 @@ from torch import nn
 
 from .. import ops
 from ..ops.cuda_kernels import ball_query_multi, knnconv_fused
+from ..ops.cuda_kernels.pn2mid_cuda import PackedGroups, gn_pointmlp_vars, pn2mid_fused
 from .layers import fps_start, gather_split
-from .mlp import PointMLP
+from .mlp import PointMLP, cached_fold
 from .norm import GroupNorm
 
 
@@ -84,6 +89,15 @@ class FeaturePropagationP2(nn.Module):
         return self.mlp(h)
 
 
+def _pn2mid_ok(train: bool, x: torch.Tensor) -> bool:
+    """Route sa2 .. fp2 to the one-launch kernel: eval on a CUDA tensor
+    that needs no gradient, unless ``PCI_TPU_PN2_KERNEL`` (read at call
+    time, default "1", as ``pci_tpu/nn/pointnet2.py:_pn2mid_ok`` reads it)
+    says otherwise.  Module-level for tests and A/B flips."""
+    return (x.is_cuda and not train and not (torch.is_grad_enabled() and x.requires_grad)
+            and os.environ.get("PCI_TPU_PN2_KERNEL", "1") == "1")
+
+
 class Pointnet2FeatureAbstract(nn.Module):
     """PointNet++ MSG encoder-decoder over a flow cloud: 4 SA levels
     (1024/256/64/16 points, two radii each), 4 FP levels, then
@@ -107,11 +121,27 @@ class Pointnet2FeatureAbstract(nn.Module):
         """``xyz [B, M, 3]`` (flow vectors as a cloud) -> ``[B, M, out]``;
         ``generator``: the training FPS starts' (see ``layers.fps_start``)."""
         l1_xyz, l1_f = self.sa1(xyz, None, generator)
-        l2_xyz, l2_f = self.sa2(l1_xyz, l1_f, generator)
-        l3_xyz, l3_f = self.sa3(l2_xyz, l2_f, generator)
-        l4_xyz, l4_f = self.sa4(l3_xyz, l3_f, generator)
-        l3_f = self.fp4(l3_xyz, l4_xyz, l3_f, l4_f)
-        l2_f = self.fp3(l2_xyz, l3_xyz, l2_f, l3_f)
-        l1_f = self.fp2(l1_xyz, l2_xyz, l1_f, l2_f)
+        if _pn2mid_ok(self.training, l1_f):
+            l1_f = self._mid_fused(l1_xyz, l1_f)
+        else:
+            l2_xyz, l2_f = self.sa2(l1_xyz, l1_f, generator)
+            l3_xyz, l3_f = self.sa3(l2_xyz, l2_f, generator)
+            l4_xyz, l4_f = self.sa4(l3_xyz, l3_f, generator)
+            l3_f = self.fp4(l3_xyz, l4_xyz, l3_f, l4_f)
+            l2_f = self.fp3(l2_xyz, l3_xyz, l2_f, l3_f)
+            l1_f = self.fp2(l1_xyz, l2_xyz, l1_f, l2_f)
         l0_f = self.fp1(xyz, l1_xyz, None, l1_f)
         return torch.relu(self.gn[0](self.conv1(l0_f)))
+
+    def _mid_fused(self, l1_xyz, l1_f):
+        """sa2 .. fp2 at eval as one kernel (``pn2mid_fused``): only fp2's
+        ``[B, 1024, 128]`` rows leave it."""
+        return pn2mid_fused(l1_xyz, l1_f, self._mid_groups())
+
+    def _mid_groups(self) -> PackedGroups:
+        """sa2 .. fp2's nine GroupNorm MLPs in the kernel's layout
+        (``pn2mid_cuda.GROUPS``), cached until a weight changes."""
+        mlps = [self.sa2.scale0, self.sa2.scale1, self.sa3.scale0, self.sa3.scale1,
+                self.sa4.scale0, self.sa4.scale1, self.fp4.mlp, self.fp3.mlp, self.fp2.mlp]
+        return cached_fold(self, lambda: [gn_pointmlp_vars(m) for m in mlps], mlps,
+                           pack=PackedGroups)

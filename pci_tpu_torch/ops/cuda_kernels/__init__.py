@@ -1,7 +1,8 @@
 """Hand-written CUDA kernels for Hopper (``sm_90a``), one per TPU kernel of
 the port's paths (PointINet and ISAPCInet eval on the JAX package's default
-route and with its gates off, ISAPCInet training), each beside its plain
-PyTorch version.
+route and with its gates off, PointINet at 32,768 points and more on the
+cell-pruned fusion, ISAPCInet training), each beside its plain PyTorch
+version.
 
 Every kernel wrapper (``*_kernel``) counts its launches in a
 ``launches`` attribute (the kNN kernel's k=1 form in
@@ -21,6 +22,11 @@ from .ball_cuda import ball_kernel, ball_query_multi
 from .flowenc_cuda import flowenc_fused, flowenc_kernel
 from .flowmid_cuda import flowmid_fused, flowmid_kernel
 from .fps_cuda import fps_kernel
+from .fusion_cells_cuda import (
+    fusion_cells_attention,
+    fusion_cells_kernel,
+    fusion_cells_resi_knn,
+)
 from .fusion_knn_cuda import (
     fusion_kernel,
     fusion_resi_kernel,
@@ -30,6 +36,7 @@ from .fusion_knn_cuda import (
 from .fusion_tail_cuda import fusion_attention_tail, fusion_tail_kernel
 from .knn_cuda import knn, knn_kernel, nearest_launches
 from .knnconv_cuda import knnconv_fused, knnconv_kernel
+from .pn2mid_cuda import pn2mid_fused, pn2mid_kernel
 from .setconv_cuda import fold_bn_layers, setconv_fused, setconv_kernel
 
 KERNELS = {
@@ -46,6 +53,8 @@ KERNELS = {
     "flowenc": flowenc_kernel,
     "flowmid": flowmid_kernel,
     "fusion_tail": fusion_tail_kernel,
+    "fusion_cells": fusion_cells_kernel,
+    "pn2mid": pn2mid_kernel,
 }
 
 
@@ -73,6 +82,9 @@ __all__ = [
     "fold_bn_layers",
     "fps_kernel",
     "fusion_attention_tail",
+    "fusion_cells_attention",
+    "fusion_cells_kernel",
+    "fusion_cells_resi_knn",
     "fusion_kernel",
     "fusion_resi_kernel",
     "fusion_resi_knn",
@@ -85,6 +97,8 @@ __all__ = [
     "launch_counts",
     "nearest_launches",
     "plain_versions",
+    "pn2mid_fused",
+    "pn2mid_kernel",
     "reset_launch_counts",
     "setconv_fused",
     "setconv_kernel",

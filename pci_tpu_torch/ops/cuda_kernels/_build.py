@@ -54,6 +54,11 @@ _SIGNATURES = {
     "pci_flowmid": [_P] * 6 + [ctypes.POINTER(_P), _IP, _IP, _IP] + [_P] * 9
                    + [_I] * 8 + [_F, _I, _F, _I, _I, _P],
     "pci_fusion_tail": [_P, _P, _P, _P, _I, _I, _I, _P, _I, _I, _I, _I, _P],
+    "pci_fusion_cells": [_P] * 8 + [_I] * 3 + [_P] * 4 + [_I] * 6 + [_P],
+    "pci_pn2mid_scratch": [_IP, _IP, _IP, _I, _I, _I, _IP, _IP, _FP,
+                           ctypes.POINTER(ctypes.c_longlong)],
+    "pci_pn2mid": [_P, _P, _P, _IP, _IP, _IP, _P, _P, _P, _P, _I, _I, _I, _IP, _IP, _FP,
+                   _P],
 }
 
 _PLAIN = contextvars.ContextVar("pci_tpu_torch_plain", default=False)

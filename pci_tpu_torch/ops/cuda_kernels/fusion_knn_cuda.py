@@ -120,15 +120,19 @@ def fusion_resi_knn(combined: torch.Tensor, seg_ends: torch.Tensor,
     ``d combined = scatter_add(idx, d resi) - sum_k d resi``, the JAX
     package's ``_fusion_core_bwd``.
     """
-    return _FusionResiKnn.apply(combined, seg_ends, budgets, k)
+    return FusionResiKnn.apply(combined, seg_ends, budgets, k, fusion_resi_kernel)
 
 
-class _FusionResiKnn(torch.autograd.Function):
+class FusionResiKnn(torch.autograd.Function):
+    """The budgeted self-kNN's residuals with the fixed-neighbour backward;
+    ``kernel(combined, seg_ends, budgets, k) -> (idx, resi)`` computes the
+    forward on a CUDA tensor (the flat kernel, or the cell-pruned one of
+    ``fusion_cells_cuda``, which gives the same neighbours)."""
+
     @staticmethod
-    def forward(ctx, combined, seg_ends, budgets, k):
+    def forward(ctx, combined, seg_ends, budgets, k, kernel):
         if _build.use_kernel(combined):
-            idx, resi = fusion_resi_kernel(combined.detach().float().contiguous(),
-                                           seg_ends, budgets, k)
+            idx, resi = kernel(combined.detach().float().contiguous(), seg_ends, budgets, k)
         else:
             idx, resi = fusion_resi_plain(combined, seg_ends, budgets, k)
         ctx.save_for_backward(idx)
@@ -140,7 +144,7 @@ class _FusionResiKnn(torch.autograd.Function):
         (idx,) = ctx.saved_tensors
         B, N, k = idx.shape
         g_comb = scatter_add_rows(idx.reshape(B, N * k), g_resi.reshape(B, N * k, 3), N)
-        return g_comb - g_resi.sum(2), None, None, None
+        return g_comb - g_resi.sum(2), None, None, None, None
 
 
 def fusion_resi_kernel(combined, seg_ends, budgets, k):

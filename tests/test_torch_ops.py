@@ -28,10 +28,12 @@ from pci_tpu_torch.ops.cuda_kernels import (
     flowenc_cuda,
     flowmid_cuda,
     fps_cuda,
+    fusion_cells_cuda,
     fusion_knn_cuda,
     fusion_tail_cuda,
     knn_cuda,
     knnconv_cuda,
+    pn2mid_cuda,
     setconv_cuda,
 )
 
@@ -420,6 +422,15 @@ def _grad_calls():
     mid = [folded_layers(rng, w)[1] for w in ((3 + 6 + 6, 8), (3 + 8, 8), (3 + 8, 8), (3 + 8 + 8, 8),
                                               (3 + 8, 8), (8 + 6 + 8, 8), (3 + 8, 8), (8 + 6, 8))]
     resi = x[:, :, None, :].expand(-1, -1, 8, -1) * 0.1
+    # pn2mid's nine GroupNorm MLPs, narrow: 6 sa1 channels in, 8 wide
+    pn2 = []
+    for grp, cin in enumerate((9, 9, 19, 19, 19, 19, 32, 24, 14)):
+        layers = []
+        for _ in range(pn2mid_cuda.N_LAYERS[grp]):
+            _, ((w, b),) = folded_layers(rng, (cin, 8))
+            layers.append((w.t(), torch.stack([b, 1.0 + 0.1 * b, 0.1 * b])))
+            cin = 8
+        pn2.append(layers)
     return {
         "fps": lambda: fps_cuda.fps_index(x, 8, torch.zeros(1, dtype=torch.long), 1),
         "setconv": lambda: setconv_cuda.setconv_fused(x, f, x[:, :8], 0.5, 4, sc),
@@ -435,16 +446,20 @@ def _grad_calls():
             x, f.repeat(1, 1, 2), x[:, :32], f.repeat(1, 1, 2)[:, :32], x[:, 32:],
             f.repeat(1, 1, 2)[:, 32:], mid, 8, 4, 8, 1.0, 4, 2.0, 4, 4),
         "fusion_tail": lambda: fusion_tail_cuda.fusion_attention_tail(x, resi, None, fu),
+        "fusion_cells": lambda: fusion_cells_cuda.fusion_cells_attention(
+            x, seg, torch.tensor([[16, 16]]), fu, 32),
+        "pn2mid": lambda: pn2mid_cuda.pn2mid_fused(x, f.repeat(1, 1, 2), pn2, (32, 16, 8)),
     }
 
 
 @pytest.mark.parametrize("kernel", ["fps", "setconv", "knnconv", "fusion", "ball",
                                     "knn", "attention", "flowenc", "flowmid",
-                                    "fusion_tail"])
+                                    "fusion_tail", "fusion_cells", "pn2mid"])
 def test_eval_only_kernels_refuse_grad(kernel):
     """The eval kernels of differentiable values (set-conv, kNN-conv, the
-    one-shot fusion, the eval attention, the FlowNet3D megakernels, the
-    fusion's attention tail) define no backward and refuse an
+    one-shot fusion (flat and cell-pruned), the eval attention, the
+    FlowNet3D megakernels, the fusion's attention tail, PointNet++'s
+    mid-section) define no backward and refuse an
     input that needs a gradient; the index-only ones (FPS, ball query,
     kNN) take such an input detached, as their JAX counterparts
     stop-gradient theirs."""
@@ -477,7 +492,8 @@ def test_kernel_routes_by_device():
     assert tk.launch_counts() == {"fps": 0, "setconv": 0, "knnconv": 0, "fusion": 0,
                                   "ball": 0, "knn": 0, "attention": 0, "fusion_resi": 0,
                                   "nearest": 0, "attention_bwd": 0, "flowenc": 0,
-                                  "flowmid": 0, "fusion_tail": 0}
+                                  "flowmid": 0, "fusion_tail": 0, "fusion_cells": 0,
+                                  "pn2mid": 0}
     with pytest.raises(ValueError):
         tk._build.use_kernel(torch.empty(1, device="meta"))
 
