@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (pci_tpu_torch) of PointINet (at 16,384,
-32,768 and 65,536 points) and ISAPCInet (field=2, served and trained) on
-one NVIDIA card.
+32,768 and 65,536 points) and ISAPCInet (field=2, served and trained), and
+both eval CLIs with the EMD metric, on one NVIDIA card.
 
 Run from the repository root on a machine with a CUDA card:
 
@@ -74,6 +74,25 @@ each printing its own lines:
      process, its frame against the default's; busy share at 65,536; at
      32,768 the residual mode's gradient into the cloud through the kernel
      and the plain version (equal bit for bit, deterministic scatter).
+  9. the eval CLIs with the EMD metric, on seeded synthetic scenes
+     (generate_scenes, 24,000 points a frame, --sample_method random so
+     the host's FPS stays out of the time): python -m
+     pci_tpu_torch.cli.test --field 2 --npoints 16000 --emd over four
+     windows (the flow from the trained PointINet, the rest a seeded init)
+     and cli.test_pointinet --dataset_name nuscenes --npoints 16384
+     --use_intensity 0 over four triplets (the trained PointINet), each
+     with the launch counts set to 0 just before: PER_WINDOW_ISAPCI /
+     PER_TRIPLET a window, one auction pass and chase a pass of each EMD;
+     mean CD and EMD, each EMD's converged flag, passes, hops and ms, the
+     seconds a window.  Then the auction kernels against their plain
+     versions: at 1,024 points (a seeded pair with 10% duplicates) bit for
+     bit after the first two passes and chases and over the whole run, and
+     the cost within the certificate of scipy's optimum; at the first EMD
+     of each CLI (16,000 and 16,384 points, its frame against its ground
+     truth) after the first two passes and chases, and at 16,384 over the
+     whole run, with the device's busy share over one EMD; the certificate
+     (primal minus the prices' dual bound within n (1.0001 eps + 1e-5))
+     at all three on a converged run.
 Then the kernels JSON line, the card line, and {"ok": true, ...} last.
 Exits non-zero, with no result line, when CUDA is missing or a phase fails.
 """
@@ -126,6 +145,10 @@ KERNEL_INFO = {  # name -> (source, TPU kernel it replaces)
                      "pci_tpu/ops/pallas_kernels/fusion_cells_tpu.py:255"),
     "pn2mid": ("pci_tpu_torch/csrc/pn2mid.cu",
                "pci_tpu/ops/pallas_kernels/pn2mid_tpu.py:266"),
+    "auction_pass": ("pci_tpu_torch/csrc/auction.cu",
+                     "pci_tpu/ops/pallas_kernels/auction_tpu.py:201"),
+    "auction_chase": ("pci_tpu_torch/csrc/auction.cu",
+                      "pci_tpu/ops/pallas_kernels/auction_tpu.py:323"),
 }
 # the JAX package's route gates, read at call time by both packages
 GATES = ("PCI_TPU_ENC_KERNEL", "PCI_TPU_MID_KERNEL", "PCI_TPU_FUSION_ONESHOT",
@@ -181,6 +204,20 @@ FIELD = 2
 TRAIN_N, TRAIN_T = 16000, (0.5, 0.3)  # the trainer's npoints; t a sample
 TRAIN_LR, TRAIN_MOMENTUM = 0.01, 0.5  # init_lr; bn_momentum_schedule(epoch 0)
 STEPS_PER_EPOCH = 1000  # nominal: the lr schedule steps by epoch
+# the eval CLIs (phase 9): ISAPCInet field=2 at its 16,000 points over four
+# windows of a 26-frame scene; PointINet at 16,384 over four triplets of a
+# 6-frame scene; besides the auction, a window launches one request's
+# kernels and the chamfer's two nearest-neighbour searches
+PER_WINDOW_ISAPCI = per(**{**PER_REQUEST_ISAPCI, "nearest": 2})
+PER_TRIPLET = per(**{**PER_REQUEST, "nearest": 2})
+EVAL_WINDOWS = 4
+EMD_EPS = 1e-3  # ops.emd's defaults: eps 1e-3, iters 2048 -> 256 passes at most
+# eps is relative to d_scale = 2 (max|x1|^2 + max|x2|^2), so the auction's
+# cost may exceed the optimum: by 12% on the 1,024-point pair (H100, 700 W).
+# A random permutation or a greedy nearest-neighbour matching of that pair
+# costs several times the optimum
+COST_OVER_OPTIMUM = 1.2
+AUCTION = ("auction_pass", "auction_chase")
 
 
 class PhaseError(RuntimeError):
@@ -1333,6 +1370,272 @@ def phase_large(card: str, totals: dict) -> list:
     return paths
 
 
+@contextlib.contextmanager
+def emd_calls(calls: list):
+    """Record every EMD the eval CLIs compute: CUDA events around each
+    ``ops.emd`` call, and each auction's inputs, passes, hops and
+    ``converged`` (through the auction's ``return_prices`` hook)."""
+    emd_mod = importlib.import_module("pci_tpu_torch.ops.emd")
+    ops_pkg = importlib.import_module("pci_tpu_torch.ops")
+    real_auction, real_emd = emd_mod.auction, ops_pkg.emd
+
+    def auction(xyz1, xyz2, eps, max_passes):
+        dist, assign, conv, _, info = real_auction(xyz1, xyz2, eps, max_passes,
+                                                   return_prices=True)
+        calls[-1]["auctions"].append({"xyz1": xyz1.detach().clone(), "xyz2": xyz2.detach().clone(),
+                                      "converged": bool(conv), **info})
+        return dist, assign, conv
+
+    def emd(*args, **kw):
+        calls.append({"auctions": []})
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = real_emd(*args, **kw)
+        end.record()
+        end.synchronize()
+        calls[-1]["ms"] = start.elapsed_time(end)
+        return out
+
+    emd_mod.auction, ops_pkg.emd = auction, emd
+    try:
+        yield
+    finally:
+        emd_mod.auction, ops_pkg.emd = real_auction, real_emd
+
+
+def run_cli(name: str, main_fn, argv: list, per_window: dict, log_dir) -> tuple:
+    """One eval CLI run on the card, as a user runs it, with the launch
+    counts set to 0 just before and read just after: every window's CD and
+    EMD finite, the model's kernels launched ``per_window`` times a window,
+    the auction's pass and chase once a pass of each EMD (at least once
+    each).  Prints the means, each EMD's converged flag, passes, hops and
+    ms, the seconds a window and the launches."""
+    from pci_tpu_torch.ops.cuda_kernels import launch_counts, reset_launch_counts
+
+    calls = []
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with emd_calls(calls):
+        main_fn(argv + ["--log_dir", str(log_dir)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    with open(log_dir / "metrics.jsonl") as f:
+        recs = [json.loads(line) for line in f if line.strip()]
+    auctions = [a for c in calls for a in c["auctions"]]
+    check(len(recs) == EVAL_WINDOWS and len(calls) == EVAL_WINDOWS
+          and len(auctions) == EVAL_WINDOWS, f"{name}: {len(recs)} records, {len(calls)} EMDs, "
+                                             f"{len(auctions)} auctions")
+    check(all(np.isfinite(r["cd"]) and np.isfinite(r["emd"]) for r in recs), f"{name}: a metric "
+                                                                           "is not finite")
+    model = {k: v for k, v in counts.items() if k not in AUCTION}
+    want = {k: v * EVAL_WINDOWS for k, v in per_window.items() if k not in AUCTION}
+    check(model == want, f"{name} launch counts {model} != {want}")
+    passes = [a["passes"] for a in auctions]
+    check(all(p >= 1 for p in passes) and counts["auction_pass"] == sum(passes)
+          and counts["auction_chase"] == sum(passes),
+          f"{name}: auction launches {counts['auction_pass']}/{counts['auction_chase']} for "
+          f"passes {passes}")
+    steps = [b["time"] - a["time"] for a, b in zip(recs, recs[1:])]
+    print(f"eval cli {name}: {len(recs)} windows, mean CD {np.mean([r['cd'] for r in recs]):.6f}, "
+          f"mean EMD {np.mean([r['emd'] for r in recs]):.4f}; per EMD: converged "
+          f"{[a['converged'] for a in auctions]}, passes {passes}, hops "
+          f"{[a['hops'] for a in auctions]}, ms {[round(c['ms'], 3) for c in calls]} (CUDA "
+          f"events); {statistics.median(steps):.3f} s a window (median of windows 2-"
+          f"{len(recs)}), {wall:.3f} s the whole run; launches {counts}")
+    return counts, auctions
+
+
+@contextlib.contextmanager
+def timed_steps(times: dict):
+    """CUDA events around each pass and each chase the auction's host loop
+    dispatches (to the kernels, or to the plain versions)."""
+    from pci_tpu_torch.ops.cuda_kernels import auction_cuda
+
+    real = {name: getattr(auction_cuda, name) for name in AUCTION}
+
+    def timed(name):
+        def step(*args, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = real[name](*args, **kw)
+            end.record()
+            times[name].append((start, end))
+            return out
+        return step
+
+    for name in AUCTION:
+        setattr(auction_cuda, name, timed(name))
+    try:
+        yield
+    finally:
+        for name, fn in real.items():
+            setattr(auction_cuda, name, fn)
+
+
+def timed_auction(x1, x2, plain: bool):
+    """One whole auction (ops.emd's eps and pass budget) with each step
+    timed: ``(dist, assign, converged, prices, info, {step: ms summed})``."""
+    from pci_tpu_torch.ops.cuda_kernels import auction_cuda, plain_versions
+
+    times = {name: [] for name in AUCTION}
+    with plain_versions() if plain else contextlib.nullcontext(), timed_steps(times):
+        out = auction_cuda.auction(x1, x2, EMD_EPS, 256, return_prices=True)
+    torch.cuda.synchronize()
+    return (*out, {name: sum(s.elapsed_time(e) for s, e in ts) for name, ts in times.items()})
+
+
+def hold_auction(x1, x2, where: str, whole: bool, totals: dict | None = None,
+                 scipy_optimum: bool = False) -> None:
+    """The auction kernels against their plain versions on one pair: bit
+    for bit (prices, assignments, owners, bidder and hop counts) after each
+    of the run's first two passes and chases; over the whole run when
+    ``whole`` (distances, assignment, prices, passes, hops, converged);
+    the certificate (primal minus the prices' dual bound within
+    n (1.0001 eps + 1e-5), printed beside the primal, both normalised by
+    d_scale) on a converged run.  The certificate is loose where the
+    normalised primal is below its bound, as at 1,024 points, so at
+    ``scipy_optimum`` the cost is also held within ``COST_OVER_OPTIMUM`` of
+    scipy's optimum, which a wrong assignment fails.  Adds the kernels'
+    and plain versions' step times and bounds to ``totals``."""
+    from pci_tpu_torch.ops.cuda_kernels import auction_cuda as A
+
+    n = x1.shape[0]
+    dev = x1.device
+    q, k, d_scale = A.normalise(x1, x2)
+
+    def fresh():
+        return [torch.zeros(n, device=dev), torch.full((n,), -1, dtype=torch.int32, device=dev),
+                torch.full((n,), -1, dtype=torch.int32, device=dev)]
+
+    with torch.inference_mode():
+        sk, sp = fresh(), fresh()
+        counts = []
+        for r in range(2):
+            for step in AUCTION:
+                got = getattr(A, f"{step}_kernel")(q, k, *sk, A.EPS0)
+                want = getattr(A, f"{step}_plain")(q, k, *sp, A.EPS0)
+                torch.cuda.synchronize()
+                counts.append(int(want))
+                check(int(got) == int(want) and all(torch.equal(a, b) for a, b in zip(sk, sp)),
+                      f"{step} at {where}, round {r + 1}: the kernel's state differs from the "
+                      "plain version's")
+        dk, ak, ck, pk, ik, ms = timed_auction(x1, x2, plain=False)
+        gap = A.duality_gap(x1, x2, ak, pk)
+    bound = n * (1.0001 * EMD_EPS + 1e-5)
+    converged = bool(ck)
+    cost = float(dk.double().sum())
+    print(f"auction at {where}: kernel = plain bit for bit after each of the first 2 passes and "
+          f"chases (bidders, hops {counts}); kernel run: converged {converged}, "
+          f"{ik['passes']} passes, {ik['hops']} hops, final eps {ik['eps']:.6g}, pass "
+          f"{ms['auction_pass']:.3f} ms + chase {ms['auction_chase']:.3f} ms (CUDA events), "
+          f"cost {cost:.6g}; normalised by d_scale {float(d_scale):.6g}: primal "
+          f"{cost / float(d_scale):.6g}, certificate gap {gap:.6g} of bound {bound:.6g}")
+    if converged:
+        check(gap <= bound and len(set(ak.tolist())) == n,
+              f"auction at {where}: certificate gap {gap} > {bound}")
+    if scipy_optimum:
+        from scipy.optimize import linear_sum_assignment
+
+        a, b = x1.double().cpu().numpy(), x2.double().cpu().numpy()
+        dm = ((a[:, None, :] - b[None]) ** 2).sum(-1)
+        rows, cols = linear_sum_assignment(dm)
+        opt = float(dm[rows, cols].sum())
+        slack = bound * float(d_scale)
+        print(f"auction at {where}: cost {cost:.6g}, scipy optimum {opt:.6g} (x{cost / opt:.4f}, "
+              f"held to x{COST_OVER_OPTIMUM}), certificate {slack:.6g}")
+        check(opt - 1e-3 <= cost <= min(opt + slack, COST_OVER_OPTIMUM * opt),
+              f"auction at {where}: cost {cost} not within x{COST_OVER_OPTIMUM} nor {slack} of "
+              f"the optimum {opt}")
+    plain_ms = None
+    if whole:
+        with torch.inference_mode():
+            dp, ap, cp, pp, ip, plain_ms = timed_auction(x1, x2, plain=True)
+        same = (torch.equal(dk, dp) and torch.equal(ak, ap) and torch.equal(pk, pp)
+                and converged == bool(cp) and ik == ip)
+        print(f"auction at {where}: whole run kernel = plain bit for bit {same}; plain pass "
+              f"{plain_ms['auction_pass']:.3f} ms + chase {plain_ms['auction_chase']:.3f} ms")
+        check(same, f"auction at {where}: the whole run differs from the plain version's")
+    if totals is not None:  # the main path's shape: the device's busy share over one EMD
+        device_share(lambda: A.auction(x1, x2, EMD_EPS, 256), requests=1, unit="EMD")
+    # the bound: 8 operations a (row, column) pair a pass, 8 a key a hop;
+    # bytes: the two clouds read, prices / assignment / owners read and
+    # written, once a launch
+    work_ = {"auction_pass": (48.0 * n * ik["passes"], 8.0 * n * n * ik["passes"]),
+             "auction_chase": (48.0 * n * ik["passes"], 8.0 * n * ik["hops"])}
+    for name, (nb, ops) in work_.items():
+        bytes_ms, ops_ms = nb / HBM_BYTES_PER_S * 1e3, ops / FP32_FLOPS * 1e3
+        print(f"kernel {name:13s} n={n} passes={ik['passes']} hops={ik['hops']} "
+              f"ms={ms[name]:.4f} plain_ms="
+              + (f"{plain_ms[name]:.4f}" if plain_ms else "not run")
+              + f" bound_ms={max(bytes_ms, ops_ms):.6f} "
+              f"({'bytes' if bytes_ms > ops_ms else 'operations'}) max_abs_err=0 library_ms=none")
+        if totals is not None:
+            t = totals[name]
+            t["ms"] += ms[name]
+            t["plain_ms"] += plain_ms[name]
+            t["bytes_ms"] += bytes_ms
+            t["ops_ms"] += ops_ms
+
+
+def dup_pair(seed: int, n: int):
+    """synthetic_pair with 10% of the second cloud's points exact
+    duplicates of others (the share of duplicates in real LiDAR scans)."""
+    a, b = synthetic_pair(seed, n)
+    rng = np.random.default_rng(seed + 100)
+    k = n // 10
+    b[n - k:] = b[rng.integers(0, n - k, k)]
+    return a, b
+
+
+def phase_eval(totals: dict) -> list:
+    """The eval CLIs with the EMD metric, run as a user runs them on
+    seeded synthetic scenes; then the auction kernels held against their
+    plain versions at 1,024 points (a seeded pair) and at each CLI's first
+    EMD (its frame against its ground truth)."""
+    import tempfile
+    from pathlib import Path
+
+    from pci_tpu_torch.cli import test as isapci_cli
+    from pci_tpu_torch.cli import test_pointinet as pointinet_cli
+    from pci_tpu_torch.data import generate_scenes
+    from pci_tpu_torch.serving import DEFAULT_WEIGHTS
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        paths = {}
+        for name, frames, seed in (("window", 26, 0), ("triplet", 6, 1)):
+            generate_scenes(str(root / name), n_scenes=1, n_frames=frames, npts=24000, seed=seed)
+            paths[name] = ["--root", str(root / name / "lidar"),
+                           "--scenes_list", str(root / name / "scenes.txt"),
+                           "--scene_split_lib", str(root / name / "split")]
+        (root / "log_isapci").mkdir()
+        (root / "log_pointinet").mkdir()
+        isapci = run_cli("isapci field=2 (cli.test --emd)", isapci_cli.main,
+                         paths["window"] + ["--field", "2", "--npoints", "16000", "--interval",
+                                            "5", "--sample_method", "random", "--emd",
+                                            "--pretrained_flow_model", str(DEFAULT_WEIGHTS)],
+                         PER_WINDOW_ISAPCI, root / "log_isapci")
+        pointinet = run_cli("pointinet (cli.test_pointinet)", pointinet_cli.main,
+                            ["--dataset_name", "nuscenes"] + paths["triplet"]
+                            + ["--npoints", "16384", "--interval", "5", "--use_intensity", "0",
+                               "--pretrained_interp_model", str(DEFAULT_WEIGHTS)],
+                            PER_TRIPLET, root / "log_pointinet")
+    dev = torch.device("cuda")
+    a, b = (torch.from_numpy(x).to(dev) for x in dup_pair(3, 1024))
+    hold_auction(a, b, "1,024 (seeded pair, 10% duplicates)", whole=True, scipy_optimum=True)
+    first = isapci[1][0]
+    hold_auction(first["xyz1"], first["xyz2"], "16,000 (isapci window 1 vs its ground truth)",
+                 whole=False)
+    first = pointinet[1][0]
+    hold_auction(first["xyz1"], first["xyz2"], "16,384 (pointinet triplet 1 vs its ground "
+                 "truth)", whole=True, totals=totals)
+    return [isapci[0], pointinet[0]]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1386,7 +1689,11 @@ def main() -> int:
     # 8. PointINet at 65,536 and 32,768 points
     counts_large = phase_large(card, totals)
 
-    paths = [counts, counts_stream, *counts_routes, *counts_isapci, counts_train, *counts_large]
+    # 9. the eval CLIs with the EMD metric
+    counts_eval = phase_eval(totals)
+
+    paths = [counts, counts_stream, *counts_routes, *counts_isapci, counts_train, *counts_large,
+             *counts_eval]
     kernels = []
     for kname, (source, replaces) in KERNEL_INFO.items():
         t = totals[kname]

@@ -7,8 +7,10 @@ flow cloud -> warp -> fusion), served and trained with the flow frozen,
 with hand-written CUDA kernels (``ops.cuda_kernels``): FPS, FlowNet3D's
 encoder and decode megakernels, set-conv, kNN-conv, the fusion's one-shot
 head, residual kNN and attention tail, the multi-scale ball query, the
-exact kNN and the vector-attention tail and its backward.  Imports
-PyTorch only; the JAX package is its reference, never a dependency.
+exact kNN, the vector-attention tail and its backward, and the EMD's
+Gauss-Seidel auction under the eval CLIs (``pci_tpu_torch.cli``).
+Imports PyTorch only; the JAX package is its reference, never a
+dependency.
 """
 
 from .serving import Interpolator

@@ -9,6 +9,7 @@ from .chamfer import (
     nearest_neighbor_idx,
 )
 from .distance import square_distance
+from .emd import emd, emd_assignment_dist, emd_assignment_sparse, sinkhorn_emd
 from .fps import fps, fps_points
 from .gather import index_points, knn_gather, scatter_add_rows
 from .interpolate import three_nn_interpolate
@@ -20,6 +21,9 @@ __all__ = [
     "chamfer_distance",
     "chamfer_loss_cf",
     "chamfer_per_sample",
+    "emd",
+    "emd_assignment_dist",
+    "emd_assignment_sparse",
     "fps",
     "fps_points",
     "index_points",
@@ -28,6 +32,7 @@ __all__ = [
     "min_sqdist",
     "nearest_neighbor_idx",
     "scatter_add_rows",
+    "sinkhorn_emd",
     "square_distance",
     "three_nn_interpolate",
 ]

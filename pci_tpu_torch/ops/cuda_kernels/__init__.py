@@ -1,8 +1,8 @@
 """Hand-written CUDA kernels for Hopper (``sm_90a``), one per TPU kernel of
 the port's paths (PointINet and ISAPCInet eval on the JAX package's default
 route and with its gates off, PointINet at 32,768 points and more on the
-cell-pruned fusion, ISAPCInet training), each beside its plain PyTorch
-version.
+cell-pruned fusion, ISAPCInet training, the eval CLIs' EMD auction), each
+beside its plain PyTorch version.
 
 Every kernel wrapper (``*_kernel``) counts its launches in a
 ``launches`` attribute (the kNN kernel's k=1 form in
@@ -18,6 +18,7 @@ from .attention_cuda import (
     vector_attention,
     vector_attention_trainable,
 )
+from .auction_cuda import auction, auction_chase_kernel, auction_pass_kernel
 from .ball_cuda import ball_kernel, ball_query_multi
 from .flowenc_cuda import flowenc_fused, flowenc_kernel
 from .flowmid_cuda import flowmid_fused, flowmid_kernel
@@ -55,6 +56,8 @@ KERNELS = {
     "fusion_tail": fusion_tail_kernel,
     "fusion_cells": fusion_cells_kernel,
     "pn2mid": pn2mid_kernel,
+    "auction_pass": auction_pass_kernel,
+    "auction_chase": auction_chase_kernel,
 }
 
 
@@ -72,6 +75,9 @@ __all__ = [
     "attention_bwd",
     "attention_bwd_kernel",
     "attention_kernel",
+    "auction",
+    "auction_chase_kernel",
+    "auction_pass_kernel",
     "ball_kernel",
     "ball_query_multi",
     "build_seconds",

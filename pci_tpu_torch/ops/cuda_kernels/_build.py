@@ -59,6 +59,8 @@ _SIGNATURES = {
                            ctypes.POINTER(ctypes.c_longlong)],
     "pci_pn2mid": [_P, _P, _P, _IP, _IP, _IP, _P, _P, _P, _P, _I, _I, _I, _IP, _IP, _FP,
                    _P],
+    "pci_auction_pass": [_P] * 7 + [_I, _I, _F, _F, _P],
+    "pci_auction_chase": [_P] * 6 + [_I, _I, _F, _I, _P],
 }
 
 _PLAIN = contextvars.ContextVar("pci_tpu_torch_plain", default=False)

@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from .convert import flax_to_state_dict, load_npz_tree, load_subtrees
+from .data.lidar import random_subsample
 from .models import ISAPCInet, PointINet
 
 DEFAULT_WEIGHTS = Path(__file__).resolve().parent / "assets" / "pointinet_synth16k.npz"
@@ -41,20 +42,6 @@ def resolve_device(device=None) -> torch.device:
             )
         return torch.device("cuda")
     return torch.device(device)
-
-
-def random_subsample(points: np.ndarray, npoints: int,
-                     rng: np.random.Generator) -> np.ndarray:
-    """Sample without replacement; pad with replacement if short (copy of
-    ``pci_tpu/data/lidar.py:random_subsample``)."""
-    n = points.shape[0]
-    if n >= npoints:
-        idx = rng.choice(n, npoints, replace=False)
-    else:
-        idx = np.concatenate(
-            [np.arange(n), rng.choice(n, npoints - n, replace=True)]
-        )
-    return points[idx]
 
 
 def init_weights(model: torch.nn.Module, seed: int) -> None:
@@ -115,10 +102,14 @@ class Interpolator:
         return cls(model.to(device), npoints, seed, device, field=field)
 
     def _prep(self, cloud) -> torch.Tensor:
+        """A ``[N, >=3]`` scan resampled to ``npoints`` -> ``[1, npoints,
+        3]``; a pre-batched ``[1, N, 3]`` cloud passes through as it is."""
         pts = np.asarray(cloud, np.float32)[..., :3]
-        if pts.shape[0] != self.npoints:
-            pts = random_subsample(pts, self.npoints, self._rng)
-        return torch.from_numpy(np.ascontiguousarray(pts))[None].to(self.device)
+        if pts.ndim == 2:
+            if pts.shape[0] != self.npoints:
+                pts = random_subsample(pts, self.npoints, self._rng)
+            pts = pts[None]
+        return torch.from_numpy(np.ascontiguousarray(pts)).to(self.device)
 
     def __call__(self, cloud_a, cloud_b, t: float, context=None,
                  perms=None) -> np.ndarray:

@@ -159,6 +159,25 @@ def test_interpolator_serves_frames_on_cpu():
     assert len(frames) == 2 and all(f.shape == (512, 3) for f in frames)
 
 
+def test_prep_branches():
+    """``_prep`` (``tests/test_serving.py``'s shapes): subsample a larger
+    scan, pad a smaller one, pass an exact-size one and a pre-batched
+    ``[1, N, 3]`` cloud through as they are."""
+    rng = np.random.default_rng(3)
+    it = Interpolator.pointinet(npoints=64, device="cpu")
+    big = rng.standard_normal((100, 3)).astype(np.float32)
+    small = rng.standard_normal((40, 5)).astype(np.float32)
+    exact = rng.standard_normal((64, 3)).astype(np.float32)
+    for cloud in (big, small, exact, exact[None]):
+        out = it._prep(cloud)
+        assert tuple(out.shape) == (1, 64, 3) and torch.isfinite(out).all()
+    np.testing.assert_array_equal(it._prep(exact)[0].numpy(), exact)
+    np.testing.assert_array_equal(it._prep(exact[None]).numpy(), exact[None])
+    padded = it._prep(small)[0].numpy()
+    for row in small[:, :3]:
+        assert (np.abs(padded - row).sum(-1) < 1e-6).any()
+
+
 def test_interpolator_needs_cuda_unless_told(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
