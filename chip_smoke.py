@@ -93,7 +93,14 @@ each printing its own lines:
      whole run, with the device's busy share over one EMD; the certificate
      (primal minus the prices' dual bound within n (1.0001 eps + 1e-5))
      at all three on a converged run.
-Then the kernels JSON line, the card line, and {"ok": true, ...} last.
+Then a resources line for each kernel whose dense products run on the
+tensor cores (the one-shot fusion and flowmid, 3xTF32): registers a thread,
+static and dynamic shared bytes, resident blocks an SM, its max error
+against its plain version relative to the output's largest magnitude; the
+kernels JSON line, the card line, and {"ok": true, ...} last.  A kernel's
+bound_ms is the larger of its bytes over HBM_BYTES_PER_S and its
+operations over FP32_FLOPS, where a tensor-core kernel's dense products
+count apart, at 3 x FLOP over TF32_FLOPS.
 Exits non-zero, with no result line, when CUDA is missing or a phase fails.
 """
 
@@ -114,6 +121,11 @@ import torch
 NPOINTS = 16384
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores
+TF32_FLOPS = 495e12  # H100 SXM dense TF32 on the tensor cores
+# kernels whose dense products run on the tensor cores in 3xTF32 (three TF32
+# products a multiply-add, csrc/mma_tf32.cuh): their bound counts those
+# products apart, at 3 x FLOP / TF32_FLOPS, beside the scalar work
+TENSOR_KERNELS = {"fusion": "pci_fusion_attrs", "flowmid": "pci_flowmid_attrs"}
 KERNEL_INFO = {  # name -> (source, TPU kernel it replaces)
     "fps": ("pci_tpu_torch/csrc/fps.cu",
             "pci_tpu/ops/pallas_kernels/fps_tpu.py:117"),
@@ -421,9 +433,10 @@ def pn2mid_work(l1x, l1f, groups, out):
 
 
 def work(name, args, kw, out):
-    """(bytes, operations) the function needs on these inputs: each input
-    read once, each output written once; data-dependent loops counted as
-    this run's data needs them."""
+    """(bytes, operations[, tensor FLOP]) the function needs on these
+    inputs: each input read once, each output written once; data-dependent
+    loops counted as this run's data needs them; for TENSOR_KERNELS the
+    dense products' FLOP apart (bound_terms() counts them as 3xTF32)."""
     if name == "fusion_cells":
         combined, seg_ends, budgets = args[:3]
         B, N, _ = combined.shape
@@ -474,14 +487,15 @@ def work(name, args, kw, out):
         w = [t for g in groups for wb in g for t in wb]
         # the in-kernel FPS, then each stage as work() counts kNN-conv (8
         # operations a query-key pair) and set-conv (the ball scans)
-        ops = (10.0 * B * (s3 * N2 + s4 * s3)
-               + 8.0 * B * N2 * N2 + mlp_flops(fe, B * N2 * k_fe)
-               + 9.0 * scanned_keys(x3, pa2, [r3], [ns3]) + mlp_flops(sc3, B * s3 * ns3)
-               + 9.0 * scanned_keys(x4, x3, [r4], [ns4]) + mlp_flops(sc4, B * s4 * ns4)
-               + 8.0 * B * s3 * s4 + mlp_flops(su1, B * s3)
-               + 8.0 * B * N2 * s3 + mlp_flops(su2a, B * N2 * k_up) + mlp_flops(su2b, B * N2)
-               + 8.0 * B * N1 * N2 + mlp_flops(su3a, B * N1 * k_up) + mlp_flops(su3b, B * N1))
-        return nbytes(pa1, fa1, pa2, fa2, pb2, fb2, out, *w), ops
+        # (the MLPs on the tensor cores, counted apart)
+        ops = (10.0 * B * (s3 * N2 + s4 * s3) + 8.0 * B * N2 * N2
+               + 9.0 * scanned_keys(x3, pa2, [r3], [ns3]) + 9.0 * scanned_keys(x4, x3, [r4], [ns4])
+               + 8.0 * B * s3 * s4 + 8.0 * B * N2 * s3 + 8.0 * B * N1 * N2)
+        tensor = (mlp_flops(fe, B * N2 * k_fe) + mlp_flops(sc3, B * s3 * ns3)
+                  + mlp_flops(sc4, B * s4 * ns4) + mlp_flops(su1, B * s3)
+                  + mlp_flops(su2a, B * N2 * k_up) + mlp_flops(su2b, B * N2)
+                  + mlp_flops(su3a, B * N1 * k_up) + mlp_flops(su3b, B * N1))
+        return nbytes(pa1, fa1, pa2, fa2, pb2, fb2, out, *w), ops, tensor
     if name == "fusion_tail":
         combined, resi, extra, layers = args
         B, N, k, _ = resi.shape
@@ -538,8 +552,17 @@ def work(name, args, kw, out):
     combined, seg_ends, budgets, layers, k = args
     B, N, _ = combined.shape
     w = [t for wb in layers for t in wb]
-    ops = 8.0 * B * N * N + mlp_flops(layers, B * N * k) + 6.0 * B * N * k
-    return nbytes(combined, seg_ends, budgets, out, *w), ops
+    # the distances and the softmax and sums; the score MLP on the tensor cores
+    ops = 8.0 * B * N * N + 6.0 * B * N * k
+    return nbytes(combined, seg_ends, budgets, out, *w), ops, mlp_flops(layers, B * N * k)
+
+
+def bound_terms(nb: float, ops: float, tensor: float = 0.0):
+    """(bytes term, operations term) in ms: bytes over HBM_BYTES_PER_S;
+    scalar operations over FP32_FLOPS plus, for a tensor-core kernel, its
+    dense products at 3 x FLOP over TF32_FLOPS (the split's three
+    products)."""
+    return nb / HBM_BYTES_PER_S * 1e3, (ops / FP32_FLOPS + 3.0 * tensor / TF32_FLOPS) * 1e3
 
 
 def label(name, args, kw) -> str:
@@ -701,7 +724,7 @@ def library_call(name, args):
 
 def new_totals():
     return {n: {"ms": 0.0, "plain_ms": 0.0, "err": 0.0, "bytes_ms": 0.0,
-                "ops_ms": 0.0, "library_ms": None} for n in KERNEL_INFO}
+                "ops_ms": 0.0, "library_ms": None, "rel": 0.0} for n in KERNEL_INFO}
 
 
 def hold_kernels(calls, request: int, expected: dict, totals: dict, path: str,
@@ -722,20 +745,23 @@ def hold_kernels(calls, request: int, expected: dict, totals: dict, path: str,
                 want = fn(*args, **kw)
             torch.cuda.synchronize()
             err = compare(name, got, want, label(name, args, kw), args)
+            rel = err / max(want.abs().max().item(), 1e-30) if name in TENSOR_KERNELS else 0.0
             ms = cuda_ms(lambda: fn(*args, **kw), 10)
             with plain_versions():
                 plain_ms = cuda_ms(lambda: fn(*args, **kw), 3)
             lib = library_call(name, args)
             lib_ms = cuda_ms(lib, 3) if lib is not None else None
-            nb, ops = work(name, args, kw, got)
-            bytes_ms, ops_ms = nb / HBM_BYTES_PER_S * 1e3, ops / FP32_FLOPS * 1e3
+            nb, ops, *tensor = work(name, args, kw, got)
+            bytes_ms, ops_ms = bound_terms(nb, ops, *tensor)
+            basis = "bytes" if bytes_ms > ops_ms else ("ops, tensor" if tensor else "operations")
             print(f"kernel {name:9s} {label(name, args, kw):52s} ms={ms:.4f} "
                   f"plain_ms={plain_ms:.4f} bound_ms={max(bytes_ms, ops_ms):.6f} "
-                  f"({'bytes' if bytes_ms > ops_ms else 'operations'}) "
-                  f"max_abs_err={err:.3g}"
+                  f"({basis}) max_abs_err={err:.3g}"
+                  + (f" rel_err={rel:.3g}" if name in TENSOR_KERNELS else "")
                   + (f" library_ms={lib_ms:.4f}" if lib_ms is not None else ""))
             t = own[name]
             t["err"] = max(t["err"], err)
+            t["rel"] = max(t["rel"], rel)
             if i < request:  # one request's worth of launches
                 t["ms"] += ms
                 t["plain_ms"] += plain_ms
@@ -745,7 +771,7 @@ def hold_kernels(calls, request: int, expected: dict, totals: dict, path: str,
                     t["library_ms"] = (t["library_ms"] or 0.0) + lib_ms
     for name in KERNEL_INFO:
         for key, val in own[name].items():
-            if key == "err":
+            if key in ("err", "rel"):
                 totals[name][key] = max(totals[name][key], val)
             elif key == "library_ms":
                 if val is not None:
@@ -1236,11 +1262,16 @@ def phase_train(card: str, totals: dict) -> dict:
 
 
 def cells_vs_flat(combined, seg_ends, budgets, layers, k: int, n: int) -> None:
-    """The cell-pruned kernel against the flat one on one combined cloud:
-    residual-mode indices (and residuals) identical, one-shot rows within
-    1e-6 m; prints the share of pairs each scanned and both kernels' ms."""
+    """The cell-pruned kernel against the flat ones on one combined cloud:
+    residual-mode indices (and residuals) identical; one-shot rows within
+    1e-6 m of the flat residual kNN's neighbours through the attention tail
+    (the same scalar head, csrc/fusion_head.cuh), and within the kernel
+    hold's 1e-4 of the flat one-shot kernel (its head on the tensor cores
+    sums in another order); prints the share of pairs each scanned and the
+    kernels' ms."""
     from pci_tpu_torch.ops.cuda_kernels.fusion_cells_cuda import fusion_cells_kernel
     from pci_tpu_torch.ops.cuda_kernels.fusion_knn_cuda import fusion_kernel, fusion_resi_kernel
+    from pci_tpu_torch.ops.cuda_kernels.fusion_tail_cuda import fusion_tail_kernel
 
     B, N = combined.shape[:2]
     with torch.inference_mode():
@@ -1249,14 +1280,19 @@ def cells_vs_flat(combined, seg_ends, budgets, layers, k: int, n: int) -> None:
         fi, fr = fusion_resi_kernel(combined, seg_ends, budgets, k)
         co = fusion_cells_kernel(combined, seg_ends, budgets, k, layers)
         fo = fusion_kernel(combined, seg_ends, budgets, layers, k)
+        ft = fusion_tail_kernel(combined, fr, None, layers)
         torch.cuda.synchronize()
         check(torch.equal(ci, fi), f"fusion_cells at {n}: indices differ from the flat kernel's")
-        err = (co - fo).abs().max().item()
+        err = (co - ft).abs().max().item()
+        err_tc = (co - fo).abs().max().item()
         print(f"fusion_cells vs flat at {n} points, budgets {budgets.tolist()}: indices "
               f"identical, residuals bit-equal {torch.equal(cr, fr)}, one-shot rows max "
-              f"|diff| {err:.3g} m; pairs scanned {scanned.item()} of {B * N * N} "
-              f"({scanned.item() / (B * N * N):.4f}; the flat kernels scan all)")
-        check(err <= 1e-6, f"fusion_cells at {n}: one-shot rows differ from the flat kernel's")
+              f"|diff| {err:.3g} m against the flat residual kNN + tail, {err_tc:.3g} m "
+              f"against the flat one-shot kernel; pairs scanned {scanned.item()} of "
+              f"{B * N * N} ({scanned.item() / (B * N * N):.4f}; the flat kernels scan all)")
+        check(err <= 1e-6, f"fusion_cells at {n}: one-shot rows differ from the flat kernels'")
+        check(torch.allclose(fo, co, atol=1e-4, rtol=1e-4),
+              f"fusion_cells at {n}: one-shot rows differ from the flat one-shot kernel's")
         times = {name: cuda_ms(fn, 3) for name, fn in (
             ("cells residual", lambda: fusion_cells_kernel(combined, seg_ends, budgets, k)),
             ("flat residual", lambda: fusion_resi_kernel(combined, seg_ends, budgets, k)),
@@ -1567,7 +1603,7 @@ def hold_auction(x1, x2, where: str, whole: bool, totals: dict | None = None,
     work_ = {"auction_pass": (48.0 * n * ik["passes"], 8.0 * n * n * ik["passes"]),
              "auction_chase": (48.0 * n * ik["passes"], 8.0 * n * ik["hops"])}
     for name, (nb, ops) in work_.items():
-        bytes_ms, ops_ms = nb / HBM_BYTES_PER_S * 1e3, ops / FP32_FLOPS * 1e3
+        bytes_ms, ops_ms = bound_terms(nb, ops)
         print(f"kernel {name:13s} n={n} passes={ik['passes']} hops={ik['hops']} "
               f"ms={ms[name]:.4f} plain_ms="
               + (f"{plain_ms[name]:.4f}" if plain_ms else "not run")
@@ -1641,6 +1677,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     from pci_tpu_torch.ops.cuda_kernels import build_seconds, plain_versions
+    from pci_tpu_torch.ops.cuda_kernels._build import kernel_attrs
     from pci_tpu_torch.serving import DEFAULT_WEIGHTS, Interpolator
 
     # 1. device
@@ -1694,6 +1731,14 @@ def main() -> int:
 
     paths = [counts, counts_stream, *counts_routes, *counts_isapci, counts_train, *counts_large,
              *counts_eval]
+    for kname, entry in TENSOR_KERNELS.items():  # the tensor-core kernels' resources
+        at, t = kernel_attrs(entry), totals[kname]
+        print(f"kernel resources {kname}: {at['registers']} registers a thread, "
+              f"{at['static_smem']} static + {at['dynamic_smem']} dynamic shared bytes a "
+              f"block, {at['blocks_per_sm']} blocks of {at['threads']} threads "
+              f"({at['blocks_per_sm'] * at['threads'] // 32} warps) an SM, "
+              f"{at['local_bytes']} local bytes a thread; max |kernel - plain| "
+              f"{t['err']:.3g}, {t['rel']:.3g} of the output's largest magnitude")
     kernels = []
     for kname, (source, replaces) in KERNEL_INFO.items():
         t = totals[kname]

@@ -19,18 +19,34 @@
 //                  skip fa_1, 320 -> 256                       -> nf_1 [1024, 256]
 // The stage bodies are the per-stage kernels' (knn_conv_tile,
 // ball_conv_tile, fps_chain in csrc/stages.cuh): exact selection, ties to
-// the lower index, so the fused and the per-stage routes give the same bits.
+// the lower index, so the fused and the per-stage routes pick the same
+// points; their MLP sums differ in order and precision (3xTF32 here).
 //
 // What bounds it on the H100: per stream ~4.3 GFLOP of MLP (FlowEmbedding's
-// 256 x 64 slots the most, then set_upconv3's 1,024 x 8) against ~3.7 MB of
-// weights and activations, so operations (0.064 ms a stream at 67 TFLOP/s
-// fp32); the serial dependency of the six stages and the scalar MLPs in
-// shared memory decide its time.  The TPU ran each stream's chain in one
-// grid step; here a cooperative launch strides every block over (stream,
-// tile) items in each stage, with a grid barrier between stages (five a
-// launch).  The FPS runs, one block a stream, beside FlowEmbedding's tiles;
-// the intermediates go to device scratch, where they stay in L2 (under
-// 1 MB a stream).
+// 256 x 64 slots x 259 -> 128 -> 128 -> 128 the most, then set_upconv3's
+// 1,024 x 8) against ~3.7 MB of weights and activations, so operations;
+// and the serial dependency of the six stages.  The TPU ran each stream's
+// chain in one grid step; here a cooperative launch strides every block
+// over (stream, tile) items in each stage, with a grid barrier between
+// stages (five a launch).  The FPS runs, one block a stream, beside
+// FlowEmbedding's tiles; the intermediates go to device scratch, where they
+// stay in L2 (under 1 MB a stream).
+//
+// The stage MLPs run on the tensor cores (TensorMlp, csrc/mma_tf32.cuh:
+// mma.sync m16n8k8 in 3xTF32, fp32 accuracy), in tiles of up to 64 MLP
+// rows: FlowEmbedding one query's 64 slots, set_upconv1-3 8 queries x 8
+// slots, set_conv3/4 8 centres x 8, MLP2 the tile's pooled rows; the
+// shared-memory budget halves a tile's rows (to 16) where its buffers do
+// not fit two blocks an SM.  A stage's weights do not fit in shared memory
+// (FlowEmbedding's first layer alone is 270 KB split), so each layer
+// streams its weights in k-step slices (8 inputs x 128 outputs, hi and lo,
+// 8 KB) through a three-slot ring by cp.async, two slices ahead of the
+// mma: a block reads each weight once a tile, where the scalar routine
+// read it again through the read-only cache for every 8 rows.  The
+// selections, the FPS and the scratch layout are the per-stage kernels';
+// only the MLP routine differs (knn_conv_tile / ball_conv_tile take it as a
+// template parameter; the per-stage kernels and the encoder megakernel keep
+// the scalar one).
 #include "stages.cuh"
 
 struct FlowmidParams {
@@ -43,7 +59,8 @@ struct FlowmidParams {
   int B, N2, S3, S4;
 };
 
-__global__ void __launch_bounds__(256) flowmid_kernel(const __grid_constant__ FlowmidParams p) {
+
+__global__ void __launch_bounds__(256, 1) flowmid_kernel(const __grid_constant__ FlowmidParams p) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   unsigned int passed = 0;
@@ -53,18 +70,20 @@ __global__ void __launch_bounds__(256) flowmid_kernel(const __grid_constant__ Fl
     fps_centres(p.pa2 + (size_t)b * p.N2 * 3, p.N2, p.S3, x3, smem);
     fps_centres(x3, p.S3, p.S4, p.x4 + (size_t)b * p.S4 * 3, smem);
   }
-  grid_tiles(p.B, p.fe.S, p.fe.Q, p.B, [&](int b, int q0) { knn_conv_tile(p.fe, b, q0, smem); });
+  grid_tiles(p.B, p.fe.S, p.fe.Q, p.B, [&](int b, int q0) { knn_conv_tile<TensorMlp>(p.fe, b, q0, smem); });
   grid_sync(p.bar, passed);
-  grid_tiles(p.B, p.sc3.S, p.sc3.Q, 0, [&](int b, int q0) { ball_conv_tile(p.sc3, b, q0, smem); });
+  grid_tiles(p.B, p.sc3.S, p.sc3.Q, 0, [&](int b, int q0) { ball_conv_tile<TensorMlp>(p.sc3, b, q0, smem); });
   grid_sync(p.bar, passed);
-  grid_tiles(p.B, p.sc4.S, p.sc4.Q, 0, [&](int b, int q0) { ball_conv_tile(p.sc4, b, q0, smem); });
+  grid_tiles(p.B, p.sc4.S, p.sc4.Q, 0, [&](int b, int q0) { ball_conv_tile<TensorMlp>(p.sc4, b, q0, smem); });
   grid_sync(p.bar, passed);
-  grid_tiles(p.B, p.su1.S, p.su1.Q, 0, [&](int b, int q0) { knn_conv_tile(p.su1, b, q0, smem); });
+  grid_tiles(p.B, p.su1.S, p.su1.Q, 0, [&](int b, int q0) { knn_conv_tile<TensorMlp>(p.su1, b, q0, smem); });
   grid_sync(p.bar, passed);
-  grid_tiles(p.B, p.su2.S, p.su2.Q, 0, [&](int b, int q0) { knn_conv_tile(p.su2, b, q0, smem); });
+  grid_tiles(p.B, p.su2.S, p.su2.Q, 0, [&](int b, int q0) { knn_conv_tile<TensorMlp>(p.su2, b, q0, smem); });
   grid_sync(p.bar, passed);
-  grid_tiles(p.B, p.su3.S, p.su3.Q, 0, [&](int b, int q0) { knn_conv_tile(p.su3, b, q0, smem); });
+  grid_tiles(p.B, p.su3.S, p.su3.Q, 0, [&](int b, int q0) { knn_conv_tile<TensorMlp>(p.su3, b, q0, smem); });
 }
+
+static size_t last_smem = 0;  // dynamic shared bytes of the last launch
 
 static KnnConvStage knn_stage(const float* q, const float* kx, const float* kf,
                               const float* qf, const float* skip, const float* skip2,
@@ -76,8 +95,8 @@ static KnnConvStage knn_stage(const float* q, const float* kx, const float* kf,
   s.qxyz = q, s.kxyz = kx, s.kfeat = kf, s.qfeat = qf, s.skip = skip, s.skip2 = skip2;
   s.w1 = w1, s.w2 = w2;
   s.out = out;
-  s.m1 = make_mlp_spec(dims1, n1, 0);
-  s.m2 = make_mlp_spec(dims2, n2, 0);
+  s.m1 = make_tf32_spec(dims1, n1, 0);
+  s.m2 = make_tf32_spec(dims2, n2, 0);
   s.N = N, s.S = S, s.D = D, s.C1 = C1, s.Cs = Cs, s.Cs2 = Cs2, s.k = k;
   s.interp = 0, s.recip_eps = 0, s.n_final = 0;
   return s;
@@ -89,7 +108,7 @@ static BallConvStage ball_stage(const float* xyz, const float* feats,
                                 float r2) {
   BallConvStage s;
   s.xyz = xyz, s.feats = feats, s.qxyz = q, s.w = w, s.out = out;
-  s.m = make_mlp_spec(dims, n, 0);
+  s.m = make_tf32_spec(dims, n, 0);
   s.N = N, s.S = S, s.D = D, s.K = K, s.r2 = r2;
   return s;
 }
@@ -97,11 +116,12 @@ static BallConvStage ball_stage(const float* xyz, const float* feats,
 // Inputs pa1 [B][N1][3], fa1 [B][N1][C1], pa2/pb2 [B][N2][3], fa2/fb2
 // [B][N2][C2].  w[g], dims + doff[g], nl[g]: the eight folded MLP groups in
 // flowmid_tpu's _N_LAYERS order (fe, sc3, sc4, su1.conv2, su2.conv1,
-// su2.conv2, su3.conv1, su3.conv2), each its own packed buffer (common.cuh
-// layout) and its nl[g] + 1 widths at offset doff[g] of the host array
-// dims.  Scratch: x3 [B][S3][3], x4 [B][S4][3], emb [B][N2][*], fa3
-// [B][S3][*], fa4 [B][S4][*], nf3 [B][S3][*], nf2 [B][N2][*]; out nf1
-// [B][N1][*]; bar one zeroed unsigned int.
+// su2.conv2, su3.conv1, su3.conv2), each its own buffer split for the
+// tensor cores (mma_tf32.cuh layout, _build.pack_tf32) and its nl[g] + 1
+// widths at offset doff[g] of the host array dims.  Scratch: x3
+// [B][S3][3], x4 [B][S4][3], emb [B][N2][*], fa3 [B][S3][*], fa4
+// [B][S4][*], nf3 [B][S3][*], nf2 [B][N2][*]; out nf1 [B][N1][*]; bar one
+// unsigned int, zeroed here on the stream before the launch.
 extern "C" int pci_flowmid(const void* pa1, const void* fa1, const void* pa2,
                            const void* fa2, const void* pb2, const void* fb2,
                            const void* const* w, const int* dims,
@@ -114,7 +134,10 @@ extern "C" int pci_flowmid(const void* pa1, const void* fa1, const void* pa2,
   for (int g = 0; g < 8; ++g)
     if (nl[g] < 1 || nl[g] > PCI_MAX_LAYERS) return (int)cudaErrorInvalidValue;
   if (N2 > 16 * 256 || S3 > 16 * 256) return (int)cudaErrorInvalidValue;
-  const size_t budget = 110 * 1024;  // two blocks an SM
+  // one block an SM, its tiles as full as 220 KB allow (227 KB a block less
+  // the FPS's static shared memory): a tile streams its stage's weights
+  // once a chunk of rows, so fewer, larger chunks read less
+  const size_t budget = 220 * 1024;
   auto F = [](const void* v) { return static_cast<const float*>(v); };
   auto O = [](void* v) { return static_cast<float*>(v); };
   const int* d = dims;
@@ -137,9 +160,9 @@ extern "C" int pci_flowmid(const void* pa1, const void* fa1, const void* pa2,
                     k_up);
   p.su3 = knn_stage(F(pa1), F(pa2), O(nf2), nullptr, F(fa1), nullptr, W(6), Dm(6),
                     nl[6], W(7), Dm(7), nl[7], O(nf1), N2, N1, c_nf2, 0, C1, 0, k_up);
-  if (!knn_conv_plan(p.fe, budget) || !knn_conv_plan(p.su1, budget) ||
-      !knn_conv_plan(p.su2, budget) || !knn_conv_plan(p.su3, budget) ||
-      !ball_conv_plan(p.sc3, B, budget) || !ball_conv_plan(p.sc4, B, budget))
+  if (!knn_conv_plan(p.fe, budget, true, B) || !knn_conv_plan(p.su1, budget, true, B) ||
+      !knn_conv_plan(p.su2, budget, true, B) || !knn_conv_plan(p.su3, budget, true, B) ||
+      !ball_conv_plan(p.sc3, B, budget, true) || !ball_conv_plan(p.sc4, B, budget, true))
     return (int)cudaErrorInvalidValue;
   p.pa2 = F(pa2);
   p.x3 = O(x3), p.x4 = O(x4);
@@ -153,6 +176,29 @@ extern "C" int pci_flowmid(const void* pa1, const void* fa1, const void* pa2,
   const int items = std::max({B + tiles(N2, p.fe.Q), tiles(S3, p.sc3.Q),
                               tiles(S4, p.sc4.Q), tiles(S3, p.su1.Q),
                               tiles(N2, p.su2.Q), tiles(N1, p.su3.Q)});
+  last_smem = smem;
+  cudaError_t e = cudaMemsetAsync(bar, 0, sizeof(unsigned int), static_cast<cudaStream_t>(stream));
+  if (e != cudaSuccess) return (int)e;
   return launch_cooperative(flowmid_kernel, p, smem, items,
                             static_cast<cudaStream_t>(stream));
+}
+
+// The kernel's resources at its last launch's shared memory: out =
+// {registers a thread, static shared bytes, dynamic shared bytes, resident
+// blocks an SM, threads a block, local (spill) bytes a thread}.
+extern "C" int pci_flowmid_attrs(int* out) {
+  cudaFuncAttributes a;
+  cudaError_t e = cudaFuncGetAttributes(&a, flowmid_kernel);
+  if (e != cudaSuccess) return (int)e;
+  if ((e = allow_smem(flowmid_kernel, last_smem)) != cudaSuccess) return (int)e;
+  int per_sm = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, flowmid_kernel, 256, last_smem);
+  if (e != cudaSuccess) return (int)e;
+  out[0] = a.numRegs;
+  out[1] = (int)a.sharedSizeBytes;
+  out[2] = (int)last_smem;
+  out[3] = per_sm;
+  out[4] = 256;
+  out[5] = (int)a.localSizeBytes;
+  return 0;
 }

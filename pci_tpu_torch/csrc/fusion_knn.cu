@@ -11,18 +11,38 @@
 // lower index.  A segment with fewer keys than its budget leaves slots
 // empty; they become zero residuals (a self-neighbour), as on the TPU.
 //
-// What bounds it on the H100: 16,384 x 16,384 distances (2.7e8, ~2.1 GFLOP)
-// and the score MLP (16,384 x 32 slots x 12.3k FMA, ~13 GFLOP), against
-// 0.2 MB of input: operations, not bytes.  The design: one warp a query,
-// k <= 32 so lane L owns slot L.  Each lane keeps entry L of two sorted
-// top-k lists (one per segment) in registers; the block streams the keys
-// through shared memory in tiles, every lane tests one key against the
-// list's current k-th distance, and the few keys that pass (about
-// k * ln(N / k) per query) are inserted by one ballot + shuffle-up each.
-// Then lane L runs the score MLP for its own slot with the folded weights
-// (51 KB) in shared memory and the activations in registers, and the
-// softmax over k is a warp max and a warp sum: the [N, k, 3] residual block
-// never exists.
+// What bounds it on the H100: 16,384 x 16,384 distances (2.7e8 pairs,
+// ~2.1 GFLOP of scalar work) and the score MLP (16,384 x 32 slots x 12.3k
+// multiply-adds, ~13 GFLOP, ~39 GFLOP of TF32 products split three ways),
+// against 0.2 MB of input: operations.  The key scan is latency-bound
+// (shared loads, a compare and a ballot per 32 keys); the head is dense.
+// The design:
+//   - persistent blocks, one an SM (16 warps, two queries each, so a group
+//     of 32 queries a turn): each block copies the split score MLP (101 KB,
+//     _build.pack_tf32(chain=True)) into shared memory once and keeps it
+//     for every group it walks, instead of each of 2,048 blocks reading
+//     51 KB again;
+//   - the scan (oneshot_slots) is budgeted_slot's: lane L keeps entry L of
+//     two sorted top-k lists a query in registers, every lane tests one key
+//     against its segment's k-th distance, the few keys that pass (about
+//     k ln(N / k) a query) are inserted by a ballot and a shuffle, so the
+//     same slots, rounding and ties; it is latency-bound, so a warp scans
+//     two queries and four 32-key chunks at once (independent loads, math
+//     and ballots in flight), and holds few registers (16 warps an SM; the
+//     old kernel's 180 registers a thread allowed 8); the key tiles (2,048
+//     keys) are double-buffered by cp.async, the next tile loading while
+//     the warps scan this one;
+//   - the head (score_tile) runs on the tensor cores in 3xTF32
+//     (csrc/mma_tf32.cuh): each warp's 32 slots are two 16-row tiles, the
+//     residual rows built in registers by shuffles, every layer's output
+//     kept as accumulator fragments that are the next layer's A operand
+//     (the weights laid out for that), the last layer in four 32-output
+//     chunks with a running max over channels, so no [32, 128] block and
+//     no shared memory for activations; the softmax over the k slots is a
+//     warp max and a warp sum as before.  The [N, k, 3] residual block
+//     never exists.
+// The scan and the head of one block alternate (a two-phase block); the
+// other SMs' blocks and the 16 warps of each keep both units busy.
 //
 // The same file holds the training route's kernel, fusion_resi_kernel: it
 // replaces fusion_knn_tpu.py:knn_fusion_adaptive / knn_fusion_multi
@@ -34,6 +54,7 @@
 // JAX package.  Bound: the 16,000^2 distances a cloud (8 flops each), so
 // operations; the extraction costs the same as in the one-shot kernel.
 #include "fusion_head.cuh"
+#include "mma_tf32.cuh"
 
 #define FUS_TILE 2048
 
@@ -132,70 +153,347 @@ __device__ __forceinline__ int budgeted_slot(const float* __restrict__ P,
   return idx;
 }
 
-template <int H1, int H2, int H3>
-__global__ void __launch_bounds__(256)
-fusion_kernel(const float* __restrict__ pts, const int* __restrict__ seg,
-              const float* __restrict__ wbuf, float* __restrict__ out, int N) {
-  constexpr int NW = ScoreMlp<H1, H2, H3>::NW;
-  extern __shared__ float4 smem4[];
-  float* sw = reinterpret_cast<float*>(smem4);
-  float* tx = sw + ((NW + 3) / 4) * 4;
-  float* ty = tx + FUS_TILE;
-  float* tz = ty + FUS_TILE;
-  for (int e = threadIdx.x; e < NW; e += blockDim.x) sw[e] = wbuf[e];
+// ---- the one-shot kernel --------------------------------------------------
 
-  const int b = blockIdx.y;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int q = blockIdx.x * (blockDim.x >> 5) + warp;
-  const int qq = min(q, N - 1);
-  const float* P = pts + (size_t)b * N * 3;
-  const int ends[2] = {seg[b * 4 + 0], seg[b * 4 + 1]};
-  const int buds[2] = {seg[b * 4 + 2], seg[b * 4 + 3]};
-  const int k1 = min(buds[0], 32);
-  const int k2 = min(buds[1], 32 - k1);
-  const float qx = P[qq * 3], qy = P[qq * 3 + 1], qz = P[qq * 3 + 2];
-  const int idx = budgeted_slot<2>(P, N, ends, buds, 2, qx, qy, qz, tx, ty,
-                                   tz, lane);
+#define ONE_WARPS 16    // warps a block
+#define ONE_QW 2        // queries a warp scans together
+#define ONE_TILE 2048   // keys a tile; two tiles in flight
+// the split score MLP 4 -> 64 -> 64 -> 128 in smem (mma_tf32.cuh layout,
+// the last two layers chained), float offsets
+#define ONE_H1 64
+#define ONE_H2 64
+#define ONE_H3 128
+#define ONE_W1 0
+#define ONE_B1 (ONE_W1 + 8 * ONE_H1 * 2)
+#define ONE_W2 (ONE_B1 + ONE_H1)
+#define ONE_B2 (ONE_W2 + ONE_H1 * ONE_H2 * 2)
+#define ONE_W3 (ONE_B2 + ONE_H2)
+#define ONE_B3 (ONE_W3 + ONE_H2 * ONE_H3 * 2)
+#define ONE_NW (ONE_B3 + ONE_H3)
 
-  // slot `lane`: [0, k1) from segment A, [k1, k1 + k2) from segment B
-  const bool active = lane < k1 + k2;
-  float rx = 0.f, ry = 0.f, rz = 0.f;
-  if (active && idx >= 0) {
-    rx = P[(size_t)idx * 3] - qx;
-    ry = P[(size_t)idx * 3 + 1] - qy;
-    rz = P[(size_t)idx * 3 + 2] - qz;
+// Copies keys [t0, t0 + tn) of P (xyz interleaved) into the tile buffer
+// `dst` as one cp.async group, 16 bytes a copy where the rows allow it.
+__device__ __forceinline__ void stage_keys(const float* __restrict__ P, int t0, int tn,
+                                           float* dst) {
+  const float* src = P + (size_t)t0 * 3;
+  const int n = tn * 3;
+  if ((reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+    const int n4 = n >> 2;
+    for (int e = threadIdx.x; e < n4; e += blockDim.x) cp_async16(dst + 4 * e, src + 4 * e);
+    for (int e = 4 * n4 + threadIdx.x; e < n; e += blockDim.x) cp_async4(dst + e, src + e);
+  } else {
+    for (int e = threadIdx.x; e < n; e += blockDim.x) cp_async4(dst + e, src + e);
   }
-  __syncthreads();  // weights loaded (the tile loop may have run zero times)
+  cp_async_commit();
+}
 
-  // score MLP for this lane's slot, softmax over the k slots, weighted sum
-  const float w = slot_weight(slot_score<H1, H2, H3>(rx, ry, rz, sw), active);
-  const float sw_ = warp_sum(w), ax = warp_sum(w * rx), ay = warp_sum(w * ry),
-              az = warp_sum(w * rz);
-  if (lane == 0 && q < N) {
-    float* o = out + ((size_t)b * N + q) * 3;
-    o[0] = qx + ax / sw_;
-    o[1] = qy + ay / sw_;
-    o[2] = qz + az / sw_;
+// budgeted_slot's two-segment scan (segment A = [0, n1), B = [n1, N),
+// budgets cap0 and cap1 <= 32 - cap0) for QW queries a warp, over the key
+// tiles of the one-shot kernel: the block streams the keys through two
+// tile buffers (`keys`, 2 x ONE_TILE xyz rows) by cp.async, the next tile
+// loading while every warp scans the current one.  For each query, the same
+// tests, the same insertions in the same order as budgeted_slot: the same
+// slots.  idx[i] is the key index of query i's slot `lane`, -1 for an
+// unfilled slot.
+template <int QW>
+__device__ __forceinline__ void oneshot_slots(const float* __restrict__ P, int N, int n1,
+                                              int cap0, int cap1, const float (&qx)[QW],
+                                              const float (&qy)[QW], const float (&qz)[QW],
+                                              float* keys, int lane, int (&idx)[QW]) {
+  float dA[QW], dB[QW], thrA[QW], thrB[QW];
+  int iA[QW], iB[QW];
+#pragma unroll
+  for (int i = 0; i < QW; ++i) {
+    dA[i] = dB[i] = CUDART_INF_F;
+    iA[i] = iB[i] = -1;
+    thrA[i] = cap0 > 0 ? CUDART_INF_F : -CUDART_INF_F;
+    thrB[i] = cap1 > 0 ? CUDART_INF_F : -CUDART_INF_F;
+  }
+  const int tiles = (N + ONE_TILE - 1) / ONE_TILE;
+  stage_keys(P, 0, min(ONE_TILE, N), keys);
+  for (int ti = 0; ti < tiles; ++ti) {
+    const int t0 = ti * ONE_TILE, tn = min(ONE_TILE, N - t0);
+    if (ti + 1 < tiles)
+      stage_keys(P, t0 + ONE_TILE, min(ONE_TILE, N - t0 - ONE_TILE),
+                 keys + ((ti + 1) & 1) * 3 * ONE_TILE);
+    else
+      cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();  // tile ti is in for every thread
+    const float* kt = keys + (ti & 1) * 3 * ONE_TILE;
+    // four 32-key chunks' distances for every query at once (independent
+    // loads and math), then each chunk's test and inserts, query by query,
+    // against the thresholds as the chunks before it left them
+    for (int base = 0; base < tn; base += 128) {
+      float d[QW][4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int jl = base + 32 * u + lane;
+        const bool in = jl < tn;
+        const float kx = in ? kt[3 * jl] : 0.f, ky = in ? kt[3 * jl + 1] : 0.f,
+                    kz = in ? kt[3 * jl + 2] : 0.f;
+#pragma unroll
+        for (int i = 0; i < QW; ++i)
+          d[i][u] = in ? sqdist3(kx, ky, kz, qx[i], qy[i], qz[i]) : CUDART_INF_F;
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int j = t0 + base + 32 * u + lane;
+#pragma unroll
+        for (int i = 0; i < QW; ++i) {
+          const float th = j < n1 ? thrA[i] : (j < N ? thrB[i] : -CUDART_INF_F);
+          unsigned mask = __ballot_sync(FULL, d[i][u] < th);
+          while (mask) {
+            const int src = __ffs(mask) - 1;
+            mask &= mask - 1;
+            const float dn = __shfl_sync(FULL, d[i][u], src);
+            const int jn = t0 + base + 32 * u + src;
+            if (jn < n1) list_insert(dA[i], iA[i], thrA[i], cap0, dn, jn, lane);  // warp-uniform
+            else list_insert(dB[i], iB[i], thrB[i], cap1, dn, jn, lane);
+          }
+        }
+      }
+    }
+    __syncthreads();  // every warp is done with the buffer the next copy reuses
+  }
+#pragma unroll
+  for (int i = 0; i < QW; ++i) {
+    const int vB = __shfl_sync(FULL, iB[i], min(max(lane - cap0, 0), 31));
+    idx[i] = lane < cap0 ? iA[i] : (lane < cap0 + cap1 ? vB : -1);
   }
 }
 
-// seg: device int32 [B, 4] = (N1, N, k1, k2) per batch.  wbuf: the packed
-// score MLP (4 -> h1 -> h2 -> h3, common.cuh layout).  k1 + k2 <= 32.
-extern "C" int pci_fusion(const void* pts, const void* seg, const void* wbuf,
+// The chained A fragment of a k-step from the previous layer's n-tile acc:
+// (g, 2t), (g + 8, 2t), (g, 2t + 1), (g + 8, 2t + 1), split.
+__device__ __forceinline__ void split_chained(const float (&acc)[4], uint32_t (&ahi)[4],
+                                              uint32_t (&alo)[4]) {
+  tf32_split(acc[0], ahi[0], alo[0]);
+  tf32_split(acc[2], ahi[1], alo[1]);
+  tf32_split(acc[1], ahi[2], alo[2]);
+  tf32_split(acc[3], ahi[3], alo[3]);
+}
+
+// One 16-slot row tile of the score head on the tensor cores: rows are
+// slots 16 mt .. 16 mt + 15 of this warp's query, the input [r | safe_norm]
+// of slot s held by lane s.  4 -> 64 -> 64 -> 128, ReLU after each, in
+// 3xTF32 (mma_tf32.cuh), the activations in registers from layer to layer
+// as accumulator fragments, which are the next layer's A fragments for the
+// chained weight layout (split a k-step at a time); the last layer in four
+// chunks of 32 outputs with a running max.  Returns, on lane 4 g (g < 8),
+// max_c of rows g (lo) and g + 8 (hi).
+__device__ __forceinline__ void score_tile(const float* sw, float rx, float ry, float rz,
+                                           float nr, int mt, float& mlo, float& mhi) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const float4* w4 = reinterpret_cast<const float4*>(sw);
+  float h[8][4];  // a layer's output, [n-tile][accumulator fragment]
+  {
+    uint32_t ahi[4], alo[4];
+    const int s0 = 16 * mt + g, s1 = s0 + 8;
+    const float x0 = __shfl_sync(FULL, rx, s0), y0 = __shfl_sync(FULL, ry, s0);
+    const float z0 = __shfl_sync(FULL, rz, s0), n0 = __shfl_sync(FULL, nr, s0);
+    const float x1 = __shfl_sync(FULL, rx, s1), y1 = __shfl_sync(FULL, ry, s1);
+    const float z1 = __shfl_sync(FULL, rz, s1), n1 = __shfl_sync(FULL, nr, s1);
+    tf32_split(t == 0 ? x0 : (t == 1 ? y0 : (t == 2 ? z0 : n0)), ahi[0], alo[0]);
+    tf32_split(t == 0 ? x1 : (t == 1 ? y1 : (t == 2 ? z1 : n1)), ahi[1], alo[1]);
+    ahi[2] = ahi[3] = alo[2] = alo[3] = 0u;  // columns 4..7: padding
+    // layer 1: one k-step, 8 n-tiles
+#pragma unroll
+    for (int nt = 0; nt < ONE_H1 / 8; ++nt) {
+      float small[4] = {0.f, 0.f, 0.f, 0.f};
+      h[nt][0] = h[nt][1] = h[nt][2] = h[nt][3] = 0.f;
+      mma_3xtf32_apart(h[nt], small, ahi, alo, w4[(ONE_W1 / 4) + nt * 32 + lane]);
+      const float2 b = *reinterpret_cast<const float2*>(sw + ONE_B1 + 8 * nt + 2 * t);
+      h[nt][0] = fmaxf((h[nt][0] + small[0]) + b.x, 0.f);
+      h[nt][1] = fmaxf((h[nt][1] + small[1]) + b.y, 0.f);
+      h[nt][2] = fmaxf((h[nt][2] + small[2]) + b.x, 0.f);
+      h[nt][3] = fmaxf((h[nt][3] + small[3]) + b.y, 0.f);
+    }
+  }
+  // layer 2: 8 k-steps x 8 n-tiles, in two halves of 4 (the small products
+  // in their own sums, mma_3xtf32_apart); the first half's outputs wait in
+  // h2 while the second reads h
+  float h2[4][4];
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    float acc[4][4], small[4][4];
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] = small[n][e] = 0.f;
+#pragma unroll
+    for (int kt = 0; kt < ONE_H1 / 8; ++kt) {
+      uint32_t ahi[4], alo[4];
+      split_chained(h[kt], ahi, alo);
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+        mma_3xtf32_apart(acc[n], small[n], ahi, alo,
+                         w4[(ONE_W2 / 4) + (kt * (ONE_H2 / 8) + 4 * half + n) * 32 + lane]);
+    }
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+      const float2 b = *reinterpret_cast<const float2*>(sw + ONE_B2 + 8 * (4 * half + n) + 2 * t);
+      float* o = half ? h[4 + n] : h2[n];
+      o[0] = fmaxf((acc[n][0] + small[n][0]) + b.x, 0.f);
+      o[1] = fmaxf((acc[n][1] + small[n][1]) + b.y, 0.f);
+      o[2] = fmaxf((acc[n][2] + small[n][2]) + b.x, 0.f);
+      o[3] = fmaxf((acc[n][3] + small[n][3]) + b.y, 0.f);
+    }
+  }
+#pragma unroll
+  for (int n = 0; n < 4; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) h[n][e] = h2[n][e];
+  // layer 3: 8 k-steps x 16 n-tiles in four chunks of 4, max over outputs
+  mlo = -CUDART_INF_F;
+  mhi = -CUDART_INF_F;
+#pragma unroll 1
+  for (int c = 0; c < ONE_H3 / 8; c += 4) {
+    float acc[4][4], small[4][4];
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] = small[n][e] = 0.f;
+#pragma unroll
+    for (int kt = 0; kt < ONE_H2 / 8; ++kt) {
+      uint32_t ahi[4], alo[4];
+      split_chained(h[kt], ahi, alo);
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+        mma_3xtf32_apart(acc[n], small[n], ahi, alo,
+                         w4[(ONE_W3 / 4) + (kt * (ONE_H3 / 8) + c + n) * 32 + lane]);
+    }
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+      const float2 b = *reinterpret_cast<const float2*>(sw + ONE_B3 + 8 * (c + n) + 2 * t);
+      mlo = fmaxf(mlo, fmaxf(fmaxf((acc[n][0] + small[n][0]) + b.x, 0.f),
+                             fmaxf((acc[n][1] + small[n][1]) + b.y, 0.f)));
+      mhi = fmaxf(mhi, fmaxf(fmaxf((acc[n][2] + small[n][2]) + b.x, 0.f),
+                             fmaxf((acc[n][3] + small[n][3]) + b.y, 0.f)));
+    }
+  }
+  mlo = fmaxf(mlo, __shfl_xor_sync(FULL, mlo, 1));
+  mlo = fmaxf(mlo, __shfl_xor_sync(FULL, mlo, 2));
+  mhi = fmaxf(mhi, __shfl_xor_sync(FULL, mhi, 1));
+  mhi = fmaxf(mhi, __shfl_xor_sync(FULL, mhi, 2));
+}
+
+// Persistent: each block loads the split score MLP into shared memory
+// once, then walks groups of ONE_WARPS x ONE_QW queries (group =
+// blockIdx.x, + gridDim.x, ...; a group's queries all in one batch row):
+// the block's warps scan the keys together, ONE_QW queries a warp (their
+// scans interleaved, for independent work while a load or a ballot is in
+// flight), then each warp runs its queries' heads on the tensor cores.
+__global__ void __launch_bounds__(ONE_WARPS * 32, 1)
+fusion_kernel(const float* __restrict__ pts, const int* __restrict__ seg,
+              const float* __restrict__ wtc, float* __restrict__ out, int B, int N) {
+  extern __shared__ float4 smem4[];
+  float* sw = reinterpret_cast<float*>(smem4);
+  float* keys = sw + ONE_NW;  // 2 x ONE_TILE x 3
+  for (int e = threadIdx.x; e < ONE_NW / 4; e += blockDim.x)
+    smem4[e] = reinterpret_cast<const float4*>(wtc)[e];
+  // (the first tile's __syncthreads orders these stores before any read)
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  constexpr int G = ONE_WARPS * ONE_QW;  // queries a group
+  const int per_row = (N + G - 1) / G;
+  for (int grp = blockIdx.x; grp < B * per_row; grp += gridDim.x) {
+    const int b = grp / per_row;
+    const int q0 = (grp - b * per_row) * G + warp;  // queries q0 + i ONE_WARPS
+    const float* P = pts + (size_t)b * N * 3;
+    const int n1 = seg[b * 4 + 0];
+    const int cap0 = max(0, min(seg[b * 4 + 2], 32));
+    const int cap1 = max(0, min(seg[b * 4 + 3], 32 - cap0));
+    float qx[ONE_QW], qy[ONE_QW], qz[ONE_QW];
+    int idx[ONE_QW];
+#pragma unroll
+    for (int i = 0; i < ONE_QW; ++i) {
+      const int qq = min(q0 + i * ONE_WARPS, N - 1);
+      qx[i] = P[qq * 3], qy[i] = P[qq * 3 + 1], qz[i] = P[qq * 3 + 2];
+    }
+    oneshot_slots<ONE_QW>(P, N, max(n1, 0), cap0, cap1, qx, qy, qz, keys, lane, idx);
+
+#pragma unroll
+    for (int i = 0; i < ONE_QW; ++i) {
+      // slot `lane`: [0, cap0) from segment A, [cap0, cap0 + cap1) from B
+      const bool active = lane < cap0 + cap1;
+      const int j = idx[i];
+      const float x = qx[i], y = qy[i], z = qz[i];
+      float rx = 0.f, ry = 0.f, rz = 0.f;
+      if (active && j >= 0) {
+        rx = P[(size_t)j * 3] - x;
+        ry = P[(size_t)j * 3 + 1] - y;
+        rz = P[(size_t)j * 3 + 2] - z;
+      }
+      const float nr = sqrtf(rx * rx + ry * ry + rz * rz + 1e-12f);
+      float lo0, hi0, lo1, hi1;
+      score_tile(sw, rx, ry, rz, nr, 0, lo0, hi0);
+      score_tile(sw, rx, ry, rz, nr, 1, lo1, hi1);
+      // slot s = 16 mt + r sits on lane 4 (r % 8), lo for r < 8, hi above
+      const int src = (lane & 7) * 4;
+      const float s00 = __shfl_sync(FULL, lo0, src), s01 = __shfl_sync(FULL, hi0, src);
+      const float s10 = __shfl_sync(FULL, lo1, src), s11 = __shfl_sync(FULL, hi1, src);
+      const float score = lane < 16 ? (lane < 8 ? s00 : s01) : (lane < 24 ? s10 : s11);
+
+      // softmax over the k slots, weighted sum
+      const float w = slot_weight(score, active);
+      const float sw_ = warp_sum(w), ax = warp_sum(w * rx), ay = warp_sum(w * ry),
+                  az = warp_sum(w * rz);
+      const int q = q0 + i * ONE_WARPS;
+      if (lane == 0 && q < N) {
+        float* o = out + ((size_t)b * N + q) * 3;
+        o[0] = x + ax / sw_;
+        o[1] = y + ay / sw_;
+        o[2] = z + az / sw_;
+      }
+    }
+  }
+}
+
+static size_t oneshot_smem() { return sizeof(float) * (ONE_NW + 2 * 3 * ONE_TILE); }
+
+// seg: device int32 [B, 4] = (N1, N, k1, k2) per batch.  wtc: the score MLP
+// (4 -> h1 -> h2 -> h3) split by _build.pack_tf32(..., chain=True).
+// k1 + k2 <= 32.  A grid of one block an SM (at most one a group).
+extern "C" int pci_fusion(const void* pts, const void* seg, const void* wtc,
                           int h1, int h2, int h3, void* out, int B, int N,
                           void* stream) {
-  if (h1 != 64 || h2 != 64 || h3 != 128) return (int)cudaErrorInvalidValue;
-  constexpr int NW = ScoreMlp<64, 64, 128>::NW;
-  const size_t smem = sizeof(float) * (((NW + 3) / 4) * 4 + 3 * FUS_TILE);
-  cudaError_t e = allow_smem(fusion_kernel<64, 64, 128>, smem);
+  if (h1 != ONE_H1 || h2 != ONE_H2 || h3 != ONE_H3 || N < 1 || B < 1)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = oneshot_smem();
+  cudaError_t e = allow_smem(fusion_kernel, smem);
   if (e != cudaSuccess) return (int)e;
-  const int warps = 8;
-  dim3 grid((N + warps - 1) / warps, B);
-  fusion_kernel<64, 64, 128><<<grid, warps * 32, smem,
-                               static_cast<cudaStream_t>(stream)>>>(
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
+  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return (int)e;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fusion_kernel, ONE_WARPS * 32, smem);
+  if (e != cudaSuccess) return (int)e;
+  const long long groups = (long long)B * ((N + ONE_WARPS * ONE_QW - 1) / (ONE_WARPS * ONE_QW));
+  const int grid = (int)std::max(1LL, std::min((long long)std::max(per_sm, 1) * sms, groups));
+  fusion_kernel<<<grid, ONE_WARPS * 32, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(pts), static_cast<const int*>(seg),
-      static_cast<const float*>(wbuf), static_cast<float*>(out), N);
+      static_cast<const float*>(wtc), static_cast<float*>(out), B, N);
   return (int)cudaGetLastError();
+}
+
+// The one-shot kernel's resources: out = {registers a thread, static shared
+// bytes, dynamic shared bytes a launch, resident blocks an SM, threads a
+// block, local (spill) bytes a thread}.
+extern "C" int pci_fusion_attrs(int* out) {
+  cudaFuncAttributes a;
+  cudaError_t e = cudaFuncGetAttributes(&a, fusion_kernel);
+  if (e != cudaSuccess) return (int)e;
+  const size_t smem = oneshot_smem();
+  if ((e = allow_smem(fusion_kernel, smem)) != cudaSuccess) return (int)e;
+  int per_sm = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fusion_kernel, ONE_WARPS * 32, smem);
+  if (e != cudaSuccess) return (int)e;
+  out[0] = a.numRegs;
+  out[1] = (int)a.sharedSizeBytes;
+  out[2] = (int)smem;
+  out[3] = per_sm;
+  out[4] = ONE_WARPS * 32;
+  out[5] = (int)a.localSizeBytes;
+  return 0;
 }
 
 template <int FM>

@@ -44,6 +44,8 @@ _SIGNATURES = {
     "pci_setconv": [_P, _P, _P, _P, _IP, _I, _P, _I, _I, _I, _I, _F, _I, _P],
     "pci_knnconv": [_P, _P, _P, _P, _P, _P, _IP, _I, _IP, _I, _P] + [_I] * 10 + [_P],
     "pci_fusion": [_P, _P, _P, _I, _I, _I, _P, _I, _I, _P],
+    "pci_fusion_attrs": [_IP],
+    "pci_flowmid_attrs": [_IP],
     "pci_ball": [_P, _P, _P, _FP, _IP, _I, _I, _I, _I, _P],
     "pci_knn": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "pci_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
@@ -165,6 +167,19 @@ def build_seconds() -> float:
     return time.perf_counter() - t0
 
 
+ATTR_KEYS = ("registers", "static_smem", "dynamic_smem", "blocks_per_sm", "threads",
+             "local_bytes")
+
+
+def kernel_attrs(entry: str) -> dict:
+    """A kernel's resources from its C entry ``entry`` (``pci_fusion_attrs``,
+    ``pci_flowmid_attrs``): registers a thread, static and dynamic shared
+    bytes, resident blocks an SM, threads a block, local bytes a thread."""
+    out = (ctypes.c_int * len(ATTR_KEYS))()
+    check_launch(entry, getattr(library(), entry)(out))
+    return dict(zip(ATTR_KEYS, out))
+
+
 def int_array(values) -> ctypes.Array:
     values = [int(v) for v in values]
     return (ctypes.c_int * max(len(values), 1))(*values)
@@ -199,12 +214,22 @@ def require(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int,
 
 class PackedLayers(list):
     """Folded layers ``[(W, b), ...]`` that also carry their kernel-layout
-    buffer, so a module packs its weights once and not on every launch."""
+    buffer, so a module packs its weights once and not on every launch;
+    the tensor-core kernels' split buffers are made at first use and kept
+    (:meth:`tf32`)."""
 
     def __init__(self, layers):
         super().__init__(layers)
         device = self[0][0].device if self else torch.device("cpu")
         self.buf, self.dims = _pack(self, device)
+        self._tf32 = {}
+
+    def tf32(self, chain: bool = False) -> torch.Tensor:
+        """The layers split in TF32 hi/lo fragments for csrc/mma_tf32.cuh
+        (:func:`pack_tf32`), built once per layout and kept."""
+        if chain not in self._tf32:
+            self._tf32[chain] = _tf32_pack(self, self.buf.device, chain)
+        return self._tf32[chain]
 
 
 def pack_layers(layers, device: torch.device):
@@ -214,6 +239,60 @@ def pack_layers(layers, device: torch.device):
     if isinstance(layers, PackedLayers) and layers.buf.device == device:
         return layers.buf, layers.dims
     return _pack(layers, device)
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """``cvt.rna.tf32.f32`` on the host: fp32 rounded to TF32's 10 mantissa
+    bits, to nearest with ties away from zero, the 13 low bits zero."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def tf32_split(x: torch.Tensor):
+    """``(hi, lo)`` with ``hi = tf32(x)``, ``lo = tf32(x - hi)``: the
+    3xTF32 split of csrc/mma_tf32.cuh."""
+    hi = tf32_round(x)
+    return hi, tf32_round(x.float() - hi)
+
+
+def pack_tf32(layers, device: torch.device, chain: bool = False) -> torch.Tensor:
+    """Folded ``[(W [cout, cin], b [cout]), ...]`` -> one fp32 buffer in
+    csrc/mma_tf32.cuh's layout (kept on a :class:`PackedLayers`)."""
+    if isinstance(layers, PackedLayers) and layers.buf.device == device:
+        return layers.tf32(chain)
+    return _tf32_pack(layers, device, chain)
+
+
+def _tf32_pack(layers, device: torch.device, chain: bool) -> torch.Tensor:
+    """For each layer: ``W.T`` padded with zeros to ``[K8, N8]`` and split,
+    laid out as the mma's B fragments (k-step major, then n-tile, then the
+    32 lanes' float4 ``(hi[k0][n], hi[k1][n], lo[k0][n], lo[k1][n])`` with
+    ``n = 8 nt + lane // 4``, ``k0 = 8 kt + lane % 4``, ``k1 = k0 + 4``; a
+    layer after the first of a ``chain`` takes ``k0 = 8 kt + 2 (lane %
+    4)``, ``k1 = k0 + 1``, the previous layer's accumulator columns); then
+    the bias padded to ``N8``."""
+    parts = []
+    lane = torch.arange(32, device=device)
+    g, t = lane // 4, lane % 4
+    for i, (w, b) in enumerate(layers):
+        cout, cin = w.shape
+        if i and cin != layers[i - 1][0].shape[0]:
+            raise ValueError(f"layer widths do not chain at layer {i}: {tuple(w.shape)}")
+        k8, n8 = -(-cin // 8) * 8, -(-cout // 8) * 8
+        wt = torch.zeros(k8, n8, dtype=torch.float32, device=device)
+        wt[:cin, :cout] = w.detach().float().t()
+        hi, lo = tf32_split(wt)
+        k0, k1 = (2 * t, 2 * t + 1) if chain and i else (t, t + 4)
+        kt = torch.arange(k8 // 8, device=device)[:, None, None] * 8
+        col = torch.arange(n8 // 8, device=device)[None, :, None] * 8 + g
+        r0, r1 = kt + k0, kt + k1
+        frag = torch.stack([hi[r0, col], hi[r1, col], lo[r0, col], lo[r1, col]], -1)
+        bias = torch.zeros(n8, dtype=torch.float32, device=device)
+        bias[:cout] = b.detach().float()
+        parts += [frag.reshape(-1), bias]
+    if not parts:
+        return torch.empty(0, device=device, dtype=torch.float32)
+    return torch.cat(parts).contiguous()
 
 
 def _pack(layers, device: torch.device):

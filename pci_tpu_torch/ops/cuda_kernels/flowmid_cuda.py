@@ -2,7 +2,10 @@
 set_conv4 (their centres picked by greedy FPS inside), set_upconv1..3.  The
 CUDA kernel (csrc/flowmid.cu) and its plain PyTorch version.
 
-Replaces ``pci_tpu/ops/pallas_kernels/flowmid_tpu.py:flowmid_fused``.
+Replaces ``pci_tpu/ops/pallas_kernels/flowmid_tpu.py:flowmid_fused``.  The
+kernel's stage MLPs run on the tensor cores in 3xTF32 (fp32 accuracy), their
+weights split once per weight set (``_build.pack_tf32``) and streamed through
+a cp.async ring in shared memory; the selections are the per-stage kernels'.
 """
 
 from __future__ import annotations
@@ -73,29 +76,23 @@ def flowmid_kernel(pa_1, fa_1, pa_2, fa_2, pb_2, fb_2, groups, s3, s4, k_fe,
         raise ValueError("flowmid: batch, point or channel counts disagree")
     if N2 > 4096 or s3 > 4096:
         raise ValueError("flowmid: the in-kernel FPS holds at most 4,096 points")
-    packed = [_build.pack_layers(g, dev) for g in groups]
-    if any(not dims for _, dims in packed):
+    if any(not g for g in groups):
         raise ValueError("flowmid: every MLP group needs a layer")
-    dims = [d for _, ds in packed for d in ds]
-    doff = [0]
-    for _, ds in packed[:-1]:
-        doff.append(doff[-1] + len(ds))
-    width = lambda g: packed[g][1][-1]  # noqa: E731
-    empty = lambda n, g: torch.empty((B, n, width(g)), dtype=torch.float32,  # noqa: E731
-                                     device=dev)
-    x3 = torch.empty((B, s3, 3), dtype=torch.float32, device=dev)
-    x4 = torch.empty((B, s4, 3), dtype=torch.float32, device=dev)
-    emb, fa3, fa4, nf3 = empty(N2, 0), empty(s3, 1), empty(s4, 2), empty(s3, 3)
-    nf2, nf1 = empty(N2, 5), empty(N1, 7)
-    bar = torch.zeros(1, dtype=torch.int32, device=dev)
-    ptrs = (ctypes.c_void_p * len(packed))(*[buf.data_ptr() for buf, _ in packed])
+    ptrs, dims, doff, nl, widths = _launch_args(groups, dev)
+    # one allocation for the scratch (16-byte aligned parts) and the barrier
+    parts = [(s3, 3), (s4, 3), (N2, widths[0]), (s3, widths[1]), (s4, widths[2]),
+             (s3, widths[3]), (N2, widths[5])]
+    sizes = [-(-B * n * c // 4) * 4 for n, c in parts]
+    scratch = torch.empty(sum(sizes) + 4, dtype=torch.float32, device=dev)
+    offs = [0]
+    for n in sizes:
+        offs.append(offs[-1] + n)
+    sp = [scratch.data_ptr() + 4 * o for o in offs]
+    nf1 = torch.empty((B, N1, widths[7]), dtype=torch.float32, device=dev)
     err = _build.library().pci_flowmid(
         pa_1.data_ptr(), fa_1.data_ptr(), pa_2.data_ptr(), fa_2.data_ptr(),
-        pb_2.data_ptr(), fb_2.data_ptr(), ptrs, _build.int_array(dims),
-        _build.int_array(doff), _build.int_array([len(ds) - 1 for _, ds in packed]),
-        x3.data_ptr(), x4.data_ptr(), emb.data_ptr(), fa3.data_ptr(), fa4.data_ptr(),
-        nf3.data_ptr(), nf2.data_ptr(), nf1.data_ptr(), bar.data_ptr(),
-        B, N1, N2, C1, C2, s3, s4, k_fe, float(radius3) ** 2, ns3,
+        pb_2.data_ptr(), fb_2.data_ptr(), ptrs, dims, doff, nl, *sp[:7], nf1.data_ptr(),
+        sp[7], B, N1, N2, C1, C2, s3, s4, k_fe, float(radius3) ** 2, ns3,
         float(radius4) ** 2, ns4, k_up, _build.stream_ptr(dev),
     )
     _build.check_launch("flowmid", err)
@@ -104,6 +101,31 @@ def flowmid_kernel(pa_1, fa_1, pa_2, fa_2, pb_2, fb_2, groups, s3, s4, k_fe,
 
 
 flowmid_kernel.launches = 0
+_ARGS: dict = {}  # (group ids, device) -> (groups, launch arrays), a few weight sets
+
+
+def _launch_args(groups, dev):
+    """The launch's weight pointers (split for the tensor cores, once per
+    weight set by ``_build.pack_tf32``), widths, their offsets and the layer
+    counts as ctypes arrays, and each group's output width; kept for the
+    weight sets of the last few calls (a module's ``PackedLayers`` are the
+    same objects until its weights change)."""
+    key = (tuple(id(g) for g in groups), str(dev))
+    hit = _ARGS.get(key)
+    if hit is not None and all(a is b for a, b in zip(hit[0], groups)):
+        return hit[1]
+    bufs = [_build.pack_tf32(g, dev) for g in groups]
+    widths = [[g[0][0].shape[1]] + [w.shape[0] for w, _ in g] for g in groups]
+    doff = [0]
+    for ds in widths[:-1]:
+        doff.append(doff[-1] + len(ds))
+    args = ((ctypes.c_void_p * len(bufs))(*[b.data_ptr() for b in bufs]),
+            _build.int_array([d for ds in widths for d in ds]), _build.int_array(doff),
+            _build.int_array([len(ds) - 1 for ds in widths]), [ds[-1] for ds in widths])
+    if len(_ARGS) >= 8:
+        _ARGS.clear()
+    _ARGS[key] = (list(groups), args, bufs)
+    return args
 
 
 def flowmid_plain(pa_1, fa_1, pa_2, fa_2, pb_2, fb_2, groups, s3, s4, k_fe,

@@ -4,7 +4,10 @@ beside its plain PyTorch version.
 - One-shot attentive fusion (eval): budgeted two-segment self-kNN + score
   MLP + softmax over k + weighted residual sum.  Replaces
   ``pci_tpu/ops/pallas_kernels/fusion_knn_tpu.py:knn_fusion_attention``
-  (one-shot route, no payload).
+  (one-shot route, no payload).  Persistent blocks, one an SM, keep the
+  score MLP split for the tensor cores (3xTF32, ``_build.pack_tf32(...,
+  chain=True)``) in shared memory; a warp a query scans the keys through
+  cp.async double-buffered tiles, then runs its head on ``mma.sync``.
 - Residual kNN (training): the budgeted F-segment self-kNN's indices and
   residuals, differentiable in the cloud with fixed neighbours.  Replaces
   the same file's ``knn_fusion_adaptive`` / ``knn_fusion_multi``
@@ -67,13 +70,14 @@ def fusion_kernel(combined, seg_ends, budgets, layers, k):
         raise ValueError("fusion kernel: k <= 32 (one lane a slot)")
     if seg_ends.shape != (B, 2) or budgets.shape != (B, 2):
         raise ValueError("fusion kernel: two segments a batch row")
-    wbuf, dims = _build.pack_layers(layers, dev)
-    if tuple(dims) != SCORE_MLP:
+    dims = tuple([layers[0][0].shape[1]] + [w.shape[0] for w, _ in layers]) if layers else ()
+    if dims != SCORE_MLP:
         raise ValueError(f"fusion kernel is built for the {SCORE_MLP} score MLP, got {dims}")
+    wtc = _build.pack_tf32(layers, dev, chain=True)
     seg = torch.cat([seg_ends, budgets], dim=1).to(dev, torch.int32).contiguous()
     out = torch.empty_like(combined)
     err = _build.library().pci_fusion(
-        combined.data_ptr(), seg.data_ptr(), wbuf.data_ptr(), *dims[1:],
+        combined.data_ptr(), seg.data_ptr(), wtc.data_ptr(), *dims[1:],
         out.data_ptr(), B, N, _build.stream_ptr(dev),
     )
     _build.check_launch("fusion", err)
