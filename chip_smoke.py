@@ -22,7 +22,11 @@ each printing its own lines:
      16,384-point request (plus FPS with P=1 at 16,384 and fusion at
      t=0.2), and again with all three gates off (set-conv and the
      per-stage kNN-conv at every FlowNet3D shape, the residual kNN and the
-     attention tail); the times are medians of CUDA-event timings.
+     attention tail); the times are medians of CUDA-event timings.  Then
+     the `stages` lines: flowenc's FPS chain, set_conv1's and set_conv2's
+     tiles at one request's and one 8-stream call's shapes, from its
+     %globaltimer stage stamps, beside the ball scan alone (csrc/ball.cu);
+     the FeaturePropagation's kNN-conv whole and without its MLP2.
   4. serving: Interpolator.pointinet(npoints=16384) with the trained weights
      answers five requests (t=0.5, then upsample(factor=5)); the launch
      counters must rise by PER_REQUEST a request (2 FPS, 2 flowenc, 2
@@ -94,7 +98,8 @@ each printing its own lines:
      (primal minus the prices' dual bound within n (1.0001 eps + 1e-5))
      at all three on a converged run.
 Then a resources line for each kernel whose dense products run on the
-tensor cores (the one-shot fusion and flowmid, 3xTF32): registers a thread,
+tensor cores (the one-shot fusion, flowmid, kNN-conv and flowenc, 3xTF32;
+kNN-conv's at the FeaturePropagation's plan): registers a thread,
 static and dynamic shared bytes, resident blocks an SM, its max error
 against its plain version relative to the output's largest magnitude; the
 kernels JSON line, the card line, and {"ok": true, ...} last.  A kernel's
@@ -125,7 +130,8 @@ TF32_FLOPS = 495e12  # H100 SXM dense TF32 on the tensor cores
 # kernels whose dense products run on the tensor cores in 3xTF32 (three TF32
 # products a multiply-add, csrc/mma_tf32.cuh): their bound counts those
 # products apart, at 3 x FLOP / TF32_FLOPS, beside the scalar work
-TENSOR_KERNELS = {"fusion": "pci_fusion_attrs", "flowmid": "pci_flowmid_attrs"}
+TENSOR_KERNELS = {"fusion": "pci_fusion_attrs", "flowmid": "pci_flowmid_attrs",
+                  "knnconv": "pci_knnconv_attrs", "flowenc": "pci_flowenc_attrs"}
 KERNEL_INFO = {  # name -> (source, TPU kernel it replaces)
     "fps": ("pci_tpu_torch/csrc/fps.cu",
             "pci_tpu/ops/pallas_kernels/fps_tpu.py:117"),
@@ -467,12 +473,13 @@ def work(name, args, kw, out):
         B, S1 = c1.shape[:2]
         f1, f2, c2 = out
         w = [t for wb in list(l1) + list(l2) for t in wb]
-        # two ball scans, the MLPs over every slot and a max a slot channel,
-        # and the FPS of set_conv2's centres (10 operations a point a pick)
+        # two ball scans, a max a slot channel and the FPS of set_conv2's
+        # centres (10 operations a point a pick); the MLPs over every slot on
+        # the tensor cores, counted apart
         ops = (9.0 * (scanned_keys(c1, xyz, [r1], [k1]) + scanned_keys(c2, c1, [r2], [k2]))
-               + mlp_flops(l1, B * S1 * k1) + mlp_flops(l2, B * s2 * k2)
                + B * S1 * k1 * f1.shape[-1] + B * s2 * k2 * f2.shape[-1] + 10.0 * B * s2 * S1)
-        return nbytes(xyz, feats, c1, f1, f2, c2, *w), ops
+        tensor = mlp_flops(l1, B * S1 * k1) + mlp_flops(l2, B * s2 * k2)
+        return nbytes(xyz, feats, c1, f1, f2, c2, *w), ops, tensor
     if name == "flowmid":
         from pci_tpu_torch.ops import index_points
         from pci_tpu_torch.ops.cuda_kernels.fps_cuda import fps_plain
@@ -509,10 +516,16 @@ def work(name, args, kw, out):
         B, S, _ = q_xyz.shape
         N = k_xyz.shape[1]
         w = [t for wb in list(mlp1) + list(mlp2) for t in wb]
-        ops = 8.0 * B * S * N + mlp_flops(mlp1, B * S * k) + mlp_flops(mlp2, B * S)
-        if interp:
-            ops += 2.0 * B * S * k * k_feats.shape[-1]
-        return nbytes(q_xyz, k_xyz, k_feats, q_feats, skip, out, *w), ops
+        # the distances (8 operations a pair), then the interp weights and
+        # sums (2 a slot channel) or the max over slots (1 a slot channel);
+        # the MLPs on the tensor cores, counted apart
+        D = k_feats.shape[-1]
+        c1 = q_feats.shape[-1] if q_feats is not None else 0
+        cm = mlp1[-1][0].shape[0] if mlp1 else 3 + D + c1
+        ops = 8.0 * B * S * N + (2.0 * B * S * k * D if interp else 1.0 * B * S * k * cm)
+        tensor = mlp_flops(mlp1, B * S * k) + mlp_flops(mlp2, B * S)
+        return (nbytes(q_xyz, k_xyz, k_feats, q_feats, skip, out, *w), ops) \
+            + ((tensor,) if tensor else ())
     if name == "ball":
         radii, ks, xyz, new_xyz = args
         # 8 flops a distance and one compare a scale, per key scanned
@@ -745,7 +758,10 @@ def hold_kernels(calls, request: int, expected: dict, totals: dict, path: str,
                 want = fn(*args, **kw)
             torch.cuda.synchronize()
             err = compare(name, got, want, label(name, args, kw), args)
-            rel = err / max(want.abs().max().item(), 1e-30) if name in TENSOR_KERNELS else 0.0
+            rel = 0.0
+            if name in TENSOR_KERNELS:  # flowenc: relative to f_1's and f_2's largest
+                top = max(w.abs().max().item() for w in (want[:2] if name == "flowenc" else [want]))
+                rel = err / max(top, 1e-30)
             ms = cuda_ms(lambda: fn(*args, **kw), 10)
             with plain_versions():
                 plain_ms = cuda_ms(lambda: fn(*args, **kw), 3)
@@ -812,6 +828,74 @@ def phase_kernels(model, a, b, totals):
         model(a, b, z, z, torch.tensor([0.5], device=dev), perms=perms)
     hold_kernels(calls, len(calls), PER_REQUEST_ALL_OFF, totals, "pointinet, all gates off")
     return perms
+
+
+def device_ms(fn, reps: int = 10) -> float:
+    """Device milliseconds a call of ``fn``: its kernels' own time under
+    torch.profiler over ``reps`` calls, after two warm-up calls (CUDA
+    events around one call also count the host's time to launch it)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    events = prof.key_averages()
+    host = {e.key for e in events if e.device_type != cuda}
+    return sum(e.self_device_time_total for e in events
+               if e.device_type == cuda and e.key not in host) / 1e3 / reps
+
+
+def phase_stages(model, card: str) -> None:
+    """The card's split of flowenc's and kNN-conv's time at one request's
+    (B = 1) and one 8-stream call's (B = 8) shapes: flowenc's FPS chain,
+    set_conv1's tiles and set_conv2's tiles from its %globaltimer stage
+    stamps (flowenc_cuda.flowenc_stages), beside the ball scan alone at each
+    set-conv's shape (csrc/ball.cu); the FeaturePropagation's kNN-conv whole
+    and with no MLP2 (the 3-NN scan, the pooling and the [pooled | skip]
+    write), the difference being its MLP chain (device time)."""
+    from pci_tpu_torch.ops.cuda_kernels import (ball_query_multi, flowenc_fused,
+                                                knnconv_fused)
+    from pci_tpu_torch.ops.cuda_kernels.flowenc_cuda import flowenc_stages
+
+    dev = torch.device("cuda")
+    for B in (1, STREAMS):
+        pairs = [synthetic_pair(seed) for seed in range(B)]
+        a = torch.from_numpy(np.stack([x for x, _ in pairs])).to(dev)
+        b = torch.from_numpy(np.stack([y for _, y in pairs])).to(dev)
+        z = torch.zeros_like(a)
+        calls = []
+        with torch.inference_mode(), record_calls(calls):
+            model.flow.bidirectional(a, b, z, z)
+        enc = next(args for name, _, args, _ in calls if name == "flowenc")
+        xyz, _, c1, _, _, s2, r1, k1, r2, k2 = enc
+        with torch.inference_mode():
+            runs = [flowenc_stages(*enc) for _ in range(10)]
+            c2 = flowenc_fused(*enc)[2]
+        med = {k: statistics.median(r[k] for r in runs) for k in runs[0]}
+        scan1 = device_ms(lambda: ball_query_multi([r1], [k1], xyz, c1))
+        scan2 = device_ms(lambda: ball_query_multi([r2], [k2], c1, c2))
+        print(f"stages flowenc B={B} on {card}: FPS chain {med['fps']:.4f} ms, set_conv1 "
+              f"tiles {med['set_conv1']:.4f} ms (busiest block), stage 1 {med['stage1']:.4f} "
+              f"ms, set_conv2 tiles {med['set_conv2']:.4f} ms, kernel {med['kernel']:.4f} ms "
+              f"(%globaltimer stamps, median of 10 launches); the ball scan alone "
+              f"(csrc/ball.cu, device time): set_conv1's {scan1:.4f} ms, set_conv2's "
+              f"{scan2:.4f} ms")
+        if B == 1:
+            fp = next(c for c in calls if c[0] == "knnconv" and c[3].get("n_final"))
+            _, fn, (q, k, kf, _, skip, kk, _, tail), kw = fp
+            with torch.inference_mode():
+                whole = device_ms(lambda: fn(*fp[2], **kw))
+                bare = device_ms(lambda: knnconv_fused(q, k, kf, None, skip, kk, [], [],
+                                                       interp=True))
+            print(f"stages knnconv {label('knnconv', fp[2], kw)} on {card}: whole "
+                  f"{whole:.4f} ms, 3-NN + pooling alone (no MLP2) {bare:.4f} ms, "
+                  f"MLP chain {whole - bare:.4f} ms (device time, torch.profiler, "
+                  f"10 launches)")
 
 
 def device_share(serve, requests: int = 5, unit: str = "request"):
@@ -1699,6 +1783,7 @@ def main() -> int:
     a = torch.from_numpy(a_np)[None].cuda()
     b = torch.from_numpy(b_np)[None].cuda()
     perms = phase_kernels(interp.model, a, b, totals)
+    phase_stages(interp.model, card)
 
     # 4. serving: warm up, then count the launches of five requests
     interp(a_np, b_np, 0.5)

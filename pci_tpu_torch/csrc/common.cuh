@@ -216,3 +216,25 @@ static inline cudaError_t allow_smem(K kernel, size_t bytes) {
   if (e == cudaSuccess) s->allowed = bytes;
   return e;
 }
+
+// A kernel's resources at `smem` dynamic shared bytes a block of `threads`:
+// out = {registers a thread, static shared bytes, dynamic shared bytes,
+// resident blocks an SM, threads a block, local (spill) bytes a thread}.
+// The C entries pci_*_attrs return it (_build.kernel_attrs).
+template <typename K>
+static inline int kernel_attrs(K kernel, size_t smem, int* out, int threads = 256) {
+  cudaFuncAttributes a;
+  cudaError_t e = cudaFuncGetAttributes(&a, kernel);
+  if (e != cudaSuccess) return (int)e;
+  if ((e = allow_smem(kernel, smem)) != cudaSuccess) return (int)e;
+  int per_sm = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+  if (e != cudaSuccess) return (int)e;
+  out[0] = a.numRegs;
+  out[1] = (int)a.sharedSizeBytes;
+  out[2] = (int)smem;
+  out[3] = per_sm;
+  out[4] = threads;
+  out[5] = (int)a.localSizeBytes;
+  return 0;
+}

@@ -44,9 +44,9 @@
 // mma: a block reads each weight once a tile, where the scalar routine
 // read it again through the read-only cache for every 8 rows.  The
 // selections, the FPS and the scratch layout are the per-stage kernels';
-// only the MLP routine differs (knn_conv_tile / ball_conv_tile take it as a
-// template parameter; the per-stage kernels and the encoder megakernel keep
-// the scalar one).
+// its kNN-conv tiles are the per-stage kNN-conv kernel's, its set-conv
+// tiles take TensorMlp where the per-stage set-conv kernel keeps the
+// scalar routine.
 #include "stages.cuh"
 
 struct FlowmidParams {
@@ -70,17 +70,17 @@ __global__ void __launch_bounds__(256, 1) flowmid_kernel(const __grid_constant__
     fps_centres(p.pa2 + (size_t)b * p.N2 * 3, p.N2, p.S3, x3, smem);
     fps_centres(x3, p.S3, p.S4, p.x4 + (size_t)b * p.S4 * 3, smem);
   }
-  grid_tiles(p.B, p.fe.S, p.fe.Q, p.B, [&](int b, int q0) { knn_conv_tile<TensorMlp>(p.fe, b, q0, smem); });
+  grid_tiles(p.B, p.fe.S, p.fe.Q, p.B, [&](int b, int q0) { knn_conv_tile(p.fe, b, q0, smem); });
   grid_sync(p.bar, passed);
   grid_tiles(p.B, p.sc3.S, p.sc3.Q, 0, [&](int b, int q0) { ball_conv_tile<TensorMlp>(p.sc3, b, q0, smem); });
   grid_sync(p.bar, passed);
   grid_tiles(p.B, p.sc4.S, p.sc4.Q, 0, [&](int b, int q0) { ball_conv_tile<TensorMlp>(p.sc4, b, q0, smem); });
   grid_sync(p.bar, passed);
-  grid_tiles(p.B, p.su1.S, p.su1.Q, 0, [&](int b, int q0) { knn_conv_tile<TensorMlp>(p.su1, b, q0, smem); });
+  grid_tiles(p.B, p.su1.S, p.su1.Q, 0, [&](int b, int q0) { knn_conv_tile(p.su1, b, q0, smem); });
   grid_sync(p.bar, passed);
-  grid_tiles(p.B, p.su2.S, p.su2.Q, 0, [&](int b, int q0) { knn_conv_tile<TensorMlp>(p.su2, b, q0, smem); });
+  grid_tiles(p.B, p.su2.S, p.su2.Q, 0, [&](int b, int q0) { knn_conv_tile(p.su2, b, q0, smem); });
   grid_sync(p.bar, passed);
-  grid_tiles(p.B, p.su3.S, p.su3.Q, 0, [&](int b, int q0) { knn_conv_tile<TensorMlp>(p.su3, b, q0, smem); });
+  grid_tiles(p.B, p.su3.S, p.su3.Q, 0, [&](int b, int q0) { knn_conv_tile(p.su3, b, q0, smem); });
 }
 
 static size_t last_smem = 0;  // dynamic shared bytes of the last launch
@@ -160,8 +160,8 @@ extern "C" int pci_flowmid(const void* pa1, const void* fa1, const void* pa2,
                     k_up);
   p.su3 = knn_stage(F(pa1), F(pa2), O(nf2), nullptr, F(fa1), nullptr, W(6), Dm(6),
                     nl[6], W(7), Dm(7), nl[7], O(nf1), N2, N1, c_nf2, 0, C1, 0, k_up);
-  if (!knn_conv_plan(p.fe, budget, true, B) || !knn_conv_plan(p.su1, budget, true, B) ||
-      !knn_conv_plan(p.su2, budget, true, B) || !knn_conv_plan(p.su3, budget, true, B) ||
+  if (!knn_conv_plan(p.fe, budget, B) || !knn_conv_plan(p.su1, budget, B) ||
+      !knn_conv_plan(p.su2, budget, B) || !knn_conv_plan(p.su3, budget, B) ||
       !ball_conv_plan(p.sc3, B, budget, true) || !ball_conv_plan(p.sc4, B, budget, true))
     return (int)cudaErrorInvalidValue;
   p.pa2 = F(pa2);
@@ -183,22 +183,8 @@ extern "C" int pci_flowmid(const void* pa1, const void* fa1, const void* pa2,
                             static_cast<cudaStream_t>(stream));
 }
 
-// The kernel's resources at its last launch's shared memory: out =
-// {registers a thread, static shared bytes, dynamic shared bytes, resident
-// blocks an SM, threads a block, local (spill) bytes a thread}.
+// The kernel's resources at its last launch's shared memory (common.cuh's
+// kernel_attrs).
 extern "C" int pci_flowmid_attrs(int* out) {
-  cudaFuncAttributes a;
-  cudaError_t e = cudaFuncGetAttributes(&a, flowmid_kernel);
-  if (e != cudaSuccess) return (int)e;
-  if ((e = allow_smem(flowmid_kernel, last_smem)) != cudaSuccess) return (int)e;
-  int per_sm = 0;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, flowmid_kernel, 256, last_smem);
-  if (e != cudaSuccess) return (int)e;
-  out[0] = a.numRegs;
-  out[1] = (int)a.sharedSizeBytes;
-  out[2] = (int)last_smem;
-  out[3] = per_sm;
-  out[4] = 256;
-  out[5] = (int)a.localSizeBytes;
-  return 0;
+  return kernel_attrs(flowmid_kernel, last_smem, out);
 }

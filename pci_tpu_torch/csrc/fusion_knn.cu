@@ -475,25 +475,9 @@ extern "C" int pci_fusion(const void* pts, const void* seg, const void* wtc,
   return (int)cudaGetLastError();
 }
 
-// The one-shot kernel's resources: out = {registers a thread, static shared
-// bytes, dynamic shared bytes a launch, resident blocks an SM, threads a
-// block, local (spill) bytes a thread}.
+// The one-shot kernel's resources (common.cuh's kernel_attrs).
 extern "C" int pci_fusion_attrs(int* out) {
-  cudaFuncAttributes a;
-  cudaError_t e = cudaFuncGetAttributes(&a, fusion_kernel);
-  if (e != cudaSuccess) return (int)e;
-  const size_t smem = oneshot_smem();
-  if ((e = allow_smem(fusion_kernel, smem)) != cudaSuccess) return (int)e;
-  int per_sm = 0;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fusion_kernel, ONE_WARPS * 32, smem);
-  if (e != cudaSuccess) return (int)e;
-  out[0] = a.numRegs;
-  out[1] = (int)a.sharedSizeBytes;
-  out[2] = (int)smem;
-  out[3] = per_sm;
-  out[4] = ONE_WARPS * 32;
-  out[5] = (int)a.localSizeBytes;
-  return 0;
+  return kernel_attrs(fusion_kernel, oneshot_smem(), out, ONE_WARPS * 32);
 }
 
 template <int FM>

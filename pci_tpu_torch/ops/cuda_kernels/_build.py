@@ -42,16 +42,18 @@ _FP = ctypes.POINTER(ctypes.c_float)
 _SIGNATURES = {
     "pci_fps": [_P, _P, _P, _I, _I, _I, _I, _P],
     "pci_setconv": [_P, _P, _P, _P, _IP, _I, _P, _I, _I, _I, _I, _F, _I, _P],
-    "pci_knnconv": [_P, _P, _P, _P, _P, _P, _IP, _I, _IP, _I, _P] + [_I] * 10 + [_P],
+    "pci_knnconv": [_P, _P, _P, _P, _P, _P, _P, _IP, _I, _IP, _I, _P] + [_I] * 10 + [_P],
+    "pci_knnconv_attrs": [_IP],
     "pci_fusion": [_P, _P, _P, _I, _I, _I, _P, _I, _I, _P],
     "pci_fusion_attrs": [_IP],
+    "pci_flowenc_attrs": [_IP],
     "pci_flowmid_attrs": [_IP],
     "pci_ball": [_P, _P, _P, _FP, _IP, _I, _I, _I, _I, _P],
     "pci_knn": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "pci_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     "pci_fusion_resi": [_P, _P, _P, _I, _P, _P, _I, _I, _I, _P],
     "pci_attention_bwd": [_P] * 10 + [_I, _I, _I, _I, _P],
-    "pci_flowenc": [_P, _P, _P, _P, _IP, _I, _P, _IP, _I, _P, _P, _P, _P, _I, _I,
+    "pci_flowenc": [_P, _P, _P, _P, _IP, _I, _P, _IP, _I, _P, _P, _P, _P, _P, _I, _I,
                     _I, _I, _I, _F, _I, _F, _I, _P],
     "pci_flowmid": [_P] * 6 + [ctypes.POINTER(_P), _IP, _IP, _IP] + [_P] * 9
                    + [_I] * 8 + [_F, _I, _F, _I, _I, _P],
@@ -173,8 +175,9 @@ ATTR_KEYS = ("registers", "static_smem", "dynamic_smem", "blocks_per_sm", "threa
 
 def kernel_attrs(entry: str) -> dict:
     """A kernel's resources from its C entry ``entry`` (``pci_fusion_attrs``,
-    ``pci_flowmid_attrs``): registers a thread, static and dynamic shared
-    bytes, resident blocks an SM, threads a block, local bytes a thread."""
+    ``pci_flowmid_attrs``, ...): registers a thread, static and dynamic
+    shared bytes, resident blocks an SM, threads a block, local bytes a
+    thread."""
     out = (ctypes.c_int * len(ATTR_KEYS))()
     check_launch(entry, getattr(library(), entry)(out))
     return dict(zip(ATTR_KEYS, out))
@@ -241,6 +244,14 @@ def pack_layers(layers, device: torch.device):
     return _pack(layers, device)
 
 
+def layer_widths(layers) -> list:
+    """``[cin_0, cout_0, cout_1, ...]`` of folded ``[(W [cout, cin], b),
+    ...]`` (``[]`` for none)."""
+    if isinstance(layers, PackedLayers):
+        return layers.dims
+    return [layers[0][0].shape[1], *(w.shape[0] for w, _ in layers)] if layers else []
+
+
 def tf32_round(x: torch.Tensor) -> torch.Tensor:
     """``cvt.rna.tf32.f32`` on the host: fp32 rounded to TF32's 10 mantissa
     bits, to nearest with ties away from zero, the 13 low bits zero."""
@@ -271,6 +282,8 @@ def _tf32_pack(layers, device: torch.device, chain: bool) -> torch.Tensor:
     layer after the first of a ``chain`` takes ``k0 = 8 kt + 2 (lane %
     4)``, ``k1 = k0 + 1``, the previous layer's accumulator columns); then
     the bias padded to ``N8``."""
+    if not layers:  # no tensors (and no device work) for an empty chain
+        return torch.empty(0, device=device, dtype=torch.float32)
     parts = []
     lane = torch.arange(32, device=device)
     g, t = lane // 4, lane % 4
@@ -290,8 +303,6 @@ def _tf32_pack(layers, device: torch.device, chain: bool) -> torch.Tensor:
         bias = torch.zeros(n8, dtype=torch.float32, device=device)
         bias[:cout] = b.detach().float()
         parts += [frag.reshape(-1), bias]
-    if not parts:
-        return torch.empty(0, device=device, dtype=torch.float32)
     return torch.cat(parts).contiguous()
 
 

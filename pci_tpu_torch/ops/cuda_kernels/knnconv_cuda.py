@@ -1,7 +1,7 @@
 """Fused kNN set-conv tail: exact kNN group + MLP1 + max + skip + MLP2, or
 3-NN inverse-distance interpolation + skip + MLP2, the last ``n_final``
-MLP2 layers linear.  The CUDA kernel (csrc/knnconv.cu) and its plain
-PyTorch version.
+MLP2 layers linear.  The CUDA kernel (csrc/knnconv.cu, its MLPs on the
+tensor cores in 3xTF32) and its plain PyTorch version.
 
 Replaces ``pci_tpu/ops/pallas_kernels/knnconv_tpu.py:knnconv_fused``;
 with ``n_final=1`` FlowNet3D's classifier rides the FeaturePropagation's
@@ -73,14 +73,14 @@ def knnconv_kernel(q_xyz, k_xyz, k_feats, q_feats, skip_feats, k, mlp1, mlp2,
             _build.require(t, name, torch.float32, 3, dev)
     if not 1 <= k <= N:
         raise ValueError(f"knnconv: k={k} needs 1 <= k <= N={N}")
-    w1, dims1 = _build.pack_layers(mlp1, dev)
-    w2, dims2 = _build.pack_layers(mlp2, dev)
+    dims1, dims2 = _build.layer_widths(mlp1), _build.layer_widths(mlp2)
     c0 = 3 + D + C1
     cm = D if interp else (dims1[-1] if dims1 else c0)
     if dims1 and dims1[0] != c0 or dims2 and dims2[0] != cm + Cs:
         raise ValueError(f"knnconv: MLP widths {dims1} / {dims2} do not fit "
                          f"the {c0} grouped and {Cs} skip channels")
-    wbuf = torch.cat([w1, w2]) if w1.numel() else w2
+    # split for the tensor cores once per weight set (kept on PackedLayers)
+    w1, w2 = _build.pack_tf32(mlp1, dev), _build.pack_tf32(mlp2, dev)
     c_out = dims2[-1] if dims2 else cm + Cs
     out = torch.empty((B, S, c_out), dtype=torch.float32, device=dev)
     null = 0
@@ -88,7 +88,7 @@ def knnconv_kernel(q_xyz, k_xyz, k_feats, q_feats, skip_feats, k, mlp1, mlp2,
         q_xyz.data_ptr(), k_xyz.data_ptr(), k_feats.data_ptr(),
         q_feats.data_ptr() if C1 else null,
         skip_feats.data_ptr() if Cs else null,
-        wbuf.data_ptr() if wbuf.numel() else null,
+        w1.data_ptr() if w1.numel() else null, w2.data_ptr() if w2.numel() else null,
         _build.int_array(dims1 or [c0]), len(mlp1),
         _build.int_array(dims2 or [cm + Cs]), len(mlp2),
         out.data_ptr(), B, N, S, D, C1, Cs, k, int(interp), int(recip == "eps"),

@@ -1,8 +1,10 @@
 """The 3xTF32 split of the tensor-core kernels (pci_tpu_torch/csrc/mma_tf32.cuh)
 held on the CPU: the host-side split and fragment layout of
 ``_build.PackedLayers.tf32`` / ``_build.pack_tf32``, and a torch emulation of
-the three-product layer chain at the widths the one-shot fusion (row 4) and
-the FlowNet3D decode megakernel (row 6) run, against the fp64 chain.
+the three-product layer chain at the widths the one-shot fusion (row 4),
+the FlowNet3D decode megakernel (row 6), kNN-conv's FeaturePropagation with
+the classifier (row 3) and the encoder megakernel's two set-convs (row 5)
+run, against the fp64 chain.
 
 The card runs the same arithmetic in its mma instructions; chip_smoke.py
 holds the kernels against their plain versions there."""
@@ -18,6 +20,9 @@ from pci_tpu_torch.ops.cuda_kernels import _build
 SCORE = (4, 64, 64, 128)  # the fusion's score MLP
 FLOW_EMBEDDING = (259, 128, 128, 128)
 SET_UPCONV3 = ((259, 128, 128, 256), (320, 256))  # conv1, conv2
+FP_CLASSIFIER = (259, 256, 256, 128, 3)  # [pooled | skip], the last layer linear
+SET_CONV1 = (6, 32, 32, 64)
+SET_CONV2 = (67, 64, 64, 128)
 
 
 def _layers(dims, seed):
@@ -59,13 +64,13 @@ def _decode(buf, dims, chain):
     return layers, off
 
 
-def _chain(x, decoded, dims, split=True):
+def _chain(x, decoded, dims, split=True, n_linear=0):
     """The kernels' layer chain in torch fp32: each activation split in the
     kernel's way (or rounded once to TF32, ``split=False``), the three
     products ``a_hi w_lo + a_lo w_hi + a_hi w_hi`` (or ``a w``), + bias,
-    ReLU after every layer; ``x [R, dims[0]]``."""
+    ReLU after every layer but the last ``n_linear``; ``x [R, dims[0]]``."""
     h = x.float()
-    for (hi, lo, b), cin, cout in zip(decoded, dims[:-1], dims[1:]):
+    for i, ((hi, lo, b), cin, cout) in enumerate(zip(decoded, dims[:-1], dims[1:])):
         k8 = hi.shape[0]
         a = torch.zeros(h.shape[0], k8)
         a[:, :cin] = h
@@ -75,14 +80,18 @@ def _chain(x, decoded, dims, split=True):
             y = ahi @ wlo + alo @ whi + ahi @ whi
         else:
             y = ahi @ whi
-        h = torch.relu(y + torch.from_numpy(b))[:, :cout]
+        h = (y + torch.from_numpy(b))[:, :cout]
+        if i < len(decoded) - n_linear:
+            h = torch.relu(h)
     return h
 
 
-def _chain64(x, layers):
+def _chain64(x, layers, n_linear=0):
     h = x.double()
-    for w, b in layers:
-        h = torch.relu(h @ w.double().t() + b.double())
+    for i, (w, b) in enumerate(layers):
+        h = h @ w.double().t() + b.double()
+        if i < len(layers) - n_linear:
+            h = torch.relu(h)
     return h
 
 
@@ -156,21 +165,22 @@ def _case_cached():
         _build.pack_tf32([layers[1], layers[0]], torch.device("cpu"))
 
 
-def _emulate(layers, rows, chain):
+def _emulate(layers, rows, chain, n_linear=0):
     """The emulated 3xTF32 chain (from the packed buffer) against fp64:
     returns (max error, single-TF32 max error), both relative to the
     output's largest magnitude."""
     packed = _build.PackedLayers(layers)
     decoded, _ = _decode(packed.tf32(chain), packed.dims, chain)
-    want = _chain64(rows, layers)
+    want = _chain64(rows, layers, n_linear)
     top = want.abs().max().item()
-    err = (_chain(rows, decoded, packed.dims) - want).abs().max().item() / top
-    one = (_chain(rows, decoded, packed.dims, split=False) - want).abs().max().item() / top
+    err = (_chain(rows, decoded, packed.dims, n_linear=n_linear) - want).abs().max().item() / top
+    one = (_chain(rows, decoded, packed.dims, split=False, n_linear=n_linear)
+           - want).abs().max().item() / top
     return err, one
 
 
-def _case_emulate(layers, rows, chain, tol):
-    err, one = _emulate(layers, rows, chain)
+def _case_emulate(layers, rows, chain, tol, n_linear=0):
+    err, one = _emulate(layers, rows, chain, n_linear)
     # well under chip_smoke's 1e-4 hold; one TF32 product is not
     assert err <= tol, err
     assert one > 20 * err, (one, err)
@@ -195,6 +205,30 @@ def _case_set_upconv3():
     _case_emulate(conv2, _rows(SET_UPCONV3[1], 64, 13, relu_feats=False).abs(), False, 2e-6)
 
 
+def _case_bits_fp_classifier():
+    _check_bits(_layers(FP_CLASSIFIER, 14), chain=False)
+
+
+def _case_bits_set_convs():
+    _check_bits(_layers(SET_CONV1, 15), chain=False)
+    _check_bits(_layers(SET_CONV2, 16), chain=False)
+
+
+def _case_fp_classifier():
+    # 64 queries a tile: [3-NN interpolated nf_1 (ReLU'd) | the cloud's
+    # 3 skip channels], the classifier's last layer linear
+    rng = np.random.default_rng(17)
+    x = np.concatenate([np.maximum(rng.standard_normal((512, 256)), 0.0),
+                        rng.standard_normal((512, 3))], -1).astype(np.float32)
+    _case_emulate(_layers(FP_CLASSIFIER, 18), torch.from_numpy(x), False, 2e-6, n_linear=1)
+
+
+def _case_set_convs():
+    # 8 centres x 16 slots: [dxyz | feats]
+    _case_emulate(_layers(SET_CONV1, 19), _rows(SET_CONV1, 128, 20), False, 2e-6)
+    _case_emulate(_layers(SET_CONV2, 21), _rows(SET_CONV2, 128, 22), False, 2e-6)
+
+
 CASES = {
     "tf32_round": _case_round,
     "bits_score_mlp": _case_bits_score,
@@ -204,6 +238,10 @@ CASES = {
     "chain_score_mlp": _case_score,
     "chain_flow_embedding": _case_flow_embedding,
     "chain_set_upconv3": _case_set_upconv3,
+    "bits_fp_classifier": _case_bits_fp_classifier,
+    "bits_set_convs": _case_bits_set_convs,
+    "chain_fp_classifier": _case_fp_classifier,
+    "chain_set_convs": _case_set_convs,
 }
 
 
