@@ -26,7 +26,14 @@ each printing its own lines:
      the `stages` lines: flowenc's FPS chain, set_conv1's and set_conv2's
      tiles at one request's and one 8-stream call's shapes, from its
      %globaltimer stage stamps, beside the ball scan alone (csrc/ball.cu);
-     the FeaturePropagation's kNN-conv whole and without its MLP2.
+     the FeaturePropagation's kNN-conv whole and without its MLP2.  Then
+     FPS against its plain version at every shape its paths use
+     (FPS_HOLDS: random starts, a start clamped to a shorter chain, 10%
+     duplicate points), timed a launch and a greedy iteration, and the
+     box-pruned kNN on a cloud almost all in one Morton cell, with
+     duplicates, a cross cloud and the route's crossing shapes
+     (KNN_CROSSING; indices and distances equal), timed beside the flat
+     kernel.
   4. serving: Interpolator.pointinet(npoints=16384) with the trained weights
      answers five requests (t=0.5, then upsample(factor=5)); the launch
      counters must rise by PER_REQUEST a request (2 FPS, 2 flowenc, 2
@@ -49,7 +56,9 @@ each printing its own lines:
      of one plain request on each PointNet++ route (ball query, kNN and
      FPS indices equal, kNN distances bit-equal, the rest within 1e-4; the
      pn2mid route and, with PCI_TPU_PN2_KERNEL=0, the per-stage one's
-     sa2-fp2 FPS, ball queries and 3-NN), then five served requests
+     sa2-fp2 FPS, ball queries and 3-NN; the transformer's kNN on the
+     box-pruned kernel, with its `stages knn` lines: the torch prep, the
+     kernel, the pairs it scanned, its tiles), then five served requests
      with the launch counts of PER_REQUEST_ISAPCI each, the frame against
      the plain versions, latency and the device's busy share; then with
      PCI_TPU_PN2_KERNEL=0 (PointNet++ stage by stage): five requests with
@@ -61,7 +70,8 @@ each printing its own lines:
      version at every shape of one plain training step (the attention
      backward at the gradient that step gives it; the residual kNN also
      at three segments, PointsFusionMulti's form, and the chamfer's kNN
-     over key prefixes, knn_pallas's valid_n), then one step's loss
+     over key prefixes, knn_pallas's valid_n; `stages knn` for the
+     transformers' box-pruned kNNs), then one step's loss
      and gradients through the kernels against the plain versions from the
      same flows, permutations and FPS starts, then five steps with the
      launch counts of PER_STEP each, finite losses, the flow bit-unchanged
@@ -145,6 +155,8 @@ KERNEL_INFO = {  # name -> (source, TPU kernel it replaces)
              "pci_tpu/ops/pallas_kernels/ball_tpu.py:132"),
     "knn": ("pci_tpu_torch/csrc/knn.cu",
             "pci_tpu/ops/pallas_kernels/knn_cells_tpu.py:242"),
+    "knn_cells": ("pci_tpu_torch/csrc/knn_cells.cu",  # the box-pruned route
+                  "pci_tpu/ops/pallas_kernels/knn_cells_tpu.py:305"),
     "attention": ("pci_tpu_torch/csrc/attention.cu",
                   "pci_tpu/ops/pallas_kernels/attention_tpu.py:85"),
     "fusion_resi": ("pci_tpu_torch/csrc/fusion_knn.cu",
@@ -194,14 +206,15 @@ PER_REQUEST_ONESHOT_OFF = per(fps=2, flowenc=2, flowmid=2, knnconv=2, fusion_res
                               fusion_tail=1)
 # ISAPCInet field=2: 6 encodings and 8 decodes of FlowNet3D as above, two
 # PointNet++ passes (sa1's FPS and ball query, the mid-section in one
-# launch, fp1's interpolation each), two transformers (1 kNN, 1 attention
-# tail each), one fusion (16,384 points: the flat kernel)
+# launch, fp1's interpolation each), two transformers (1 kNN over the
+# 65,536 flow vectors, on the box-pruned kernel, and 1 attention tail
+# each), one fusion (16,384 points: the flat kernel)
 PER_REQUEST_ISAPCI = per(fps=6 + 2, flowenc=6, flowmid=8, knnconv=8 + 2, fusion=1, ball=2,
-                         knn=2, attention=2, pn2mid=2)
+                         knn_cells=2, attention=2, pn2mid=2)
 # with PCI_TPU_PN2_KERNEL=0: PointNet++ stage by stage (4 FPS, 4 ball
 # queries, 4 FP interpolations a pass)
 PER_REQUEST_ISAPCI_PN2_OFF = per(fps=6 + 8, flowenc=6, flowmid=8, knnconv=8 + 8, fusion=1,
-                                 ball=8, knn=2, attention=2)
+                                 ball=8, knn_cells=2, attention=2)
 # PointINet at 32,768 points and more: the fusion on the cell-pruned kernel
 PER_REQUEST_CELLS = per(fps=2, flowenc=2, flowmid=2, knnconv=2, fusion_cells=1)
 PER_REQUEST_CELLS_ONESHOT_OFF = per(fps=2, flowenc=2, flowmid=2, knnconv=2, fusion_cells=1,
@@ -210,12 +223,12 @@ LARGE_N = (65536, 32768)  # paper Table 6's other protocol rows
 # ISAPCInet field=2, one training step: the frozen flows as at eval (6 FPS,
 # 6 flowenc, 8 flowmid, 8 kNN-convs); PointNet++ twice (4 FPS with random
 # starts, 4 ball queries, and 4 FP interpolations under autograd whose 3-NN
-# runs on the kNN kernel, not on kNN-conv); the transformers (2 kNNs, 2
-# attention forwards, 2 attention backwards); the fusion's residual kNN;
-# the chamfer loss's two directions on the kNN kernel's k=1 form; the
-# one-shot fusion is eval only
-PER_STEP = per(fps=6 + 8, flowenc=6, flowmid=8, knnconv=8, ball=8, knn=8 + 2, attention=2,
-               attention_bwd=2, fusion_resi=1, nearest=2)
+# runs on the flat kNN kernel, not on kNN-conv); the transformers (2
+# box-pruned kNNs, 2 attention forwards, 2 attention backwards); the
+# fusion's residual kNN; the chamfer loss's two directions on the flat kNN
+# kernel's k=1 form; the one-shot fusion is eval only
+PER_STEP = per(fps=6 + 8, flowenc=6, flowmid=8, knnconv=8, ball=8, knn=8, knn_cells=2,
+               attention=2, attention_bwd=2, fusion_resi=1, nearest=2)
 STREAMS = 8
 STREAM_T = tuple((i + 1) / (STREAMS + 1) for i in range(STREAMS))
 FIELD = 2
@@ -292,8 +305,11 @@ def cuda_ms(fn, reps: int) -> float:
 @contextlib.contextmanager
 def record_calls(calls: list):
     """Record the arguments of every kernel dispatch the model makes, and of
-    the trainable attention's backward (at the gradient it receives)."""
+    the trainable attention's backward (at the gradient it receives).  A
+    kNN dispatch is recorded under the kernel its route takes on the card
+    (``knn_cells`` where ``knn_cuda.cells_route_ok``, else ``knn``)."""
     from pci_tpu_torch.ops.cuda_kernels import attention_bwd
+    from pci_tpu_torch.ops.cuda_kernels.knn_cuda import cells_route_ok
 
     mods = {name: importlib.import_module(f"pci_tpu_torch.{name}")
             for name in ("models.flownet3d", "nn.fusion", "nn.layers", "nn.pointnet2",
@@ -324,7 +340,11 @@ def record_calls(calls: list):
         def rec(*args, _fn=fn, _name=name, _attr=attr, **kw):
             if depth[0]:
                 return _fn(*args, **kw)
-            calls.append((_name, _fn, args, kw))
+            name = _name
+            if _name == "knn" and cells_route_ok(args[0], args[1], args[2], kw.get(
+                    "valid_n", args[3] if len(args) > 3 else None)):
+                name = "knn_cells"
+            calls.append((name, _fn, args, kw))
             depth[0] += 1
             try:
                 out = _fn(*args, **kw)
@@ -399,6 +419,25 @@ def cells_pairs(combined, seg_ends, budgets, k) -> float:
                 gap = torch.clamp_min(torch.maximum(lo - q, q - hi), 0.0)
                 need |= (lo[:, 0] <= hi[:, 0]) & (sqdist(gap) <= thr[seg][q0:q0 + 8192, None])
             total += float(need.sum()) * CHUNK
+    return total
+
+
+def knn_cells_pairs(query, points, kth, chunk: int) -> float:
+    """(query, key) pairs an exact box-pruned kNN must touch on these
+    inputs: for each query, every key of each chunk of ``chunk``
+    Morton-sorted keys whose box lies no farther than that query's final
+    k-th distance ``kth [B, S]`` (cells_pairs' rule for one segment)."""
+    from pci_tpu_torch.ops.cells import chunk_boxes, sort_by_morton
+
+    B, N, _ = points.shape
+    pts, perm = sort_by_morton(points, (-N) % chunk)
+    lo, hi = chunk_boxes(pts, chunk, perm < N)
+    total = 0.0
+    for b in range(B):
+        for q0 in range(0, query.shape[1], 4096):
+            q = query[b, q0:q0 + 4096, None, :].float()
+            gap = torch.clamp_min(torch.maximum(lo[b] - q, q - hi[b]), 0.0)
+            total += float((sqdist(gap) <= kth[b, q0:q0 + 4096, None]).sum()) * chunk
     return total
 
 
@@ -531,6 +570,15 @@ def work(name, args, kw, out):
         # 8 flops a distance and one compare a scale, per key scanned
         ops = (8.0 + len(ks)) * scanned_keys(new_xyz, xyz, radii, ks)
         return nbytes(xyz, new_xyz, *out), ops
+    if name == "knn_cells":
+        from pci_tpu_torch.ops.cuda_kernels.knn_cuda import CELLS_CHUNK, knn_cells_plan
+
+        # 8 operations a pair the pruned scan must touch; the bytes of the
+        # inputs, the outputs and the torch prep's plan
+        query, points = args[:2]
+        plan = {id(t): t for t in knn_cells_plan(query, points, query is points)}
+        pairs = knn_cells_pairs(query, points, out[0][..., -1], CELLS_CHUNK)
+        return nbytes(query, points, *out, *plan.values()), 8.0 * pairs
     if name in ("knn", "nearest"):
         query, points, k = args[:3]
         B, S, _ = query.shape
@@ -598,7 +646,7 @@ def label(name, args, kw) -> str:
         return f"B={args[1].shape[0]} N={args[1].shape[1]} k={args[1].shape[2]} Ce={ce}"
     if name == "ball":
         return f"N={args[2].shape[1]} S={args[3].shape[1]} r={list(args[0])} K={list(args[1])}"
-    if name in ("knn", "nearest"):
+    if name in ("knn", "knn_cells", "nearest"):
         valid = f" valid_n={args[3].tolist()}" if len(args) > 3 and args[3] is not None else ""
         return f"B={args[0].shape[0]} S={args[0].shape[1]} N={args[1].shape[1]} k={args[2]}{valid}"
     if name in ("attention", "attention_bwd"):
@@ -679,7 +727,7 @@ def compare(name, got, want, where: str, args=()) -> float:
         for g, w in zip(got, want):
             check(torch.equal(g, w), f"ball {where}: indices differ")
         return 0.0
-    if name in ("knn", "nearest"):
+    if name in ("knn", "knn_cells", "nearest"):
         check(torch.equal(got[1], want[1]), f"{name} {where}: indices differ")
         check(torch.equal(got[0], want[0]), f"{name} {where}: distances not bit-equal")
         return 0.0
@@ -716,15 +764,34 @@ def library_call(name, args):
     inputs, where there is one (timed only; the port never uses it):
     ``torch.cdist(...).argmin`` for the nearest neighbour over all keys,
     ``torch.topk(torch.cdist(...), k, largest=False)`` for the kNN over all
-    keys, and for the cell-pruned fusion's residual mode the same per
-    segment (both chunked over queries)."""
+    keys, and for the residual fusion kNNs (flat and cell-pruned) the same
+    per segment (chunked over queries; the flat one batched over B at each
+    segment's largest budget, or row by row where the rows' segments
+    differ)."""
     valid = len(args) > 3 and args[3] is not None
     if name == "nearest" and args[2] == 1 and not valid:
         query, points = args[0], args[1]
         return lambda: torch.cdist(query, points).argmin(-1)
-    if name == "knn" and not valid:
+    if name in ("knn", "knn_cells") and not valid:
         query, points, k = args[:3]
         return lambda: cdist_topk(query, points, k)
+    if name == "fusion_resi":
+        combined, seg_ends, budgets, k = args
+        ends = seg_ends.tolist()
+        # segment s spans [ends[s-1], ends[s]); its budget capped as the kernel caps it
+        caps, used = [], torch.zeros(budgets.shape[0], dtype=torch.long)
+        for s in range(budgets.shape[1]):
+            cap = torch.minimum(budgets[:, s].cpu().long(), k - used)
+            caps.append(cap)
+            used += cap
+        if all(e == ends[0] for e in ends):  # one batched call a segment
+            rows = [(slice(None), ends[0], [int(c.max()) for c in caps])]
+        else:  # segments that differ by row: a call a row and segment
+            rows = [(slice(b, b + 1), ends[b], [int(c[b]) for c in caps])
+                    for b in range(len(ends))]
+        segs = [(r, lo, hi, c) for r, e, cs in rows for lo, hi, c in zip([0] + e[:-1], e, cs)
+                if c > 0]
+        return lambda: [cdist_topk(combined[r], combined[r, lo:hi], c) for r, lo, hi, c in segs]
     if name == "fusion_cells" and len(args) == 4:
         combined, seg_ends, budgets, k = args
         n1, k1 = int(seg_ends[0, 0]), min(int(budgets[0, 0]), k)
@@ -802,6 +869,182 @@ def hold_kernels(calls, request: int, expected: dict, totals: dict, path: str,
                   f"{max(t['bytes_ms'], t['ops_ms']):.6f} ms by "
                   f"{'bytes' if t['bytes_ms'] > t['ops_ms'] else 'operations'}{lib}), "
                   f"max_abs_err {t['err']:.3g}")
+
+
+# FPS at every shape its paths give it, and its edge cases: (B, N, npoint,
+# P, start, cloud); start "random" draws one a batch row, "last" is N - 1
+# (clamped to a shorter chain's end); cloud "dups" has 10% exact duplicates
+FPS_HOLDS = (
+    (1, 16384, 1024, 8, "zero", "gauss"), (8, 16384, 1024, 8, "zero", "gauss"),
+    (1, 32768, 1024, 8, "zero", "gauss"), (1, 65536, 1024, 8, "zero", "gauss"),
+    (1, 1024, 256, 1, "zero", "gauss"), (1, 256, 64, 1, "zero", "gauss"),
+    (1, 64, 16, 1, "zero", "gauss"), (2, 1024, 256, 1, "zero", "gauss"),
+    (2, 16000, 1024, 8, "random", "gauss"), (2, 64000, 1024, 8, "random", "gauss"),
+    (1, 16384, 1024, 1, "zero", "gauss"), (1, 16383, 1024, 8, "last", "gauss"),
+    (2, 16384, 1024, 8, "random", "dups"), (1, 1000, 256, 1, "random", "dups"),
+)
+
+
+def hold_fps(card: str) -> None:
+    """The FPS kernel against its plain version at FPS_HOLDS: picks equal;
+    each shape's time a launch (CUDA events, and device time) and a greedy
+    iteration (device ms / (npoint / P))."""
+    from pci_tpu_torch.ops.cuda_kernels.fps_cuda import fps_kernel, fps_plain
+
+    dev = torch.device("cuda")
+    for B, N, npoint, P, start_kind, cloud in FPS_HOLDS:
+        pairs = [dup_pair(B * N + i, N)[1] if cloud == "dups" else synthetic_pair(B * N + i, N)[0]
+                 for i in range(B)]
+        xyz = torch.from_numpy(np.stack(pairs)).to(dev)
+        g = torch.Generator().manual_seed(N)
+        start = {"zero": torch.zeros(B), "last": torch.full((B,), N - 1),
+                 "random": torch.randint(0, N, (B,), generator=g)}[start_kind]
+        start = start.to(dev, torch.int32)  # as the kernel reads it: no cast in its time
+        with torch.inference_mode():
+            got = fps_kernel(xyz, npoint, start, P)
+            want = fps_plain(xyz, npoint, start, P)
+            ms = cuda_ms(lambda: fps_kernel(xyz, npoint, start, P), 10)
+            dev_ms = device_ms(lambda: fps_kernel(xyz, npoint, start, P))
+        what = f"B={B} N={N} npoint={npoint} P={P} start={start_kind} cloud={cloud}"
+        check(torch.equal(got, want), f"fps {what}: picks differ from the plain version's")
+        print(f"fps hold {what}: picks equal to the plain version's; {ms:.4f} ms (CUDA "
+              f"events), device {dev_ms:.4f} ms, {1e3 * dev_ms / (npoint // P):.3f} us an "
+              f"iteration on {card}")
+
+
+def one_cell_cloud(n: int, seed: int) -> np.ndarray:
+    """``[n, 3]``: 90% of the points in one cell of the 1024^3 Morton grid
+    (a 1e-4 m cube in a 1 m cloud), a third of those exact duplicates."""
+    rng = np.random.default_rng(seed)
+    x = rng.random((n, 3))
+    m = 9 * n // 10
+    x[:m] = 0.5 + 1e-4 * rng.random((m, 3))
+    x[m // 3:2 * m // 3] = x[:m // 3]
+    return x[rng.permutation(n)].astype(np.float32)
+
+
+# the kNN routes' crossing: (B, S, N, k), self clouds where S is None
+KNN_CROSSING = ((1, None, 1024, 16), (1, None, 2048, 16), (1, None, 4096, 16),
+                (1, None, 16384, 16), (1, None, 65536, 16), (2, 64000, 1024, 3),
+                (2, 64000, 4096, 3), (2, 64000, 16384, 3), (2, 64000, 65536, 3))
+
+
+def hold_knn_cells(card: str) -> None:
+    """The box-pruned kNN against the plain version, indices and distances
+    equal: a cloud almost all in one Morton cell, with duplicates (self),
+    a cross cloud (S != N), and the KNN_CROSSING shapes (seeded LiDAR-like
+    clouds), where its whole call (prep included) is timed beside the flat
+    kernel's with the route `knn_cuda.cells_route_ok` takes."""
+    from pci_tpu_torch.ops.cuda_kernels.knn_cuda import (
+        cells_route_ok, knn_cells_kernel, knn_kernel, knn_plain)
+
+    dev = torch.device("cuda")
+    x = torch.from_numpy(one_cell_cloud(16384, 3))[None].to(dev)
+    q = torch.from_numpy(synthetic_pair(4, 5000)[0])[None].to(dev)
+    keys = torch.from_numpy(synthetic_pair(5, 20000)[0])[None].to(dev)
+    cases = [("one Morton cell, duplicates, 16,384", x, x, 16),
+             ("cross 5,000 x 20,000", q, keys, 16)]
+    for B, S, N, k in KNN_CROSSING:
+        pts = torch.from_numpy(np.stack([synthetic_pair(N + b, N)[0] for b in range(B)])).to(dev)
+        qry = pts if S is None else torch.from_numpy(
+            np.stack([synthetic_pair(S + b, S)[1] for b in range(B)])).to(dev)
+        cases.append((f"crossing B={B} S={qry.shape[1]} N={N}", qry, pts, k))
+    for what, query, points, k in cases:
+        want = knn_plain(query, points, k)
+        with torch.inference_mode():
+            got = knn_cells_kernel(query, points, k)
+            ms = cuda_ms(lambda: knn_cells_kernel(query, points, k), 10)
+            flat = cuda_ms(lambda: knn_kernel(query, points, k), 5)
+        check(torch.equal(got[1], want[1]) and torch.equal(got[0], want[0]),
+              f"knn_cells {what}: differs from the plain version")
+        route = "pruned" if cells_route_ok(query, points, k) else "flat"
+        print(f"knn_cells hold {what} k={k}: indices and distances equal to the plain "
+              f"version's; pruned {ms:.4f} ms (prep included), flat {flat:.4f} ms (CUDA "
+              f"events), the route takes the {route} kernel, on {card}")
+
+
+def knn_walk_pairs(points, kth, chunk: int, tile: int) -> float:
+    """(query, key) pairs a self kNN's tile walk touches: for each tile of
+    ``tile`` Morton-sorted queries, every key of each chunk of ``chunk``
+    keys whose box bound from the tile's box lies within the tile's largest
+    final k-th distance (``kth [B, N]``, in the cloud's order)."""
+    from pci_tpu_torch.ops.cells import box_lb, chunk_boxes, sort_by_morton
+
+    N = points.shape[1]
+    pts, perm = sort_by_morton(points, (-N) % max(chunk, tile))
+    valid = perm < N
+    lo, hi = chunk_boxes(pts, chunk, valid)
+    qlo, qhi = chunk_boxes(pts, tile, valid)
+    th = torch.where(valid, torch.gather(kth, 1, perm.clamp_max(N - 1).long()), -1.0)
+    top = th.reshape(th.shape[0], -1, tile).amax(-1)  # [B, nt]
+    return float((box_lb(qlo, qhi, lo, hi) <= top[..., None]).sum()) * chunk * tile
+
+
+def knn_stages(calls, card: str, path: str) -> None:
+    """The `stages knn` lines: for each recorded box-pruned kNN, the whole
+    call (prep included) beside the flat kernel on the same input, the
+    torch prep alone (CUDA events; as the route replays it from a CUDA
+    graph, and eager), the kernel alone (device time), the pairs it scanned
+    against all pairs, and its tiles' times, chunk walks and list inserts
+    from their %globaltimer stamps, with the slowest tile run again alone
+    (every other query a pad row).  For a self kNN also the pairs an exact
+    scan must touch at other chunk and tile sizes: per query (every key of
+    each chunk within the query's final k-th distance, knn_cells_pairs) and
+    per tile walk (knn_walk_pairs)."""
+    from pci_tpu_torch.ops.cuda_kernels import knn_cuda
+
+    for name, _, args, _ in calls:
+        if name != "knn_cells":
+            continue
+        query, points, k = args[:3]
+        self_knn = query is points
+        with torch.inference_mode():
+            call = cuda_ms(lambda: knn_cuda.knn_cells_kernel(query, points, k), 10)
+            flat = cuda_ms(lambda: knn_cuda.knn_kernel(query, points, k), 5)
+            plan = knn_cuda.knn_cells_plan(query, points, self_knn)
+            prep = cuda_ms(lambda: knn_cuda.knn_cells_plan_graphed(query, points, self_knn), 10)
+            eager = cuda_ms(lambda: knn_cuda.knn_cells_plan(query, points, self_knn), 10)
+            kern = device_ms(lambda: knn_cuda.knn_cells_launch(query, points, k, plan))
+            scanned = torch.zeros(1, dtype=torch.int64, device=points.device)
+            stamps = torch.zeros((*plan[3].shape[:2], knn_cuda.STAMPS), dtype=torch.int64,
+                                 device=points.device)
+            dist, _ = knn_cuda.knn_cells_launch(query, points, k, plan, scanned, stamps=stamps)
+            t = stamps.reshape(-1, knn_cuda.STAMPS).cpu().double()
+            b, tt = divmod(int((t[:, 1] - t[:, 0]).argmax()), plan[3].shape[1])
+            TQ = plan[1].shape[1] // plan[3].shape[1]
+            qry = plan[1].clone()
+            ids = qry[..., 3].view(torch.int32)
+            keep = torch.zeros_like(ids, dtype=torch.bool)
+            keep[b, tt * TQ:(tt + 1) * TQ] = True
+            ids[~keep] = query.shape[1]  # a pad row: its tile stops at once
+            alone = torch.zeros_like(stamps)
+            knn_cuda.knn_cells_launch(query, points, k, (plan[0], qry, *plan[2:]), stamps=alone)
+        tile_ms = (t[:, 1] - t[:, 0]) * 1e-6
+        B, S, N = points.shape[0], query.shape[1], points.shape[1]
+        span = float(t[:, 1].max() - t[:, 0].min()) * 1e-6
+        slow = b * plan[3].shape[1] + tt
+        print(f"stages knn {path} B={B} S={S} N={N} k={k} on {card}: call {call:.4f} ms (prep "
+              f"included; flat kernel {flat:.4f} ms; CUDA events), prep {prep:.4f} ms (CUDA "
+              f"graph replay; eager {eager:.4f} ms; CUDA events, median of 10), kernel "
+              f"{kern:.4f} ms (device time; {span:.4f} ms first tile start to last tile end "
+              f"in the stamped launch), pairs scanned "
+              f"{scanned.item()} of {B * S * N} ({scanned.item() / (B * S * N):.5f}); tiles "
+              f"(chunks of {knn_cuda.CELLS_CHUNK}, {knn_cuda.CELLS_TILE} queries): ms mean "
+              f"{tile_ms.mean():.4f} max {tile_ms.max():.4f} (that tile alone "
+              f"{float(alone[b, tt, 1] - alone[b, tt, 0]) * 1e-6:.4f}), "
+              f"chunks walked mean {t[:, 2].mean():.1f} max {t[:, 2].max():.0f} (slowest "
+              f"{t[slow, 2]:.0f}) of {plan[3].shape[2]}, list inserts "
+              f"{t[:, 3].sum() / B / S:.1f} a query")
+        if not self_knn:
+            continue
+        kth, total = dist[..., -1], float(B * S * N)
+        per_query = {c: knn_cells_pairs(points, points, kth, c) / total for c in (128, 256, 512)}
+        walk = {(c, tq): knn_walk_pairs(points, kth, c, tq) / total
+                for c in (128, 256, 512) for tq in (32, 64, 128)}
+        print(f"stages knn {path} pairs an exact scan must touch (fractions of all pairs): per "
+              f"query " + ", ".join(f"chunk {c} {f:.5f}" for c, f in per_query.items())
+              + "; tile walk " + ", ".join(f"{c}/{tq} {f:.5f}" for (c, tq), f in walk.items())
+              + " (chunk/tile)")
 
 
 def phase_kernels(model, a, b, totals):
@@ -1126,6 +1369,7 @@ def phase_isapci(card: str, totals: dict) -> dict:
     with torch.inference_mode(), plain_versions(), record_calls(calls):
         model(fwd_t, keys_t, bwd_t, tt, z, perms=perms)
     hold_kernels(calls, len(calls), PER_REQUEST_ISAPCI, totals, "isapci")
+    knn_stages(calls, card, "isapci")
     calls = []
     with torch.inference_mode(), plain_versions(), record_calls(calls), gates(PN2_OFF):
         model(fwd_t, keys_t, bwd_t, tt, z, perms=perms)
@@ -1285,6 +1529,7 @@ def phase_train(card: str, totals: dict) -> dict:
     calls.append((name, fn, (a, b, 1, torch.tensor([N // 2, N - 5][:B], device=dev)), {}))
     calls.append(("knn", fn, (a, b, 8, torch.tensor([5, N][:B], device=dev)), {}))
     hold_kernels(calls, request, PER_STEP, totals, "train", unit="step")
+    knn_stages(calls[:request], card, "train")
     del calls
 
     # one step through the kernels against one through the plain versions,
@@ -1784,6 +2029,8 @@ def main() -> int:
     b = torch.from_numpy(b_np)[None].cuda()
     perms = phase_kernels(interp.model, a, b, totals)
     phase_stages(interp.model, card)
+    hold_fps(card)
+    hold_knn_cells(card)
 
     # 4. serving: warm up, then count the launches of five requests
     interp(a_np, b_np, 0.5)

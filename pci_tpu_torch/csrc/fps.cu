@@ -8,70 +8,116 @@
 //
 // What bounds it on the H100: not bytes (16,384 points are 196 KB) and not
 // operations (10 per point per iteration, 1.7e8 for 16k -> 1024), but the
-// sequential dependency: every iteration needs the previous argmax.  Each
-// iteration is one relax pass plus a block-wide argmax, so its latency is
-// two __syncthreads and a shuffle tree.  The design keeps every chain's
-// cloud in shared memory and its distances in registers (one block per
-// (batch, chain), up to 16 points a thread), so an iteration touches no
-// device memory; interleaved chains run as independent blocks in parallel.
-// Ties go to the lowest index, as jnp.argmax breaks them; once every
-// distance is 0 (npoint > N) the argmax is index 0 again, as in the XLA loop.
-// The chain is fps_chain (csrc/stages.cuh), which the FlowNet3D
-// megakernels run for their in-kernel centres.
+// sequential dependency: every iteration needs the previous argmax, so the
+// time is npoint / P times the latency of one iteration.  Design: each
+// (batch, chain) is one block of W warps (fps_group_chain, csrc/stages.cuh),
+// about one warp an SM sub-partition: a thread keeps its points' distances
+// and, up to 16 points a thread, their coordinates in registers; only the
+// centre comes from shared memory; a warp reduces with two redux.sync (max
+// over the distance bits, min over the indices at it) and the warps trade
+// their winners through double-buffered shared slots with one named barrier
+// an iteration, each warp then reducing the W slots itself.  W is 8 up to
+// 2,048 points a chain and 16 above (on the H100 wider chains won over
+// narrower ones at every path shape, and the 8-warp chain over the one-warp
+// chain at 1,024 points); an exact chain of at most 256 points (P == 1)
+// runs on one warp (fps_warp_chain, no barrier at all).  Ties go to the
+// lowest index, as
+// jnp.argmax breaks them; once every distance is 0 (npoint > N) the argmax is
+// index 0 again, as in the XLA loop.
 #include "stages.cuh"
 
-template <int PPT>
-__global__ void __launch_bounds__(1024)
+#define FPS_MAX_WARPS 16
+#define FPS_BAR 1  // the chain's named barrier
+
+template <int PPL>
+__global__ void __launch_bounds__(32 * FPS_MAX_WARPS)
 fps_kernel(const float* __restrict__ xyz, const int* __restrict__ start,
            int* __restrict__ out, int N, int npoint, int P) {
   extern __shared__ float4 smem4[];
-  float* sx = reinterpret_cast<float*>(smem4);
   const int s = blockIdx.x;
   const int b = blockIdx.y;
   const int L = (N - s + P - 1) / P;  // points in subset s
-  float* sy = sx + L;
-  float* sz = sy + L;
+  const int nw = blockDim.x >> 5;
+  const int Lp = blockDim.x * PPL;  // the arrays' padded length
+  float* sx = reinterpret_cast<float*>(smem4);
+  float* sy = sx + Lp;
+  float* sz = sy + Lp;
+  uint2* slots = reinterpret_cast<uint2*>(sz + Lp);
 
   const float* X = xyz + (size_t)b * N * 3;
-  for (int j = threadIdx.x; j < L; j += blockDim.x) {
+  for (int j = threadIdx.x; j < Lp; j += blockDim.x) {
     const size_t g = (size_t)(s + (size_t)j * P) * 3;
-    sx[j] = X[g];
-    sy[j] = X[g + 1];
-    sz[j] = X[g + 2];
+    sx[j] = j < L ? X[g] : 0.f;
+    sy[j] = j < L ? X[g + 1] : 0.f;
+    sz[j] = j < L ? X[g + 2] : 0.f;
   }
-  const int far = min(start[b] / P, L - 1);
+  const int far = min((start ? start[b] : 0) / P, L - 1);
   __syncthreads();
-  fps_chain<PPT>(sx, sy, sz, L, npoint / P, far, [&](int it, int f) {
+  auto emit = [&](int it, int f) {
     out[(size_t)b * npoint + (size_t)it * P + s] = f * P + s;
+  };
+  fps_group_chain<PPL, (PPL <= 16)>(sx, sy, sz, L, npoint / P, far, threadIdx.x, nw,
+                                    FPS_BAR, slots, emit);
+}
+
+// The exact chain (P == 1) of at most 32 * PPL <= 256 points by one warp.
+template <int PPL>
+__global__ void __launch_bounds__(32)
+fps_warp_kernel(const float* __restrict__ xyz, const int* __restrict__ start,
+                int* __restrict__ out, int N, int npoint) {
+  extern __shared__ float4 smem4[];
+  const int b = blockIdx.y;
+  const float* X = xyz + (size_t)b * N * 3;
+  for (int j = threadIdx.x; j < 32 * PPL; j += 32)
+    smem4[j] = j < N ? make_float4(X[j * 3], X[j * 3 + 1], X[j * 3 + 2], 0.f)
+                     : make_float4(0.f, 0.f, 0.f, 0.f);
+  __syncwarp();
+  fps_warp_chain<PPL>(smem4, N, npoint, min(start ? start[b] : 0, N - 1), [&](int it, int f) {
+    out[(size_t)b * npoint + it] = f;
   });
 }
 
-template <int PPT>
-static cudaError_t launch_fps(const float* xyz, const int* start, int* out,
-                              int B, int N, int npoint, int P, int threads,
-                              cudaStream_t stream) {
-  const int L0 = (N + P - 1) / P;  // the longest subset
-  const size_t smem = (size_t)L0 * 3 * sizeof(float);
-  cudaError_t e = allow_smem(fps_kernel<PPT>, smem);
+template <int PPL>
+static cudaError_t launch_group(const float* xyz, const int* start, int* out, int B, int N,
+                                int npoint, int P, int W, cudaStream_t stream) {
+  const size_t smem = (size_t)32 * W * PPL * 3 * sizeof(float) + 2 * W * sizeof(uint2);
+  cudaError_t e = allow_smem(fps_kernel<PPL>, smem);
   if (e != cudaSuccess) return e;
-  fps_kernel<PPT><<<dim3(P, B), threads, smem, stream>>>(xyz, start, out, N,
-                                                         npoint, P);
+  fps_kernel<PPL><<<dim3(P, B), 32 * W, smem, stream>>>(xyz, start, out, N, npoint, P);
   return cudaGetLastError();
 }
 
-extern "C" int pci_fps(const void* xyz, const void* start, void* out, int B,
-                       int N, int npoint, int P, void* stream) {
-  const int L0 = (N + P - 1) / P;
-  const int threads = std::min(1024, round_up(L0, 32));
-  const int ppt = (L0 + threads - 1) / threads;
+template <int PPL>
+static cudaError_t launch_warp(const float* xyz, const int* start, int* out, int B, int N,
+                               int npoint, cudaStream_t stream) {
+  fps_warp_kernel<PPL><<<dim3(1, B), 32, 32 * PPL * sizeof(float4), stream>>>(
+      xyz, start, out, N, npoint);
+  return cudaGetLastError();
+}
+
+// xyz [B, N, 3] fp32, start [B] int32 or null (0) -> out [B, npoint] int32; at most
+// 16,384 points a chain.
+extern "C" int pci_fps(const void* xyz, const void* start, void* out, int B, int N,
+                       int npoint, int P, void* stream) {
   const float* x = static_cast<const float*>(xyz);
   const int* st = static_cast<const int*>(start);
   int* o = static_cast<int*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (ppt <= 1) return launch_fps<1>(x, st, o, B, N, npoint, P, threads, s);
-  if (ppt <= 2) return launch_fps<2>(x, st, o, B, N, npoint, P, threads, s);
-  if (ppt <= 4) return launch_fps<4>(x, st, o, B, N, npoint, P, threads, s);
-  if (ppt <= 8) return launch_fps<8>(x, st, o, B, N, npoint, P, threads, s);
-  if (ppt <= 16) return launch_fps<16>(x, st, o, B, N, npoint, P, threads, s);
+  const int L0 = (N + P - 1) / P;  // the longest subset
+  if (P == 1 && L0 <= 256) {
+    const int ppl = fps_warp_slots(L0) / 32;
+    if (ppl <= 1) return launch_warp<1>(x, st, o, B, N, npoint, s);
+    if (ppl <= 2) return launch_warp<2>(x, st, o, B, N, npoint, s);
+    if (ppl <= 4) return launch_warp<4>(x, st, o, B, N, npoint, s);
+    return launch_warp<8>(x, st, o, B, N, npoint, s);
+  }
+  const int W = L0 <= 2048 ? 8 : 16;
+  const int ppl = (L0 + 32 * W - 1) / (32 * W);
+  if (ppl <= 1) return launch_group<1>(x, st, o, B, N, npoint, P, W, s);
+  if (ppl <= 2) return launch_group<2>(x, st, o, B, N, npoint, P, W, s);
+  if (ppl <= 4) return launch_group<4>(x, st, o, B, N, npoint, P, W, s);
+  if (ppl <= 8) return launch_group<8>(x, st, o, B, N, npoint, P, W, s);
+  if (ppl <= 16) return launch_group<16>(x, st, o, B, N, npoint, P, W, s);
+  if (ppl <= 32) return launch_group<32>(x, st, o, B, N, npoint, P, W, s);
   return (int)cudaErrorInvalidValue;  // > 16,384 points a chain
 }

@@ -4,6 +4,7 @@
 // same points:
 //   - fps_chain: exact greedy farthest point sampling by one block;
 //     fps_warp_chain: the same picks by one warp, with no block barrier;
+//     fps_group_chain: by a few warps, one named barrier an iteration;
 //   - ball_conv_tile: a set-conv's ball group + MLP + max for Q centres;
 //   - knn_conv_tile: a kNN-conv's group + MLP1 + max + skip + MLP2 for Q
 //     queries; knn_interp_tile: its 3-NN interpolation + skip + MLP2;
@@ -147,6 +148,79 @@ __device__ void fps_warp_chain(const float4* p, int L, int npick, int far, Emit 
     const unsigned top = __reduce_max_sync(0xffffffffu, bits);
     const unsigned bi = bd < 0.f ? 0x7fffffffu : (unsigned)(lane + 32 * bt);
     far = (int)__reduce_min_sync(0xffffffffu, bits == top ? bi : 0x7fffffffu);
+  }
+}
+
+// A barrier for the `threads` threads (a multiple of 32) that name `id`
+// (1 .. 15; 0 is __syncthreads), so a group of warps can synchronise while
+// the block's other warps do not take part.
+__device__ __forceinline__ void named_barrier(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// Exact greedy FPS over the L points (sx, sy, sz) in shared memory (each
+// array padded with zeros to 32 * nw * PPL) by a group of nw warps, threads
+// g = 0 .. 32 nw - 1 of the group: thread g owns points g + 32 nw t, t <
+// PPL, their distances in registers (-1 past L, which fminf keeps, so the
+// relax loop has no branch) and, for REGS, their coordinates too; without
+// REGS it reads them from shared memory each iteration.  An iteration hands
+// its pick to emit(it, index) on g == 0, reads the centre from shared
+// memory, relaxes with sqdist3 (rounded op by op), takes each thread's
+// first maximum and each warp's (bits, index) as fps_warp_chain does (a
+// warp max over the distance bits, then a warp min over the indices at
+// it); the warps then trade their pairs through double-buffered slots
+// [2][nw] (uint2) with ONE named barrier `bar` an iteration, and every
+// warp reduces the nw slots itself the same way: no second barrier and no
+// broadcast of the pick.  A warp writes slot buffer it & 1 only after the
+// barrier of iteration it - 1, which every warp passes only after reading
+// buffer it & 1 of iteration it - 2.  The picks are fps_chain's
+// (jnp.argmax's first maximum; index 0 again once every distance is 0),
+// bit for bit.
+template <int PPL, bool REGS, typename Emit>
+__device__ void fps_group_chain(const float* sx, const float* sy, const float* sz, int L,
+                                int npick, int far, int g, int nw, int bar, uint2* slots,
+                                Emit emit) {
+  const int lane = g & 31, warp = g >> 5, stride = 32 * nw;
+  float px[REGS ? PPL : 1], py[REGS ? PPL : 1], pz[REGS ? PPL : 1];
+  float dist[PPL];
+#pragma unroll
+  for (int t = 0; t < PPL; ++t) {
+    const int j = g + stride * t;
+    dist[t] = j < L ? CUDART_INF_F : -1.f;
+    if (REGS) {
+      px[t] = sx[j];
+      py[t] = sy[j];
+      pz[t] = sz[j];
+    }
+  }
+  for (int it = 0; it < npick; ++it) {
+    if (g == 0) emit(it, far);
+    const float cx = sx[far], cy = sy[far], cz = sz[far];
+#pragma unroll
+    for (int t = 0; t < PPL; ++t) {
+      const int j = g + stride * t;
+      const float d = REGS ? sqdist3(px[t], py[t], pz[t], cx, cy, cz)
+                           : sqdist3(sx[j], sy[j], sz[j], cx, cy, cz);
+      dist[t] = fminf(dist[t], d);
+    }
+    float bd = dist[0];
+    int bt = 0;
+#pragma unroll
+    for (int t = 1; t < PPL; ++t)
+      if (dist[t] > bd) bd = dist[t], bt = t;  // a tie keeps the lower index
+    const unsigned bits = bd < 0.f ? 0u : __float_as_uint(bd);  // no point: 0
+    unsigned top = __reduce_max_sync(0xffffffffu, bits);
+    const unsigned bi = bd < 0.f ? 0x7fffffffu : (unsigned)(g + stride * bt);
+    unsigned win = __reduce_min_sync(0xffffffffu, bits == top ? bi : 0x7fffffffu);
+    if (nw > 1) {
+      uint2* sl = slots + (it & 1) * nw;
+      if (lane == 0) sl[warp] = make_uint2(top, win);
+      named_barrier(bar, stride);
+      const uint2 o = lane < nw ? sl[lane] : make_uint2(0u, 0x7fffffffu);
+      top = __reduce_max_sync(0xffffffffu, o.x);
+      win = __reduce_min_sync(0xffffffffu, o.x == top ? o.y : 0x7fffffffu);
+    }
+    far = (int)win;
   }
 }
 

@@ -5,7 +5,7 @@ cell-pruned fusion, ISAPCInet training, the eval CLIs' EMD auction), each
 beside its plain PyTorch version.
 
 Every kernel wrapper (``*_kernel``) counts its launches in a
-``launches`` attribute (the kNN kernel's k=1 form in
+``launches`` attribute (the flat kNN kernel's k=1 form in
 ``nearest_launches``).  Nothing here builds or loads a kernel when it is
 imported: :func:`_build.library` does, at the first launch.
 """
@@ -35,7 +35,7 @@ from .fusion_knn_cuda import (
     knn_fusion_attention,
 )
 from .fusion_tail_cuda import fusion_attention_tail, fusion_tail_kernel
-from .knn_cuda import knn, knn_kernel, nearest_launches
+from .knn_cuda import knn, knn_cells_kernel, knn_kernel, nearest_launches
 from .knnconv_cuda import knnconv_fused, knnconv_kernel
 from .pn2mid_cuda import pn2mid_fused, pn2mid_kernel
 from .setconv_cuda import fold_bn_layers, setconv_fused, setconv_kernel
@@ -47,6 +47,7 @@ KERNELS = {
     "fusion": fusion_kernel,
     "ball": ball_kernel,
     "knn": knn_kernel,
+    "knn_cells": knn_cells_kernel,
     "attention": attention_kernel,
     "fusion_resi": fusion_resi_kernel,
     "nearest": nearest_launches,
@@ -96,6 +97,7 @@ __all__ = [
     "fusion_resi_knn",
     "fusion_tail_kernel",
     "knn",
+    "knn_cells_kernel",
     "knn_fusion_attention",
     "knn_kernel",
     "knnconv_fused",

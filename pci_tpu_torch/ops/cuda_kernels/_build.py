@@ -50,6 +50,7 @@ _SIGNATURES = {
     "pci_flowmid_attrs": [_IP],
     "pci_ball": [_P, _P, _P, _FP, _IP, _I, _I, _I, _I, _P],
     "pci_knn": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "pci_knn_cells": [_P] * 9 + [_I] * 7 + [_P],
     "pci_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     "pci_fusion_resi": [_P, _P, _P, _I, _P, _P, _I, _I, _I, _P],
     "pci_attention_bwd": [_P] * 10 + [_I, _I, _I, _I, _P],

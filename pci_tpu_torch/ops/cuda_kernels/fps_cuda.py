@@ -6,6 +6,10 @@ Replaces ``pci_tpu/ops/pallas_kernels/fps_tpu.py`` (``fps_pallas`` and
 subsets ``s, s+P, s+2P, ...``; chain ``s`` starts at ``start // P``
 (clamped to its subset) and the picks interleave iteration-major.  ``P=1``
 is exact greedy FPS.  Ties go to the lowest index, as ``jnp.argmax``.
+
+On the card each chain is a group of W warps with one barrier an
+iteration (``csrc/stages.cuh:fps_group_chain``): W = 8 up to 2,048 points
+a chain, 16 above; one warp for an exact chain of at most 256 points.
 """
 
 from __future__ import annotations
@@ -15,11 +19,12 @@ import torch
 from . import _build
 
 
-def fps_index(xyz: torch.Tensor, npoint: int, start: torch.Tensor,
+def fps_index(xyz: torch.Tensor, npoint: int, start: torch.Tensor | int,
               P: int) -> torch.Tensor:
-    """``xyz [B, N, 3]`` fp32, ``start [B]`` int -> ``[B, npoint]`` int32
-    selection order.  Kernel on a CUDA tensor, plain version on the CPU.
-    Indices carry no gradient: ``xyz`` is detached."""
+    """``xyz [B, N, 3]`` fp32, ``start [B]`` (or ``[1]``) int tensor or one
+    int for every batch row -> ``[B, npoint]`` int32 selection order.
+    Kernel on a CUDA tensor, plain version on the CPU.  Indices carry no
+    gradient: ``xyz`` is detached."""
     xyz = xyz.detach()
     if npoint % P:
         raise ValueError(f"npoint={npoint} must divide into P={P} chains")
@@ -30,6 +35,7 @@ def fps_index(xyz: torch.Tensor, npoint: int, start: torch.Tensor,
 
 def fps_kernel(xyz: torch.Tensor, npoint: int, start: torch.Tensor,
                P: int) -> torch.Tensor:
+    """One launch."""
     B, N, _ = xyz.shape
     dev = xyz.device
     _build.require(xyz, "xyz", torch.float32, 3, dev)
@@ -37,11 +43,14 @@ def fps_kernel(xyz: torch.Tensor, npoint: int, start: torch.Tensor,
         raise ValueError("fps kernel takes [B, N, 3] clouds")
     if -(-N // P) > 16384:
         raise ValueError("fps kernel holds at most 16,384 points a chain")
-    start = start.to(device=dev, dtype=torch.int32).expand(B).contiguous()
+    if isinstance(start, int):  # 0 needs no tensor: the kernel reads null as 0
+        start = torch.full((B,), start, dtype=torch.int32, device=dev) if start else None
+    else:
+        start = start.to(device=dev, dtype=torch.int32).expand(B).contiguous()
     out = torch.empty((B, npoint), dtype=torch.int32, device=dev)
     err = _build.library().pci_fps(
-        xyz.data_ptr(), start.data_ptr(), out.data_ptr(), B, N, npoint, P,
-        _build.stream_ptr(dev),
+        xyz.data_ptr(), start.data_ptr() if start is not None else None, out.data_ptr(), B, N,
+        npoint, P, _build.stream_ptr(dev),
     )
     _build.check_launch("fps", err)
     fps_kernel.launches += 1
@@ -63,7 +72,7 @@ def fps_plain(xyz: torch.Tensor, npoint: int, start: torch.Tensor,
     sub = x.reshape(B, L, P, 3).transpose(1, 2).reshape(B * P, L, 3)
     pos = torch.arange(L * P, device=dev).reshape(L, P).t()  # global index
     valid = (pos < N).expand(B, P, L).reshape(B * P, L)
-    start = start.to(device=dev, dtype=torch.long).expand(B)
+    start = torch.as_tensor(start, device=dev).to(torch.long).reshape(-1).expand(B)
     far = torch.minimum(start.repeat_interleave(P) // P, valid.sum(-1) - 1)
     dist = torch.where(valid, float("inf"), -1.0)
     rows = torch.arange(B * P, device=dev)

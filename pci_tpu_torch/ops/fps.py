@@ -35,7 +35,8 @@ def fps(xyz: torch.Tensor, npoint: int, start_idx: int | torch.Tensor = 0,
     """
     N = xyz.shape[1]
     P = 1 if exact or N < 4096 else _auto_parallel(N, npoint)
-    start = torch.as_tensor(start_idx, device=xyz.device).reshape(-1)
+    start = (start_idx if isinstance(start_idx, int)  # an int needs no device copy
+             else torch.as_tensor(start_idx, device=xyz.device).reshape(-1))
     return fps_index(xyz.detach(), npoint, start, P)
 
 

@@ -491,7 +491,8 @@ def test_kernel_routes_by_device():
     tops.chamfer_distance(x, x.detach() + 0.1).backward()
     tk.auction(x[0], x[0].detach() + 0.1, 1e-3, 4)
     assert tk.launch_counts() == {"fps": 0, "setconv": 0, "knnconv": 0, "fusion": 0,
-                                  "ball": 0, "knn": 0, "attention": 0, "fusion_resi": 0,
+                                  "ball": 0, "knn": 0, "knn_cells": 0, "attention": 0,
+                                  "fusion_resi": 0,
                                   "nearest": 0, "attention_bwd": 0, "flowenc": 0,
                                   "flowmid": 0, "fusion_tail": 0, "fusion_cells": 0,
                                   "pn2mid": 0, "auction_pass": 0, "auction_chase": 0}
