@@ -106,10 +106,18 @@ each printing its own lines:
      truth) after the first two passes and chases, and at 16,384 over the
      whole run, with the device's busy share over one EMD; the certificate
      (primal minus the prices' dual bound within n (1.0001 eps + 1e-5))
-     at all three on a converged run.
+     at all three on a converged run; the first two passes and chases bit
+     for bit on two more seeded pairs with 10% duplicates: 4,099 points (a
+     column count that is a multiple of neither C nor 32) and 33,000,
+     above the cluster chase's limit, where the chase takes the one-block
+     kernel (the route by size is checked at both).  Last the `stages
+     auction` line of the 16,384-point EMD: the cluster chase's C and
+     shared memory a CTA, the chase's device time a hop and the pass's a
+     tile, and both kernels' %globaltimer phase split.
 Then a resources line for each kernel whose dense products run on the
 tensor cores (the one-shot fusion, flowmid, kNN-conv and flowenc, 3xTF32;
-kNN-conv's at the FeaturePropagation's plan): registers a thread,
+kNN-conv's at the FeaturePropagation's plan) and for the auction's pass
+and cluster chase (at their last launch's shared memory): registers a thread,
 static and dynamic shared bytes, resident blocks an SM, its max error
 against its plain version relative to the output's largest magnitude; the
 kernels JSON line, the card line, and {"ok": true, ...} last.  A kernel's
@@ -142,6 +150,9 @@ TF32_FLOPS = 495e12  # H100 SXM dense TF32 on the tensor cores
 # products apart, at 3 x FLOP / TF32_FLOPS, beside the scalar work
 TENSOR_KERNELS = {"fusion": "pci_fusion_attrs", "flowmid": "pci_flowmid_attrs",
                   "knnconv": "pci_knnconv_attrs", "flowenc": "pci_flowenc_attrs"}
+# kernels whose resources print on the `kernel resources` lines (C entry)
+RESOURCE_KERNELS = {**TENSOR_KERNELS, "auction_pass": "pci_auction_pass_attrs",
+                    "auction_chase": "pci_auction_chase_attrs"}
 KERNEL_INFO = {  # name -> (source, TPU kernel it replaces)
     "fps": ("pci_tpu_torch/csrc/fps.cu",
             "pci_tpu/ops/pallas_kernels/fps_tpu.py:117"),
@@ -1853,6 +1864,109 @@ def timed_auction(x1, x2, plain: bool):
     return (*out, {name: sum(s.elapsed_time(e) for s, e in ts) for name, ts in times.items()})
 
 
+def fresh_state(n: int, dev) -> list:
+    """The auction's state before its first pass: prices, assignment, owners."""
+    return [torch.zeros(n, device=dev), torch.full((n,), -1, dtype=torch.int32, device=dev),
+            torch.full((n,), -1, dtype=torch.int32, device=dev)]
+
+
+def hold_steps(x1, x2, where: str) -> list:
+    """The auction kernels against their plain versions on one pair, bit
+    for bit (prices, assignments, owners, bidder and hop counts), after
+    each of the first two passes and chases from the empty state at eps
+    0.25; returns the bidder and hop counts."""
+    from pci_tpu_torch.ops.cuda_kernels import auction_cuda as A
+
+    q, k, _ = A.normalise(x1, x2)
+    with torch.inference_mode():
+        sk, sp = fresh_state(x1.shape[0], x1.device), fresh_state(x1.shape[0], x1.device)
+        counts = []
+        for r in range(2):
+            for step in AUCTION:
+                got = getattr(A, f"{step}_kernel")(q, k, *sk, A.EPS0)
+                want = getattr(A, f"{step}_plain")(q, k, *sp, A.EPS0)
+                torch.cuda.synchronize()
+                counts.append(int(want))
+                check(int(got) == int(want) and all(torch.equal(a, b) for a, b in zip(sk, sp)),
+                      f"{step} at {where}, round {r + 1}: the kernel's state differs from the "
+                      "plain version's")
+    return counts
+
+
+def stages_auction(x1, x2, where: str, card: str) -> None:
+    """The `stages auction` line of one whole auction (ops.emd's eps and
+    pass budget) at the main path's shape: the cluster chase's C and
+    shared memory a CTA; the chase's and the pass's device time (their
+    kernels under torch.profiler) over the hops and the tiles; then the
+    same run with the kernels' %globaltimer stamps on, every launch's
+    summed: a hop's scan (thread 0 of CTA 0, warp reduction included),
+    publishing its partials, the cluster barrier with the partials' wait,
+    the merge and update, and the helper warp's search and point fetch
+    beside them; a pass tile's scan, block merge and bids, two grid
+    barriers and phase C (block means)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from pci_tpu_torch.ops.cuda_kernels import auction_cuda as A
+
+    n = x1.shape[0]
+    check(A.chase_cluster_ok(n, n), f"stages auction at {where}: n = {n} is not on the cluster "
+                                    "route")
+    shape = A.cluster_shape(n, n)
+    tiles = -(-n // A.TQ)
+    with torch.inference_mode():
+        A.auction(x1, x2, EMD_EPS, 256)  # warm-up
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            _, _, _, _, info = A.auction(x1, x2, EMD_EPS, 256, return_prices=True)
+            torch.cuda.synchronize()
+        cuda = torch.autograd.DeviceType.CUDA
+        dev_ms = {"pass": 0.0, "chase": 0.0}
+        for e in prof.key_averages():
+            if e.device_type == cuda and "auction_pass_kernel" in e.key:
+                dev_ms["pass"] += e.self_device_time_total / 1e3
+            if e.device_type == cuda and "auction_chase_cluster_kernel" in e.key:
+                dev_ms["chase"] += e.self_device_time_total / 1e3
+        pass_st = torch.zeros((A.TQ // 2, A.PASS_STAMPS), dtype=torch.int64, device=x1.device)
+        chase_st = torch.zeros(A.CHASE_STAMPS, dtype=torch.int64, device=x1.device)
+        real = A.auction_pass, A.auction_chase  # the host loop's dispatch
+
+        def stamped_pass(*args):
+            st = torch.zeros_like(pass_st)
+            out = A.auction_pass_kernel(*args, stamps=st)
+            pass_st.add_(st)
+            return out
+
+        def stamped_chase(*args):
+            st = torch.zeros_like(chase_st)
+            out = A.auction_chase_kernel(*args, stamps=st)
+            chase_st.add_(st)
+            return out
+
+        A.auction_pass, A.auction_chase = stamped_pass, stamped_chase
+        try:
+            _, _, _, _, info_st = A.auction(x1, x2, EMD_EPS, 256, return_prices=True)
+        finally:
+            A.auction_pass, A.auction_chase = real
+        torch.cuda.synchronize()
+    check(info_st == info, f"stages auction at {where}: the stamped run differs {info_st} {info}")
+    hops, passes = max(info["hops"], 1), info["passes"]
+    hop = [float(v) / hops / 1e3 for v in chase_st.cpu()]
+    tile = (pass_st.double().cpu() / (passes * tiles) / 1e3).mean(0).tolist()
+    if not dev_ms["chase"]:
+        print(f"stages auction at {where}: device time not measured (the profiler saw no "
+              "auction kernel)")
+    print(f"stages auction at {where} ({card}): chase on a cluster of C={shape['C']} CTAs, "
+          f"{shape['smem']} dynamic shared bytes a CTA ({shape['clusters']} such clusters fit); "
+          f"{passes} passes, {info['hops']} hops; device: chase {dev_ms['chase']:.3f} ms = "
+          f"{1e3 * dev_ms['chase'] / hops:.4f} us a hop, pass {dev_ms['pass']:.3f} ms = "
+          f"{1e3 * dev_ms['pass'] / (passes * tiles):.4f} us a tile ({tiles} tiles a pass); "
+          f"%globaltimer split, us a hop: scan {hop[0]:.4f}, publish {hop[1]:.4f}, cluster "
+          f"barrier and partials {hop[2]:.4f}, merge and update {hop[3]:.4f} (the merge "
+          f"{hop[5]:.4f}); helper search and fetch {hop[4]:.4f}; us a tile: scan {tile[0]:.4f}, "
+          f"merge and bids {tile[1]:.4f}, barrier {tile[2]:.4f}, C {tile[3]:.4f}, barrier "
+          f"{tile[4]:.4f}")
+
+
 def hold_auction(x1, x2, where: str, whole: bool, totals: dict | None = None,
                  scipy_optimum: bool = False) -> None:
     """The auction kernels against their plain versions on one pair: bit
@@ -1869,25 +1983,9 @@ def hold_auction(x1, x2, where: str, whole: bool, totals: dict | None = None,
     from pci_tpu_torch.ops.cuda_kernels import auction_cuda as A
 
     n = x1.shape[0]
-    dev = x1.device
-    q, k, d_scale = A.normalise(x1, x2)
-
-    def fresh():
-        return [torch.zeros(n, device=dev), torch.full((n,), -1, dtype=torch.int32, device=dev),
-                torch.full((n,), -1, dtype=torch.int32, device=dev)]
-
+    counts = hold_steps(x1, x2, where)
+    _, _, d_scale = A.normalise(x1, x2)
     with torch.inference_mode():
-        sk, sp = fresh(), fresh()
-        counts = []
-        for r in range(2):
-            for step in AUCTION:
-                got = getattr(A, f"{step}_kernel")(q, k, *sk, A.EPS0)
-                want = getattr(A, f"{step}_plain")(q, k, *sp, A.EPS0)
-                torch.cuda.synchronize()
-                counts.append(int(want))
-                check(int(got) == int(want) and all(torch.equal(a, b) for a, b in zip(sk, sp)),
-                      f"{step} at {where}, round {r + 1}: the kernel's state differs from the "
-                      "plain version's")
         dk, ak, ck, pk, ik, ms = timed_auction(x1, x2, plain=False)
         gap = A.duality_gap(x1, x2, ak, pk)
     bound = n * (1.0001 * EMD_EPS + 1e-5)
@@ -1967,6 +2065,7 @@ def phase_eval(totals: dict) -> list:
     from pci_tpu_torch.cli import test as isapci_cli
     from pci_tpu_torch.cli import test_pointinet as pointinet_cli
     from pci_tpu_torch.data import generate_scenes
+    from pci_tpu_torch.ops.cuda_kernels import auction_cuda as A
     from pci_tpu_torch.serving import DEFAULT_WEIGHTS
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -1995,9 +2094,18 @@ def phase_eval(totals: dict) -> list:
     first = isapci[1][0]
     hold_auction(first["xyz1"], first["xyz2"], "16,000 (isapci window 1 vs its ground truth)",
                  whole=False)
-    first = pointinet[1][0]
+    for n, seed, want in ((4099, 5, "cluster"), (A.CHASE_CLUSTER_MAX_N + 232, 9, "one block")):
+        a, b = (torch.from_numpy(x).to(dev) for x in dup_pair(seed, n))
+        route = "cluster" if A.chase_cluster_ok(n, n) else "one block"
+        check(route == want, f"auction at {n}: the chase's route is {route}, not {want}")
+        counts = hold_steps(a, b, f"{n:,} (seeded pair, 10% duplicates)")
+        print(f"auction at {n:,} (seeded pair, 10% duplicates; the chase on {route}): "
+              f"kernel = plain bit for bit after each of the first 2 passes and chases "
+              f"(bidders, hops {counts})")
+    first = pointinet[1][0]  # last: the resources lines read the last launch's shape
     hold_auction(first["xyz1"], first["xyz2"], "16,384 (pointinet triplet 1 vs its ground "
                  "truth)", whole=True, totals=totals)
+    stages_auction(first["xyz1"], first["xyz2"], "16,384 (pointinet triplet 1)", card_line())
     return [isapci[0], pointinet[0]]
 
 
@@ -2063,7 +2171,7 @@ def main() -> int:
 
     paths = [counts, counts_stream, *counts_routes, *counts_isapci, counts_train, *counts_large,
              *counts_eval]
-    for kname, entry in TENSOR_KERNELS.items():  # the tensor-core kernels' resources
+    for kname, entry in RESOURCE_KERNELS.items():  # the tensor-core and auction kernels
         at, t = kernel_attrs(entry), totals[kname]
         print(f"kernel resources {kname}: {at['registers']} registers a thread, "
               f"{at['static_smem']} static + {at['dynamic_smem']} dynamic shared bytes a "

@@ -897,17 +897,19 @@ __device__ __forceinline__ void knn_interp_tile(const KnnConvStage& st, int b, i
 // Barrier across the whole grid of a cooperative launch (every block is
 // resident): `bar` is a device counter zeroed before the launch, `passed`
 // counts (per thread, identically in all) the arrivals this block waits
-// for.  The fences make each block's writes before the barrier visible to
+// for.  Thread 0's release add and acquire poll, with the block barriers
+// around them, make each block's writes before the barrier visible to
 // every block after it; stage outputs are read with plain loads, never
 // through the read-only cache.
 __device__ __forceinline__ void grid_sync(unsigned int* bar, unsigned int& passed) {
   __syncthreads();
   passed += gridDim.x;
   if (threadIdx.x == 0) {
-    __threadfence();
-    atomicAdd(bar, 1u);
-    while (*reinterpret_cast<volatile unsigned int*>(bar) < passed) __nanosleep(64);
-    __threadfence();
+    asm volatile("red.release.gpu.global.add.u32 [%0], 1;" ::"l"(bar) : "memory");
+    unsigned int v;
+    do {
+      asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(bar) : "memory");
+    } while (v < passed);
   }
   __syncthreads();
 }
@@ -921,17 +923,18 @@ __device__ __forceinline__ void grid_tiles(int B, int S, int Q, int first,
     if (it >= 0) tile(it / t, (it % t) * Q);
 }
 
-// Launches `kernel(params)` cooperatively with 256-thread blocks: as many
-// blocks as can be resident at once (occupancy x SMs), at most `items`.
-// Returns a CUDA error code; a grid that cannot be co-resident is an error,
-// never a smaller or per-stage launch.
+// Launches `kernel(params)` cooperatively with `threads`-thread blocks: as
+// many blocks as can be resident at once (occupancy x SMs), at most
+// `items`.  Returns a CUDA error code; a grid that cannot be co-resident is
+// an error, never a smaller or per-stage launch.
 template <typename Params>
 static inline int launch_cooperative(void (*kernel)(Params), const Params& p,
-                                     size_t smem, int items, cudaStream_t stream) {
+                                     size_t smem, int items, cudaStream_t stream,
+                                     int threads = 256) {
   cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return (int)e;
   int per_sm = 0, dev = 0, sms = 0;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, 256, smem);
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
   if (e != cudaSuccess) return (int)e;
   if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
   e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -941,7 +944,7 @@ static inline int launch_cooperative(void (*kernel)(Params), const Params& p,
   Params copy = p;
   void* args[] = {&copy};
   e = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel), dim3(grid),
-                                  dim3(256), args, smem, stream);
+                                  dim3(threads), args, smem, stream);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

@@ -64,8 +64,12 @@ _SIGNATURES = {
                            ctypes.POINTER(ctypes.c_longlong)],
     "pci_pn2mid": [_P, _P, _P, _IP, _IP, _IP, _P, _P, _P, _P, _I, _I, _I, _IP, _IP, _FP,
                    _P],
-    "pci_auction_pass": [_P] * 7 + [_I, _I, _F, _F, _P],
+    "pci_auction_pass": [_P] * 8 + [_I, _I, _F, _F, _P],
     "pci_auction_chase": [_P] * 6 + [_I, _I, _F, _I, _P],
+    "pci_auction_chase_cluster": [_P] * 7 + [_I, _I, _F, _I, _P],
+    "pci_auction_cluster_shape": [_I, _I, _IP],
+    "pci_auction_pass_attrs": [_IP],
+    "pci_auction_chase_attrs": [_IP],
 }
 
 _PLAIN = contextvars.ContextVar("pci_tpu_torch_plain", default=False)

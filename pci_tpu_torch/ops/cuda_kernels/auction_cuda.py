@@ -11,13 +11,16 @@ lowest column; the highest bid, ties to the lowest row), so kernel and
 plain version agree bit for bit, after one pass and over a whole run.
 The plain version is the same blocked function: a Python loop over query
 tiles of 256 rows, vectorised inside a tile, and a hop loop for the
-chase.
+chase.  The chase kernel is a thread-block cluster up to
+``CHASE_CLUSTER_MAX_N`` points and one block above (:func:`chase_cluster_ok`).
 
 Both update ``price``, ``assign`` and ``owner`` in place (the TPU kernels
 return new arrays).
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -27,6 +30,12 @@ from . import _build
 
 TQ = 256  # query rows a tile: tile t + 1 bids against tile t's prices
 CHASE_HOPS = 4096  # the chase's hop budget a pass (the TPU kernel's)
+CHASE_CLUSTER_MAX_N = 32768  # the cluster chase's largest n and m (csrc/auction.cu)
+PASS_STAMPS = 5  # a pass block's phase sums (ns): scan, merge + bid, barrier, C, barrier
+# the cluster chase's (ns, over its hops): scan, publish, cluster barrier and
+# partials, merge and update (thread 0 of CTA 0); the helper warp's search
+# and fetch, its merge
+CHASE_STAMPS = 6
 EPS0 = 0.25  # the anneal's first eps
 _BIG = 1e30
 _CHECK_EVERY = 32  # the plain chase reads "anything flagged?" every 32 hops
@@ -85,15 +94,28 @@ def _check_state(q, k, price, assign, owner):
     return n, m
 
 
-def auction_pass_kernel(q, k, price, assign, owner, eps):
-    """Launch csrc/auction.cu's pass: one cooperative launch."""
+def _stamps_ptr(stamps, shape):
+    if stamps is None:
+        return None
+    _build.require(stamps, "stamps", torch.int64, len(shape), stamps.device)
+    if tuple(stamps.shape) != shape:
+        raise ValueError(f"stamps must be {shape}, got {tuple(stamps.shape)}")
+    return stamps.data_ptr()
+
+
+def auction_pass_kernel(q, k, price, assign, owner, eps, stamps=None):
+    """Launch csrc/auction.cu's pass: one cooperative launch.  ``stamps``
+    (a measurement launch only): a zeroed int64 ``[128, PASS_STAMPS]``
+    CUDA tensor that gets each block's phase sums over the tiles
+    (``%globaltimer`` ns)."""
     n, m = _check_state(q, k, price, assign, owner)
     dev = q.device
     best = torch.zeros(2 * m, dtype=torch.int64, device=dev)  # left zero by the kernel
     counters = torch.zeros(2, dtype=torch.int32, device=dev)  # barrier, bidders
     err = _build.library().pci_auction_pass(
         q.data_ptr(), k.data_ptr(), price.data_ptr(), assign.data_ptr(),
-        owner.data_ptr(), best.data_ptr(), counters.data_ptr(), n, m,
+        owner.data_ptr(), best.data_ptr(), counters.data_ptr(),
+        _stamps_ptr(stamps, (TQ // 2, PASS_STAMPS)), n, m,
         float(eps), cs_slack(eps), _build.stream_ptr(dev),
     )
     _build.check_launch("auction_pass", err)
@@ -104,16 +126,48 @@ def auction_pass_kernel(q, k, price, assign, owner, eps):
 auction_pass_kernel.launches = 0
 
 
-def auction_chase_kernel(q, k, price, assign, owner, eps, max_hops=CHASE_HOPS):
-    """Launch csrc/auction.cu's chase: one block."""
+def chase_cluster_ok(n: int, m: int) -> bool:
+    """The chase's route by size, decided before the launch: the cluster
+    kernel up to ``CHASE_CLUSTER_MAX_N`` rows and columns (every size the
+    eval CLIs use), the one-block kernel above."""
+    return n <= CHASE_CLUSTER_MAX_N and m <= CHASE_CLUSTER_MAX_N
+
+
+def cluster_shape(n: int, m: int) -> dict:
+    """The cluster chase's launch shape at ``n`` rows and ``m`` columns:
+    ``{"C": CTAs a cluster, "smem": dynamic shared bytes a CTA,
+    "clusters": clusters of that shape the card can hold}``; raises where
+    the card can schedule neither 16 nor 8 CTAs."""
+    out = (ctypes.c_int * 3)()
+    _build.check_launch("auction_cluster_shape",
+                        _build.library().pci_auction_cluster_shape(n, m, out))
+    return dict(zip(("C", "smem", "clusters"), out))
+
+
+def auction_chase_kernel(q, k, price, assign, owner, eps, max_hops=CHASE_HOPS, stamps=None):
+    """Launch csrc/auction.cu's chase: one thread-block cluster where
+    :func:`chase_cluster_ok`, else one block.  A cluster the card refuses
+    raises.  ``stamps`` (a measurement launch of the cluster kernel only):
+    a zeroed int64 ``[CHASE_STAMPS]`` CUDA tensor that gets CTA 0's phase
+    sums over the hops (``%globaltimer`` ns)."""
     n, m = _check_state(q, k, price, assign, owner)
     dev = q.device
     hops = torch.empty(1, dtype=torch.int32, device=dev)
-    err = _build.library().pci_auction_chase(
-        q.data_ptr(), k.data_ptr(), price.data_ptr(), assign.data_ptr(),
-        owner.data_ptr(), hops.data_ptr(), n, m, float(eps), int(max_hops),
-        _build.stream_ptr(dev),
-    )
+    lib = _build.library()
+    if chase_cluster_ok(n, m):
+        err = lib.pci_auction_chase_cluster(
+            q.data_ptr(), k.data_ptr(), price.data_ptr(), assign.data_ptr(),
+            owner.data_ptr(), hops.data_ptr(), _stamps_ptr(stamps, (CHASE_STAMPS,)), n, m,
+            float(eps), int(max_hops), _build.stream_ptr(dev),
+        )
+    else:
+        if stamps is not None:
+            raise ValueError("auction_chase: stamps are the cluster kernel's")
+        err = lib.pci_auction_chase(
+            q.data_ptr(), k.data_ptr(), price.data_ptr(), assign.data_ptr(),
+            owner.data_ptr(), hops.data_ptr(), n, m, float(eps), int(max_hops),
+            _build.stream_ptr(dev),
+        )
     _build.check_launch("auction_chase", err)
     auction_chase_kernel.launches += 1
     return hops[0]
