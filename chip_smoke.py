@@ -33,7 +33,13 @@ each printing its own lines:
      box-pruned kNN on a cloud almost all in one Morton cell, with
      duplicates, a cross cloud and the route's crossing shapes
      (KNN_CROSSING; indices and distances equal), timed beside the flat
-     kernel.
+     kernel.  FPS_HOLDS include the long-chain route (exact FPS at 32,768
+     points, interleaved chains of 16,385 points at 131,073).  ops.knn's
+     route by shape: a 4-channel cloud takes the plain version with no
+     launch, k = 96 the flat kernel (hold_knn_routes).  The attention
+     kernels at ATTENTION_HOLDS (ragged N, k = 7 with d = 40 and 24, and
+     the forward's scalar route at k = 32 and d = 128), the backward also
+     run twice for the same bits.
   4. serving: Interpolator.pointinet(npoints=16384) with the trained weights
      answers five requests (t=0.5, then upsample(factor=5)); the launch
      counters must rise by PER_REQUEST a request (2 FPS, 2 flowenc, 2
@@ -58,7 +64,9 @@ each printing its own lines:
      pn2mid route and, with PCI_TPU_PN2_KERNEL=0, the per-stage one's
      sa2-fp2 FPS, ball queries and 3-NN; the transformer's kNN on the
      box-pruned kernel, with its `stages knn` lines: the torch prep, the
-     kernel, the pairs it scanned, its tiles), then five served requests
+     kernel, the pairs it scanned, its tiles; pn2mid at a batch of 17 in
+     two launches against its plain version; the `stages attention`
+     lines at the request's shape), then five served requests
      with the launch counts of PER_REQUEST_ISAPCI each, the frame against
      the plain versions, latency and the device's busy share; then with
      PCI_TPU_PN2_KERNEL=0 (PointNet++ stage by stage): five requests with
@@ -71,7 +79,9 @@ each printing its own lines:
      backward at the gradient that step gives it; the residual kNN also
      at three segments, PointsFusionMulti's form, and the chamfer's kNN
      over key prefixes, knn_pallas's valid_n; `stages knn` for the
-     transformers' box-pruned kNNs), then one step's loss
+     transformers' box-pruned kNNs; `stages attention`: the forward's and
+     the backward's %globaltimer stage split at the step's shape), then
+     one step's loss
      and gradients through the kernels against the plain versions from the
      same flows, permutations and FPS starts, then five steps with the
      launch counts of PER_STEP each, finite losses, the flow bit-unchanged
@@ -115,8 +125,9 @@ each printing its own lines:
      shared memory a CTA, the chase's device time a hop and the pass's a
      tile, and both kernels' %globaltimer phase split.
 Then a resources line for each kernel whose dense products run on the
-tensor cores (the one-shot fusion, flowmid, kNN-conv and flowenc, 3xTF32;
-kNN-conv's at the FeaturePropagation's plan) and for the auction's pass
+tensor cores (the one-shot fusion, flowmid, kNN-conv, flowenc and the
+attention pair, 3xTF32; kNN-conv's at the FeaturePropagation's plan) and
+for the auction's pass
 and cluster chase (at their last launch's shared memory): registers a thread,
 static and dynamic shared bytes, resident blocks an SM, its max error
 against its plain version relative to the output's largest magnitude; the
@@ -149,7 +160,9 @@ TF32_FLOPS = 495e12  # H100 SXM dense TF32 on the tensor cores
 # products a multiply-add, csrc/mma_tf32.cuh): their bound counts those
 # products apart, at 3 x FLOP / TF32_FLOPS, beside the scalar work
 TENSOR_KERNELS = {"fusion": "pci_fusion_attrs", "flowmid": "pci_flowmid_attrs",
-                  "knnconv": "pci_knnconv_attrs", "flowenc": "pci_flowenc_attrs"}
+                  "knnconv": "pci_knnconv_attrs", "flowenc": "pci_flowenc_attrs",
+                  "attention": "pci_attention_attrs",
+                  "attention_bwd": "pci_attention_bwd_attrs"}
 # kernels whose resources print on the `kernel resources` lines (C entry)
 RESOURCE_KERNELS = {**TENSOR_KERNELS, "auction_pass": "pci_auction_pass_attrs",
                     "auction_chase": "pci_auction_chase_attrs"}
@@ -608,19 +621,21 @@ def work(name, args, kw, out):
         R = B * N * g.shape[2]
         w = [t for wb in tail for t in wb]
         # the recomputed forward, then six [R, d] x [d, d] products (three
-        # for the inputs' gradients, three for the weights'), the 3-wide
-        # ones, and ~20 elementwise operations a (row, channel)
-        ops = 2.0 * R * (3 * d + 3 * d * d) + 2.0 * R * (6 * d * d + 6 * d) + 20.0 * R * d
-        return nbytes(q, g, delta, gout, *w, *out), ops
+        # for the inputs' gradients, three for the weights') and the 3-wide
+        # ones, the dense products on the tensor cores, counted apart; ~20
+        # elementwise operations a (row, channel)
+        tensor = 2.0 * R * (3 * d + 3 * d * d) + 2.0 * R * (6 * d * d + 6 * d)
+        return nbytes(q, g, delta, gout, *w, *out), 20.0 * R * d, tensor
     if name == "attention":
         q, g, delta, tail = args
         B, N, d = q.shape
         k = g.shape[2]
         w = [t for wb in tail for t in wb]
-        # four dense layers a slot, then q - K + pos, V + pos, the softmax
-        # and the weighted sum: about 8 more operations a (slot, channel)
-        ops = 2.0 * B * N * k * (3 * d + 3 * d * d) + 8.0 * B * N * k * d
-        return nbytes(q, g, delta, out, *w), ops
+        # four dense layers a slot (on the tensor cores, counted apart),
+        # then q - K + pos, V + pos, the softmax and the weighted sum: about
+        # 8 operations a (slot, channel)
+        tensor = 2.0 * B * N * k * (3 * d + 3 * d * d)
+        return nbytes(q, g, delta, out, *w), 8.0 * B * N * k * d, tensor
     combined, seg_ends, budgets, layers, k = args
     B, N, _ = combined.shape
     w = [t for wb in layers for t in wb]
@@ -838,7 +853,8 @@ def hold_kernels(calls, request: int, expected: dict, totals: dict, path: str,
             err = compare(name, got, want, label(name, args, kw), args)
             rel = 0.0
             if name in TENSOR_KERNELS:  # flowenc: relative to f_1's and f_2's largest
-                top = max(w.abs().max().item() for w in (want[:2] if name == "flowenc" else [want]))
+                outs = {"flowenc": want[:2], "attention_bwd": want[:3]}.get(name, [want])
+                top = max(w.abs().max().item() for w in outs)
                 rel = err / max(top, 1e-30)
             ms = cuda_ms(lambda: fn(*args, **kw), 10)
             with plain_versions():
@@ -848,9 +864,13 @@ def hold_kernels(calls, request: int, expected: dict, totals: dict, path: str,
             nb, ops, *tensor = work(name, args, kw, got)
             bytes_ms, ops_ms = bound_terms(nb, ops, *tensor)
             basis = "bytes" if bytes_ms > ops_ms else ("ops, tensor" if tensor else "operations")
+            # the attention pair's bound before its products moved to the
+            # tensor cores: every operation at FP32_FLOPS
+            scalar = (f" scalar_bound_ms={max(bytes_ms, (ops + sum(tensor)) / FP32_FLOPS * 1e3):.6f}"
+                      if name in ("attention", "attention_bwd") else "")
             print(f"kernel {name:9s} {label(name, args, kw):52s} ms={ms:.4f} "
                   f"plain_ms={plain_ms:.4f} bound_ms={max(bytes_ms, ops_ms):.6f} "
-                  f"({basis}) max_abs_err={err:.3g}"
+                  f"({basis}){scalar} max_abs_err={err:.3g}"
                   + (f" rel_err={rel:.3g}" if name in TENSOR_KERNELS else "")
                   + (f" library_ms={lib_ms:.4f}" if lib_ms is not None else ""))
             t = own[name]
@@ -893,6 +913,9 @@ FPS_HOLDS = (
     (2, 16000, 1024, 8, "random", "gauss"), (2, 64000, 1024, 8, "random", "gauss"),
     (1, 16384, 1024, 1, "zero", "gauss"), (1, 16383, 1024, 8, "last", "gauss"),
     (2, 16384, 1024, 8, "random", "dups"), (1, 1000, 256, 1, "random", "dups"),
+    # the long-chain route (over 16,384 points a chain): ops.fps exact at
+    # 32,768 points, and exact=False (P = 8) at 131,073
+    (1, 32768, 1024, 1, "random", "gauss"), (1, 131073, 1024, 8, "random", "gauss"),
 )
 
 
@@ -900,7 +923,7 @@ def hold_fps(card: str) -> None:
     """The FPS kernel against its plain version at FPS_HOLDS: picks equal;
     each shape's time a launch (CUDA events, and device time) and a greedy
     iteration (device ms / (npoint / P))."""
-    from pci_tpu_torch.ops.cuda_kernels.fps_cuda import fps_kernel, fps_plain
+    from pci_tpu_torch.ops.cuda_kernels.fps_cuda import CHAIN_MAX, fps_kernel, fps_plain
 
     dev = torch.device("cuda")
     for B, N, npoint, P, start_kind, cloud in FPS_HOLDS:
@@ -916,7 +939,8 @@ def hold_fps(card: str) -> None:
             want = fps_plain(xyz, npoint, start, P)
             ms = cuda_ms(lambda: fps_kernel(xyz, npoint, start, P), 10)
             dev_ms = device_ms(lambda: fps_kernel(xyz, npoint, start, P))
-        what = f"B={B} N={N} npoint={npoint} P={P} start={start_kind} cloud={cloud}"
+        what = (f"B={B} N={N} npoint={npoint} P={P} start={start_kind} cloud={cloud}"
+                + (" (long chain)" if -(-N // P) > CHAIN_MAX else ""))
         check(torch.equal(got, want), f"fps {what}: picks differ from the plain version's")
         print(f"fps hold {what}: picks equal to the plain version's; {ms:.4f} ms (CUDA "
               f"events), device {dev_ms:.4f} ms, {1e3 * dev_ms / (npoint // P):.3f} us an "
@@ -972,6 +996,145 @@ def hold_knn_cells(card: str) -> None:
         print(f"knn_cells hold {what} k={k}: indices and distances equal to the plain "
               f"version's; pruned {ms:.4f} ms (prep included), flat {flat:.4f} ms (CUDA "
               f"events), the route takes the {route} kernel, on {card}")
+
+
+def hold_knn_routes(card: str) -> None:
+    """ops.knn's route by shape on the card (pci_tpu.ops.knn's: a kernel
+    for xyz clouds with k <= 128, XLA otherwise): 4-channel clouds take
+    the plain version and launch nothing; k = 96 on xyz clouds takes the
+    flat kernel's local-memory list.  Both against knn_plain, indices and
+    distances equal."""
+    from pci_tpu_torch.ops import knn
+    from pci_tpu_torch.ops.cuda_kernels.knn_cuda import knn_kernel, knn_plain
+
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(11)
+    cases = (("C=4", torch.randn(1, 3000, 4, generator=g), torch.randn(1, 6000, 4, generator=g),
+              16, 0),
+             ("k=96", torch.from_numpy(synthetic_pair(6, 4096)[0])[None],
+              torch.from_numpy(synthetic_pair(7, 8192)[0])[None], 96, 1))
+    for what, qc, pc, k, launches in cases:
+        query, points = qc.to(dev), pc.to(dev)
+        before = knn_kernel.launches
+        with torch.inference_mode():
+            got = knn(query, points, k)
+            torch.cuda.synchronize()
+            ran = knn_kernel.launches - before
+            ms = cuda_ms(lambda: knn(query, points, k), 5)
+        want = knn_plain(query, points, k)
+        check(ran == launches, f"knn {what}: {ran} kernel launches, expected {launches}")
+        check(torch.equal(got[1], want[1]) and torch.equal(got[0], want[0]),
+              f"knn {what}: differs from the plain version")
+        print(f"knn route hold {what} S={query.shape[1]} N={points.shape[1]} k={k}: "
+              f"{'the flat kernel' if launches else 'the plain version (no launch)'}, indices "
+              f"and distances equal to knn_plain's; {ms:.4f} ms (CUDA events) on {card}")
+
+
+# the attention tail's holds beyond the paths' shapes: (B, N, k, d, backward
+# too); the forward's scalar route at k = 32 and at d = 128
+ATTENTION_HOLDS = ((1, 1000, 7, 40, False), (1, 1000, 7, 24, True), (1, 1000, 16, 64, True),
+                   (1, 1000, 32, 64, True), (1, 1000, 16, 128, False))
+
+
+def attention_inputs(B: int, N: int, k: int, d: int, seed: int, dev):
+    """Seeded inputs of the attention tail: q, g, delta, the four layers at
+    nn.Linear's init scale, gout."""
+    g = torch.Generator().manual_seed(seed)
+    r = lambda *shape, s=1.0: (s * torch.randn(*shape, generator=g)).to(dev)  # noqa: E731
+    tail = [(r(d, 3, s=3 ** -0.5), r(d, s=0.1)), (r(d, d, s=d ** -0.5), r(d, s=0.1)),
+            (r(d, d, s=d ** -0.5), r(d, s=0.1)), (r(d, d, s=d ** -0.5), r(d, s=0.1))]
+    return r(B, N, d), r(B, N, k, 2 * d), r(B, N, k, 3, s=0.3), tail, r(B, N, d)
+
+
+def hold_attention(card: str) -> None:
+    """The attention kernels against their plain versions at ATTENTION_HOLDS
+    (ragged N, k < 16, d not a multiple of 16, and the forward's scalar
+    route), the forward within 1e-4 (compare), the backward by
+    compare_attention_bwd; each timed beside its plain version."""
+    from pci_tpu_torch.ops.cuda_kernels.attention_cuda import (
+        attention_bwd_kernel, attention_bwd_plain, attention_kernel, attention_plain,
+        tc_route_ok)
+
+    dev = torch.device("cuda")
+    for i, (B, N, k, d, bwd) in enumerate(ATTENTION_HOLDS):
+        q, g, delta, tail, gout = attention_inputs(B, N, k, d, 20 + i, dev)
+        where = f"B={B} N={N} k={k} d={d}"
+        route = "tensor cores" if tc_route_ok(d, k) else "scalar"
+        with torch.inference_mode():
+            got = attention_kernel(q, g, delta, tail)
+            torch.cuda.synchronize()
+            err = compare("attention", got, attention_plain(q, g, delta, tail), where)
+            ms = cuda_ms(lambda: attention_kernel(q, g, delta, tail), 10)
+            plain_ms = cuda_ms(lambda: attention_plain(q, g, delta, tail), 3)
+        print(f"attention hold {where} ({route} route): max |kernel - plain| {err:.3g}; "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms (CUDA events) on {card}")
+        if not bwd:
+            continue
+        args = (q, g, delta, tail, gout)
+        with torch.inference_mode():
+            got = attention_bwd_kernel(*args)
+            torch.cuda.synchronize()
+            err = compare_attention_bwd(got, attention_bwd_plain(*args), args, where)
+            again = attention_bwd_kernel(*args)
+            check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                  f"attention_bwd {where}: a second run gives other bits")
+            ms = cuda_ms(lambda: attention_bwd_kernel(*args), 10)
+            plain_ms = cuda_ms(lambda: attention_bwd_plain(*args), 3)
+        print(f"attention_bwd hold {where}: max |kernel - plain| {err:.3g}, a second run "
+              f"bit-equal; {ms:.4f} ms, plain {plain_ms:.4f} ms (CUDA events) on {card}")
+
+
+def attention_stages_line(args, card: str, path: str) -> None:
+    """The `stages attention` lines: the forward's and the backward's
+    %globaltimer stage split (attention_cuda.attention_stages) at a path's
+    recorded shape, beside each kernel's time (CUDA events, median of 10;
+    torch.profiler's device sums of these kernels came out short in some
+    runs, where the stamps and the events agreed)."""
+    from pci_tpu_torch.ops.cuda_kernels.attention_cuda import (
+        attention_bwd_kernel, attention_kernel, attention_stages)
+
+    q, g, delta = (t.detach().float().contiguous() for t in args[:3])
+    tail = [(w.detach(), b.detach()) for w, b in args[3]]
+    gout = args[4].detach().contiguous() if len(args) > 4 else torch.ones_like(q)
+    with torch.inference_mode():
+        st = attention_stages(q, g, delta, tail, gout)
+        fwd_ms = cuda_ms(lambda: attention_kernel(q, g, delta, tail), 10)
+        bwd_ms = cuda_ms(lambda: attention_bwd_kernel(q, g, delta, tail, gout), 10)
+    for name, ms in (("forward", fwd_ms), ("backward", bwd_ms)):
+        t = st[name]
+        shares = ", ".join(f"{k} {v:.3f}" for k, v in t.items()
+                           if k not in ("span_ms", "units_mean", "units_max"))
+        unit = "queries a warp" if name == "forward" else "tiles a block"
+        print(f"stages attention {path} {name} {label('attention', args, {})} on {card}: "
+              f"{ms:.4f} ms (CUDA events); stage shares of the summed "
+              f"%globaltimer time: {shares}; longest warp/block {t['span_ms']:.4f} ms; {unit} "
+              f"mean {t['units_mean']:.1f} max {t['units_max']:.0f}")
+
+
+def hold_pn2mid_batch(args, card: str) -> None:
+    """pn2mid_fused at a batch of 17, over the kernel's 16 samples a
+    launch: the recorded request's l1 cloud and features, each sample
+    shifted by a seeded offset, against pn2mid_plain (1e-3 of the output's
+    largest magnitude, compare's pn2mid limit), in two launches."""
+    from pci_tpu_torch.ops.cuda_kernels import pn2mid_fused
+    from pci_tpu_torch.ops.cuda_kernels.pn2mid_cuda import pn2mid_kernel, pn2mid_plain
+
+    l1x, l1f, groups = args[:3]
+    B = 17
+    off = torch.randn(B, 1, 3, generator=torch.Generator().manual_seed(17)).to(l1x.device)
+    x = (l1x[:1] + 0.05 * off).contiguous()
+    f = l1f[:1].expand(B, -1, -1).contiguous()
+    before = pn2mid_kernel.launches
+    with torch.inference_mode():
+        got = pn2mid_fused(x, f, groups)
+        torch.cuda.synchronize()
+        launches = pn2mid_kernel.launches - before
+        ms = cuda_ms(lambda: pn2mid_fused(x, f, groups), 5)
+        want = pn2mid_plain(x, f, groups)
+    check(launches == 2, f"pn2mid B={B}: {launches} launches, expected 2")
+    err = compare("pn2mid", got, want, f"B={B} N1={x.shape[1]} (two launches)")
+    print(f"pn2mid batch hold B={B} N1={x.shape[1]}: 2 launches, max |kernel - plain| "
+          f"{err:.3g}; {ms:.4f} ms (CUDA events) on {card}")
 
 
 def knn_walk_pairs(points, kth, chunk: int, tile: int) -> float:
@@ -1381,6 +1544,8 @@ def phase_isapci(card: str, totals: dict) -> dict:
         model(fwd_t, keys_t, bwd_t, tt, z, perms=perms)
     hold_kernels(calls, len(calls), PER_REQUEST_ISAPCI, totals, "isapci")
     knn_stages(calls, card, "isapci")
+    hold_pn2mid_batch(next(c[2] for c in calls if c[0] == "pn2mid"), card)
+    attention_stages_line(next(c[2] for c in calls if c[0] == "attention"), card, "isapci")
     calls = []
     with torch.inference_mode(), plain_versions(), record_calls(calls), gates(PN2_OFF):
         model(fwd_t, keys_t, bwd_t, tt, z, perms=perms)
@@ -1541,6 +1706,7 @@ def phase_train(card: str, totals: dict) -> dict:
     calls.append(("knn", fn, (a, b, 8, torch.tensor([5, N][:B], device=dev)), {}))
     hold_kernels(calls, request, PER_STEP, totals, "train", unit="step")
     knn_stages(calls[:request], card, "train")
+    attention_stages_line(next(c[2] for c in calls if c[0] == "attention_bwd"), card, "train")
     del calls
 
     # one step through the kernels against one through the plain versions,
@@ -2139,6 +2305,8 @@ def main() -> int:
     phase_stages(interp.model, card)
     hold_fps(card)
     hold_knn_cells(card)
+    hold_knn_routes(card)
+    hold_attention(card)
 
     # 4. serving: warm up, then count the launches of five requests
     interp(a_np, b_np, 0.5)

@@ -2,27 +2,54 @@
 //   pos = W_d1 relu(W_d0 delta + b_d0) + b_d1
 //   a   = W_g1 relu(W_g0 (q - K + pos) + b_g0) + b_g1
 //   res = sum_k softmax_k(a / sqrt(d)) * (V + pos)
-// with the softmax per (query, channel) over the k slots, all in fp32.
+// with the softmax per (query, channel) over the k slots, at fp32 accuracy.
 //
-// Replaces pci_tpu/ops/pallas_kernels/attention_tpu.py:fused_vector_attention.
-// The TPU kernel casts q and the gathered K|V to bf16 (a TPU precision
-// choice); this one reads and computes everything in fp32, the function
-// of the XLA expression (pci_tpu/nn/transformer.py:165-181).
+// Replaces pci_tpu/ops/pallas_kernels/attention_tpu.py:fused_vector_attention
+// and the forward of its vector_attention_trainable (_attn_fwd_f32).  The
+// TPU eval kernel casts q and the gathered K|V to bf16 (a TPU precision
+// choice); this one reads everything in fp32, the function of the XLA
+// expression (pci_tpu/nn/transformer.py:165-181).
 //
-// What bounds it on the H100: operations.  At the transformer's shapes
-// (65,536 queries, k = 16, d = 64) the four dense layers are 2 N k
-// (3d + 3d^2) = 26 GFLOP against 2.4 MB of q and 286 MB of K|V, V and
-// delta read once, so 0.4 ms by fp32 operations and 0.09 ms by bytes.
-// The XLA route writes each [N, k, d] intermediate (268 MB) to device
-// memory; here none leaves the SM.  The design: the weights (d = 64:
-// 50 KB) sit in shared memory for the block's whole life; one warp a
-// query, each lane owning the channels lane, lane + 32, ...; the k slots
-// run four at a time, their activations in a per-warp [d][4] shared
-// buffer, so one weight load feeds four slots' FMAs and one float4
-// broadcast brings the four slots' inputs; an online softmax (running
-// max, sum and weighted sum per channel) folds each slot in as it is
-// computed.
-#include "common.cuh"
+// What bounds it on the H100: bytes, then the tensor cores.  At the
+// transformer's shapes (65,536 queries, k = 16, d = 64) the four dense
+// layers are 2 N k (3d + 3d^2) = 26.2 GFLOP, 3 x that in 3xTF32 on the
+// tensor cores (0.16 ms at 495 TFLOP/s), against 0.58 GB of q, K|V, delta
+// and the output (0.17 ms at 3.35 TB/s).  The XLA route writes each
+// [N, k, d] intermediate (268 MB) to device memory; here none leaves the SM.
+//
+// The tensor-core route (attention_tc_kernel: d <= 64 a multiple of 8,
+// k <= 16, the transformer's shapes):
+//   - one warp a query: its k <= 16 slots are the 16 rows of one m16n8k8
+//     tile (rows >= k are masked out of the softmax), so no block barrier;
+//   - the four layers on the tensor cores in 3xTF32 (csrc/mma_tf32.cuh):
+//     the weights split once on the host (_build.pack_tf32(chain=True), 103
+//     KB at d = 64) sit in shared memory for the block's life; every
+//     activation stays in registers as accumulator fragments, which are
+//     the next layer's A fragments (the chained layout), the 3-wide first
+//     layer one k-step of zero-padded delta;
+//   - h = (q - K) + pos and V + pos are formed in the accumulator layout
+//     from the query's K|V rows in the warp's shared buffer (a row stride
+//     of 2d + 8 floats: the float2 reads of 16 lanes hit 32 banks);
+//   - the softmax over k is a max and a sum over the fragment's rows: two
+//     registers a lane, then __shfl_xor over the 8 lanes of a column group;
+//   - each query's K|V (k x 2d floats, one contiguous block), q and delta
+//     arrive by cp.async (16 bytes a lane; delta 4) into the warp's buffer;
+//     the next query's copies are issued as soon as this one's K, V, q and
+//     delta are in registers, so they stream while its gamma MLP runs;
+//   - persistent blocks of 12 warps, one an SM (the weights and 12 buffers
+//     take 209 KB at d = 64), each warp walking queries w, w + 12 * grid,
+//     ...
+// Each output's sum runs in mma_tf32.cuh's order (the large products per
+// k-step, the small ones apart, then (acc + small) + bias), so a query's
+// result does not depend on the batch or the launch.
+//
+// The scalar route (attention_kernel, every other shape the wrapper takes:
+// d in 72..128, or k in 17..32): the weights (d = 64: 50 KB) in shared
+// memory; one warp a query, each lane owning the channels lane, lane + 32,
+// ...; the k slots four at a time, their activations in a per-warp [d][4]
+// shared buffer, so one weight load feeds four slots' FMAs; an online
+// softmax folds each slot in as it is computed.
+#include "mma_tf32.cuh"
 
 #define PCI_ATTN_SLOTS 4
 
@@ -205,20 +232,256 @@ static cudaError_t launch_attention(const float* q, const float* g,
   return cudaGetLastError();
 }
 
+// ---- the tensor-core route ------------------------------------------------
+
+// warps a block: 12 (at d = 64 they spill ~100 bytes a thread at the
+// 168-register cap, and still beat 8 warps at 255 registers, which spill
+// too, by 10%, on the H100)
+#define ATC_WARPS 12
+#define ATC_STAMPS 5  // a warp's ns waiting for its copies, in the pos MLP, forming
+                      // h and V + pos, in the gamma MLP, in the softmax; then queries
+
+// Float offsets in the chained split pack of the tail at width D = 8 NT
+// (_build.pack_tf32(chain=True)): layer 0 (3 -> D, one k-step), then three
+// D -> D layers, each its fragments then its bias.
+template <int NT>
+struct AtcPack {
+  static constexpr int D = 8 * NT;
+  static constexpr int W0 = 0, B0 = W0 + 16 * D, W1 = B0 + D, B1 = W1 + 2 * D * D,
+                       W2 = B1 + D, B2 = W2 + 2 * D * D, W3 = B2 + D, B3 = W3 + 2 * D * D,
+                       NW = B3 + D;
+  // a warp's buffer: k <= 16 K|V rows (stride 2D + 8), q, delta rows (x, y, z, 0)
+  static constexpr int LD = 2 * D + 8, Q = 16 * LD, DL = Q + D, BUF = DL + 64;
+};
+
+// out = act((in x W) + bias) for one warp's 16-row tile: `in`, the previous
+// layer's accumulator fragments (the chained A operand), NT n-tiles of
+// weights from a chained layer of the pack (float4 a lane, k-step major),
+// every output n-tile at once.
+template <int NT>
+__device__ __forceinline__ void atc_dense(const float (&in)[NT][4], const float4* w4,
+                                          const float* bias, float (&out)[NT][4], bool relu) {
+  const int lane = threadIdx.x & 31, t = lane & 3;
+  float small[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) out[n][e] = small[n][e] = 0.f;
+#pragma unroll
+  for (int kt = 0; kt < NT; ++kt) {
+    uint32_t ahi[4], alo[4];
+    split_chained(in[kt], ahi, alo);
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+      mma_3xtf32_apart(out[n], small[n], ahi, alo, w4[(kt * NT + n) * 32 + lane]);
+  }
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+    const float2 b = *reinterpret_cast<const float2*>(bias + 8 * n + 2 * t);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float v = (out[n][e] + small[n][e]) + ((e & 1) ? b.y : b.x);
+      out[n][e] = relu ? fmaxf(v, 0.f) : v;
+    }
+  }
+}
+
+template <int NT>
+__global__ void __launch_bounds__(ATC_WARPS * 32, 1)
+attention_tc_kernel(const float* __restrict__ q, const float* __restrict__ g,
+                    const float* __restrict__ delta, const float* __restrict__ wtc,
+                    float* __restrict__ out, unsigned long long* __restrict__ stamps, int M,
+                    int k) {
+  using L = AtcPack<NT>;
+  constexpr int D = L::D, W = ATC_WARPS;
+  extern __shared__ float4 smem4[];
+  float* sw = reinterpret_cast<float*>(smem4);
+  const float4* w4 = smem4;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, gq = lane >> 2, t = lane & 3;
+  float* buf = sw + L::NW + warp * L::BUF;
+  for (int e = threadIdx.x; e < L::NW / 4; e += blockDim.x)
+    smem4[e] = reinterpret_cast<const float4*>(wtc)[e];
+  for (int e = lane; e < L::BUF; e += 32) buf[e] = 0.f;  // rows >= k stay 0
+  __syncthreads();
+
+  const int step = gridDim.x * W;
+  // this query's K|V rows, q and delta into the warp's buffer (one group)
+  auto issue = [&](int r) {
+    if (r < M) {
+      const float* src = g + (size_t)r * k * 2 * D;
+      for (int e = lane; e < k * (D / 2); e += 32)
+        cp_async16(buf + (e / (D / 2)) * L::LD + 4 * (e % (D / 2)), src + 4 * e);
+      for (int e = lane; e < D / 4; e += 32) cp_async16(buf + L::Q + 4 * e, q + (size_t)r * D + 4 * e);
+      for (int e = lane; e < 3 * k; e += 32)
+        cp_async4(buf + L::DL + (e / 3) * 4 + e % 3, delta + (size_t)r * k * 3 + e);
+    }
+    cp_async_commit();
+  };
+  const bool timed = stamps != nullptr;
+  unsigned long long tacc[ATC_STAMPS] = {0, 0, 0, 0, 0}, tprev = timed ? global_ns() : 0;
+  auto mark = [&](int i) {
+    if (timed) {
+      const unsigned long long now = global_ns();
+      tacc[i] += now - tprev;
+      tprev = now;
+    }
+  };
+  const float scale = 1.4426950408889634f / sqrtf((float)D);  // log2(e) / sqrt(d)
+  int r = blockIdx.x * W + warp;
+  issue(r);
+  int done = 0;
+  for (; r < M; r += step, ++done) {
+    cp_async_wait_all();
+    __syncwarp();  // every lane's copies are in
+    mark(0);
+    // pos MLP: layer 0 (3 -> D) as one k-step of delta's rows (columns 3..7
+    // zero), then D -> D
+    float h0[NT][4], pos[NT][4];
+    {
+      uint32_t ahi[4], alo[4];
+      tf32_split(buf[L::DL + gq * 4 + t], ahi[0], alo[0]);  // column 3 is 0
+      tf32_split(buf[L::DL + (gq + 8) * 4 + t], ahi[1], alo[1]);
+      ahi[2] = ahi[3] = alo[2] = alo[3] = 0u;
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        float small[4] = {0.f, 0.f, 0.f, 0.f};
+        h0[n][0] = h0[n][1] = h0[n][2] = h0[n][3] = 0.f;
+        mma_3xtf32_apart(h0[n], small, ahi, alo, w4[L::W0 / 4 + n * 32 + lane]);
+        const float2 b = *reinterpret_cast<const float2*>(sw + L::B0 + 8 * n + 2 * t);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          h0[n][e] = fmaxf((h0[n][e] + small[e]) + ((e & 1) ? b.y : b.x), 0.f);
+      }
+    }
+    atc_dense<NT>(h0, w4 + L::W1 / 4, sw + L::B1, pos, false);
+    mark(1);
+    // h = (q - K) + pos and vp = V + pos, rows gq and gq + 8
+    float hh[NT][4], vp[NT][4];
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      const int c = 8 * n + 2 * t;
+      const float2 qv = *reinterpret_cast<const float2*>(buf + L::Q + c);
+      const float2 k0 = *reinterpret_cast<const float2*>(buf + gq * L::LD + c);
+      const float2 k1 = *reinterpret_cast<const float2*>(buf + (gq + 8) * L::LD + c);
+      const float2 v0 = *reinterpret_cast<const float2*>(buf + gq * L::LD + D + c);
+      const float2 v1 = *reinterpret_cast<const float2*>(buf + (gq + 8) * L::LD + D + c);
+      hh[n][0] = (qv.x - k0.x) + pos[n][0];
+      hh[n][1] = (qv.y - k0.y) + pos[n][1];
+      hh[n][2] = (qv.x - k1.x) + pos[n][2];
+      hh[n][3] = (qv.y - k1.y) + pos[n][3];
+      vp[n][0] = v0.x + pos[n][0];
+      vp[n][1] = v0.y + pos[n][1];
+      vp[n][2] = v1.x + pos[n][2];
+      vp[n][3] = v1.y + pos[n][3];
+    }
+    __syncwarp();  // every lane is done with the buffer
+    issue(r + step);
+    mark(2);
+    // gamma MLP
+    float r2[NT][4], a[NT][4];
+    atc_dense<NT>(hh, w4 + L::W2 / 4, sw + L::B2, r2, true);
+    atc_dense<NT>(r2, w4 + L::W3 / 4, sw + L::B3, a, false);
+    mark(3);
+    // softmax over the rows (slots) of each column, weighted sum of V + pos
+    const bool ok0 = gq < k, ok1 = gq + 8 < k;
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      float res[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        // exp(a / sqrt(d) - max) as exp2 of a scaled by log2(e) / sqrt(d)
+        const float x0 = ok0 ? a[n][e] * scale : -CUDART_INF_F;
+        const float x1 = ok1 ? a[n][e + 2] * scale : -CUDART_INF_F;
+        float m = fmaxf(x0, x1);
+        m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 4));
+        m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 8));
+        m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 16));
+        const float e0 = ok0 ? exp2f(x0 - m) : 0.f, e1 = ok1 ? exp2f(x1 - m) : 0.f;
+        float den = e0 + e1;
+        float num = (ok0 ? e0 * vp[n][e] : 0.f) + (ok1 ? e1 * vp[n][e + 2] : 0.f);
+#pragma unroll
+        for (int off = 4; off < 32; off <<= 1) {
+          den += __shfl_xor_sync(0xffffffffu, den, off);
+          num += __shfl_xor_sync(0xffffffffu, num, off);
+        }
+        res[e] = num / den;
+      }
+      if (gq == 0)
+        *reinterpret_cast<float2*>(out + (size_t)r * D + 8 * n + 2 * t) = make_float2(res[0], res[1]);
+    }
+    mark(4);
+  }
+  cp_async_wait_all();  // the last (empty) group
+  if (timed && lane == 0) {
+    unsigned long long* st = stamps + ((size_t)blockIdx.x * W + warp) * (ATC_STAMPS + 1);
+    for (int i = 0; i < ATC_STAMPS; ++i) st[i] = tacc[i];
+    st[ATC_STAMPS] = done;
+  }
+}
+
+template <int NT>
+static size_t atc_smem() {
+  using L = AtcPack<NT>;
+  return sizeof(float) * ((size_t)L::NW + (size_t)ATC_WARPS * L::BUF);
+}
+
+static int atc_blocks(int M, int W) {
+  int dev = 0, sms = 132;
+  if (cudaGetDevice(&dev) == cudaSuccess)
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  return std::max(1, std::min(sms, (M + W - 1) / W));
+}
+
+template <int NT>
+static cudaError_t launch_attention_tc(const float* q, const float* g, const float* delta,
+                                       const float* wtc, float* out,
+                                       unsigned long long* stamps, int M, int k,
+                                       cudaStream_t stream) {
+  const size_t smem = atc_smem<NT>();
+  cudaError_t e = allow_smem(attention_tc_kernel<NT>, smem);
+  if (e != cudaSuccess) return e;
+  attention_tc_kernel<NT><<<atc_blocks(M, ATC_WARPS), ATC_WARPS * 32, smem, stream>>>(
+      q, g, delta, wtc, out, stamps, M, k);
+  return cudaGetLastError();
+}
+
 // q [M, d], g [M, k, 2d] (K | V), delta [M, k, 3], out [M, d], M = B * N;
-// d <= 128 and a multiple of 8, 1 <= k <= 32.
+// d <= 128 and a multiple of 8, 1 <= k <= 32.  wtc non-null: the
+// tensor-core route (d <= 64, k <= 16; wtc the chained split pack of the
+// four layers), with optional stamps [grid * ATC_WARPS][ATC_STAMPS + 1];
+// else the scalar route on wbuf (common.cuh's attention layout).
 extern "C" int pci_attention(const void* q, const void* g, const void* delta,
-                             const void* wbuf, void* out, int M, int d, int k,
-                             void* stream) {
+                             const void* wbuf, const void* wtc, void* out, void* stamps,
+                             int M, int d, int k, void* stream) {
   if (d < 8 || d > 128 || d % 8 || k < 1 || k > 32 || M < 1)
     return (int)cudaErrorInvalidValue;
   const float* qq = static_cast<const float*>(q);
   const float* gg = static_cast<const float*>(g);
   const float* dd = static_cast<const float*>(delta);
-  const float* w = static_cast<const float*>(wbuf);
   float* o = static_cast<float*>(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (wtc != nullptr) {
+    if (d > 64 || k > 16) return (int)cudaErrorInvalidValue;
+    const float* w = static_cast<const float*>(wtc);
+    auto* sp = static_cast<unsigned long long*>(stamps);
+    switch (d / 8) {
+      case 1: return (int)launch_attention_tc<1>(qq, gg, dd, w, o, sp, M, k, st);
+      case 2: return (int)launch_attention_tc<2>(qq, gg, dd, w, o, sp, M, k, st);
+      case 3: return (int)launch_attention_tc<3>(qq, gg, dd, w, o, sp, M, k, st);
+      case 4: return (int)launch_attention_tc<4>(qq, gg, dd, w, o, sp, M, k, st);
+      case 5: return (int)launch_attention_tc<5>(qq, gg, dd, w, o, sp, M, k, st);
+      case 6: return (int)launch_attention_tc<6>(qq, gg, dd, w, o, sp, M, k, st);
+      case 7: return (int)launch_attention_tc<7>(qq, gg, dd, w, o, sp, M, k, st);
+      default: return (int)launch_attention_tc<8>(qq, gg, dd, w, o, sp, M, k, st);
+    }
+  }
+  const float* w = static_cast<const float*>(wbuf);
   if (d <= 32) return (int)launch_attention<1>(qq, gg, dd, w, o, M, d, k, st);
   if (d <= 64) return (int)launch_attention<2>(qq, gg, dd, w, o, M, d, k, st);
   return (int)launch_attention<4>(qq, gg, dd, w, o, M, d, k, st);
+}
+
+// The tensor-core kernel's resources at d = 64 (_build.kernel_attrs).
+extern "C" int pci_attention_attrs(int* out) {
+  return kernel_attrs(attention_tc_kernel<8>, atc_smem<8>(), out, ATC_WARPS * 32);
 }

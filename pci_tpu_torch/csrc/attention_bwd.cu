@@ -3,42 +3,62 @@
 //   a   = W_g1 relu(W_g0 (q - K + pos) + b_g0) + b_g1
 //   res = sum_k softmax_k(a / sqrt(d)) * (V + pos)
 // given d res, the gradients of q [M, d], g = [K | V] [M, k, 2d], delta
-// [M, k, 3] and of the eight weights and biases, all in fp32.
+// [M, k, 3] and of the eight weights and biases, at fp32 accuracy.
 //
 // Replaces pci_tpu/ops/pallas_kernels/attention_tpu.py:_vat_bwd_rule, the
 // backward pallas_call of vector_attention_trainable (_attn_bwd_kernel).
 // Like it, this kernel keeps no forward intermediate: each tile recomputes
-// its forward in shared memory, then walks the chain rule back.  The
-// trainable forward is csrc/attention.cu's fp32 eval kernel.
+// its forward, then walks the chain rule back.  The trainable forward is
+// csrc/attention.cu's eval kernel.
 //
-// What bounds it on the H100: operations.  At the transformer's shapes
-// (128,000 queries, k = 16, d = 64) the recomputed forward is 2 R (3d +
-// 3d^2) flops over R = M k rows and the backward six more [R, d] x [d, d]
-// products, ~1.5e11 flops, 2.3 ms at 67 TFLOP/s; the bytes (q, K|V, delta
-// in, their gradients out: 0.6 GB) take 0.2 ms.  The design: a tile is
-// 64 rows (64 / k queries times their k slots) whose activations live in
-// five [64, d] shared buffers; every product runs from shared memory, one
-// thread an output channel for 4 rows (transposed products rotate their
-// summation start by the thread's channel, so a warp reads 32 banks).
-// The weight gradients cannot be carried across blocks as the TPU's
-// sequential grid carries them in constant-index output blocks: each block
-// sums its tiles into a partial in shared memory (every element owned by
-// one thread, in tile order), writes it to a [blocks, P] buffer, and a
-// second kernel sums the blocks in order, so a run gives the same bits as
-// the last on the same card.  One block an SM (the weights, the partial
-// and the buffers take ~186 KB at d = 64) of 1,024 threads, which hide
-// the shared-memory latency better than 256 (PERF.md).
-#include "common.cuh"
+// What bounds it on the H100: the tensor cores.  At the transformer's
+// shapes (128,000 queries, k = 16, d = 64) the recomputed forward is 2 R
+// (3d + 3d^2) flops over R = M k rows and the backward six more [R, d] x
+// [d, d] products (three for the inputs' gradients, three for the
+// weights'), ~153 GFLOP, 3 x that in 3xTF32: 0.93 ms at 495 TFLOP/s; the
+// bytes (q, K|V, delta and d res in, their gradients out, 128,000 x 16
+// slots x 128 floats x 4 B each way for K|V alone: ~2.2 GB) take 0.65 ms.
+//
+// The design: a tile is 64 rows (64 / k queries times their k slots, k <=
+// 32) whose activations live in five [64, d] shared buffers (a row stride
+// of round_up(d, 16) + 4 floats, zero past d and past the tile's rows),
+// its K | V rows beside them, brought by cp.async while the first layers
+// run; 16 warps a block, one block an SM.  Every [64, d] x [d, d] product
+// runs on the tensor cores in 3xTF32 (csrc/mma_tf32.cuh), a warp taking a
+// 16-row tile and two n-tiles: the forward's three d -> d layers and the
+// input gradients' (dr2 = da W_g1, dh = dpre2 W_g0, dr1 = dpos W_d1) read
+// the same fp32 copy of W_d1^T, W_g0^T and W_g1^T in shared memory (52 KB
+// at d = 64), as W^T or, through its transposed strides, as W, and split
+// both operands in the kernel.  (Split packs of both directions, 200 KB,
+// fit beside the tiles only in device memory; read from there, four warps
+// a fragment, the kernel ran 10% slower on the H100.)  The weight gradients dW += X^T D
+// contract over the tile's 64 rows on the tensor cores too: each (16 x 8)
+// block of dW belongs to one warp, which reads X transposed and D from
+// the shared rows and adds its tile's sum (acc + small) to the block's
+// partial in shared memory.  dW_d0 and d delta take the same routines
+// with delta padded to 16 columns and W_d0 to 8 rows; the forward's first
+// layer (delta -> r1) and the softmax stay scalar.  The weight gradients
+// cannot be carried across blocks as the TPU's sequential grid carries
+// them in constant-index output blocks: each block sums its tiles into
+// its partial, every element owned by one thread in tile order, writes it
+// to a [blocks, P] buffer, and a second kernel sums the blocks in order,
+// so a run gives the same bits as the last on the same card.
+#include "mma_tf32.cuh"
 
 #define PCI_ABWD_ROWS 64
 #define PCI_ABWD_RT 4
-#define PCI_ABWD_THREADS 1024
+#define PCI_ABWD_THREADS 512
+#define PCI_ABWD_KT 8  // k-steps of the widest layer (d = 64), unrolled
+#define PCI_ABWD_STAMPS 5  // a block's ns loading its tiles, in the forward's
+                           // layers, in the softmax and gradient sums, in the
+                           // input gradients' products, in the weight
+                           // gradients; then its tiles
 
-// Y[r][o] = act(bias[o] + sum_i X[r][i] W[i][o]) for r < R: X [*][ldx],
-// W [din][dout], Y [*][ldy], all in shared memory; rows are read in groups
-// of RT (the buffers hold whole groups), rows >= R are not stored.
-__device__ void tile_dense(const float* X, int ldx, const float* W,
-                           const float* bias, float* Y, int ldy, int R,
+// Y[r][o] = act(bias[o] + sum_i X[r][i] W[i][o]) for r < R, scalar: X
+// [*][ldx], W [din][dout] (device memory), Y [*][ldy]; rows are read in
+// groups of RT (the buffers hold whole groups), rows >= R are not stored.
+__device__ void tile_dense(const float* X, int ldx, const float* __restrict__ W,
+                           const float* __restrict__ bias, float* Y, int ldy, int R,
                            int din, int dout, bool relu) {
   const int groups = (R + PCI_ABWD_RT - 1) / PCI_ABWD_RT;
   for (int w = threadIdx.x; w < dout * groups; w += blockDim.x) {
@@ -58,192 +78,332 @@ __device__ void tile_dense(const float* X, int ldx, const float* W,
   }
 }
 
-// Y[r][i] = sum_o X[r][o] W[i][o] (X times W transposed) for r < R and
-// i < din <= dout; where mask is given (it may be Y itself), Y[r][i] is
-// kept only where mask[r][i] > 0 (the ReLU's derivative).
-__device__ void tile_dense_t(const float* X, int ldx, const float* W, int din,
-                             int dout, float* Y, int ldy, int R,
-                             const float* mask) {
-  const int groups = (R + PCI_ABWD_RT - 1) / PCI_ABWD_RT;
-  for (int w = threadIdx.x; w < din * groups; w += blockDim.x) {
-    const int i = w % din, r0 = (w / din) * PCI_ABWD_RT;
-    float acc[PCI_ABWD_RT];
+// gb[o] += sum over the tile's 64 rows of D[r][o] (rows past the tile's
+// are zero): 8 lanes a channel, each summing 8 rows in order, then a fixed
+// tree over the 8 lanes; the first adds to gb (one owner a channel).
+__device__ void tile_bgrad(const float* D, int ld, int dout, float* gb) {
+  for (int w = threadIdx.x; w < 8 * round_up(dout, 4); w += blockDim.x) {
+    const int o = w >> 3, p = w & 7;  // a warp: 4 channels x 8 parts
+    float s = 0.f;
+    if (o < dout)
 #pragma unroll
-    for (int rr = 0; rr < PCI_ABWD_RT; ++rr) acc[rr] = 0.f;
-    for (int s = 0; s < dout; ++s) {
-      int o = i + s;  // rotated start: neighbouring threads, other banks
-      if (o >= dout) o -= dout;
-      const float wv = W[i * dout + o];
+      for (int r = 0; r < 8; ++r) s += D[(8 * p + r) * ld + o];
+    s += __shfl_xor_sync(0xffffffffu, s, 1);
+    s += __shfl_xor_sync(0xffffffffu, s, 2);
+    s += __shfl_xor_sync(0xffffffffu, s, 4);
+    if (p == 0 && o < dout) gb[o] += s;
+  }
+}
+
+// Y[r][c] = act((sum_i X[r][i] B[i][c]) + bias[c]) on the tensor cores
+// for the tile's 64 rows, B = Wt (a layer's W^T, [in][out]) or, with
+// trans, B = Wt^T = W (dx = dy W): X, Y and Wt [*][ld] in shared memory
+// (ld % 8 == 4; X's columns and Wt's rows and columns past d zero up to
+// KT and NT 8-column steps), bias [bd] in device memory, or null.  Both
+// operands are split here (3xTF32).  A warp takes a 16-row tile and two
+// n-tiles.  Rows < R are stored; where mask is given (it may be Y), Y is
+// kept only where mask > 0 (the ReLU's derivative).
+__device__ void tile_mma(const float* X, const float* Wt, bool trans,
+                         const float* __restrict__ bias, int bd, float* Y, int ld, int R,
+                         int KT, int NT, bool relu, const float* mask) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int nwarps = blockDim.x >> 5, pairs = (NT + 1) / 2;
+  // B[k][n] at Wt[k * ks + n * ns]
+  const int ks = trans ? 1 : ld, ns = trans ? ld : 1;
+  for (int it = warp; it < 4 * pairs; it += nwarps) {
+    const int mt = it & 3, n0 = 2 * (it >> 2);
+    const bool two = n0 + 1 < NT;
+    float acc[2][4], small[2][4];
 #pragma unroll
-      for (int rr = 0; rr < PCI_ABWD_RT; ++rr)
-        acc[rr] = fmaf(X[(r0 + rr) * ldx + o], wv, acc[rr]);
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] = small[j][e] = 0.f;
+#pragma unroll
+    for (int kt = 0; kt < PCI_ABWD_KT; ++kt) {
+      if (kt >= KT) break;
+      uint32_t ahi[4], alo[4];
+      load_a_split(X, ld, 16 * mt, 8 * kt, ahi, alo);
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        if (j == 1 && !two) break;
+        const float* bp = Wt + (8 * kt + t) * ks + (8 * (n0 + j) + g) * ns;
+        uint32_t bh0, bl0, bh1, bl1;
+        tf32_split(bp[0], bh0, bl0);
+        tf32_split(bp[4 * ks], bh1, bl1);
+        mma_3xtf32_apart(acc[j], small[j], ahi, alo,
+                         make_float4(__uint_as_float(bh0), __uint_as_float(bh1),
+                                     __uint_as_float(bl0), __uint_as_float(bl1)));
+      }
     }
 #pragma unroll
-    for (int rr = 0; rr < PCI_ABWD_RT; ++rr) {
-      const int r = r0 + rr;
-      if (r < R) {
-        const bool keep = mask == nullptr || mask[r * ldy + i] > 0.f;
-        Y[r * ldy + i] = keep ? acc[rr] : 0.f;
+    for (int j = 0; j < 2; ++j) {
+      if (j == 1 && !two) break;
+      const int c = 8 * (n0 + j) + 2 * t;
+      const float b0 = bias && c < bd ? __ldg(bias + c) : 0.f;
+      const float b1 = bias && c + 1 < bd ? __ldg(bias + c + 1) : 0.f;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = 16 * mt + g + 8 * h;
+        if (r >= R) continue;
+        float v0 = (acc[j][2 * h] + small[j][2 * h]) + b0;
+        float v1 = (acc[j][2 * h + 1] + small[j][2 * h + 1]) + b1;
+        if (relu) v0 = fmaxf(v0, 0.f), v1 = fmaxf(v1, 0.f);
+        if (mask) {
+          const float2 m = *reinterpret_cast<const float2*>(mask + r * ld + c);
+          v0 = m.x > 0.f ? v0 : 0.f;
+          v1 = m.y > 0.f ? v1 : 0.f;
+        }
+        *reinterpret_cast<float2*>(Y + r * ld + c) = make_float2(v0, v1);
       }
     }
   }
 }
 
-// G[i][o] += sum_{r < R} X[r][i] D[r][o] and gb[o] += sum_r D[r][o], rows
-// summed in order; each element of G and gb has one owner thread.
-__device__ void tile_wgrad(const float* X, int ldx, const float* D, int ldd,
-                           int R, int din, int dout, float* G, float* gb) {
-  const int igroups = (din + 3) / 4;
-  for (int w = threadIdx.x; w < dout * igroups; w += blockDim.x) {
-    const int o = w % dout, i0 = (w / dout) * 4;
-    float acc[4] = {0.f, 0.f, 0.f, 0.f};
-    for (int r = 0; r < R; ++r) {
-      const float dv = D[r * ldd + o];
+// G[i][o] += sum over the tile's 64 rows of X[r][i] D[r][o] for i < din,
+// o < dout (G row-major [din][dout]) on the tensor cores in 3xTF32: A =
+// X^T and B = D read from the shared rows ([64][ld], zero past the tile's
+// rows and up to 16-column and 8-column multiples) and split here, the 8
+// row steps unrolled; each (16 x 8) block of G belongs to one warp, the
+// same every tile, which adds its tile's (acc + small), so G's sums run in
+// tile order.  (Two blocks a warp sharing their B fragments ran slower on
+// the H100.)
+__device__ void tile_wgrad_mma(const float* X, const float* D, int ld, int din, int dout,
+                               float* G) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int nwarps = blockDim.x >> 5, MT = (din + 15) / 16, NT = (dout + 7) / 8;
+  for (int f = warp; f < MT * NT; f += nwarps) {
+    const int mi = f / NT, nt = f % NT;
+    float acc[4] = {0.f, 0.f, 0.f, 0.f}, small[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-      for (int ii = 0; ii < 4; ++ii)
-        acc[ii] = fmaf(X[r * ldx + min(i0 + ii, din - 1)], dv, acc[ii]);
+    for (int kr = 0; kr < PCI_ABWD_ROWS / 8; ++kr) {
+      const float* x = X + (8 * kr + t) * ld + 16 * mi + g;
+      const float* dp = D + (8 * kr + t) * ld + 8 * nt + g;
+      uint32_t ahi[4], alo[4], bh0, bl0, bh1, bl1;
+      tf32_split(x[0], ahi[0], alo[0]);
+      tf32_split(x[8], ahi[1], alo[1]);
+      tf32_split(x[4 * ld], ahi[2], alo[2]);
+      tf32_split(x[4 * ld + 8], ahi[3], alo[3]);
+      tf32_split(dp[0], bh0, bl0);
+      tf32_split(dp[4 * ld], bh1, bl1);
+      mma_3xtf32_apart(acc, small, ahi, alo,
+                       make_float4(__uint_as_float(bh0), __uint_as_float(bh1),
+                                   __uint_as_float(bl0), __uint_as_float(bl1)));
     }
+    const int o = 8 * nt + 2 * t;
 #pragma unroll
-    for (int ii = 0; ii < 4; ++ii)
-      if (i0 + ii < din) G[(i0 + ii) * dout + o] += acc[ii];
-  }
-  for (int o = threadIdx.x; o < dout; o += blockDim.x) {
-    float s = 0.f;
-    for (int r = 0; r < R; ++r) s += D[r * ldd + o];
-    gb[o] += s;
+    for (int h = 0; h < 2; ++h) {
+      const int i = 16 * mi + g + 8 * h;
+      if (i >= din) continue;
+      if (o < dout) G[i * dout + o] += acc[2 * h] + small[2 * h];
+      if (o + 1 < dout) G[i * dout + o + 1] += acc[2 * h + 1] + small[2 * h + 1];
+    }
   }
 }
 
-__global__ void __launch_bounds__(PCI_ABWD_THREADS)
+__global__ void __launch_bounds__(PCI_ABWD_THREADS, 1)
 attention_bwd_kernel(const float* __restrict__ q, const float* __restrict__ g,
-                     const float* __restrict__ delta,
-                     const float* __restrict__ wbuf,
+                     const float* __restrict__ delta, const float* __restrict__ wbuf,
                      const float* __restrict__ gout, float* __restrict__ dq,
                      float* __restrict__ dg, float* __restrict__ ddelta,
-                     float* __restrict__ partial, int M, int d, int k, int QT) {
+                     float* __restrict__ partial, unsigned long long* __restrict__ stamps,
+                     int M, int d, int k, int QT) {
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
   const int nw = attn_weight_floats(d), nw4 = round_up(nw, 4);
   const int R = QT * k, Rp = round_up(R, PCI_ABWD_RT);
-  float* W = sm;          // the weights, attention.cu's layout
-  float* G = W + nw4;     // this block's gradient partial, same layout
-  float* A1 = G + nw4;    // r1, then dpre1
-  float* A2 = A1 + Rp * d;  // pos, then ds, da, dh, dpos
-  float* A3 = A2 + Rp * d;  // h
-  float* A4 = A3 + Rp * d;  // r2, then dpre2
-  float* A5 = A4 + Rp * d;  // a, then the softmax s
-  float* QV = A5 + Rp * d;  // [QT][d] q
-  float* GO = QV + QT * d;  // [QT][d] d res
-  float* DL = GO + QT * d;  // [Rp][3] delta
-  // offsets of each weight and bias in W and G
+  const int ld = round_up(d, 16) + 4, tile = PCI_ABWD_ROWS * ld;
+  const int d8 = round_up(d, 8), KT = d8 / 8;
+  float* G = sm;            // this block's gradient partial, wbuf's layout
+  float* A1 = G + nw4;      // r1, then dpre1
+  float* A2 = A1 + tile;    // pos, then da, dh, dpos
+  float* A3 = A2 + tile;    // h
+  float* A4 = A3 + tile;    // r2, then dpre2
+  float* A5 = A4 + tile;    // a, then the softmax s
+  float* KV = A5 + tile;    // [64][2d] the tile's K | V rows
+  float* WS = KV + PCI_ABWD_ROWS * 2 * d;  // W_d1^T, W_g0^T, W_g1^T, [d8][ld] each
+  float* WD0 = WS + 3 * d8 * ld;  // W_d0^T [8][ld] (rows 3..7 zero)
+  float* DL = WD0 + 8 * ld;       // [Rp][3] delta
+  // offsets of each weight and bias in wbuf and G
   const int oWd0 = 0, obd0 = 3 * d, oWd1 = obd0 + d, obd1 = oWd1 + d * d,
             oWg0 = obd1 + d, obg0 = oWg0 + d * d, oWg1 = obg0 + d,
             obg1 = oWg1 + d * d;
-  for (int e = threadIdx.x; e < nw; e += blockDim.x) {
-    W[e] = wbuf[e];
-    G[e] = 0.f;
+  float* Wd1 = WS;
+  float* Wg0 = WS + d8 * ld;
+  float* Wg1 = WS + 2 * d8 * ld;
+  for (int e = threadIdx.x; e < nw; e += blockDim.x) G[e] = 0.f;
+  for (int e = threadIdx.x; e < 5 * tile; e += blockDim.x) A1[e] = 0.f;
+  for (int e = threadIdx.x; e < 3 * d8 * ld; e += blockDim.x) {
+    const int l = e / (d8 * ld), i = (e / ld) % d8, o = e % ld;
+    const int off = (l == 0 ? oWd1 : l == 1 ? oWg0 : oWg1) + i * d + o;
+    WS[e] = i < d && o < d ? wbuf[off] : 0.f;
   }
+  for (int e = threadIdx.x; e < 8 * ld; e += blockDim.x)
+    WD0[e] = e / ld < 3 && e % ld < d ? wbuf[oWd0 + (e / ld) * d + e % ld] : 0.f;
+  for (int e = threadIdx.x; e < Rp * 3; e += blockDim.x) DL[e] = 0.f;
+  const bool timed = stamps != nullptr && threadIdx.x == 0;
+  unsigned long long tacc[PCI_ABWD_STAMPS] = {0, 0, 0, 0, 0}, tprev = timed ? global_ns() : 0;
+  auto mark = [&](int i) {
+    if (timed) {
+      const unsigned long long now = global_ns();
+      tacc[i] += now - tprev;
+      tprev = now;
+    }
+  };
   const float inv_sqrt_d = 1.f / sqrtf((float)d);
   const int two_d = 2 * d;
   const int tiles = (M + QT - 1) / QT;
-  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-    const int q0 = tile * QT;
+  int done = 0;
+  for (int tl = blockIdx.x; tl < tiles; tl += gridDim.x, ++done) {
+    const int q0 = tl * QT;
     const size_t row0 = (size_t)q0 * k;  // first (query, slot) row
     __syncthreads();  // the previous tile's readers are done
-    for (int e = threadIdx.x; e < QT * d; e += blockDim.x) {
-      const int m = q0 + e / d;
-      QV[e] = m < M ? q[(size_t)q0 * d + e] : 0.f;
-      GO[e] = m < M ? gout[(size_t)q0 * d + e] : 0.f;
+    mark(4);
+    {  // the tile's K | V rows by cp.async, in flight through the first layers
+      const int nv = min(R, (M - q0) * k) * two_d;  // the real queries' rows
+      const float* src = g + row0 * two_d;
+      if ((d & 1) == 0) {
+        for (int e = 4 * threadIdx.x; e < nv; e += 4 * blockDim.x) cp_async16(KV + e, src + e);
+      } else {
+        for (int e = threadIdx.x; e < nv; e += blockDim.x) cp_async4(KV + e, src + e);
+      }
+      cp_async_commit();
+      for (int e = nv + threadIdx.x; e < R * two_d; e += blockDim.x) KV[e] = 0.f;
     }
-    for (int e = threadIdx.x; e < Rp * 3; e += blockDim.x) {
-      const int r = e / 3;
-      DL[e] = r < R && q0 + r / k < M ? delta[row0 * 3 + e] : 0.f;
-    }
+    for (int e = threadIdx.x; e < R * 3; e += blockDim.x)
+      DL[e] = q0 + e / 3 / k < M ? delta[row0 * 3 + e] : 0.f;
     __syncthreads();
+    mark(0);
     // forward recompute
-    tile_dense(DL, 3, W + oWd0, W + obd0, A1, d, R, 3, d, true);
+    tile_dense(DL, 3, wbuf + oWd0, wbuf + obd0, A1, ld, R, 3, d, true);
     __syncthreads();
-    tile_dense(A1, d, W + oWd1, W + obd1, A2, d, R, d, d, false);
-    __syncthreads();
+    tile_mma(A1, Wd1, false, wbuf + obd1, d, A2, ld, R, KT, KT, false, nullptr);
+    cp_async_wait_all();
+    __syncthreads();  // pos and every thread's K | V copies are in
+    mark(1);
     for (int e = threadIdx.x; e < R * d; e += blockDim.x) {
       const int r = e / d, c = e % d;
-      const float kf = q0 + r / k < M ? g[(row0 + r) * two_d + c] : 0.f;
-      A3[e] = QV[(r / k) * d + c] - kf + A2[e];
+      const float qv = q0 + r / k < M ? q[(size_t)(q0 + r / k) * d + c] : 0.f;
+      A3[r * ld + c] = (qv - KV[r * two_d + c]) + A2[r * ld + c];
     }
     __syncthreads();
-    tile_dense(A3, d, W + oWg0, W + obg0, A4, d, R, d, d, true);
+    mark(2);
+    tile_mma(A3, Wg0, false, wbuf + obg0, d, A4, ld, R, KT, KT, true, nullptr);
     __syncthreads();
-    tile_dense(A4, d, W + oWg1, W + obg1, A5, d, R, d, d, false);
+    tile_mma(A4, Wg1, false, wbuf + obg1, d, A5, ld, R, KT, KT, false, nullptr);
     __syncthreads();
+    mark(1);
     // softmax over the slots per (query, channel); ds = (V + pos) * gout,
-    // da = s (ds - sum_k s ds) / sqrt(d); d V = s * gout
-    for (int e = threadIdx.x; e < QT * d; e += blockDim.x) {
-      const int qi = e / d, c = e % d;
-      const bool valid = q0 + qi < M;
-      const int rb = qi * k;
+    // da = s (ds - sum_k s ds) / sqrt(d); d V = s * gout.  Two neighbouring
+    // lanes a (query, channel), each over half the slots, their max and
+    // sums joined by one shuffle (every lane runs every round).
+    for (int w0 = 0; w0 < 2 * QT * d; w0 += blockDim.x) {
+      const int e = (w0 + threadIdx.x) >> 1, half = threadIdx.x & 1;
+      const bool act = e < QT * d;
+      const int qi = act ? e / d : 0, c = e - qi * d;
+      const bool valid = act && q0 + qi < M;
+      const int rb = qi * k, s0 = half ? (k + 1) / 2 : 0, s1 = act ? (half ? k : (k + 1) / 2) : 0;
       float mx = -CUDART_INF_F;
-      for (int s = 0; s < k; ++s) mx = fmaxf(mx, A5[(rb + s) * d + c]);
+      for (int s = s0; s < s1; ++s) mx = fmaxf(mx, A5[(rb + s) * ld + c]);
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
       float den = 0.f;
-      for (int s = 0; s < k; ++s) den += expf((A5[(rb + s) * d + c] - mx) * inv_sqrt_d);
-      const float go = GO[e];
+      for (int s = s0; s < s1; ++s) {
+        const int x = (rb + s) * ld + c;
+        const float ex = expf((A5[x] - mx) * inv_sqrt_d);
+        A5[x] = ex;
+        den += ex;
+      }
+      den += __shfl_xor_sync(0xffffffffu, den, 1);
+      const float go = valid ? gout[(size_t)q0 * d + e] : 0.f, rden = 1.f / den;
       float sds = 0.f;
-      for (int s = 0; s < k; ++s) {
-        const int x = (rb + s) * d + c;
-        const float sv = expf((A5[x] - mx) * inv_sqrt_d) / den;
-        const float vf = valid ? g[(row0 + rb + s) * two_d + d + c] : 0.f;
+      for (int s = s0; s < s1; ++s) {
+        const int x = (rb + s) * ld + c;
+        const float sv = A5[x] * rden;
+        const float vf = KV[(rb + s) * two_d + d + c];
         const float ds = (vf + A2[x]) * go;
         A5[x] = sv;
         A2[x] = ds;
         sds += sv * ds;
         if (valid) dg[(row0 + rb + s) * two_d + d + c] = sv * go;
       }
-      for (int s = 0; s < k; ++s) {
-        const int x = (rb + s) * d + c;
+      sds += __shfl_xor_sync(0xffffffffu, sds, 1);
+      for (int s = s0; s < s1; ++s) {
+        const int x = (rb + s) * ld + c;
         A2[x] = A5[x] * (A2[x] - sds) * inv_sqrt_d;
       }
     }
     __syncthreads();
+    mark(2);
     // gamma MLP
-    tile_wgrad(A4, d, A2, d, R, d, d, G + oWg1, G + obg1);
+    tile_wgrad_mma(A4, A2, ld, d, d, G + oWg1);
+    tile_bgrad(A2, ld, d, G + obg1);
     __syncthreads();
-    tile_dense_t(A2, d, W + oWg1, d, d, A4, d, R, A4);  // dpre2
+    mark(4);
+    tile_mma(A2, Wg1, true, nullptr, 0, A4, ld, R, KT, KT, false, A4);  // dpre2
     __syncthreads();
-    tile_wgrad(A3, d, A4, d, R, d, d, G + oWg0, G + obg0);
+    mark(3);
+    tile_wgrad_mma(A3, A4, ld, d, d, G + oWg0);
+    tile_bgrad(A4, ld, d, G + obg0);
     __syncthreads();
-    tile_dense_t(A4, d, W + oWg0, d, d, A2, d, R, nullptr);  // dh
+    mark(4);
+    tile_mma(A4, Wg0, true, nullptr, 0, A2, ld, R, KT, KT, false, nullptr);  // dh
     __syncthreads();
-    // dq = sum_k dh, dK = -dh, dpos = dh + s * gout
-    for (int e = threadIdx.x; e < QT * d; e += blockDim.x) {
-      const int qi = e / d, c = e % d;
-      const bool valid = q0 + qi < M;
-      const int rb = qi * k;
+    mark(3);
+    // dq = sum_k dh, dK = -dh, dpos = dh + s * gout (two lanes a (query,
+    // channel), as above)
+    for (int w0 = 0; w0 < 2 * QT * d; w0 += blockDim.x) {
+      const int e = (w0 + threadIdx.x) >> 1, half = threadIdx.x & 1;
+      const bool act = e < QT * d;
+      const int qi = act ? e / d : 0, c = e - qi * d;
+      const bool valid = act && q0 + qi < M;
+      const int rb = qi * k, s0 = half ? (k + 1) / 2 : 0, s1 = act ? (half ? k : (k + 1) / 2) : 0;
+      const float go = valid ? gout[(size_t)q0 * d + e] : 0.f;
       float acc = 0.f;
-      for (int s = 0; s < k; ++s) {
-        const int x = (rb + s) * d + c;
+      for (int s = s0; s < s1; ++s) {
+        const int x = (rb + s) * ld + c;
         const float dh = A2[x];
         acc += dh;
         if (valid) dg[(row0 + rb + s) * two_d + c] = -dh;
-        A2[x] = dh + A5[x] * GO[e];
+        A2[x] = dh + A5[x] * go;
       }
-      if (valid) dq[(size_t)q0 * d + e] = acc;
+      acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+      if (valid && half == 0) dq[(size_t)q0 * d + e] = acc;
     }
     __syncthreads();
+    mark(2);
     // pos MLP
-    tile_wgrad(A1, d, A2, d, R, d, d, G + oWd1, G + obd1);
+    tile_wgrad_mma(A1, A2, ld, d, d, G + oWd1);
+    tile_bgrad(A2, ld, d, G + obd1);
     __syncthreads();
-    tile_dense_t(A2, d, W + oWd1, d, d, A1, d, R, A1);  // dpre1
+    mark(4);
+    tile_mma(A2, Wd1, true, nullptr, 0, A1, ld, R, KT, KT, false, A1);  // dpre1
     __syncthreads();
-    tile_wgrad(DL, 3, A1, d, R, 3, d, G + oWd0, G + obd0);
+    mark(3);
+    // the 3-wide layer on the tensor cores too: delta into A5 (the softmax
+    // s, done with) as 16 zero-padded columns, dW_d0 += delta^T dpre1 and
+    // d delta = dpre1 W_d0 (one n-tile, into A3: h, done with)
+    for (int e = threadIdx.x; e < PCI_ABWD_ROWS * 16; e += blockDim.x) {
+      const int r = e >> 4, c = e & 15;
+      A5[r * ld + c] = c < 3 && r < R ? DL[r * 3 + c] : 0.f;
+    }
+    __syncthreads();
+    tile_wgrad_mma(A5, A1, ld, 3, d, G + oWd0);
+    tile_bgrad(A1, ld, d, G + obd0);
+    tile_mma(A1, WD0, true, nullptr, 0, A3, ld, R, KT, 1, false, nullptr);
+    __syncthreads();
     for (int e = threadIdx.x; e < R * 3; e += blockDim.x) {
-      const int r = e / 3, j = e % 3;
-      float s = 0.f;
-      for (int o = 0; o < d; ++o) s = fmaf(A1[r * d + o], W[oWd0 + j * d + o], s);
-      if (q0 + r / k < M) ddelta[row0 * 3 + e] = s;
+      const int r = e / 3;
+      if (q0 + r / k < M) ddelta[row0 * 3 + e] = A3[r * ld + e % 3];
     }
   }
   __syncthreads();
+  mark(4);
   for (int e = threadIdx.x; e < nw; e += blockDim.x)
     partial[(size_t)blockIdx.x * nw + e] = G[e];
+  if (timed) {
+    unsigned long long* st = stamps + (size_t)blockIdx.x * (PCI_ABWD_STAMPS + 1);
+    for (int i = 0; i < PCI_ABWD_STAMPS; ++i) st[i] = tacc[i];
+    st[PCI_ABWD_STAMPS] = done;
+  }
 }
 
 // out[e] = sum over blocks of partial[block][e], blocks in order.
@@ -257,23 +417,31 @@ __global__ void attention_bwd_reduce(const float* __restrict__ partial,
   }
 }
 
-// q [M, d], g [M, k, 2d] (K | V), delta [M, k, 3], wbuf (attention.cu's
-// layout), gout [M, d] -> dq [M, d], dg [M, k, 2d], ddelta [M, k, 3], and
-// dw: the weight and bias gradients in wbuf's layout.  partial: scratch of
-// at least max_blocks * attn_weight_floats(d) floats.  1 <= d <= 64,
+static size_t abwd_smem(int d, int k) {
+  const int QT = std::max(1, PCI_ABWD_ROWS / k);
+  const int Rp = round_up(QT * k, PCI_ABWD_RT);
+  const int ld = round_up(d, 16) + 4;
+  return sizeof(float) * ((size_t)round_up(attn_weight_floats(d), 4) +
+                          5 * (size_t)PCI_ABWD_ROWS * ld + (size_t)PCI_ABWD_ROWS * 2 * d +
+                          (3 * (size_t)round_up(d, 8) + 8) * ld + Rp * 3);
+}
+
+// q [M, d], g [M, k, 2d] (K | V), delta [M, k, 3], wbuf (common.cuh's
+// attention layout), gout [M, d] -> dq [M, d], dg [M, k, 2d], ddelta
+// [M, k, 3], and dw: the weight
+// and bias gradients in wbuf's layout.  partial: scratch of at least
+// max_blocks * attn_weight_floats(d) floats; stamps: null, or
+// [max_blocks][PCI_ABWD_STAMPS + 1] uint64 (zeroed).  1 <= d <= 64,
 // 1 <= k <= 32.
-extern "C" int pci_attention_bwd(const void* q, const void* g,
-                                 const void* delta, const void* wbuf,
-                                 const void* gout, void* dq, void* dg,
-                                 void* ddelta, void* partial, void* dw, int M,
-                                 int d, int k, int max_blocks, void* stream) {
+extern "C" int pci_attention_bwd(const void* q, const void* g, const void* delta,
+                                 const void* wbuf, const void* gout, void* dq, void* dg, void* ddelta,
+                                 void* partial, void* dw, void* stamps, int M, int d, int k,
+                                 int max_blocks, void* stream) {
   if (d < 1 || d > 64 || k < 1 || k > 32 || M < 1 || max_blocks < 1)
     return (int)cudaErrorInvalidValue;
   const int QT = std::max(1, PCI_ABWD_ROWS / k);
-  const int Rp = round_up(QT * k, PCI_ABWD_RT);
   const int nw = attn_weight_floats(d);
-  const size_t smem = sizeof(float) * ((size_t)2 * round_up(nw, 4) + 5 * Rp * d +
-                                       2 * QT * d + Rp * 3);
+  const size_t smem = abwd_smem(d, k);
   cudaError_t e = allow_smem(attention_bwd_kernel, smem);
   if (e != cudaSuccess) return (int)e;
   const int tiles = (M + QT - 1) / QT;
@@ -283,11 +451,17 @@ extern "C" int pci_attention_bwd(const void* q, const void* g,
   attention_bwd_kernel<<<blocks, PCI_ABWD_THREADS, smem, st>>>(
       static_cast<const float*>(q), static_cast<const float*>(g),
       static_cast<const float*>(delta), static_cast<const float*>(wbuf),
-      static_cast<const float*>(gout), static_cast<float*>(dq),
-      static_cast<float*>(dg), static_cast<float*>(ddelta), part, M, d, k, QT);
+      static_cast<const float*>(gout), static_cast<float*>(dq), static_cast<float*>(dg),
+      static_cast<float*>(ddelta), part, static_cast<unsigned long long*>(stamps), M, d, k,
+      QT);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   attention_bwd_reduce<<<(nw + 255) / 256, 256, 0, st>>>(part, blocks, nw,
                                                          static_cast<float*>(dw));
   return (int)cudaGetLastError();
+}
+
+// The kernel's resources at d = 64, k = 16 (_build.kernel_attrs).
+extern "C" int pci_attention_bwd_attrs(int* out) {
+  return kernel_attrs(attention_bwd_kernel, abwd_smem(64, 16), out, PCI_ABWD_THREADS);
 }

@@ -181,12 +181,6 @@ __device__ __forceinline__ float bid_incr(const Top2& t, float eps) {
   return __fadd_rn(fminf(__fsub_rn(t.v2, t.v1), 1e30f), eps);
 }
 
-__device__ __forceinline__ unsigned long long global_ns() {
-  unsigned long long t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
-}
-
 struct AuctionPassParams {
   const float* q;             // [n][3] normalised queries
   const float* k;             // [m][3] normalised keys

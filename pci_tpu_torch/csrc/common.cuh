@@ -48,6 +48,13 @@ static inline long long mlp_floats(const int* dims, int n) {
 
 __host__ __device__ inline int round_up(int x, int m) { return (x + m - 1) / m * m; }
 
+// %globaltimer in ns, for a kernel's optional stage stamps.
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
 // The vector-attention tail's weight buffer (csrc/attention.cu and
 // csrc/attention_bwd.cu), fp32, row-major [in][out]: Wd0 [3][d], bd0 [d],
 // Wd1 [d][d], bd1 [d], Wg0 [d][d], bg0 [d], Wg1 [d][d], bg1 [d].

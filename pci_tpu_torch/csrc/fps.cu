@@ -24,6 +24,16 @@
 // lowest index, as
 // jnp.argmax breaks them; once every distance is 0 (npoint > N) the argmax is
 // index 0 again, as in the XLA loop.
+//
+// A chain of more than 16,384 points (exact FPS over a large cloud; the JAX
+// op runs its kernel at any size) does not fit in one block's shared memory
+// and registers: fps_long_kernel keeps its points (x, y, z as a float4) and
+// running distances in a global scratch the wrapper allocates, 20 bytes a
+// point, L2-resident (32,768 points: 640 KB); one block of 32 warps a
+// chain, each thread owning the points g, g + 1024, ... (coalesced), the
+// same compares and the same two-level reduction with one block barrier an
+// iteration.  Only that route reads global memory in its loop; the chains
+// up to 16,384 points are unchanged.
 #include "stages.cuh"
 
 #define FPS_MAX_WARPS 16
@@ -77,6 +87,52 @@ fps_warp_kernel(const float* __restrict__ xyz, const int* __restrict__ start,
   });
 }
 
+#define FPS_LONG_WARPS 32
+
+// One chain of any length: pts [L] (x, y, z, 0) and dist [L] in scratch.
+__global__ void __launch_bounds__(32 * FPS_LONG_WARPS)
+fps_long_kernel(const float* __restrict__ xyz, const int* __restrict__ start,
+                int* __restrict__ out, float4* __restrict__ scratch, int N, int npoint,
+                int P, int Lp) {
+  __shared__ uint2 slots[2][FPS_LONG_WARPS];
+  const int s = blockIdx.x, b = blockIdx.y;
+  const int L = (N - s + P - 1) / P;
+  const int g = threadIdx.x, lane = g & 31, warp = g >> 5, stride = blockDim.x;
+  float4* pts = scratch + ((size_t)b * P + s) * Lp;
+  float* dist = reinterpret_cast<float*>(scratch + (size_t)gridDim.y * P * Lp) +
+                ((size_t)b * P + s) * Lp;
+  const float* X = xyz + (size_t)b * N * 3;
+  for (int j = g; j < L; j += stride) {
+    const size_t q = (size_t)(s + (size_t)j * P) * 3;
+    pts[j] = make_float4(X[q], X[q + 1], X[q + 2], 0.f);
+    dist[j] = CUDART_INF_F;
+  }
+  int far = min((start ? start[b] : 0) / P, L - 1);
+  __syncthreads();  // every point is in scratch before any centre is read
+  for (int it = 0; it < npoint / P; ++it) {
+    if (g == 0) out[(size_t)b * npoint + (size_t)it * P + s] = far * P + s;
+    const float4 c = pts[far];
+    float bd = -1.f;
+    unsigned bj = 0x7fffffffu;
+    for (int j = g; j < L; j += stride) {  // j grows: the first maximum is kept
+      const float4 p = pts[j];
+      const float d = fminf(dist[j], sqdist3(p.x, p.y, p.z, c.x, c.y, c.z));
+      dist[j] = d;
+      if (d > bd) bd = d, bj = (unsigned)j;
+    }
+    const unsigned bits = bd < 0.f ? 0u : __float_as_uint(bd);  // no point: 0
+    unsigned top = __reduce_max_sync(0xffffffffu, bits);
+    unsigned win = __reduce_min_sync(0xffffffffu, bits == top ? bj : 0x7fffffffu);
+    uint2* sl = slots[it & 1];
+    if (lane == 0) sl[warp] = make_uint2(top, win);
+    __syncthreads();
+    const uint2 o = lane < FPS_LONG_WARPS ? sl[lane] : make_uint2(0u, 0x7fffffffu);
+    top = __reduce_max_sync(0xffffffffu, o.x);
+    win = __reduce_min_sync(0xffffffffu, o.x == top ? o.y : 0x7fffffffu);
+    far = (int)win;
+  }
+}
+
 template <int PPL>
 static cudaError_t launch_group(const float* xyz, const int* start, int* out, int B, int N,
                                 int npoint, int P, int W, cudaStream_t stream) {
@@ -96,7 +152,7 @@ static cudaError_t launch_warp(const float* xyz, const int* start, int* out, int
 }
 
 // xyz [B, N, 3] fp32, start [B] int32 or null (0) -> out [B, npoint] int32; at most
-// 16,384 points a chain.
+// 16,384 points a chain (pci_fps_long above).
 extern "C" int pci_fps(const void* xyz, const void* start, void* out, int B, int N,
                        int npoint, int P, void* stream) {
   const float* x = static_cast<const float*>(xyz);
@@ -120,4 +176,16 @@ extern "C" int pci_fps(const void* xyz, const void* start, void* out, int B, int
   if (ppl <= 16) return launch_group<16>(x, st, o, B, N, npoint, P, W, s);
   if (ppl <= 32) return launch_group<32>(x, st, o, B, N, npoint, P, W, s);
   return (int)cudaErrorInvalidValue;  // > 16,384 points a chain
+}
+
+// pci_fps's function for chains of any length (the wrapper takes it above
+// 16,384 points a chain); scratch: at least B * P * ceil(N / P) * 5 floats.
+extern "C" int pci_fps_long(const void* xyz, const void* start, void* out, void* scratch,
+                            int B, int N, int npoint, int P, void* stream) {
+  if (B < 1 || N < 1 || P < 1 || npoint % P) return (int)cudaErrorInvalidValue;
+  const int Lp = (N + P - 1) / P;
+  fps_long_kernel<<<dim3(P, B), 32 * FPS_LONG_WARPS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(xyz), static_cast<const int*>(start), static_cast<int*>(out),
+      static_cast<float4*>(scratch), N, npoint, P, Lp);
+  return (int)cudaGetLastError();
 }

@@ -263,16 +263,6 @@ __device__ __forceinline__ void oneshot_slots(const float* __restrict__ P, int N
   }
 }
 
-// The chained A fragment of a k-step from the previous layer's n-tile acc:
-// (g, 2t), (g + 8, 2t), (g, 2t + 1), (g + 8, 2t + 1), split.
-__device__ __forceinline__ void split_chained(const float (&acc)[4], uint32_t (&ahi)[4],
-                                              uint32_t (&alo)[4]) {
-  tf32_split(acc[0], ahi[0], alo[0]);
-  tf32_split(acc[2], ahi[1], alo[1]);
-  tf32_split(acc[1], ahi[2], alo[2]);
-  tf32_split(acc[3], ahi[3], alo[3]);
-}
-
 // One 16-slot row tile of the score head on the tensor cores: rows are
 // slots 16 mt .. 16 mt + 15 of this warp's query, the input [r | safe_norm]
 // of slot s held by lane s.  4 -> 64 -> 64 -> 128, ReLU after each, in

@@ -27,8 +27,10 @@
 // block), and the query's sorted top list in registers (fully unrolled, so
 // no local memory).  A key enters only when strictly nearer than the
 // current k-th, so among equal distances the earlier (lower) index stays
-// ahead, as a stable sort keeps it.  Pruning whole tiles by a bounding-box
-// lower bound (exact, unlike the TPU's) is later work.
+// ahead, as a stable sort keeps it.  Above k = 64 (up to knn_pallas's
+// 128) the list no longer fits in registers: it lives in local memory
+// (L1-cached) and the insertion is a loop with the same compares in the
+// same order.  csrc/knn_cells.cu serves the large self kNNs.
 #include "common.cuh"
 
 #define PCI_KNN_TILE 1024
@@ -70,17 +72,23 @@ knn_kernel(const float* __restrict__ query, const float* __restrict__ points,
         // index is lower than base + t, so it goes after equal distances
         float cd = d;
         int ci = base + t;
+#define PCI_KNN_STEP                                          \
+  if (cd < bd[i] || (cd == bd[i] && ci < bi[i])) {            \
+    const float td = bd[i];                                   \
+    const int ti = bi[i];                                     \
+    bd[i] = cd;                                               \
+    bi[i] = ci;                                               \
+    cd = td;                                                  \
+    ci = ti;                                                  \
+  }
+        if constexpr (KM <= 64) {
 #pragma unroll
-        for (int i = 0; i < KM; ++i) {
-          if (cd < bd[i] || (cd == bd[i] && ci < bi[i])) {
-            const float td = bd[i];
-            const int ti = bi[i];
-            bd[i] = cd;
-            bi[i] = ci;
-            cd = td;
-            ci = ti;
-          }
+          for (int i = 0; i < KM; ++i) { PCI_KNN_STEP }
+        } else {
+#pragma unroll 1
+          for (int i = 0; i < KM; ++i) { PCI_KNN_STEP }
         }
+#undef PCI_KNN_STEP
       }
     }
   }
@@ -108,11 +116,11 @@ static cudaError_t launch_knn(const float* q, const float* p, const int* vn,
 }
 
 // query [B, S, 3], points [B, N, 3] fp32, valid_n [B] int32 or null ->
-// out_d [B, S, k] fp32, out_i [B, S, k] int64; 1 <= k <= min(64, N).
+// out_d [B, S, k] fp32, out_i [B, S, k] int64; 1 <= k <= min(128, N).
 extern "C" int pci_knn(const void* query, const void* points,
                        const void* valid_n, void* out_d, void* out_i, int B,
                        int N, int S, int k, void* stream) {
-  if (k < 1 || k > 64 || k > N || S < 1) return (int)cudaErrorInvalidValue;
+  if (k < 1 || k > 128 || k > N || S < 1) return (int)cudaErrorInvalidValue;
   const float* q = static_cast<const float*>(query);
   const float* p = static_cast<const float*>(points);
   const int* vn = static_cast<const int*>(valid_n);
@@ -124,5 +132,6 @@ extern "C" int pci_knn(const void* query, const void* points,
   if (k <= 8) return (int)launch_knn<8>(q, p, vn, od, oi, B, N, S, k, st);
   if (k <= 16) return (int)launch_knn<16>(q, p, vn, od, oi, B, N, S, k, st);
   if (k <= 32) return (int)launch_knn<32>(q, p, vn, od, oi, B, N, S, k, st);
-  return (int)launch_knn<64>(q, p, vn, od, oi, B, N, S, k, st);
+  if (k <= 64) return (int)launch_knn<64>(q, p, vn, od, oi, B, N, S, k, st);
+  return (int)launch_knn<128>(q, p, vn, od, oi, B, N, S, k, st);
 }

@@ -56,12 +56,6 @@ struct KnnCellsParams {
   int S, Np, Sp, C, TQ, nc, nt, k;
 };
 
-__device__ __forceinline__ unsigned long long global_ns() {
-  unsigned long long t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
-}
-
 // The tile's stamps: its start and end (thread 0), the chunks it walked,
 // the list inserts its threads made and the pairs they scanned.
 __device__ __forceinline__ void stamp_tile(const KnnCellsParams& p, unsigned long long t0,

@@ -1,6 +1,7 @@
 // Dense layers on the tensor cores at fp32 accuracy (3xTF32), shared by the
-// one-shot fusion (csrc/fusion_knn.cu) and the FlowNet3D decode megakernel
-// (csrc/flowmid.cu).
+// one-shot fusion (csrc/fusion_knn.cu), the FlowNet3D megakernels
+// (csrc/flowmid.cu, csrc/flowenc.cu), kNN-conv and the vector-attention
+// tail (csrc/attention.cu, csrc/attention_bwd.cu).
 //
 // The split.  A TF32 operand keeps 10 of fp32's 23 mantissa bits (about
 // 5e-4 relative), too coarse for the fusion's scores, which pass through
@@ -57,15 +58,17 @@ static inline MlpSpec make_tf32_spec(const int* dims, int n, long long base) {
   return s;
 }
 
-// x -> (hi, lo) TF32 bit patterns, x ~= hi + lo to ~2^-22 relative.
+// x -> (hi, lo) TF32 bit patterns, x ~= hi + lo to ~2^-22 relative.  Each
+// half is cvt.rna.tf32.f32 (nearest, ties away from zero) done in integer
+// arithmetic on the bits, the same bits for every finite x (and
+// _build.tf32_round's formula): the conversion instruction issues at a
+// quarter of the integer rate, and a kernel that splits both operands of
+// every product (csrc/attention_bwd.cu) was bound by it.
 __device__ __forceinline__ void tf32_split(float x, uint32_t& hi, uint32_t& lo) {
-  uint32_t h, l;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(h) : "f"(x));
-  h &= 0xffffe000u;
+  const uint32_t h = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
   const float r = x - __uint_as_float(h);
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(l) : "f"(r));
   hi = h;
-  lo = l & 0xffffe000u;
+  lo = (__float_as_uint(r) + 0x1000u) & 0xffffe000u;
 }
 
 __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
@@ -98,6 +101,16 @@ __device__ __forceinline__ void mma_3xtf32_apart(float (&d)[4], float (&small)[4
       : "=f"(p0), "=f"(p1), "=f"(p2), "=f"(p3)
       : "r"(ahi[0]), "r"(ahi[1]), "r"(ahi[2]), "r"(ahi[3]), "r"(bh0), "r"(bh1), "f"(0.f));
   d[0] += p0, d[1] += p1, d[2] += p2, d[3] += p3;
+}
+
+// The chained A fragment of a k-step from the previous layer's n-tile acc:
+// (g, 2t), (g + 8, 2t), (g, 2t + 1), (g + 8, 2t + 1), split.
+__device__ __forceinline__ void split_chained(const float (&acc)[4], uint32_t (&ahi)[4],
+                                              uint32_t (&alo)[4]) {
+  tf32_split(acc[0], ahi[0], alo[0]);
+  tf32_split(acc[2], ahi[1], alo[1]);
+  tf32_split(acc[1], ahi[2], alo[2]);
+  tf32_split(acc[3], ahi[3], alo[3]);
 }
 
 // The A fragment of rows r0 + g, r0 + g + 8 (g = lane / 4), columns

@@ -3,8 +3,11 @@
 route).
 
 kNN(k) neighbourhoods of each point in its own cloud (on the detached
-cloud), one fused ``[xyz | K | V]`` row gather, offsets ``delta = xyz -
-knn_xyz``, then the vector-attention tail and ``fc2`` plus the residual.
+cloud), the neighbours' xyz and ``[K | V]`` rows gathered apart (each
+contiguous: the tail kernels read a query's K | V block as one span, and a
+slice of a fused ``[xyz | K | V]`` gather would be copied whole first),
+offsets ``delta = xyz - knn_xyz``, then the vector-attention tail and
+``fc2`` plus the residual.
 The tail is one kernel on the card: the eval kernel, or in training the
 trainable route (the same forward kernel and a backward kernel), as the
 TPU's ``vector_attention_trainable``.  Returns ``(out, None)``, as the TPU
@@ -17,8 +20,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ..ops import index_points
 from ..ops.cuda_kernels import knn, vector_attention, vector_attention_trainable
-from .layers import gather_split
 
 
 class TransformerLayer(nn.Module):
@@ -44,7 +47,7 @@ class TransformerLayer(nn.Module):
         x = self.fc1(feats)
         kv = torch.cat([self.w_ks(x), self.w_vs(x)], -1)
         _, idx = knn(xyz, xyz, self.k)
-        knn_xyz, g = gather_split(xyz, kv, idx)
+        knn_xyz, g = index_points(xyz.float(), idx), index_points(kv.float(), idx)
         delta = xyz[:, :, None, :] - knn_xyz  # [B, N, k, 3]
         tail = [(m.weight, m.bias) for m in (self.fc_delta_0, self.fc_delta_1,
                                             self.fc_gamma_0, self.fc_gamma_1)]

@@ -41,6 +41,7 @@ _FP = ctypes.POINTER(ctypes.c_float)
 # C entry points: name -> argtypes (every function returns cudaGetLastError)
 _SIGNATURES = {
     "pci_fps": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "pci_fps_long": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "pci_setconv": [_P, _P, _P, _P, _IP, _I, _P, _I, _I, _I, _I, _F, _I, _P],
     "pci_knnconv": [_P, _P, _P, _P, _P, _P, _P, _IP, _I, _IP, _I, _P] + [_I] * 10 + [_P],
     "pci_knnconv_attrs": [_IP],
@@ -51,9 +52,11 @@ _SIGNATURES = {
     "pci_ball": [_P, _P, _P, _FP, _IP, _I, _I, _I, _I, _P],
     "pci_knn": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "pci_knn_cells": [_P] * 9 + [_I] * 7 + [_P],
-    "pci_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "pci_attention": [_P] * 7 + [_I, _I, _I, _P],
+    "pci_attention_attrs": [_IP],
+    "pci_attention_bwd_attrs": [_IP],
     "pci_fusion_resi": [_P, _P, _P, _I, _P, _P, _I, _I, _I, _P],
-    "pci_attention_bwd": [_P] * 10 + [_I, _I, _I, _I, _P],
+    "pci_attention_bwd": [_P] * 11 + [_I, _I, _I, _I, _P],
     "pci_flowenc": [_P, _P, _P, _P, _IP, _I, _P, _IP, _I, _P, _P, _P, _P, _P, _I, _I,
                     _I, _I, _I, _F, _I, _F, _I, _P],
     "pci_flowmid": [_P] * 6 + [ctypes.POINTER(_P), _IP, _IP, _IP] + [_P] * 9

@@ -24,8 +24,14 @@ import torch
 
 from . import _build
 
-BWD_MAX_D = 64  # the backward holds the weights twice and five [64, d] tiles
-# in shared memory
+BWD_MAX_D = 64  # the backward holds five [64, d] tiles and its weight
+# gradients' partial in shared memory
+# the forward's tensor-core route (csrc/attention.cu attention_tc_kernel):
+# one warp a query, its slots one 16-row tile, up to 8 n-tiles in registers
+TC_MAX_D, TC_MAX_K = 64, 16
+FWD_WARPS, FWD_STAMPS = 12, 5  # csrc/attention.cu ATC_WARPS, ATC_STAMPS
+BWD_STAMPS = 5  # csrc/attention_bwd.cu PCI_ABWD_STAMPS
+_PACKS = []  # the most recent weight packs: (kind, tensors, versions, buffer)
 # the plain backward runs blocks of this many (query, slot) rows
 _PLAIN_ROWS = 1 << 16
 
@@ -37,13 +43,44 @@ def vector_attention(q: torch.Tensor, g: torch.Tensor, delta: torch.Tensor,
     ``[(W [d, 3], b), (W [d, d], b), (W, b), (W, b)]`` of fc_delta_0,
     fc_delta_1, fc_gamma_0, fc_gamma_1 (``nn.Linear`` layout) ->
     ``res [B, N, d]`` fp32.  The kernel takes ``d <= 128`` (a multiple of 8)
-    and ``k <= 32``."""
+    and ``k <= 32``: on the tensor cores at ``d <= 64`` and ``k <= 16``
+    (:func:`tc_route_ok`), the scalar route otherwise."""
     _build.check_eval_only("vector_attention", q, g, delta,
                            *[t for wb in tail for t in wb])
     if _build.use_kernel(q):
         return attention_kernel(q.float().contiguous(), g.float().contiguous(),
                                 delta.float().contiguous(), tail)
     return attention_plain(q, g, delta, tail)
+
+
+def tc_route_ok(d: int, k: int) -> bool:
+    """The forward's tensor-core route: ``d <= 64`` (a multiple of 8) and
+    ``k <= 16`` (the transformer's d = 64, k = 16); the scalar kernel
+    serves the rest of the wrapper's shapes."""
+    return d % 8 == 0 and 8 <= d <= TC_MAX_D and 1 <= k <= TC_MAX_K
+
+
+def _cached(kind: str, tail, make) -> torch.Tensor:
+    """``make()``, kept for the same weight tensors at the same versions
+    (the entries hold the tensors, so a match cannot be a freed tensor's
+    address reused); inference tensors carry no version and are packed
+    every call."""
+    ts = tuple(t for wb in tail for t in wb)
+    if any(t.is_inference() for t in ts):
+        return make()
+    versions = tuple(t._version for t in ts)
+    for entry in _PACKS:
+        if entry[0] == kind and entry[2] == versions and all(
+                a is b for a, b in zip(entry[1], ts)):
+            return entry[3]
+    buf = make()
+    _PACKS.insert(0, (kind, ts, versions, buf))
+    del _PACKS[8:]
+    return buf
+
+
+def _sm_count(dev) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
 def pack_tail(tail, device) -> torch.Tensor:
@@ -53,7 +90,14 @@ def pack_tail(tail, device) -> torch.Tensor:
     return torch.cat(parts).to(device=device, dtype=torch.float32).contiguous()
 
 
-def attention_kernel(q, g, delta, tail):
+def pack_tail_tc(tail, device) -> torch.Tensor:
+    """The tensor-core forward's weights: the four layers split for 3xTF32
+    in :func:`_build.pack_tf32`'s layout, layers 1-3 chained (their A
+    operand is the previous layer's accumulator fragments)."""
+    return _build.pack_tf32(tail, device, chain=True)
+
+
+def attention_kernel(q, g, delta, tail, stamps=None):
     dev = q.device
     _build.require(q, "q", torch.float32, 3, dev)
     _build.require(g, "g", torch.float32, 4, dev)
@@ -69,11 +113,25 @@ def attention_kernel(q, g, delta, tail):
     shapes = [tuple(w.shape) for w, _ in tail]
     if shapes != [(d, 3), (d, d), (d, d), (d, d)]:
         raise ValueError(f"attention kernel: tail layer shapes {shapes} for d={d}")
-    wbuf = pack_tail(tail, dev)
+    tc = tc_route_ok(d, k)
+    if stamps is not None:
+        if not tc:
+            raise ValueError("attention kernel: stamps are the tensor-core route's")
+        _build.require(stamps, "stamps", torch.int64, 2, dev)
+        if stamps.shape[1] != FWD_STAMPS + 1 or stamps.shape[0] < _sm_count(dev) * FWD_WARPS:
+            raise ValueError(f"attention kernel: stamps must be [>= SMs x {FWD_WARPS}, "
+                             f"{FWD_STAMPS + 1}]")
+    if tc:
+        wbuf, wtc = None, _cached("tc", tail, lambda: pack_tail_tc(tail, dev))
+    else:
+        wbuf, wtc = _cached("fp32", tail, lambda: pack_tail(tail, dev)), None
     out = torch.empty((B, N, d), dtype=torch.float32, device=dev)
     err = _build.library().pci_attention(
-        q.data_ptr(), g.data_ptr(), delta.data_ptr(), wbuf.data_ptr(),
-        out.data_ptr(), B * N, d, k, _build.stream_ptr(dev),
+        q.data_ptr(), g.data_ptr(), delta.data_ptr(),
+        wbuf.data_ptr() if wbuf is not None else None,
+        wtc.data_ptr() if wtc is not None else None, out.data_ptr(),
+        stamps.data_ptr() if stamps is not None else None, B * N, d, k,
+        _build.stream_ptr(dev),
     )
     _build.check_launch("attention", err)
     attention_kernel.launches += 1
@@ -152,7 +210,7 @@ def _unpack_grads(dw: torch.Tensor, d: int):
     return out
 
 
-def attention_bwd_kernel(q, g, delta, tail, gout):
+def attention_bwd_kernel(q, g, delta, tail, gout, stamps=None):
     dev = q.device
     for name, t, nd in (("q", q, 3), ("g", g, 4), ("delta", delta, 4), ("gout", gout, 3)):
         _build.require(t, name, torch.float32, nd, dev)
@@ -164,15 +222,20 @@ def attention_bwd_kernel(q, g, delta, tail, gout):
     if not 1 <= d <= BWD_MAX_D or not 1 <= k <= 32:
         raise ValueError(f"attention backward kernel takes d <= {BWD_MAX_D} and k <= 32, "
                          f"got d={d} k={k}")
-    wbuf = pack_tail(tail, dev)
-    blocks = torch.cuda.get_device_properties(dev).multi_processor_count
+    wbuf = _cached("fp32", tail, lambda: pack_tail(tail, dev))
+    blocks = _sm_count(dev)
+    if stamps is not None:
+        _build.require(stamps, "stamps", torch.int64, 2, dev)
+        if stamps.shape != (blocks, BWD_STAMPS + 1):
+            raise ValueError(f"attention backward: stamps must be [{blocks}, {BWD_STAMPS + 1}]")
     partial = torch.empty(blocks * wbuf.numel(), dtype=torch.float32, device=dev)
     dw = torch.empty_like(wbuf)
     dq, dg, ddelta = torch.empty_like(q), torch.empty_like(g), torch.empty_like(delta)
     err = _build.library().pci_attention_bwd(
         q.data_ptr(), g.data_ptr(), delta.data_ptr(), wbuf.data_ptr(), gout.data_ptr(),
-        dq.data_ptr(), dg.data_ptr(), ddelta.data_ptr(), partial.data_ptr(),
-        dw.data_ptr(), B * N, d, k, blocks, _build.stream_ptr(dev),
+        dq.data_ptr(), dg.data_ptr(), ddelta.data_ptr(),
+        partial.data_ptr(), dw.data_ptr(), stamps.data_ptr() if stamps is not None else None,
+        B * N, d, k, blocks, _build.stream_ptr(dev),
     )
     _build.check_launch("attention_bwd", err)
     attention_bwd_kernel.launches += 1
@@ -180,6 +243,37 @@ def attention_bwd_kernel(q, g, delta, tail, gout):
 
 
 attention_bwd_kernel.launches = 0
+
+
+def attention_stages(q, g, delta, tail, gout) -> dict:
+    """One measurement launch of the forward and one of the backward on
+    CUDA inputs with their ``%globaltimer`` stamps on: each kernel's stage
+    times summed over its warps (forward: waiting for the query's copies,
+    the pos MLP, forming h and V + pos, the gamma MLP, the softmax) or its
+    blocks (backward: the tile's loads, the forward's layers, the softmax
+    and gradient sums, the input gradients' products, the weight
+    gradients), as shares of the summed time, with the kernel's span
+    (the longest warp's or block's sum, ms) and queries or tiles a warp or
+    block (mean and max)."""
+    dev = q.device
+    fs = torch.zeros((_sm_count(dev) * FWD_WARPS, FWD_STAMPS + 1), dtype=torch.int64,
+                     device=dev)
+    bs = torch.zeros((_sm_count(dev), BWD_STAMPS + 1), dtype=torch.int64, device=dev)
+    attention_kernel(q, g, delta, tail, stamps=fs)
+    attention_bwd_kernel(q, g, delta, tail, gout, stamps=bs)
+    out = {}
+    for name, t, keys in (
+            ("forward", fs, ("wait", "pos_mlp", "h_vp", "gamma_mlp", "softmax")),
+            ("backward", bs, ("loads", "fwd_layers", "softmax_sums", "dx_products",
+                              "dw_products"))):
+        t = t.cpu().double()
+        t = t[t[:, -1] > 0]
+        ns = t[:, :-1]
+        total = float(ns.sum())
+        out[name] = {**{k: float(ns[:, i].sum()) / total for i, k in enumerate(keys)},
+                     "span_ms": float(ns.sum(1).max()) * 1e-6,
+                     "units_mean": float(t[:, -1].mean()), "units_max": float(t[:, -1].max())}
+    return out
 
 
 def attention_bwd_plain(q, g, delta, tail, gout):

@@ -10,6 +10,9 @@ is exact greedy FPS.  Ties go to the lowest index, as ``jnp.argmax``.
 On the card each chain is a group of W warps with one barrier an
 iteration (``csrc/stages.cuh:fps_group_chain``): W = 8 up to 2,048 points
 a chain, 16 above; one warp for an exact chain of at most 256 points.
+Above ``CHAIN_MAX`` points a chain, the long-chain route
+(``csrc/fps.cu:fps_long_kernel``): 32 warps a chain, its points and
+distances in a global scratch.
 """
 
 from __future__ import annotations
@@ -17,6 +20,8 @@ from __future__ import annotations
 import torch
 
 from . import _build
+
+CHAIN_MAX = 16384  # points a chain in one block's shared memory and registers
 
 
 def fps_index(xyz: torch.Tensor, npoint: int, start: torch.Tensor | int,
@@ -35,23 +40,28 @@ def fps_index(xyz: torch.Tensor, npoint: int, start: torch.Tensor | int,
 
 def fps_kernel(xyz: torch.Tensor, npoint: int, start: torch.Tensor,
                P: int) -> torch.Tensor:
-    """One launch."""
+    """One launch: the chain in a block up to ``CHAIN_MAX`` points a chain,
+    the long-chain route above."""
     B, N, _ = xyz.shape
     dev = xyz.device
     _build.require(xyz, "xyz", torch.float32, 3, dev)
     if xyz.shape[-1] != 3:
         raise ValueError("fps kernel takes [B, N, 3] clouds")
-    if -(-N // P) > 16384:
-        raise ValueError("fps kernel holds at most 16,384 points a chain")
     if isinstance(start, int):  # 0 needs no tensor: the kernel reads null as 0
         start = torch.full((B,), start, dtype=torch.int32, device=dev) if start else None
     else:
         start = start.to(device=dev, dtype=torch.int32).expand(B).contiguous()
     out = torch.empty((B, npoint), dtype=torch.int32, device=dev)
-    err = _build.library().pci_fps(
-        xyz.data_ptr(), start.data_ptr() if start is not None else None, out.data_ptr(), B, N,
-        npoint, P, _build.stream_ptr(dev),
-    )
+    st = start.data_ptr() if start is not None else None
+    L = -(-N // P)
+    if L > CHAIN_MAX:
+        scratch = torch.empty(B * P * L * 5, dtype=torch.float32, device=dev)
+        err = _build.library().pci_fps_long(xyz.data_ptr(), st, out.data_ptr(),
+                                            scratch.data_ptr(), B, N, npoint, P,
+                                            _build.stream_ptr(dev))
+    else:
+        err = _build.library().pci_fps(xyz.data_ptr(), st, out.data_ptr(), B, N, npoint, P,
+                                       _build.stream_ptr(dev))
     _build.check_launch("fps", err)
     fps_kernel.launches += 1
     return out

@@ -21,7 +21,14 @@ surplus slots hold 1e30 and the indices ``valid_n, valid_n + 1, ...``.
 - ``pci_tpu/ops/pallas_kernels/knn_tpu.py:knn_pallas`` (the chamfer loss's
   nearest neighbour, k=1): the kernel's one-running-minimum form, counted
   in ``nearest_launches.launches``.  The TPU kernel takes k <= 128 and
-  buckets its keys; this one is exact and takes k <= 64.
+  buckets its keys; this one is exact and takes k <= 128 (above 64 its
+  list lives in local memory).
+
+Route (:func:`kernel_route_ok`, decided by shape before any launch, as
+``pci_tpu/ops/knn.py:_use_pallas`` decides): xyz clouds with ``1 <= k <=
+min(FLAT_MAX_K, N)`` take a kernel; anything else (``C != 3``, ``k > 128``,
+``k > N``) takes :func:`knn_plain`, the counterpart of the JAX op's XLA
+branch, on any device.
 
 Distances and indices carry no gradient: the inputs are detached, as
 ``knn_pallas`` stop-gradients them.
@@ -39,7 +46,8 @@ from ..cells import box_lb, chunk_boxes, sort_by_morton
 from ..distance import square_distance
 from . import _build
 
-MAX_K = 64  # the kernel keeps the top list in registers
+MAX_K = 64  # the box-pruned kernel keeps the top list in registers
+FLAT_MAX_K = 128  # the flat kernel: in registers up to 64, in local memory above
 SENTINEL = 1e30  # the distance of a key outside the prefix
 # the plain version sorts [rows, N] blocks: about 2**27 elements a block
 # (distances, sorted values and int64 indices: ~2 GB) whatever N is
@@ -59,16 +67,25 @@ def knn(query: torch.Tensor, points: torch.Tensor, k: int,
         valid_n: torch.Tensor | None = None):
     """``query [B, S, C]``, ``points [B, N, C]``, ``valid_n [B]`` int or
     None (every key) -> ``(sq_dists [B, S, k]`` fp32, ``idx [B, S, k]``
-    int64), ascending by distance.  The kernel on a CUDA tensor (xyz
-    clouds, ``k <= 64``); it raises on anything else."""
+    int64), ascending by distance.  A kernel on a CUDA tensor where
+    :func:`kernel_route_ok` says so, else the plain version."""
     self_knn = query is points  # decided here, outside any compiled region
     query, points = query.detach(), points.detach()
-    if _build.use_kernel(points):
+    if _build.use_kernel(points) and kernel_route_ok(query, points, k):
         query, points = query.float().contiguous(), points.float().contiguous()
         if cells_route_ok(query, points, k, valid_n):
             return knn_cells_kernel(points if self_knn else query, points, k)
         return knn_kernel(query, points, k, valid_n)
     return knn_plain(query, points, k, valid_n)
+
+
+def kernel_route_ok(query: torch.Tensor, points: torch.Tensor, k: int) -> bool:
+    """The kernels' shapes: ``[B, S, 3]`` queries and ``[B, N, 3]`` keys
+    with ``1 <= k <= min(FLAT_MAX_K, N)``.  Another shape takes the plain
+    version, as the JAX op takes XLA outside its kernel's (xyz, ``k <=
+    128``) shapes."""
+    N = points.shape[1]
+    return points.shape[-1] == 3 and query.shape[-1] == 3 and 1 <= k <= min(FLAT_MAX_K, N)
 
 
 def cells_route_ok(query: torch.Tensor, points: torch.Tensor, k: int, valid_n=None) -> bool:
@@ -250,8 +267,8 @@ def _launch(query, points, k, valid_n):
     S = query.shape[1]
     if C != 3 or query.shape[-1] != 3 or query.shape[0] != B:
         raise ValueError("knn kernel takes [B, S, 3] queries and [B, N, 3] keys")
-    if not 1 <= k <= min(MAX_K, N):
-        raise ValueError(f"knn kernel: k={k} needs 1 <= k <= min({MAX_K}, N={N})")
+    if not 1 <= k <= min(FLAT_MAX_K, N):
+        raise ValueError(f"knn kernel: k={k} needs 1 <= k <= min({FLAT_MAX_K}, N={N})")
     if valid_n is not None:
         valid_n = valid_n.to(dev, torch.int32).reshape(B).contiguous()
     dist = torch.empty((B, S, k), dtype=torch.float32, device=dev)

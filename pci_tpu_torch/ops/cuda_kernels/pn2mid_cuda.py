@@ -23,6 +23,9 @@ GROUPS = ("sa2.scale0", "sa2.scale1", "sa3.scale0", "sa3.scale1", "sa4.scale0",
           "sa4.scale1", "fp4.mlp", "fp3.mlp", "fp2.mlp")
 N_LAYERS = (3, 3, 3, 3, 3, 3, 2, 2, 2)
 S_LIST = (256, 64, 16)
+# samples a launch: csrc/pn2mid.cu's PN_MAXB sizes its per-sample GroupNorm
+# statistics (PnStats); pn2mid_fused splits a larger batch
+MAX_BATCH = 16
 RADII = ((0.2, 0.4), (0.4, 0.8), (0.8, 1.6))
 KS = ((16, 32), (16, 32), (16, 32))
 GN_EPS = 1e-5
@@ -60,14 +63,19 @@ def pn2mid_fused(l1_xyz: torch.Tensor, l1_f: torch.Tensor, groups,
     ``[feats | dxyz]``; every layer Dense -> GroupNorm(4) -> ReLU, then the
     max over slots; FP: exact 3-NN (ties to the lower index), weights
     ``1 / (d + 1e-8)``, ``[skip | interp]``.  Returns ``[B, N1, C_out]``
-    fp32.  Eval only."""
+    fp32.  Eval only.  On the card a batch of more than :data:`MAX_BATCH`
+    samples runs as launches of at most that many, concatenated: every
+    statistic is per sample (GroupNorm's, ``csrc/pn2mid.cu:pn_stats``), so
+    the split is exact."""
     if len(groups) != len(GROUPS) or tuple(len(g) for g in groups) != N_LAYERS:
         raise ValueError(f"pn2mid: {len(GROUPS)} GroupNorm MLPs of {N_LAYERS} layers")
     _build.check_eval_only("pn2mid_fused", l1_xyz, l1_f,
                            *[t for g in groups for wa in g for t in wa])
     if _build.use_kernel(l1_xyz):
-        return pn2mid_kernel(l1_xyz.float().contiguous(), l1_f.float().contiguous(), groups,
-                             s_list, radii, ks)
+        x, f = l1_xyz.float().contiguous(), l1_f.float().contiguous()
+        outs = [pn2mid_kernel(x[s:s + MAX_BATCH], f[s:s + MAX_BATCH], groups, s_list, radii, ks)
+                for s in range(0, x.shape[0], MAX_BATCH)]
+        return outs[0] if len(outs) == 1 else torch.cat(outs)
     return pn2mid_plain(l1_xyz, l1_f, groups, s_list, radii, ks)
 
 
@@ -94,8 +102,8 @@ def pn2mid_kernel(l1_xyz, l1_f, groups, s_list, radii, ks):
     _build.require(l1_f, "l1_f", torch.float32, 3, dev)
     if l1_f.shape[:2] != (B, N1):
         raise ValueError("pn2mid: batch or point counts disagree")
-    if B > 16 or N1 > 4096:
-        raise ValueError("pn2mid kernel: at most 16 samples of 4,096 points")
+    if B > MAX_BATCH or N1 > 4096:
+        raise ValueError(f"pn2mid kernel: at most {MAX_BATCH} samples of 4,096 points")
     if isinstance(groups, PackedGroups) and groups.buf.device == dev:
         buf, dims, doff, nl = groups.buf, groups.dims, groups.doff, groups.nl
     else:

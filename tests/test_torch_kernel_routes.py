@@ -1,0 +1,200 @@
+"""The CUDA routes of three wrappers at shapes their kernels once refused,
+where the JAX package runs a kernel or XLA: pn2mid over more than 16
+samples (split into launches of at most 16), ``ops.knn`` on clouds that
+are not xyz or with k in (64, 128] (the plain version, or the flat
+kernel's local-memory list), and ``ops.fps`` over more than 16,384 points a
+chain (the long-chain kernel).
+
+The CPU has no kernel, so each test forces the CUDA route
+(``_build.use_kernel`` patched true) and replaces the kernel library by a
+stub whose C entries record their arguments and compute the kernel's
+function with its plain version, writing the result through the output
+pointers as the kernel would.  What a test holds is the wrapper's route,
+split and launch arguments, and the assembled result against the plain
+version on the whole input and against the JAX package.  chip_smoke.py
+holds the kernels themselves at these shapes on the card."""
+
+from __future__ import annotations
+
+import ctypes
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from pci_tpu.ops import fps as jax_fps
+from pci_tpu.ops import knn as jax_knn
+from pci_tpu_torch import nn as tnn
+from pci_tpu_torch.ops import fps, knn
+from pci_tpu_torch.ops.cuda_kernels import _build
+from pci_tpu_torch.ops.cuda_kernels import fps_cuda, knn_cuda, pn2mid_cuda
+
+
+class StubLibrary:
+    """Stands in for the kernel library: every C entry called is recorded
+    with its arguments; the ones in ``impl`` run it and return 0, any other
+    fails the test."""
+
+    def __init__(self, **impl):
+        self.calls = []
+        self.impl = impl
+
+    def __getattr__(self, name):
+        def entry(*args):
+            self.calls.append((name, args))
+            if name not in self.impl:
+                raise AssertionError(f"unexpected launch of {name}")
+            self.impl[name](*args)
+            return 0
+        return entry
+
+    def named(self, name):
+        return [args for n, args in self.calls if n == name]
+
+
+def write(ptr: int, t: torch.Tensor) -> None:
+    """``t``'s bytes to the output pointer ``ptr`` (what a kernel stores)."""
+    t = t.contiguous()
+    ctypes.memmove(ptr, t.data_ptr(), t.numel() * t.element_size())
+
+
+@pytest.fixture
+def cuda_route(monkeypatch):
+    """CPU tensors routed as CUDA ones; returns a function that installs a
+    stub library."""
+    monkeypatch.setattr(_build, "use_kernel", lambda t: not _build._PLAIN.get())
+    monkeypatch.setattr(_build, "stream_ptr", lambda dev: 0)
+
+    def install(stub):
+        monkeypatch.setattr(_build, "library", lambda: stub)
+        return stub
+    return install
+
+
+# ---- pn2mid over more than 16 samples -----------------------------------------
+
+
+def test_pn2mid_splits_batches_over_16(cuda_route):
+    """17 samples run as launches of 16 and 1 (pn2mid.cu's PN_MAXB sizes its
+    per-sample GroupNorm statistics; every statistic is per sample, so the
+    split is exact), the chunks concatenated in order: equal to the plain
+    version on the whole batch, within the rounding its batched products
+    differ by (1e-5 of the output's largest magnitude)."""
+    torch.manual_seed(0)
+    module = tnn.Pointnet2FeatureAbstract(32).eval()
+    groups = module._mid_groups()
+    rng = np.random.default_rng(801)
+    B, N1, C1 = 17, 300, 96
+    x = torch.from_numpy((0.3 * rng.standard_normal((B, N1, 3))).astype(np.float32))
+    f = torch.from_numpy(np.maximum(rng.standard_normal((B, N1, C1)), 0).astype(np.float32))
+    sample = x[0].numel() * x.element_size()
+
+    def scratch(*args):
+        args[-1][0], args[-1][1] = 1, 1
+
+    def run(xp, fp, *args):
+        s, n = (xp - x.data_ptr()) // sample, args[8]  # the chunk's first sample and size
+        assert fp == f[s].data_ptr()
+        with _build.plain_versions():
+            write(args[6], pn2mid_cuda.pn2mid_plain(x[s:s + n], f[s:s + n], groups))
+
+    stub = cuda_route(StubLibrary(pci_pn2mid_scratch=scratch, pci_pn2mid=run))
+    before = pn2mid_cuda.pn2mid_kernel.launches
+    with torch.inference_mode():
+        got = pn2mid_cuda.pn2mid_fused(x, f, groups)
+    assert [a[10] for a in stub.named("pci_pn2mid")] == [16, 1]  # B
+    assert pn2mid_cuda.pn2mid_kernel.launches - before == 2
+    with torch.inference_mode(), _build.plain_versions():
+        want = pn2mid_cuda.pn2mid_plain(x, f, groups)
+    assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+
+
+# ---- ops.knn by shape -----------------------------------------------------------
+
+
+def _cloud(rng, *shape):
+    return torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+
+
+def _jax_knn(query, points, k):
+    d, i = jax_knn(jnp.asarray(query.numpy()), jnp.asarray(points.numpy()), k, exact=True)
+    return np.asarray(d), np.asarray(i)
+
+
+@pytest.mark.parametrize("C, k", [(4, 8), (3, 200)])
+def test_knn_routes_plain_outside_the_kernels_shapes(cuda_route, C, k):
+    """A 4-channel cloud, or k above 128, launches nothing: the plain
+    version, as the JAX op takes XLA there; indices equal JAX's exact kNN,
+    distances within 1e-5 of its."""
+    rng = np.random.default_rng(802 + C)
+    q, p = _cloud(rng, 2, 50, C), _cloud(rng, 2, 300, C)
+    stub = cuda_route(StubLibrary())
+    dist, idx = knn(q, p, k)
+    assert stub.calls == []
+    want = knn_cuda.knn_plain(q, p, k)
+    assert torch.equal(idx, want[1]) and torch.equal(dist, want[0])
+    jd, ji = _jax_knn(q, p, k)
+    np.testing.assert_array_equal(idx.numpy(), ji)
+    np.testing.assert_allclose(dist.numpy(), jd, rtol=0, atol=1e-5)
+
+
+def test_knn_k96_takes_the_flat_kernel(cuda_route):
+    """k = 96 on xyz clouds of 5,000 keys (the JAX op's kernel shapes: xyz,
+    k <= 128) launches the flat kernel with k = 96, no longer refused at
+    k > 64: distances equal the plain version's, indices JAX's exact kNN
+    (its distances, from |q|^2 + |p|^2 - 2 q.p, within 1e-5)."""
+    rng = np.random.default_rng(804)
+    q, p = _cloud(rng, 1, 40, 3), _cloud(rng, 1, 5000, 3)
+
+    def run(qp, pp, vn, dp, ip, B, N, S, k, stream):
+        assert (qp, pp, vn, B, N, S, k) == (q.data_ptr(), p.data_ptr(), None, 1, 5000, 40, 96)
+        d, i = knn_cuda.knn_plain(q, p, k)
+        write(dp, d)
+        write(ip, i)
+
+    stub = cuda_route(StubLibrary(pci_knn=run))
+    dist, idx = knn(q, p, 96)
+    assert len(stub.named("pci_knn")) == 1
+    assert torch.equal(dist, knn_cuda.knn_plain(q, p, 96)[0])
+    jd, ji = _jax_knn(q, p, 96)
+    np.testing.assert_array_equal(idx.numpy(), ji)
+    np.testing.assert_allclose(dist.numpy(), jd, rtol=0, atol=1e-5)
+
+
+# ---- ops.fps over long chains -----------------------------------------------------
+
+
+@pytest.mark.parametrize("N, exact, entry", [(20000, True, "pci_fps_long"),
+                                             (16384, True, "pci_fps"),
+                                             (131080, False, "pci_fps_long")])
+def test_fps_long_chains_take_the_long_chain_kernel(cuda_route, N, exact, entry):
+    """An exact FPS over more than 16,384 points, or interleaved chains of
+    more than 16,384 points each, launch fps_long_kernel with a scratch of
+    5 floats a point; 16,384 points a chain keep the block chain.  Picks
+    equal the plain version's and, for the exact case, JAX's exact FPS."""
+    rng = np.random.default_rng(805)
+    x = _cloud(rng, 1, N, 3)
+    npoint = 64 if exact else 256
+
+    def run(xp, sp, op, *args):
+        assert xp == x.data_ptr()
+        if entry == "pci_fps_long":
+            scratch, B, n, m, P = args[0], *args[1:5]
+        else:
+            B, n, m, P = args[:4]
+        assert (B, n, m) == (1, N, npoint)
+        if entry == "pci_fps_long":
+            assert scratch is not None
+        write(op, fps_cuda.fps_plain(x, m, torch.zeros(1, dtype=torch.int32), P))
+
+    stub = cuda_route(StubLibrary(**{entry: run}))
+    got = fps(x, npoint, exact=exact)
+    assert [n for n, _ in stub.calls] == [entry]
+    P = stub.calls[0][1][-2]
+    assert P == (1 if exact else 8) and (-(-N // P) > fps_cuda.CHAIN_MAX) == (entry != "pci_fps")
+    want = fps_cuda.fps_plain(x, npoint, torch.zeros(1, dtype=torch.int32), P)
+    assert torch.equal(got.to(torch.int32), want)
+    if exact:
+        jw = np.asarray(jax_fps(jnp.asarray(x.numpy()), npoint))
+        np.testing.assert_array_equal(got.numpy(), jw)
