@@ -162,7 +162,8 @@ TF32_FLOPS = 495e12  # H100 SXM dense TF32 on the tensor cores
 TENSOR_KERNELS = {"fusion": "pci_fusion_attrs", "flowmid": "pci_flowmid_attrs",
                   "knnconv": "pci_knnconv_attrs", "flowenc": "pci_flowenc_attrs",
                   "attention": "pci_attention_attrs",
-                  "attention_bwd": "pci_attention_bwd_attrs"}
+                  "attention_bwd": "pci_attention_bwd_attrs",
+                  "fusion_cells": "pci_fusion_cells_attrs", "pn2mid": "pci_pn2mid_attrs"}
 # kernels whose resources print on the `kernel resources` lines (C entry)
 RESOURCE_KERNELS = {**TENSOR_KERNELS, "auction_pass": "pci_auction_pass_attrs",
                     "auction_chase": "pci_auction_chase_attrs"}
@@ -467,10 +468,10 @@ def knn_cells_pairs(query, points, kth, chunk: int) -> float:
 
 def pn2mid_work(l1x, l1f, groups, out):
     """pn2mid's stages as work() counts their per-stage kernels: the FPS
-    (10 operations a point a pick), the ball scans, every dense layer
-    (2 a multiply-add) with ~8 operations a value for the bias, the
-    GroupNorm and the ReLU, the slot max, and the 3-NN (8 a pair) with
-    its interpolation."""
+    (10 operations a point a pick), the ball scans, ~8 operations a value
+    for the bias, the GroupNorm and the ReLU, the slot max, and the 3-NN (8
+    a pair) with its interpolation; every dense layer's product (2 a
+    multiply-add) apart, on the tensor cores."""
     from pci_tpu_torch.ops import index_points
     from pci_tpu_torch.ops.cuda_kernels.fps_cuda import fps_plain
     from pci_tpu_torch.ops.cuda_kernels.pn2mid_cuda import KS, RADII, S_LIST
@@ -493,12 +494,14 @@ def pn2mid_work(l1x, l1f, groups, out):
         cf = groups[6 + (2 - lv)][0][0].shape[0] - skip_w[lv]  # the interpolated width
         ops += 8.0 * B * nq * S_LIST[lv] + 6.0 * B * nq * cf
         rows.append(B * nq)
+    tensor = 0.0
     for g, r in zip(groups, rows):
         for w, _ in g:
-            ops += r * (2.0 * w.shape[0] * w.shape[1] + 8.0 * w.shape[1])
+            tensor += r * 2.0 * w.shape[0] * w.shape[1]
+            ops += r * 8.0 * w.shape[1]
         ops += r * g[-1][0].shape[1]  # the slot max (FP: the copy out)
     w = [t for g in groups for wa in g for t in wa]
-    return nbytes(l1x, l1f, out, *w), ops
+    return nbytes(l1x, l1f, out, *w), ops, tensor
 
 
 def work(name, args, kw, out):
@@ -511,11 +514,11 @@ def work(name, args, kw, out):
         B, N, _ = combined.shape
         k = args[-1]
         ops = 8.0 * cells_pairs(combined, seg_ends, budgets, k)
-        if len(args) == 5:  # one-shot: the score MLP a slot, the softmax and sums
-            layers = args[3]
-            ops += mlp_flops(layers, B * N * k) + 6.0 * B * N * k
+        if len(args) == 5:  # one-shot: the score MLP a slot (on the tensor cores,
+            layers = args[3]  # counted apart), the softmax and sums
+            ops += 6.0 * B * N * k
             w = [t for wb in layers for t in wb]
-            return nbytes(combined, seg_ends, budgets, out, *w), ops
+            return nbytes(combined, seg_ends, budgets, out, *w), ops, mlp_flops(layers, B * N * k)
         return nbytes(combined, seg_ends, budgets, *out), ops + 3.0 * B * N * k
     if name == "pn2mid":
         return pn2mid_work(*args[:3], out)
@@ -852,7 +855,8 @@ def hold_kernels(calls, request: int, expected: dict, totals: dict, path: str,
             torch.cuda.synchronize()
             err = compare(name, got, want, label(name, args, kw), args)
             rel = 0.0
-            if name in TENSOR_KERNELS:  # flowenc: relative to f_1's and f_2's largest
+            if name in TENSOR_KERNELS and not isinstance(got, tuple) or name in (
+                    "flowenc", "attention_bwd"):  # flowenc: relative to f_1's and f_2's largest
                 outs = {"flowenc": want[:2], "attention_bwd": want[:3]}.get(name, [want])
                 top = max(w.abs().max().item() for w in outs)
                 rel = err / max(top, 1e-30)
@@ -864,10 +868,10 @@ def hold_kernels(calls, request: int, expected: dict, totals: dict, path: str,
             nb, ops, *tensor = work(name, args, kw, got)
             bytes_ms, ops_ms = bound_terms(nb, ops, *tensor)
             basis = "bytes" if bytes_ms > ops_ms else ("ops, tensor" if tensor else "operations")
-            # the attention pair's bound before its products moved to the
+            # the bound of rows 11-13 before their products moved to the
             # tensor cores: every operation at FP32_FLOPS
             scalar = (f" scalar_bound_ms={max(bytes_ms, (ops + sum(tensor)) / FP32_FLOPS * 1e3):.6f}"
-                      if name in ("attention", "attention_bwd") else "")
+                      if name in ("attention", "attention_bwd", "fusion_cells", "pn2mid") else "")
             print(f"kernel {name:9s} {label(name, args, kw):52s} ms={ms:.4f} "
                   f"plain_ms={plain_ms:.4f} bound_ms={max(bytes_ms, ops_ms):.6f} "
                   f"({basis}){scalar} max_abs_err={err:.3g}"
@@ -1135,6 +1139,167 @@ def hold_pn2mid_batch(args, card: str) -> None:
     err = compare("pn2mid", got, want, f"B={B} N1={x.shape[1]} (two launches)")
     print(f"pn2mid batch hold B={B} N1={x.shape[1]}: 2 launches, max |kernel - plain| "
           f"{err:.3g}; {ms:.4f} ms (CUDA events) on {card}")
+
+
+def pn2mid_stages_line(args, card: str, path: str, reps: int = 5) -> None:
+    """The `stages pn2mid` line at a recorded request's shape: the launch's
+    time (CUDA events and device time), then each phase of the kernel
+    (pn2mid_cuda.PHASES, each ended by a grid barrier) from the blocks'
+    %globaltimer stamps, the median of ``reps`` stamped launches: the
+    phase's span (the last block leaving its barrier minus the last leaving
+    the one before), the busiest block's work in it (its arrival at the
+    barrier minus its leaving the one before) and the blocks' mean wait at
+    the barrier, and where the kernel stamps its items' parts
+    (pn2mid_cuda.STAMP_PARTS), the busiest block's time in each and its
+    items.  A kernel without stamps prints its times only."""
+    from pci_tpu_torch.ops.cuda_kernels import pn2mid_cuda as P
+
+    x, f = (t.float().contiguous() for t in args[:2])
+    groups = args[2]
+    run = lambda **kw: P.pn2mid_kernel(x, f, groups, P.S_LIST, P.RADII, P.KS, **kw)  # noqa: E731
+    with torch.inference_mode():
+        ms = cuda_ms(run, 10)
+        dev = device_ms(run)
+        phases = getattr(P, "PHASES", None)
+        head = (f"stages pn2mid {path} B={x.shape[0]} N1={x.shape[1]} C1={f.shape[-1]} on "
+                f"{card}: {ms:.4f} ms a launch (CUDA events), {dev:.4f} ms device time")
+        if phases is None:
+            print(head + "; no stamps in this kernel")
+            return
+        parts = getattr(P, "STAMP_PARTS", ())
+        runs = []
+        for _ in range(reps):
+            st = torch.zeros((4096, len(phases), getattr(P, "STAMPS", 2)), dtype=torch.int64,
+                             device=x.device)
+            run(stamps=st)
+            torch.cuda.synchronize()
+            t = st.cpu().double()
+            t = t[t[:, 0, 1] > 0]  # the launch's blocks
+            leave = t[:, :, 1].amax(0)
+            span = (leave[1:] - leave[:-1]) * 1e-6
+            work = t[:, 1:, 0] - t[:, :-1, 1]
+            busy = work.argmax(0)  # each phase's busiest block
+            wait = (t[:, 1:, 1] - t[:, 1:, 0]).mean(0) * 1e-6
+            split = t[busy, torch.arange(1, len(phases)), 2:] * 1e-3  # its parts (us), items
+            runs.append((span, work.amax(0) * 1e-6, wait, split,
+                         float(leave[-1] - t[:, 0, 1].min()) * 1e-6, t.shape[0]))
+    med = [torch.stack([r[i] for r in runs]).median(0).values for i in range(4)]
+    total = statistics.median(r[4] for r in runs)
+    cells = []
+    for i, name in enumerate(phases[1:]):
+        cell = f"{name} {med[0][i]:.4f} ({med[1][i]:.4f}, {med[2][i]:.4f}"
+        sp = med[3][i]
+        if parts and sp[-1] > 0:  # the busiest block's items
+            cell += "; " + " ".join(f"{p_} {v:.1f}" for p_, v in zip(parts, sp[:-1].tolist())) \
+                + f" us, {sp[-1] * 1e3:.0f} items"
+        cells.append(cell + ")")
+    print(head + f"; {runs[0][5]} blocks; stamped span {total:.4f} ms; phase: span ms "
+          "(busiest block's work, mean barrier wait[; the busiest block's parts]): "
+          + ", ".join(cells))
+
+
+def fusion_cells_stages_line(args, card: str, path: str, reps: int = 10) -> None:
+    """The `stages fusion_cells` line at a recorded call's shape (one-shot
+    when the call carries the score MLP, else residual): the call (CUDA
+    events, prep included), the torch prep alone (CUDA events: from its
+    CUDA graph where the wrapper has one, and eager), the kernel's device
+    time, and, where the kernel takes stamps, its tiles' walk and head
+    (%globaltimer stamps: each tile's start, walk end and end, the chunks
+    it walked, the pairs it scanned, its list inserts and its warps' chunk
+    scans lane by lane and needer by needer).  A kernel without a separate launch prints the
+    call's device time less the eager prep's."""
+    from pci_tpu_torch.ops.cuda_kernels import fusion_cells_cuda as F
+
+    combined, seg_ends, budgets = args[:3]
+    k = args[-1]
+    layers = args[3] if len(args) == 5 else None
+    mode = "one-shot" if layers is not None else "residual"
+    B, N = combined.shape[:2]
+    seg = torch.cat([seg_ends, budgets], 1).to(combined.device, torch.int32).contiguous()
+    with torch.inference_mode():
+        call = cuda_ms(lambda: F.fusion_cells_kernel(combined, seg_ends, budgets, k, layers),
+                       reps)
+        head = f"stages fusion_cells {path} {mode} B={B} N={N} k={k} on {card}: call " \
+               f"{call:.4f} ms (prep included; CUDA events)"
+        launch = getattr(F, "fusion_cells_launch", None)
+        if launch is None:
+            eager = cuda_ms(lambda: F.cells_plan(combined, seg[:, 0]), reps)
+            whole = device_ms(lambda: F.fusion_cells_kernel(combined, seg_ends, budgets, k,
+                                                            layers))
+            prep_dev = device_ms(lambda: F.cells_plan(combined, seg[:, 0]))
+            print(head + f", prep {eager:.4f} ms (eager; CUDA events), kernel "
+                  f"{whole - prep_dev:.4f} ms (device time of the call {whole:.4f} less the "
+                  f"prep's {prep_dev:.4f}); no stamps in this kernel")
+            return
+        prep = cuda_ms(lambda: F.kernel_plan_graphed(combined, seg[:, 0]), reps)
+        eager = cuda_ms(lambda: F.kernel_plan(combined, seg[:, 0]), reps)
+        plan = F.kernel_plan(combined, seg[:, 0])
+        kern = device_ms(lambda: launch(combined, seg, k, plan, layers))
+        stamps = torch.zeros((*plan[2].shape[:2], F.STAMPS), dtype=torch.int64,
+                             device=combined.device)
+        launch(combined, seg, k, plan, layers, stamps=stamps)
+        torch.cuda.synchronize()
+    t = stamps.reshape(-1, F.STAMPS).cpu().double()
+    t = t[t[:, 0] > 0]  # tiles with a real query
+    walk, tail, whole = (t[:, 1] - t[:, 0]) * 1e-6, (t[:, 2] - t[:, 1]) * 1e-6, \
+        (t[:, 2] - t[:, 0]) * 1e-6
+    slow = int(whole.argmax())
+    print(head + f", prep {prep:.4f} ms (CUDA graph replay; eager {eager:.4f}; CUDA events), "
+          f"kernel {kern:.4f} ms (device time; {float(t[:, 2].max() - t[:, 0].min()) * 1e-6:.4f}"
+          f" ms first tile start to last tile end); {t.shape[0]} tiles: walk "
+          f"{float(walk.sum() / whole.sum()):.3f} and {'head' if layers is not None else 'write'}"
+          f" {float(tail.sum() / whole.sum()):.3f} of the summed tile time, a tile mean "
+          f"{float(whole.mean()):.4f} ms max {float(whole.max()):.4f} (walk max "
+          f"{float(walk.max()):.4f}), chunks walked mean {float(t[:, 3].mean()):.1f} max "
+          f"{float(t[:, 3].max()):.0f} of {plan[2].shape[2]}, pairs scanned a tile mean "
+          f"{float(t[:, 4].mean()):.0f}, the slowest tile's {float(t[int(whole.argmax()), 4]):.0f} "
+          f"in {float(t[int(whole.argmax()), 3]):.0f} chunks, started "
+          f"{float(t[int(whole.argmax()), 0] - t[:, 0].min()) * 1e-6:.4f} ms in; list inserts "
+          f"a tile mean {float(t[:, 5].mean()):.0f} (slowest {float(t[slow, 5]):.0f}), warp-chunk "
+          f"scans lane by lane {float(t[:, 6].mean()):.1f} ({float(t[slow, 6]):.0f}) and needer "
+          f"by needer {float(t[:, 7].mean()):.1f} ({float(t[slow, 7]):.0f})")
+
+
+def stages_only() -> None:
+    """`python3 chip_smoke.py --stages`: the `stages fusion_cells` lines of
+    one PointINet request at 65,536 and 32,768 points on the default route
+    and with one-shot off (the kernels' own route, recorded), and the
+    `stages pn2mid` line of one ISAPCInet request; no holds.  Also loaded by
+    path from an older tree's root to print the same lines for its
+    kernels."""
+    from pci_tpu_torch.serving import DEFAULT_WEIGHTS, Interpolator
+
+    card = card_line()
+    dev = torch.device("cuda")
+    for n in LARGE_N:
+        model = Interpolator.pointinet(npoints=n, weights=DEFAULT_WEIGHTS, device="cuda").model
+        a_np, b_np = synthetic_pair(0, n)
+        a, b = (torch.from_numpy(x)[None].to(dev) for x in (a_np, b_np))
+        z = torch.zeros_like(a)
+        perms = tuple(torch.randperm(n, generator=torch.Generator().manual_seed(s))[None].to(dev)
+                      for s in (1, 2))
+        calls = []
+        with torch.inference_mode(), record_calls(calls):
+            model(a, b, z, z, torch.tensor([0.5], device=dev), perms=perms)
+            with gates(ONESHOT_OFF):
+                model(a, b, z, z, torch.tensor([0.5], device=dev), perms=perms)
+        for _, _, args, _ in (c for c in calls if c[0] == "fusion_cells"):
+            fusion_cells_stages_line(args, card, f"pointinet {n}")
+        del model, calls
+        torch.cuda.empty_cache()
+    interp = Interpolator.isapci(field=FIELD, npoints=NPOINTS, weights=DEFAULT_WEIGHTS,
+                                 device="cuda")
+    fwd, (k0, k1), bwd, _ = synthetic_window()
+    T = lambda x: torch.from_numpy(x)[None].to(dev)  # noqa: E731
+    keys_t = [T(k0), T(k1)]
+    z = torch.zeros_like(keys_t[0])
+    perms = tuple(torch.randperm(NPOINTS, generator=torch.Generator().manual_seed(s))[None].to(dev)
+                  for s in (3, 4))
+    calls = []
+    with torch.inference_mode(), record_calls(calls):
+        interp.model([T(x) for x in fwd], keys_t, [T(x) for x in bwd],
+                     torch.tensor([0.5], device=dev), z, perms=perms)
+    pn2mid_stages_line(next(c[2] for c in calls if c[0] == "pn2mid"), card, "isapci")
 
 
 def knn_walk_pairs(points, kth, chunk: int, tile: int) -> float:
@@ -1545,6 +1710,7 @@ def phase_isapci(card: str, totals: dict) -> dict:
     hold_kernels(calls, len(calls), PER_REQUEST_ISAPCI, totals, "isapci")
     knn_stages(calls, card, "isapci")
     hold_pn2mid_batch(next(c[2] for c in calls if c[0] == "pn2mid"), card)
+    pn2mid_stages_line(next(c[2] for c in calls if c[0] == "pn2mid"), card, "isapci")
     attention_stages_line(next(c[2] for c in calls if c[0] == "attention"), card, "isapci")
     calls = []
     with torch.inference_mode(), plain_versions(), record_calls(calls), gates(PN2_OFF):
@@ -1770,11 +1936,11 @@ def phase_train(card: str, totals: dict) -> dict:
 def cells_vs_flat(combined, seg_ends, budgets, layers, k: int, n: int) -> None:
     """The cell-pruned kernel against the flat ones on one combined cloud:
     residual-mode indices (and residuals) identical; one-shot rows within
-    1e-6 m of the flat residual kNN's neighbours through the attention tail
-    (the same scalar head, csrc/fusion_head.cuh), and within the kernel
-    hold's 1e-4 of the flat one-shot kernel (its head on the tensor cores
-    sums in another order); prints the share of pairs each scanned and the
-    kernels' ms."""
+    1e-6 m of the flat one-shot kernel's (the same tensor-core head,
+    csrc/fusion_head.cuh, on the same neighbours) and within the kernel
+    hold's 1e-4 of the flat residual kNN's neighbours through the attention
+    tail (its scalar head sums in another order); prints the share of pairs
+    each scanned and the kernels' ms."""
     from pci_tpu_torch.ops.cuda_kernels.fusion_cells_cuda import fusion_cells_kernel
     from pci_tpu_torch.ops.cuda_kernels.fusion_knn_cuda import fusion_kernel, fusion_resi_kernel
     from pci_tpu_torch.ops.cuda_kernels.fusion_tail_cuda import fusion_tail_kernel
@@ -1789,16 +1955,18 @@ def cells_vs_flat(combined, seg_ends, budgets, layers, k: int, n: int) -> None:
         ft = fusion_tail_kernel(combined, fr, None, layers)
         torch.cuda.synchronize()
         check(torch.equal(ci, fi), f"fusion_cells at {n}: indices differ from the flat kernel's")
-        err = (co - ft).abs().max().item()
-        err_tc = (co - fo).abs().max().item()
+        check(torch.equal(cr, fr), f"fusion_cells at {n}: residuals differ from the flat kernel's")
+        err = (co - fo).abs().max().item()
+        err_tail = (co - ft).abs().max().item()
         print(f"fusion_cells vs flat at {n} points, budgets {budgets.tolist()}: indices "
-              f"identical, residuals bit-equal {torch.equal(cr, fr)}, one-shot rows max "
-              f"|diff| {err:.3g} m against the flat residual kNN + tail, {err_tc:.3g} m "
-              f"against the flat one-shot kernel; pairs scanned {scanned.item()} of "
-              f"{B * N * N} ({scanned.item() / (B * N * N):.4f}; the flat kernels scan all)")
-        check(err <= 1e-6, f"fusion_cells at {n}: one-shot rows differ from the flat kernels'")
-        check(torch.allclose(fo, co, atol=1e-4, rtol=1e-4),
-              f"fusion_cells at {n}: one-shot rows differ from the flat one-shot kernel's")
+              f"identical, residuals bit-equal, one-shot rows max |diff| {err:.3g} m against "
+              f"the flat one-shot kernel, {err_tail:.3g} m against the flat residual kNN + "
+              f"tail; pairs scanned {scanned.item()} of {B * N * N} "
+              f"({scanned.item() / (B * N * N):.4f}; the flat kernels scan all)")
+        check(err <= 1e-6, f"fusion_cells at {n}: one-shot rows differ from the flat one-shot "
+                           "kernel's")
+        check(torch.allclose(ft, co, atol=1e-4, rtol=1e-4),
+              f"fusion_cells at {n}: one-shot rows differ from the flat residual kNN + tail")
         times = {name: cuda_ms(fn, 3) for name, fn in (
             ("cells residual", lambda: fusion_cells_kernel(combined, seg_ends, budgets, k)),
             ("flat residual", lambda: fusion_resi_kernel(combined, seg_ends, budgets, k)),
@@ -1876,6 +2044,8 @@ def phase_large(card: str, totals: dict) -> list:
         layers = model.fusion.mlp.folded()
         for _, _, args, _ in fusion[:2]:
             cells_vs_flat(args[0], args[1], args[2], layers, args[-1], n)
+        for _, _, args, _ in (fusion[0], fusion[2]):  # one-shot, residual
+            fusion_cells_stages_line(args, card, f"pointinet {n}")
         # the request, the t=0.2 fusion, and the whole one-shot-off request
         calls = (calls[:request] + [c for c in calls[request:second] if c[0] == "fusion_cells"]
                  + calls[second:])
@@ -2279,6 +2449,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    if sys.argv[1:] == ["--stages"]:
+        stages_only()
+        return 0
     from pci_tpu_torch.ops.cuda_kernels import build_seconds, plain_versions
     from pci_tpu_torch.ops.cuda_kernels._build import kernel_attrs
     from pci_tpu_torch.serving import DEFAULT_WEIGHTS, Interpolator

@@ -1,6 +1,7 @@
 // The scan rules shared by the cell-pruned kernels (csrc/fusion_cells.cu,
-// csrc/knn_cells.cu): a neighbour list ordered by (distance, index), one
-// entry a lane, and the round-down bound of a query's distance to a box.
+// csrc/knn_cells.cu): a query's neighbour list ordered by (distance,
+// index) in one thread's registers, and the round-down bound of a query's
+// distance to a box.
 #pragma once
 
 #include "common.cuh"
@@ -14,28 +15,25 @@ __device__ __forceinline__ bool lex_less(float d, int i, float d2, int i2) {
   return d < d2 || (d == d2 && i < i2);
 }
 
-// dL/iL: entry `lane` of a list sorted by (distance, index), entries past
-// `cap` empty; (thd, thi) is entry cap - 1, the bar a key must pass.
-__device__ __forceinline__ void lex_insert(float& dL, int& iL, float& thd,
-                                           int& thi, int cap, float dn, int jn,
-                                           int lane) {
-  if (!lex_less(dn, jn, thd, thi)) return;  // warp-uniform
-  const int p = __popc(__ballot_sync(FULL, lex_less(dL, iL, dn, jn)));
-  const float du = __shfl_up_sync(FULL, dL, 1);
-  const int iu = __shfl_up_sync(FULL, iL, 1);
-  if (lane > p) {
-    dL = du;
-    iL = iu;
-  } else if (lane == p) {
-    dL = dn;
-    iL = jn;
+// Insert (d, id) into the list (bd, bi), sorted by (distance, index): every
+// entry compares at once (the comparisons are monotone in the entry), then
+// each entry at or past the new one's place takes its left neighbour.
+template <int KM>
+__device__ __forceinline__ void list_insert(float (&bd)[KM], int (&bi)[KM], float d, int id) {
+  bool lt[KM];
+#pragma unroll
+  for (int i = 0; i < KM; ++i) lt[i] = lex_less(d, id, bd[i], bi[i]);
+#pragma unroll
+  for (int i = KM - 1; i > 0; --i) {
+    if (lt[i]) {
+      bd[i] = lt[i - 1] ? bd[i - 1] : d;
+      bi[i] = lt[i - 1] ? bi[i - 1] : id;
+    }
   }
-  if (lane >= cap) {
-    dL = CUDART_INF_F;
-    iL = CELL_EMPTY;
+  if (lt[0]) {
+    bd[0] = d;
+    bi[0] = id;
   }
-  thd = __shfl_sync(FULL, dL, cap - 1);
-  thi = __shfl_sync(FULL, iL, cap - 1);
 }
 
 // Squared distance from (qx, qy, qz) to the box [lo, hi], every operation

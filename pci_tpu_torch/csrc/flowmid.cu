@@ -18,7 +18,7 @@
 //   set_upconv3    q pa_1, keys [pa_2 | nf_2], k 8, 259 -> 128 -> 128 -> 256,
 //                  skip fa_1, 320 -> 256                       -> nf_1 [1024, 256]
 // The stage bodies are the per-stage kernels' (knn_conv_tile,
-// ball_conv_tile, fps_chain in csrc/stages.cuh): exact selection, ties to
+// ball_conv_tile, fps_centres in csrc/stages.cuh): exact selection, ties to
 // the lower index, so the fused and the per-stage routes pick the same
 // points; their MLP sums differ in order and precision (3xTF32 here).
 //
@@ -171,7 +171,7 @@ extern "C" int pci_flowmid(const void* pa1, const void* fa1, const void* pa2,
   const size_t smem = std::max(
       {knn_conv_smem(p.fe), knn_conv_smem(p.su1), knn_conv_smem(p.su2),
        knn_conv_smem(p.su3), ball_conv_smem(p.sc3), ball_conv_smem(p.sc4),
-       sizeof(float) * 3 * (size_t)N2});
+       fps_centres_smem(N2, 256)});
   auto tiles = [B](int S, int Q) { return B * ((S + Q - 1) / Q); };
   const int items = std::max({B + tiles(N2, p.fe.Q), tiles(S3, p.sc3.Q),
                               tiles(S4, p.sc4.Q), tiles(S3, p.su1.Q),

@@ -15,191 +15,412 @@
 // provably hold no neighbour, so it gives the flat kernel's neighbours.
 //
 // What bounds it on the H100: at 65,536 points the flat scan is 4.3e9
-// pairs; here each query reads about ten chunk boxes and scans the few
-// chunks whose box bound does not exceed its current k_s-th distance (a
-// few thousand pairs), so the one-shot mode's score MLP (65,536 x 32 slots
-// x 12.3k FMA, ~52 GFLOP) dominates: operations.  Design: outside the
-// kernel (torch) the cloud is Morton-sorted and cut into chunks of C keys
-// with a box a segment, and for each tile of TQ consecutive sorted queries
-// the chunks are ordered by the tile's box bound min(lbA, lbB).  Here one
-// warp takes one sorted query (lane L owns list entry L, k <= 32) and walks
-// its tile's chunk order with no block-wide synchronisation: it stops when
-// the tile bound exceeds every current k_s-th distance (with a margin for
-// the torch bound's rounding), skips a chunk whose per-segment box bound,
-// computed with round-down arithmetic and so never above the rounded
-// distance of any key in the box, exceeds that segment's k_s-th (distance,
-// index), and otherwise scans its keys 32 at a time.  Keys arrive out of
-// index order, so the insert orders by (distance, index) itself.  Each
-// query writes its own original row: no un-permute pass.
+// pairs; here a query scans the few chunks whose box bound does not exceed
+// its current k_s-th distance (a few thousand pairs), so the one-shot
+// mode's score MLP (65,536 x 32 slots x 12.3k multiply-adds, ~52 GFLOP,
+// three TF32 products a multiply-add) dominates: operations.  Design:
+// outside the kernel (torch, ops/cuda_kernels/fusion_cells_cuda.py, replayed
+// from a CUDA graph) the cloud is Morton-sorted and cut into chunks of C
+// keys, (x, y, z, original index bits) rows, with a box a segment, and for
+// each tile of TQ = 64 consecutive sorted queries the chunks are ordered by
+// the tile's box bound min(lbA, lbB).  Here:
+//   - persistent blocks, one an SM (16 warps; in one-shot mode the score MLP,
+//     split for the tensor cores, 101 KB, loaded into shared memory once),
+//     as 8 groups of two warps, each group taking tiles of 64 sorted
+//     queries from a counter until none is left (clouds are skewed, so
+//     tiles are handed out as groups free up, not striped), the widest
+//     tile boxes first (the plan's torder: a wide tile holds sparse
+//     queries with far neighbours and walks longest);
+//   - a tile's walk is shared by its 64 queries (csrc/knn_cells.cu's, with
+//     two lists): the chunks arrive in bound order through the group's
+//     cp.async ring (FC_STAGES deep, each chunk's keys and its two segment
+//     boxes), so a staged chunk serves the whole tile; one thread a query
+//     keeps its A and B lists of (distance, index) in registers
+//     (cells.cuh:list_insert, since keys arrive out of index order; 16 + 16
+//     entries, or 32 for a segment whose budget passes 16), skips a chunk
+//     whose round-down box bound for a segment (cells.cuh:box_bound_rd)
+//     exceeds that segment's k_s-th, scans 32 keys at a time with a
+//     branch-free filter and then inserts the keys it marked (a warp pays
+//     for the most inserts of one lane, not for every key a lane inserts;
+//     a chunk few lanes need is scanned by the whole warp for each); the
+//     group stops, by a vote at the barrier that hands over each chunk,
+//     once the tile bound exceeds every query's k_s-th (with a margin for
+//     the torch bound's rounding).  Among the chunks of bound 0 the plan
+//     puts the tile's own chunk first, then its neighbours in the sorted
+//     order, so the lists fill from the nearest keys and later keys rarely
+//     enter (inserts, not scans, cost the walk: this order cut them from
+//     ~360 to ~130 a query at 65,536 points).  A warp-per-query walk (one
+//     lane a slot) was measured first: its inserts, a warp-wide shuffle
+//     chain a key, made the residual mode 2x slower than the earlier
+//     per-query kernel (PERF.md);
+//   - the slots go through shared memory to one warp a query (lane L slot
+//     L) for the head (fusion_head.cuh:fused_row, csrc/fusion_knn.cu's) on
+//     the tensor cores in 3xTF32: the same rows as the flat one-shot
+//     kernel for the same neighbours.
+// Residual mode runs the same walk and writes idx and resi.  Each query
+// writes its own original row: no un-permute pass.
 #include "fusion_head.cuh"
 #include "cells.cuh"
 
+#define FC_WARPS 16   // warps a block
+#define FC_TQ 64      // queries a tile: a group of two warps, one thread a query
+#define FC_GROUPS (FC_WARPS * 32 / FC_TQ)
+#define FC_STAGES 3   // chunks in a group's shared-memory ring
+#define FC_SPARSE 4   // lanes a warp at most for the whole warp to scan a chunk for each
+#define FC_STAMPS 8   // a tile's stamps: start, walk end, end (%globaltimer ns), chunks walked,
+                      // pairs, list inserts, warp-chunks scanned lane by lane, and for each needer
+
 struct CellsParams {
   const float* pts;     // combined [B][N][3], original order
-  const float* sk;      // sorted keys [B][3][Np] (x row, y row, z row)
-  const int* sid;       // sorted keys' original ids [B][Np] (pads: N)
+  const float4* keys;   // [B][Np] sorted keys (x, y, z, original id bits; pads id N)
   const float4* boxes;  // [B][nc][4]: lo A, hi A, lo B, hi B (xyz, pad)
   const int* order;     // [B][nt][nc] chunk ids by ascending tile bound
-  const float* lbs;     // [B][nt][nc] those bounds
+  const float* lbs;     // [B][nt][nc] their sort keys (the bound; below 0 for a bound of 0)
+  const int* torder;    // [B * nt] tiles in the order they are handed out
   const int* seg;       // [B][4] = (N1, N, k1, k2)
-  const float* wbuf;    // the packed score MLP (one-shot mode), or null
+  const float* wtc;     // the split score MLP (one-shot mode), or null
   float* out;           // one-shot: fused [B][N][3]
   long long* out_i;     // residual: idx [B][N][k]
   float* out_r;         // residual: resi [B][N][k][3]
   unsigned long long* scanned;  // pairs scanned, or null
-  int N, Np, C, TQ, nc, nt, k;
+  unsigned long long* stamps;   // [B][nt][FC_STAMPS], or null
+  int* next;            // the tile counter, zeroed
+  int B, N, Np, C, nc, nt, k;
 };
 
-// The budgeted kNN of sorted query s of batch row b (one warp): returns the
-// original index for slot `lane`, -1 for a slot its segment cannot fill or
-// past the budgets.
-__device__ __forceinline__ int cells_slot(const CellsParams& p, int b, int s,
-                                          float qx, float qy, float qz,
-                                          int N1, int k1, int k2, int lane) {
-  float dA = CUDART_INF_F, dB = CUDART_INF_F;
-  int iA = CELL_EMPTY, iB = CELL_EMPTY;
-  float thdA = k1 > 0 ? CUDART_INF_F : -CUDART_INF_F;
-  float thdB = k2 > 0 ? CUDART_INF_F : -CUDART_INF_F;
-  int thiA = CELL_EMPTY, thiB = CELL_EMPTY;
-  const size_t tile = (size_t)b * p.nt + s / p.TQ;
-  const int* ord = p.order + tile * p.nc;
-  const float* lbt = p.lbs + tile * p.nc;
-  const float* X = p.sk + (size_t)b * 3 * p.Np;
-  const float* Y = X + p.Np;
-  const float* Z = Y + p.Np;
-  const int* ID = p.sid + (size_t)b * p.Np;
-  const float4* BX = p.boxes + (size_t)b * p.nc * 4;
-  const int N = p.N;
-  unsigned long long nscan = 0;
-  for (int m = 0; m < p.nc; ++m) {
-    // every later chunk's tile bound is at least this one's; the margin
-    // covers the torch bound's round-to-nearest against round-down here
-    const float T = fmaxf(thdA, thdB);
-    if (lbt[m] > T * 1.00001f + 1e-30f) break;
+// The group's barrier (id 1 + group, FC_TQ threads), and the same with a
+// vote: true when `pred` holds on every thread of the group.
+__device__ __forceinline__ void group_sync(int id) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(FC_TQ) : "memory");
+}
+__device__ __forceinline__ bool group_all(int id, bool pred) {
+  unsigned r;
+  asm volatile(
+      "{\n .reg .pred p, q;\n setp.ne.u32 p, %1, 0;\n"
+      " bar.red.and.pred q, %2, %3, p;\n selp.u32 %0, 1, 0, q;\n}\n"
+      : "=r"(r)
+      : "r"((unsigned)pred), "r"(id), "r"(FC_TQ)
+      : "memory");
+  return r != 0;
+}
+
+// Chunk m of the tile's order into ring slot m % FC_STAGES (C keys, then
+// its four box rows), by the group's threads, then one commit (an empty
+// group past the order's end).
+__device__ __forceinline__ void stage_chunk(const CellsParams& p, const float4* K,
+                                            const float4* BX, const int* ord, float4* ring,
+                                            int m, int gt) {
+  if (m < p.nc) {
     const int c = ord[m];
-    const float4 loA = BX[c * 4], hiA = BX[c * 4 + 1];
-    const float4 loB = BX[c * 4 + 2], hiB = BX[c * 4 + 3];
-    const bool needA = k1 > 0 && loA.x <= hiA.x &&
-                       box_bound_rd(loA, hiA, qx, qy, qz) <= thdA;
-    const bool needB = k2 > 0 && loB.x <= hiB.x &&
-                       box_bound_rd(loB, hiB, qx, qy, qz) <= thdB;
-    if (!needA && !needB) continue;
-    nscan += p.C;
-    for (int base = c * p.C; base < (c + 1) * p.C; base += 32) {
-      const int j = base + lane;
-      const float d = sqdist3(X[j], Y[j], Z[j], qx, qy, qz);
-      const int id = ID[j];
-      const bool pass = id < N1 ? needA && lex_less(d, id, thdA, thiA)
-                                : id < N && needB && lex_less(d, id, thdB, thiB);
-      unsigned mask = __ballot_sync(FULL, pass);
-      while (mask) {
-        const int src = __ffs(mask) - 1;
-        mask &= mask - 1;
-        const float dn = __shfl_sync(FULL, d, src);
-        const int jn = __shfl_sync(FULL, id, src);
-        if (jn < N1) lex_insert(dA, iA, thdA, thiA, k1, dn, jn, lane);
-        else lex_insert(dB, iB, thdB, thiB, k2, dn, jn, lane);
+    const float4* src = K + (size_t)c * p.C;
+    float4* dst = ring + (m % FC_STAGES) * (p.C + 4);
+    for (int j = gt; j < p.C + 4; j += FC_TQ)
+      cp_async16(dst + j, j < p.C ? src + j : BX + 4 * c + (j - p.C));
+  }
+  cp_async_commit();
+}
+
+// Key (d, id) into this thread's lists when it passes the segment's k-th
+// entry (checked again: the bar moves as keys go in).
+template <int KA, int KB>
+__device__ __forceinline__ bool insert2(float (&dA)[KA], int (&iA)[KA], float (&dB)[KB],
+                                        int (&iB)[KB], float d, int id, int N1) {
+  if (id < N1) {
+    if (!lex_less(d, id, dA[KA - 1], iA[KA - 1])) return false;
+    list_insert<KA>(dA, iA, d, id);
+  } else {
+    if (!lex_less(d, id, dB[KB - 1], iB[KB - 1])) return false;
+    list_insert<KB>(dB, iB, d, id);
+  }
+  return true;
+}
+
+// The tile's walk: this thread's query (sorted row s of the tile; `real`
+// false for a pad row) keeps its A and B lists in registers, KA and KB
+// entries with the first KA - k1 (KB - k2) held at -inf, so that the
+// last entry is the k_s-th (a segment with no budget: every entry -inf,
+// nothing passes).  Chunks come through the group's ring; a query skips a
+// chunk whose round-down box bound for a segment exceeds that segment's
+// k_s-th; the group stops by a vote once the tile bound passes every
+// query's larger k_s-th.  A lane scans 32 keys at a time with a
+// branch-free filter, then inserts the keys it marked; a chunk that at
+// most FC_SPARSE lanes of a warp need is scanned by the whole warp for
+// each of them.  On return the slot ids (slot e: A's (e+1)-th for e < k1,
+// then B's; -1 unfilled or past k1 + k2) are in `slots` [FC_TQ][33] (the
+// ring's space) and the chunks walked in `walked`.
+template <int KA, int KB>
+__device__ __forceinline__ void tile_walk(const CellsParams& p, int b, int tile, float4 q,
+                                          bool real, int N1, int k1, int k2, float4* ring,
+                                          int* slots, int bar, int gt, unsigned& nscan,
+                                          int& walked, unsigned (&cnt)[3]) {
+  const int lane = threadIdx.x & 31, N = p.N;
+  float dA[KA], dB[KB];
+  int iA[KA], iB[KB];
+#pragma unroll
+  for (int i = 0; i < KA; ++i) {
+    dA[i] = i < KA - k1 ? -CUDART_INF_F : CUDART_INF_F;
+    iA[i] = i < KA - k1 ? -1 : CELL_EMPTY;
+  }
+#pragma unroll
+  for (int i = 0; i < KB; ++i) {
+    dB[i] = i < KB - k2 ? -CUDART_INF_F : CUDART_INF_F;
+    iB[i] = i < KB - k2 ? -1 : CELL_EMPTY;
+  }
+  const int* ord = p.order + (size_t)tile * p.nc;
+  const float* lbt = p.lbs + (size_t)tile * p.nc;
+  const float4* K = p.keys + (size_t)b * p.Np;
+  const float4* BX = p.boxes + (size_t)b * p.nc * 4;
+  for (int m = 0; m < FC_STAGES - 1; ++m) stage_chunk(p, K, BX, ord, ring, m, gt);
+  int m = 0;
+  for (; m < p.nc; ++m) {
+    cp_async_wait<FC_STAGES - 2>();  // this thread's part of chunk m is in
+    // every later chunk's tile bound is at least this one's; the margin
+    // covers the torch bound's round-to-nearest against the round-down here
+    const float thA = dA[KA - 1], thB = dB[KB - 1];
+    const bool done = !real || lbt[m] > fmaxf(thA, thB) * 1.00001f + 1e-30f;
+    if (group_all(bar, done)) break;  // every part in; slot m - 1 read
+    stage_chunk(p, K, BX, ord, ring, m + FC_STAGES - 1, gt);
+    const float4* kb = ring + (m % FC_STAGES) * (p.C + 4);
+    const float4 loA = kb[p.C], hiA = kb[p.C + 1], loB = kb[p.C + 2], hiB = kb[p.C + 3];
+    const bool needA = !done && k1 > 0 && loA.x <= hiA.x &&
+                       box_bound_rd(loA, hiA, q.x, q.y, q.z) <= thA;
+    const bool needB = !done && k2 > 0 && loB.x <= hiB.x &&
+                       box_bound_rd(loB, hiB, q.x, q.y, q.z) <= thB;
+    const bool need = needA || needB;
+    nscan += need ? p.C : 0;
+    const unsigned needers = __ballot_sync(FULL, need);
+    const bool few = __popc(needers) <= FC_SPARSE;  // warp-uniform
+    // a chunk that few lanes need: the warp scans it for each of them, one
+    // key a lane, and hands that lane the keys before its k_s-th
+    for (unsigned left = few ? needers : 0u; left; left &= left - 1) {
+      const int ql = __ffs(left) - 1;
+      const float sx = __shfl_sync(FULL, q.x, ql), sy = __shfl_sync(FULL, q.y, ql),
+                  sz = __shfl_sync(FULL, q.z, ql);
+      const bool nA = __shfl_sync(FULL, needA, ql), nB = __shfl_sync(FULL, needB, ql);
+      for (int base = 0; base < p.C; base += 32) {
+        const float bA = __shfl_sync(FULL, dA[KA - 1], ql), bB = __shfl_sync(FULL, dB[KB - 1], ql);
+        const int biA = __shfl_sync(FULL, iA[KA - 1], ql), biB = __shfl_sync(FULL, iB[KB - 1], ql);
+        const float4 kk = kb[base + lane];
+        const float d = sqdist3(kk.x, kk.y, kk.z, sx, sy, sz);
+        const int id = __float_as_int(kk.w);
+        const bool pass = id < N1 ? nA && lex_less(d, id, bA, biA)
+                                  : id < N && nB && lex_less(d, id, bB, biB);
+        for (unsigned mask = __ballot_sync(FULL, pass); mask; mask &= mask - 1) {
+          const int src = __ffs(mask) - 1;
+          const float dn = __shfl_sync(FULL, d, src);
+          const int jn = __shfl_sync(FULL, id, src);
+          if (lane == ql) cnt[0] += insert2<KA, KB>(dA, iA, dB, iB, dn, jn, N1);
+        }
+      }
+    }
+    if (lane == 0 && needers) ++cnt[few ? 2 : 1];
+    if (need && !few) {
+      // 32 keys at a time: a branch-free pass marks the keys before the
+      // segment's k_s-th (distance, index) as it stood, then the lane
+      // inserts the marked ones, each checked again as the bar moves
+      for (int base = 0; base < p.C; base += 32) {
+        const float bA = dA[KA - 1], bB = dB[KB - 1];
+        const int biA = iA[KA - 1], biB = iB[KB - 1];
+        unsigned mask = 0;
+#pragma unroll
+        for (int u = 0; u < 32; ++u) {
+          const float4 kk = kb[base + u];
+          const float d = sqdist3(kk.x, kk.y, kk.z, q.x, q.y, q.z);
+          const int id = __float_as_int(kk.w);
+          const bool pass = id < N1 ? needA && lex_less(d, id, bA, biA)
+                                    : id < N && needB && lex_less(d, id, bB, biB);
+          mask |= (unsigned)pass << u;
+        }
+        for (; mask; mask &= mask - 1) {
+          const float4 kk = kb[base + __ffs(mask) - 1];
+          cnt[0] += insert2<KA, KB>(dA, iA, dB, iB, sqdist3(kk.x, kk.y, kk.z, q.x, q.y, q.z),
+                                    __float_as_int(kk.w), N1);
+        }
       }
     }
   }
-  if (p.scanned && lane == 0) atomicAdd(p.scanned, nscan);
-  const int vB = __shfl_sync(FULL, iB, max(lane - k1, 0));
-  int idx = -1;
-  if (lane < k1) idx = iA;
-  else if (lane < k1 + k2) idx = vB;
-  return idx == CELL_EMPTY ? -1 : idx;
+  cp_async_wait<0>();
+  walked = m;
+  group_sync(bar);  // the group is done with the ring: the slots take its space
+  int* mine = slots + gt * 33;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) mine[i] = -1;
+#pragma unroll
+  for (int i = 0; i < KA; ++i)
+    if (i >= KA - k1) mine[i - (KA - k1)] = iA[i] == CELL_EMPTY ? -1 : iA[i];
+#pragma unroll
+  for (int i = 0; i < KB; ++i)
+    if (i >= KB - k2) mine[k1 + i - (KB - k2)] = iB[i] == CELL_EMPTY ? -1 : iB[i];
+  group_sync(bar);
+}
+
+// Persistent blocks of FC_GROUPS groups of two warps: each group takes a
+// tile of FC_TQ sorted queries from the counter, walks it (one thread a
+// query), then its two warps finish its queries, 32 each, one warp a query
+// (lane L slot L): the tensor-core head in one-shot mode, idx and resi in
+// residual mode.  The lists' sizes are chosen per tile by its row's
+// budgets: 16 and 16, or 32 for the segment with more than 16.
+template <bool ONESHOT>
+__global__ void __launch_bounds__(FC_WARPS * 32, 1)
+fusion_cells_kernel(const __grid_constant__ CellsParams p) {
+  extern __shared__ float4 smem4[];
+  float* sw = reinterpret_cast<float*>(smem4);
+  const int grp = threadIdx.x / FC_TQ, gt = threadIdx.x % FC_TQ, bar = 1 + grp;
+  float4* ring = smem4 + (ONESHOT ? ONE_NW / 4 : 0) + grp * FC_STAGES * (p.C + 4);
+  int* slots = reinterpret_cast<int*>(ring);  // after the walk: [FC_TQ][33]
+  __shared__ int tile_s[FC_GROUPS];
+  if (ONESHOT) {
+    for (int e = threadIdx.x; e < ONE_NW / 4; e += blockDim.x)
+      smem4[e] = reinterpret_cast<const float4*>(p.wtc)[e];
+    __syncthreads();
+  }
+  const int lane = threadIdx.x & 31, half = gt >> 5;
+  for (;;) {
+    if (gt == 0) {
+      const int n = atomicAdd(p.next, 1);
+      tile_s[grp] = n < p.B * p.nt ? p.torder[n] : -1;
+    }
+    group_sync(bar);
+    const int tile = tile_s[grp];
+    if (tile < 0) break;  // group-uniform
+    const unsigned long long t0 = p.stamps ? global_ns() : 0ull;
+    const int b = tile / p.nt;
+    const float* P = p.pts + (size_t)b * p.N * 3;
+    const int N = p.N, N1 = p.seg[b * 4];
+    const int k1 = max(0, min(p.seg[b * 4 + 2], 32));
+    const int k2 = max(0, min(p.seg[b * 4 + 3], 32 - k1));
+    const float4 q = p.keys[(size_t)b * p.Np + (size_t)(tile - b * p.nt) * FC_TQ + gt];
+    const int qid = __float_as_int(q.w);
+    unsigned nscan = 0, cnt[3] = {0u, 0u, 0u};
+    int walked = 0;
+    if (k1 <= 16 && k2 <= 16)
+      tile_walk<16, 16>(p, b, tile, q, qid < N, N1, k1, k2, ring, slots, bar, gt, nscan, walked, cnt);
+    else if (k1 > 16)
+      tile_walk<32, 16>(p, b, tile, q, qid < N, N1, k1, k2, ring, slots, bar, gt, nscan, walked, cnt);
+    else
+      tile_walk<16, 32>(p, b, tile, q, qid < N, N1, k1, k2, ring, slots, bar, gt, nscan, walked, cnt);
+    const unsigned long long t1 = p.stamps ? global_ns() : 0ull;
+    if (p.scanned || p.stamps) {
+      const unsigned w = __reduce_add_sync(FULL, nscan);
+      if (lane == 0 && p.scanned) atomicAdd(p.scanned, (unsigned long long)w);
+      if (lane == 0 && p.stamps)
+        atomicAdd(p.stamps + (size_t)tile * FC_STAMPS + 4, (unsigned long long)w);
+    }
+    if (p.stamps) {
+#pragma unroll
+      for (int i = 0; i < 3; ++i) {
+        const unsigned w = __reduce_add_sync(FULL, cnt[i]);
+        if (lane == 0) atomicAdd(p.stamps + (size_t)tile * FC_STAMPS + 5 + i, (unsigned long long)w);
+      }
+    }
+    // this warp's 32 queries, one after another: lane L holds query L's
+    // row and, in the slots, reads slot L of each
+#pragma unroll 1
+    for (int i = 0; i < 32; ++i) {
+      const int qi = __shfl_sync(FULL, qid, i);
+      if (qi >= N) continue;  // a pad row (warp-uniform)
+      const float x = __shfl_sync(FULL, q.x, i), y = __shfl_sync(FULL, q.y, i),
+                  z = __shfl_sync(FULL, q.z, i);
+      const int idx = slots[(32 * half + i) * 33 + lane];
+      if (ONESHOT) {
+        const bool active = lane < k1 + k2;
+        float rx = 0.f, ry = 0.f, rz = 0.f;
+        if (active && idx >= 0) {
+          rx = P[(size_t)idx * 3] - x;
+          ry = P[(size_t)idx * 3 + 1] - y;
+          rz = P[(size_t)idx * 3 + 2] - z;
+        }
+        const float3 o = fused_row(sw, x, y, z, rx, ry, rz, active);
+        if (lane == 0) {
+          float* dst = p.out + ((size_t)b * N + qi) * 3;
+          dst[0] = o.x;
+          dst[1] = o.y;
+          dst[2] = o.z;
+        }
+      } else if (lane < p.k) {
+        const int j = idx >= 0 ? idx : qi;  // unfilled slot: the row itself
+        const size_t o = ((size_t)b * N + qi) * p.k + lane;
+        p.out_i[o] = j;
+        p.out_r[o * 3] = __fsub_rn(P[(size_t)j * 3], x);
+        p.out_r[o * 3 + 1] = __fsub_rn(P[(size_t)j * 3 + 1], y);
+        p.out_r[o * 3 + 2] = __fsub_rn(P[(size_t)j * 3 + 2], z);
+      }
+    }
+    group_sync(bar);  // the group is done with the slots before the next tile stages
+    if (p.stamps && gt == 0) {
+      unsigned long long* s = p.stamps + (size_t)tile * FC_STAMPS;
+      s[0] = t0;
+      s[1] = t1;
+      s[2] = global_ns();
+      s[3] = (unsigned long long)walked;
+    }
+  }
+}
+
+static size_t cells_smem(bool oneshot, int C) {
+  return sizeof(float) * (oneshot ? ONE_NW : 0) +
+         sizeof(float4) * FC_GROUPS * FC_STAGES * (C + 4);
 }
 
 template <bool ONESHOT>
-__global__ void __launch_bounds__(256) fusion_cells_kernel(const __grid_constant__ CellsParams p) {
-  constexpr int NW = ScoreMlp<64, 64, 128>::NW;
-  extern __shared__ float4 smem4[];
-  float* sw = reinterpret_cast<float*>(smem4);
-  if (ONESHOT) {
-    for (int e = threadIdx.x; e < NW; e += blockDim.x) sw[e] = p.wbuf[e];
-    __syncthreads();
-  }
-  const int b = blockIdx.y;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int s = blockIdx.x * (blockDim.x >> 5) + warp;
-  if (s >= p.Np) return;  // warp-uniform; no block barrier follows
-  const int q = p.sid[(size_t)b * p.Np + s];
-  if (q >= p.N) return;  // a pad row
-  const float* P = p.pts + (size_t)b * p.N * 3;
-  const int N1 = p.seg[b * 4];
-  const int k1 = min(p.seg[b * 4 + 2], 32);
-  const int k2 = min(p.seg[b * 4 + 3], 32 - k1);
-  const float qx = P[q * 3], qy = P[q * 3 + 1], qz = P[q * 3 + 2];
-  const int idx = cells_slot(p, b, s, qx, qy, qz, N1, k1, k2, lane);
-  if (ONESHOT) {
-    // the head of csrc/fusion_knn.cu's one-shot kernel, slot for slot
-    const bool active = lane < k1 + k2;
-    float rx = 0.f, ry = 0.f, rz = 0.f;
-    if (active && idx >= 0) {
-      rx = P[(size_t)idx * 3] - qx;
-      ry = P[(size_t)idx * 3 + 1] - qy;
-      rz = P[(size_t)idx * 3 + 2] - qz;
-    }
-    const float w = slot_weight(slot_score<64, 64, 128>(rx, ry, rz, sw), active);
-    const float sw_ = warp_sum(w), ax = warp_sum(w * rx), ay = warp_sum(w * ry),
-                az = warp_sum(w * rz);
-    if (lane == 0) {
-      float* o = p.out + ((size_t)b * p.N + q) * 3;
-      o[0] = qx + ax / sw_;
-      o[1] = qy + ay / sw_;
-      o[2] = qz + az / sw_;
-    }
-  } else if (lane < p.k) {
-    const int j = idx >= 0 ? idx : q;  // unfilled slot: the row itself
-    const size_t o = ((size_t)b * p.N + q) * p.k + lane;
-    p.out_i[o] = j;
-    p.out_r[o * 3] = __fsub_rn(P[(size_t)j * 3], qx);
-    p.out_r[o * 3 + 1] = __fsub_rn(P[(size_t)j * 3 + 1], qy);
-    p.out_r[o * 3 + 2] = __fsub_rn(P[(size_t)j * 3 + 2], qz);
-  }
+static cudaError_t launch_cells(const CellsParams& p, cudaStream_t st) {
+  const size_t smem = cells_smem(ONESHOT, p.C);
+  cudaError_t e = allow_smem(fusion_cells_kernel<ONESHOT>, smem);
+  if (e != cudaSuccess) return e;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
+  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return e;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fusion_cells_kernel<ONESHOT>,
+                                                    FC_WARPS * 32, smem);
+  if (e != cudaSuccess) return e;
+  const long long tiles = (long long)p.B * p.nt;
+  const int grid = (int)std::max(1LL, std::min((long long)std::max(per_sm, 1) * sms, tiles));
+  fusion_cells_kernel<ONESHOT><<<grid, FC_WARPS * 32, smem, st>>>(p);
+  return cudaGetLastError();
 }
 
-// pts [B, N, 3]; sk [B, 3, Np], sid [B, Np], boxes [B, nc, 4, 4], order and
-// lbs [B, Np / TQ, nc] (nc = Np / C), seg [B, 4] = (N1, N, k1, k2), all on
-// the device.  One-shot mode when wbuf is not null (the packed score MLP
-// 4 -> h1 -> h2 -> h3): out [B, N, 3]; else out_i [B, N, k] int64 and out_r
-// [B, N, k, 3].  scanned: an unsigned 64-bit counter of the key pairs
-// scanned, or null.
-extern "C" int pci_fusion_cells(const void* pts, const void* sk, const void* sid,
-                                const void* boxes, const void* order,
-                                const void* lbs, const void* seg,
-                                const void* wbuf, int h1, int h2, int h3,
-                                void* out, void* out_i, void* out_r,
-                                void* scanned, int B, int N, int Np, int C,
-                                int TQ, int k, void* stream) {
-  if (N < 1 || Np < N || C < 32 || C % 32 || Np % C || TQ < 1 || Np % TQ ||
-      k < 1 || k > 32)
+// pts [B, N, 3]; keys [B, Np, 4] (x, y, z, original id bits; pads id N),
+// boxes [B, nc, 4, 4], order and lbs [B, Np / TQ, nc] (nc = Np / C), torder
+// [B * Np / TQ] a permutation of the tiles (the order they are taken), seg
+// [B, 4] = (N1, N, k1, k2), next one zeroed int32, all on the device; TQ =
+// 64.  One-shot mode when wtc is not null (the score MLP 4 -> h1 -> h2 ->
+// h3 split by _build.pack_tf32(..., chain=True)): out [B, N, 3]; else out_i
+// [B, N, k] int64 and out_r [B, N, k, 3].  scanned: an unsigned 64-bit
+// counter of the key pairs scanned, or null; stamps: [B, Np / TQ,
+// FC_STAMPS] unsigned 64-bit (zeroed), or null.
+extern "C" int pci_fusion_cells(const void* pts, const void* keys, const void* boxes,
+                                const void* order, const void* lbs, const void* torder,
+                                const void* seg,
+                                const void* wtc, int h1, int h2, int h3, void* out,
+                                void* out_i, void* out_r, void* scanned, void* stamps,
+                                void* next, int B, int N, int Np, int C, int TQ, int k,
+                                void* stream) {
+  if (N < 1 || B < 1 || Np < N || C < 32 || C % 32 || Np % C || TQ != FC_TQ ||
+      Np % TQ || k < 1 || k > 32)
     return (int)cudaErrorInvalidValue;
-  if (wbuf && (h1 != 64 || h2 != 64 || h3 != 128)) return (int)cudaErrorInvalidValue;
+  if (wtc && (h1 != ONE_H1 || h2 != ONE_H2 || h3 != ONE_H3)) return (int)cudaErrorInvalidValue;
   CellsParams p;
   p.pts = static_cast<const float*>(pts);
-  p.sk = static_cast<const float*>(sk);
-  p.sid = static_cast<const int*>(sid);
+  p.keys = static_cast<const float4*>(keys);
   p.boxes = static_cast<const float4*>(boxes);
   p.order = static_cast<const int*>(order);
   p.lbs = static_cast<const float*>(lbs);
+  p.torder = static_cast<const int*>(torder);
   p.seg = static_cast<const int*>(seg);
-  p.wbuf = static_cast<const float*>(wbuf);
+  p.wtc = static_cast<const float*>(wtc);
   p.out = static_cast<float*>(out);
   p.out_i = static_cast<long long*>(out_i);
   p.out_r = static_cast<float*>(out_r);
   p.scanned = static_cast<unsigned long long*>(scanned);
-  p.N = N, p.Np = Np, p.C = C, p.TQ = TQ, p.nc = Np / C, p.nt = Np / TQ, p.k = k;
-  const int warps = 8;
-  dim3 grid((Np + warps - 1) / warps, B);
+  p.stamps = static_cast<unsigned long long*>(stamps);
+  p.next = static_cast<int*>(next);
+  p.B = B, p.N = N, p.Np = Np, p.C = C, p.nc = Np / C, p.nt = Np / TQ, p.k = k;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (wbuf) {
-    const size_t smem = sizeof(float) * ScoreMlp<64, 64, 128>::NW;
-    cudaError_t e = allow_smem(fusion_cells_kernel<true>, smem);
-    if (e != cudaSuccess) return (int)e;
-    fusion_cells_kernel<true><<<grid, warps * 32, smem, st>>>(p);
-  } else {
-    fusion_cells_kernel<false><<<grid, warps * 32, 0, st>>>(p);
-  }
-  return (int)cudaGetLastError();
+  return (int)(wtc ? launch_cells<true>(p, st) : launch_cells<false>(p, st));
+}
+
+// The one-shot kernel's resources at chunks of C keys (common.cuh's kernel_attrs).
+extern "C" int pci_fusion_cells_attrs(int* out) {
+  return kernel_attrs(fusion_cells_kernel<true>, cells_smem(true, 256), out, FC_WARPS * 32);
 }

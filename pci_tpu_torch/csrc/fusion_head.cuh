@@ -1,12 +1,19 @@
 // The fusion's attention head for one query, one warp a query and lane L
-// holding slot L (k <= 32), shared by the one-shot fusion
-// (csrc/fusion_knn.cu) and the attention tail over given residuals
-// (csrc/fusion_tail.cu): the folded score MLP over [resi | safe_norm(resi)]
-// with the activations in registers and the weights in shared memory, the
-// max over channels, and the softmax over the slots.
+// holding slot L (k <= 32): the folded score MLP over [resi |
+// safe_norm(resi)], the max over channels, and the softmax over the slots.
+// Two forms:
+//   - slot_score: scalar fp32, the activations in registers and the weights
+//     (common.cuh layout) in shared memory; the attention tail over given
+//     residuals (csrc/fusion_tail.cu);
+//   - score_tile / fused_row: on the tensor cores in 3xTF32
+//     (csrc/mma_tf32.cuh), the split weights in shared memory; the two
+//     one-shot kernels, flat (csrc/fusion_knn.cu) and cell-pruned
+//     (csrc/fusion_cells.cu), so that both give the same rows for the same
+//     neighbours.
 #pragma once
 
 #include "common.cuh"
+#include "mma_tf32.cuh"
 
 #define FULL 0xffffffffu
 
@@ -83,4 +90,147 @@ __device__ __forceinline__ float slot_weight(float score, bool active) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) m = fmaxf(m, __shfl_xor_sync(FULL, m, off));
   return active ? expf(s - m) : 0.f;
+}
+
+// ---- the head on the tensor cores ----------------------------------------
+
+// the split score MLP 4 -> 64 -> 64 -> 128 in smem (mma_tf32.cuh layout,
+// the last two layers chained), float offsets
+#define ONE_H1 64
+#define ONE_H2 64
+#define ONE_H3 128
+#define ONE_W1 0
+#define ONE_B1 (ONE_W1 + 8 * ONE_H1 * 2)
+#define ONE_W2 (ONE_B1 + ONE_H1)
+#define ONE_B2 (ONE_W2 + ONE_H1 * ONE_H2 * 2)
+#define ONE_W3 (ONE_B2 + ONE_H2)
+#define ONE_B3 (ONE_W3 + ONE_H2 * ONE_H3 * 2)
+#define ONE_NW (ONE_B3 + ONE_H3)
+
+// One 16-slot row tile of the score head on the tensor cores: rows are
+// slots 16 mt .. 16 mt + 15 of this warp's query, the input [r | safe_norm]
+// of slot s held by lane s.  4 -> 64 -> 64 -> 128, ReLU after each, in
+// 3xTF32 (mma_tf32.cuh), the activations in registers from layer to layer
+// as accumulator fragments, which are the next layer's A fragments for the
+// chained weight layout (split a k-step at a time); the last layer in four
+// chunks of 32 outputs with a running max.  Returns, on lane 4 g (g < 8),
+// max_c of rows g (lo) and g + 8 (hi).
+__device__ __forceinline__ void score_tile(const float* sw, float rx, float ry, float rz,
+                                           float nr, int mt, float& mlo, float& mhi) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const float4* w4 = reinterpret_cast<const float4*>(sw);
+  float h[8][4];  // a layer's output, [n-tile][accumulator fragment]
+  {
+    uint32_t ahi[4], alo[4];
+    const int s0 = 16 * mt + g, s1 = s0 + 8;
+    const float x0 = __shfl_sync(FULL, rx, s0), y0 = __shfl_sync(FULL, ry, s0);
+    const float z0 = __shfl_sync(FULL, rz, s0), n0 = __shfl_sync(FULL, nr, s0);
+    const float x1 = __shfl_sync(FULL, rx, s1), y1 = __shfl_sync(FULL, ry, s1);
+    const float z1 = __shfl_sync(FULL, rz, s1), n1 = __shfl_sync(FULL, nr, s1);
+    tf32_split(t == 0 ? x0 : (t == 1 ? y0 : (t == 2 ? z0 : n0)), ahi[0], alo[0]);
+    tf32_split(t == 0 ? x1 : (t == 1 ? y1 : (t == 2 ? z1 : n1)), ahi[1], alo[1]);
+    ahi[2] = ahi[3] = alo[2] = alo[3] = 0u;  // columns 4..7: padding
+    // layer 1: one k-step, 8 n-tiles
+#pragma unroll
+    for (int nt = 0; nt < ONE_H1 / 8; ++nt) {
+      float small[4] = {0.f, 0.f, 0.f, 0.f};
+      h[nt][0] = h[nt][1] = h[nt][2] = h[nt][3] = 0.f;
+      mma_3xtf32_apart(h[nt], small, ahi, alo, w4[(ONE_W1 / 4) + nt * 32 + lane]);
+      const float2 b = *reinterpret_cast<const float2*>(sw + ONE_B1 + 8 * nt + 2 * t);
+      h[nt][0] = fmaxf((h[nt][0] + small[0]) + b.x, 0.f);
+      h[nt][1] = fmaxf((h[nt][1] + small[1]) + b.y, 0.f);
+      h[nt][2] = fmaxf((h[nt][2] + small[2]) + b.x, 0.f);
+      h[nt][3] = fmaxf((h[nt][3] + small[3]) + b.y, 0.f);
+    }
+  }
+  // layer 2: 8 k-steps x 8 n-tiles, in two halves of 4 (the small products
+  // in their own sums, mma_3xtf32_apart); the first half's outputs wait in
+  // h2 while the second reads h
+  float h2[4][4];
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    float acc[4][4], small[4][4];
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] = small[n][e] = 0.f;
+#pragma unroll
+    for (int kt = 0; kt < ONE_H1 / 8; ++kt) {
+      uint32_t ahi[4], alo[4];
+      split_chained(h[kt], ahi, alo);
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+        mma_3xtf32_apart(acc[n], small[n], ahi, alo,
+                         w4[(ONE_W2 / 4) + (kt * (ONE_H2 / 8) + 4 * half + n) * 32 + lane]);
+    }
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+      const float2 b = *reinterpret_cast<const float2*>(sw + ONE_B2 + 8 * (4 * half + n) + 2 * t);
+      float* o = half ? h[4 + n] : h2[n];
+      o[0] = fmaxf((acc[n][0] + small[n][0]) + b.x, 0.f);
+      o[1] = fmaxf((acc[n][1] + small[n][1]) + b.y, 0.f);
+      o[2] = fmaxf((acc[n][2] + small[n][2]) + b.x, 0.f);
+      o[3] = fmaxf((acc[n][3] + small[n][3]) + b.y, 0.f);
+    }
+  }
+#pragma unroll
+  for (int n = 0; n < 4; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) h[n][e] = h2[n][e];
+  // layer 3: 8 k-steps x 16 n-tiles in four chunks of 4, max over outputs
+  mlo = -CUDART_INF_F;
+  mhi = -CUDART_INF_F;
+#pragma unroll 1
+  for (int c = 0; c < ONE_H3 / 8; c += 4) {
+    float acc[4][4], small[4][4];
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] = small[n][e] = 0.f;
+#pragma unroll
+    for (int kt = 0; kt < ONE_H2 / 8; ++kt) {
+      uint32_t ahi[4], alo[4];
+      split_chained(h[kt], ahi, alo);
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+        mma_3xtf32_apart(acc[n], small[n], ahi, alo,
+                         w4[(ONE_W3 / 4) + (kt * (ONE_H3 / 8) + c + n) * 32 + lane]);
+    }
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+      const float2 b = *reinterpret_cast<const float2*>(sw + ONE_B3 + 8 * (c + n) + 2 * t);
+      mlo = fmaxf(mlo, fmaxf(fmaxf((acc[n][0] + small[n][0]) + b.x, 0.f),
+                             fmaxf((acc[n][1] + small[n][1]) + b.y, 0.f)));
+      mhi = fmaxf(mhi, fmaxf(fmaxf((acc[n][2] + small[n][2]) + b.x, 0.f),
+                             fmaxf((acc[n][3] + small[n][3]) + b.y, 0.f)));
+    }
+  }
+  mlo = fmaxf(mlo, __shfl_xor_sync(FULL, mlo, 1));
+  mlo = fmaxf(mlo, __shfl_xor_sync(FULL, mlo, 2));
+  mhi = fmaxf(mhi, __shfl_xor_sync(FULL, mhi, 1));
+  mhi = fmaxf(mhi, __shfl_xor_sync(FULL, mhi, 2));
+}
+
+// The fused row of one query from its slots on the tensor-core head: slot
+// `lane` holds the residual (rx, ry, rz) (zero for a slot that is inactive
+// or unfilled), the score MLP over [r | safe_norm(r)] in two 16-slot
+// tiles, the softmax over the active slots, and q + sum w r / sum w on
+// every lane.  sw: the split score MLP (ONE_NW floats) in shared memory.
+__device__ __forceinline__ float3 fused_row(const float* sw, float x, float y, float z,
+                                            float rx, float ry, float rz, bool active) {
+  const int lane = threadIdx.x & 31;
+  const float nr = sqrtf(rx * rx + ry * ry + rz * rz + 1e-12f);
+  float lo0, hi0, lo1, hi1;
+  score_tile(sw, rx, ry, rz, nr, 0, lo0, hi0);
+  score_tile(sw, rx, ry, rz, nr, 1, lo1, hi1);
+  // slot s = 16 mt + r sits on lane 4 (r % 8), lo for r < 8, hi above
+  const int src = (lane & 7) * 4;
+  const float s00 = __shfl_sync(FULL, lo0, src), s01 = __shfl_sync(FULL, hi0, src);
+  const float s10 = __shfl_sync(FULL, lo1, src), s11 = __shfl_sync(FULL, hi1, src);
+  const float score = lane < 16 ? (lane < 8 ? s00 : s01) : (lane < 24 ? s10 : s11);
+  // softmax over the k slots, weighted sum
+  const float w = slot_weight(score, active);
+  const float sw_ = warp_sum(w), ax = warp_sum(w * rx), ay = warp_sum(w * ry),
+              az = warp_sum(w * rz);
+  return make_float3(x + ax / sw_, y + ay / sw_, z + az / sw_);
 }

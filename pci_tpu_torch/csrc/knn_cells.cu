@@ -98,27 +98,6 @@ __device__ __forceinline__ bool tile_done(float lb, float thd) {
   return lb > thd * 1.00001f + 1e-30f;
 }
 
-// Insert (d, id) into the list (bd, bi), sorted by (distance, index): every
-// entry compares at once (the comparisons are monotone in the entry), then
-// each entry at or past the new one's place takes its left neighbour.
-template <int KM>
-__device__ __forceinline__ void list_insert(float (&bd)[KM], int (&bi)[KM], float d, int id) {
-  bool lt[KM];
-#pragma unroll
-  for (int i = 0; i < KM; ++i) lt[i] = lex_less(d, id, bd[i], bi[i]);
-#pragma unroll
-  for (int i = KM - 1; i > 0; --i) {
-    if (lt[i]) {
-      bd[i] = lt[i - 1] ? bd[i - 1] : d;
-      bi[i] = lt[i - 1] ? bi[i - 1] : id;
-    }
-  }
-  if (lt[0]) {
-    bd[0] = d;
-    bi[0] = id;
-  }
-}
-
 // One thread a query: KM >= k list entries in registers, the first KM - k
 // held at -inf so that the last entry is the k-th.
 template <int KM>

@@ -22,49 +22,110 @@
 // hit; an empty ball reads key row 0 (pn2mid_tpu.py:126-129; the centres
 // are FPS picks of the keys, so none is empty here).  The 3-NN is exact,
 // ties to the lower index (not the TPU's mantissa-packed keys), with
-// weights 1 / (d + 1e-8) from the exact distances, num / den.  The first
-// layer of a stage reads [feats | dxyz] (SA) or [skip | interp] (FP) rows
-// built in shared memory, so no concatenation is written.
+// weights 1 / (d + 1e-8) from the exact distances, num / den.
 //
 // What bounds it on the H100: ~1.1 GFMA of dense layers a sample (sa2's
-// 12,288 slot rows the most) against ~3 MB of weights: operations (0.033
-// ms at 67 TFLOP/s fp32).  GroupNorm's statistics are global per sample,
-// so every layer ends at a grid barrier: a cooperative launch (as
-// csrc/flowmid.cu) strides every block over (chain, sample, row tile)
-// items; a tile writes its pre-activations to device scratch (they stay in
-// L2) and its per-group sums, in fp64 and in a fixed order, to its own
-// slot; after the barrier every block reduces the slots in tile order, so
-// a run gives the same bits every time.  The next layer normalises, applies
-// ReLU and multiplies in one pass over a tile held in shared memory.  The
-// dense products are scalar fp32 loops (dense_rows); tensor cores are
-// later work.
+// 12,288 slot rows the most) against ~3 MB of weights: operations, ~0.02
+// ms in 3xTF32 on the tensor cores.  In practice the latency of its 19
+// dependent phases: GroupNorm's statistics are global per sample, so every
+// layer ends at a grid barrier.  Design:
+//   - a cooperative launch (as csrc/flowmid.cu), two blocks an SM, strides
+//     every block over the phase's items; an item is a tile of 64 rows (an
+//     SA level's first layer: whole centres, 64 / K of them) x a column
+//     tile of 2 or 4 n-tiles (16 or 32 output channels), the columns cut
+//     finer where a layer has few row tiles, so every layer spreads over
+//     the SMs; an FP level's first layer (1,536, 512 and 352 inputs at
+//     ISAPCInet's widths) is also split by input chunks of 256 (fp4's 64
+//     rows: 96 items, not one), its chunks' partial products summed in
+//     order by a short phase of their own;
+//   - every dense product on the tensor cores in 3xTF32 (mma_tf32.cuh,
+//     weights split once on the host, pn2mid_cuda.pack_tc), the A operand
+//     the input rows built in shared memory 256 columns at a time ([feats |
+//     dxyz] from the ball ids, [skip | interp] from the 3-NN, or the
+//     previous layer's rows, copied by cp.async and normalised in place),
+//     each of the 8 warps one 16-row m-tile x half the column tile's
+//     n-tiles, the B fragments read from L2 three k-steps ahead;
+//   - a tile writes its pre-activations to device scratch (they stay in
+//     L2) and its per-group sums, in fp64 and in a fixed order, to its own
+//     slot; after the barrier every block reduces the slots in order, so a
+//     run gives the same bits every time;
+//   - no finishing pass between levels: an SA level's last layer keeps,
+//     per centre and channel, the max and the min of its pre-activations
+//     over the K slots, and the reader of the level's features (the next
+//     level's first layer, an FP layer's skip or keys) applies
+//     relu(GroupNorm) to the max, or to the min where the channel's scale
+//     is negative (the map is monotone, so this is the max over the slots
+//     of the normalised values, bit for bit); an FP level's rows are
+//     normalised by their reader the same way; only fp2's output is
+//     finished in a last pass;
+//   - the FPS on stages.cuh:fps_centres (the group chain on the block's
+//     8 warps above 256 points, its one-warp chain up to 256), c3 and c4
+//     beside sa2's first layer; the three FP levels' 3-NN once, beside
+//     sa2's second layer, one warp a query over the whole grid.
+// Optional %globaltimer stamps (a measurement launch) give each block's
+// arrival at and leaving of every phase's barrier and its time in each
+// part of its items (chip_smoke.py's `stages pn2mid` line).
 #include "stages.cuh"
 
 #define PN_CHAINS 9
 #define PN_MAXB 16
 #define PN_MAXL 3
+#define PN_THREADS 256
+#define PN_ROWS 64           // rows a tile: 4 m-tiles of 16
+#define PN_KC 256            // input columns built a pass
+#define PN_LDX (PN_KC + 4)   // % 8 == 4: conflict-free A fragments
+#define PN_MAXNT 4           // n-tiles a column tile at most (2 a warp)
+#define PN_LDH (8 * PN_MAXNT + 4)
+#define PN_PREF 4            // k-steps of B fragments a warp keeps in flight
+#define PN_SLOTS (PN_CHAINS + 2)  // statistics: each chain's last layer, the phase's previous layers
+#define PN_PHASES 21  // start, FPS, 3 x 3 SA layers, 3 x (2 FP layers, a sum), finish
+// a phase's stamps, a block: its arrival at and leaving of the phase's grid
+// barrier (%globaltimer ns), then its summed time in each part of its
+// items (ball / 3-NN ids, the chunks' column tables, the input rows, the
+// products, the output and statistics; between its block barriers, on
+// thread 0's clock) and its items
+#define PN_ST 8
+#define PN_T_IDS 2
+#define PN_T_COLS 3
+#define PN_T_BUILD 4
+#define PN_T_MMA 5
+#define PN_T_OUT 6
+#define PN_T_ITEMS 7
+
+// Features [B][n][C]: plain rows (x), or the output of one or two chains
+// (g0's cout channels, then g1's), normalised by their reader.
+struct PnView {
+  const float* x;
+  int n, C, g0, g1, c0;
+};
 
 struct PnLayer {
-  const float* W;    // [cin][cout], then b, gn scale, gn bias [cout] each
-  float* H;          // pre-activations [B][rows][cout]
-  double* part;      // per-tile group sums [B][tiles][4][2]
-  int cin, cout, R, tiles;
+  const float* wtc;  // split W (mma_tf32.cuh layout), then the bias padded to N8
+  const float* aux;  // [3][cout]: dense bias, gn scale, gn bias
+  float* H;          // pre-activations [B][rows][cout] (not an SA chain's last layer)
+  double* part;      // per-tile group sums [B][rt * ct][4][2]
+  float* Pp;         // split K: the chunks' partial products [ks][B][rows][cout]
+  int cin, cout, rt, ct, nti;  // row tiles, column tiles, n-tiles a column tile
+  int ks;            // input chunks computed apart (split K; 1: none)
 };
 
 // One MLP chain: a scale of an SA level (rows = S centres x K slots) or an
-// FP level (rows = S queries).  Keys kx [B][Nk][3] with features kf
-// [B][Nk][Cf]; centres (queries) c [B][S][3]; FP: skip [B][S][Cs].  The
-// chain's output, relu(gn(last layer)) (max over slots for SA), goes to
-// out [B][S][out_ld] at channel out_off.
+// FP level (rows = S queries).  Keys kx [B][Nk][3] with features kf;
+// centres (queries) c [B][S][3]; FP: skip.  Its output as a view: an SA
+// chain's per-centre max and min of the last layer (mx, mn [B][S][cout]),
+// an FP chain's last layer (mx = mn = its H).
 struct PnChain {
   PnLayer L[PN_MAXL];
-  int nl, fp, rows;
+  PnView kf, skip;
   const float* c;
   const float* kx;
-  const float* kf;
-  const float* skip;
-  float* out;
-  int S, Nk, Cf, Cs, K, out_ld, out_off;
+  const float* mx;
+  const float* mn;
+  float* mxw;  // SA: where the last layer's tiles write mx and mn
+  float* mnw;
+  int* nn_i;   // FP: each query's 3-NN [B][S][3] and their weights
+  float* nn_w;
+  int nl, fp, rows, S, Nk, K;
   float r2;
 };
 
@@ -72,61 +133,215 @@ struct PnParams {
   PnChain ch[PN_CHAINS];
   const float* l1x;   // [B][N1][3]
   float* cx[3];       // c2, c3, c4: [B][S][3]
+  float* out;         // [B][N1][cout of fp2]
   unsigned int* bar;  // the grid barrier's counter, zeroed
+  unsigned long long* stamps;  // [grid][PN_PHASES][PN_ST], or null
   int B, N1, S[3];
 };
 
 struct PnStats {
-  float mean[2][PN_MAXB][4], rstd[2][PN_MAXB][4];
+  float mean[PN_SLOTS][PN_MAXB][4], rstd[PN_SLOTS][PN_MAXB][4];
 };
 
-// Group statistics of layer `l` of chains a and b (b < 0: one chain), each
-// block computing them alike from the tile slots in tile order.
-__device__ void pn_stats(const PnParams& p, int a, int b, int l, PnStats& st) {
-  __syncthreads();
-  const int nch = b < 0 ? 1 : 2;
-  for (int e = threadIdx.x; e < nch * p.B * 4; e += blockDim.x) {
-    const int ci = e / (p.B * 4), bb = (e / 4) % p.B, g = e % 4;
-    const PnLayer& L = p.ch[ci ? b : a].L[l];
-    const double* pt = L.part + (size_t)bb * L.tiles * 8;
-    double s = 0.0, ss = 0.0;
-    for (int t = 0; t < L.tiles; ++t) {
-      s += pt[t * 8 + g * 2];
-      ss += pt[t * 8 + g * 2 + 1];
-    }
-    const double n = (double)p.ch[ci ? b : a].rows * (L.cout / 4);
-    const float mean = (float)(s / n), mean2 = (float)(ss / n);
-    const float var = fmaxf(mean2 - mean * mean, 0.f);
-    st.mean[ci][bb][g] = mean;
-    st.rstd[ci][bb][g] = rsqrtf(var + 1e-5f);
-  }
-  __syncthreads();
+// A block's clock for its items' parts in one phase (null: no stamps).
+struct PnClock {
+  unsigned long long* s;
+  unsigned long long t;
+};
+
+__device__ __forceinline__ void pn_tick(PnClock& c, int part) {
+  if (!c.s || threadIdx.x) return;
+  const unsigned long long now = global_ns();
+  if (part >= 0) c.s[part] += now - c.t;
+  c.t = now;
 }
 
-// One row tile of layer l of chain ch (index ci in the phase) for sample b:
-// the input rows into shared memory, the dense layer, the pre-activations
-// out, the tile's per-group sums into its slot.
-__device__ void pn_layer_tile(const PnParams& p, const PnChain& ch, int ci, int l,
-                              int b, int t, const PnStats& st, float* smem) {
+// Group statistics of layer l of chain g into st slot `slot`, from the
+// item slots (every block alike): a warp a (sample, group), lane L summing
+// slots L, L + 32, ..., then a butterfly over the lanes: a fixed order.
+__device__ void pn_fill(const PnParams& p, int slot, int g, int l, PnStats& st) {
+  const PnChain& ch = p.ch[g];
   const PnLayer& L = ch.L[l];
-  const int cin = L.cin, cout = L.cout;
-  const int ldi = round_up(cin, 4), ldo = round_up(cout, 4), RR = round_up(L.R, 8);
-  const int r0 = t * L.R, nr = min(L.R, ch.rows - r0);
-  float* X = smem;
-  float* Hs = X + (size_t)RR * ldi;
-  double* csum = reinterpret_cast<double*>(Hs + (size_t)RR * ldo);  // [cout][2]
-  int* sidx = reinterpret_cast<int*>(csum + 2 * (size_t)cout);  // [3 R] ball / 3-NN ids
-  float* swt = reinterpret_cast<float*>(sidx + 3 * (size_t)L.R);  // [3 R] 3-NN weights
+  const int items = L.rt * L.ct;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int e = warp; e < p.B * 4; e += blockDim.x >> 5) {
+    const int bb = e / 4, gg = e % 4;
+    const double* pt = L.part + (size_t)bb * items * 8 + gg * 2;
+    double s = 0.0, ss = 0.0;
+    for (int t = lane; t < items; t += 32) {
+      s += pt[t * 8];
+      ss += pt[t * 8 + 1];
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      s += __shfl_xor_sync(0xffffffffu, s, off);
+      ss += __shfl_xor_sync(0xffffffffu, ss, off);
+    }
+    if (lane == 0) {
+      const double n = (double)ch.rows * (L.cout / 4);
+      const float mean = (float)(s / n), mean2 = (float)(ss / n);
+      const float var = fmaxf(mean2 - mean * mean, 0.f);
+      st.mean[slot][bb][gg] = mean;
+      st.rstd[slot][bb][gg] = rsqrtf(var + 1e-5f);
+    }
+  }
+}
+
+// The statistics a view's reader needs: its chains' last layers.
+__device__ __forceinline__ void pn_fill_view(const PnParams& p, const PnView& v, PnStats& st) {
+  if (v.x || v.g0 < 0) return;  // plain rows, or none (an SA chain's skip)
+  pn_fill(p, v.g0, v.g0, p.ch[v.g0].nl - 1, st);
+  if (v.g1 >= 0) pn_fill(p, v.g1, v.g1, p.ch[v.g1].nl - 1, st);
+}
+
+// relu(GroupNorm(h)) of channel c of a chain's layer L, with the statistics
+// in st slot `slot`, sample b: (h - mean) * (rstd * scale) + bias.
+__device__ __forceinline__ float pn_norm(const PnLayer& L, const PnStats& st, int slot, int b,
+                                         int c, float h) {
+  const int g = c / (L.cout / 4);
+  return fmaxf((h - st.mean[slot][b][g]) * (st.rstd[slot][b][g] * L.aux[L.cout + c]) +
+                   L.aux[2 * L.cout + c],
+               0.f);
+}
+
+// How the build reads an input column: src[row * ld] from the column's
+// source rows of sample b, raw or normalised, relu((h - mean) * mul +
+// bias).  A chain's view reads its max where the map rises with h and its
+// min where it falls (a negative scale): the max over slots of the
+// normalised values.
+struct PnCol {
+  const float* src;
+  int ld, norm;
+  float mean, mul, bias, pad;
+};
+
+__device__ __forceinline__ PnCol pn_col_view(const PnParams& p, const PnView& v,
+                                             const PnStats& st, int b, int c) {
+  PnCol t;
+  if (v.x) {
+    t.src = v.x + (size_t)b * v.n * v.C + c;
+    t.ld = v.C, t.norm = 0;
+    t.mean = 0.f, t.mul = 1.f, t.bias = 0.f;
+    return t;
+  }
+  const bool first = c < v.c0;
+  const int g = first ? v.g0 : v.g1, cc = first ? c : c - v.c0;
+  const PnChain& ch = p.ch[g];
+  const PnLayer& L = ch.L[ch.nl - 1];
+  const int gg = cc / (L.cout / 4);
+  t.mean = st.mean[g][b][gg];
+  t.mul = st.rstd[g][b][gg] * L.aux[L.cout + cc];
+  t.bias = L.aux[2 * L.cout + cc];
+  t.src = (t.mul >= 0.f ? ch.mx : ch.mn) + (size_t)b * ch.S * L.cout + cc;
+  t.ld = L.cout, t.norm = 1;
+  return t;
+}
+
+__device__ __forceinline__ float pn_val(const PnCol& t, int row) {
+  const float h = t.src[(size_t)row * t.ld];
+  return t.norm ? fmaxf((h - t.mean) * t.mul + t.bias, 0.f) : h;
+}
+
+// Shared memory of an item: the input chunk, the output tile, the chunk's
+// columns, the column sums, the ball / 3-NN ids and weights.
+struct PnSmem {
+  float X[PN_ROWS * PN_LDX];
+  float Hs[PN_ROWS * PN_LDH];
+  PnCol col[PN_KC];
+  double csum[8 * 8 * PN_MAXNT * 2];
+  int sidx[3 * PN_ROWS];
+  float swt[3 * PN_ROWS];
+};
+
+// The tile's pre-activations (in sm.Hs, columns local to the column tile)
+// out: to H, or for the last SA layer each centre's max and min over its K
+// slots; its per-group sums to its slot.
+__device__ void pn_tile_out(const PnChain& ch, const PnLayer& L, int l, int b, int t, int u,
+                            PnSmem& sm, PnClock& ck) {
+  const int cout = L.cout, NT = round_up(cout, 8) / 8;
+  const int r0 = t * PN_ROWS, nr = min(PN_ROWS, ch.rows - r0);
+  const int j0 = u * L.nti, nj = min(L.nti, NT - j0);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, nwarps = blockDim.x >> 5;
+  const int c0 = 8 * j0, cw = min(8 * nj, cout - c0);  // the tile's real columns
+  if (!ch.fp && l == ch.nl - 1) {
+    // the last SA layer: each centre's max and min over its K slots
+    const int K = ch.K, s0 = r0 / K, Q = nr / K;
+    for (int e = threadIdx.x; e < Q * cw; e += blockDim.x) {
+      const int qi = e / cw, cl = e - qi * cw;
+      float mx = -CUDART_INF_F, mn = CUDART_INF_F;
+      for (int k = 0; k < K; ++k) {
+        const float v = sm.Hs[(qi * K + k) * PN_LDH + cl];
+        mx = fmaxf(mx, v);
+        mn = fminf(mn, v);
+      }
+      const size_t o = ((size_t)b * ch.S + s0 + qi) * cout + c0 + cl;
+      ch.mxw[o] = mx;
+      ch.mnw[o] = mn;
+    }
+  } else {
+    float* Hg = L.H + ((size_t)b * ch.rows + r0) * cout + c0;
+    for (int r = warp; r < nr; r += nwarps)
+      for (int cl = lane; cl < cw; cl += 32) Hg[(size_t)r * cout + cl] = sm.Hs[r * PN_LDH + cl];
+  }
+  // column sums: 8 threads a column, each over rows r = j, j + 8, ...;
+  // then each column's 8 parts, then a group's columns, in order
+  for (int e = threadIdx.x; e < 8 * cw; e += blockDim.x) {
+    const int cl = e >> 3, j = e & 7;
+    double s = 0.0, ss = 0.0;
+    for (int r = j; r < nr; r += 8) {
+      const float v = sm.Hs[r * PN_LDH + cl];
+      s += v;
+      ss += v * v;  // rounded to fp32, as the plain version squares
+    }
+    sm.csum[2 * e] = s;
+    sm.csum[2 * e + 1] = ss;
+  }
+  __syncthreads();
+  for (int cl = threadIdx.x; cl < cw; cl += blockDim.x) {  // a column's 8 parts, in order
+    double s = sm.csum[16 * cl], ss = sm.csum[16 * cl + 1];
+    for (int j = 1; j < 8; ++j) {
+      s += sm.csum[16 * cl + 2 * j];
+      ss += sm.csum[16 * cl + 2 * j + 1];
+    }
+    sm.csum[16 * cl] = s;
+    sm.csum[16 * cl + 1] = ss;
+  }
+  __syncthreads();
+  if (threadIdx.x < 4) {
+    const int g = threadIdx.x, gsz = cout / 4;
+    double s = 0.0, ss = 0.0;
+    for (int cl = 0; cl < cw; ++cl) {
+      if ((c0 + cl) / gsz != g) continue;
+      s += sm.csum[16 * cl];
+      ss += sm.csum[16 * cl + 1];
+    }
+    double* slot = L.part + ((size_t)b * L.rt * L.ct + (size_t)t * L.ct + u) * 8 + g * 2;
+    slot[0] = s;
+    slot[1] = ss;
+  }
+  pn_tick(ck, PN_T_OUT);
+}
+
+// Item (row tile t, column tile u, input chunk ks of a split layer, -1
+// for all) of layer l of chain ch (index ci in the phase) for sample b.
+__device__ void pn_item(const PnParams& p, const PnChain& ch, int ci, int l, int b, int t,
+                        int u, int ks, const PnStats& st, PnSmem& sm, PnClock& ck) {
+  const PnLayer& L = ch.L[l];
+  const int cin = L.cin, cout = L.cout, NT = round_up(cout, 8) / 8;
+  const int r0 = t * PN_ROWS, nr = min(PN_ROWS, ch.rows - r0);
+  const int j0 = u * L.nti, nj = min(L.nti, NT - j0);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, nwarps = blockDim.x >> 5;
+  const int gq = lane >> 2, tq = lane & 3;
   const float* KX = ch.kx + (size_t)b * ch.Nk * 3;
-  const float* KF = ch.kf + (size_t)b * ch.Nk * ch.Cf;
   const float* CX = ch.c + (size_t)b * ch.S * 3;
-  __syncthreads();  // the block's previous tile is done with the buffers
+  __syncthreads();  // the block's previous item is done with the buffers
+  pn_tick(ck, -1);
+  if (ck.s && threadIdx.x == 0) ++ck.s[PN_T_ITEMS];
   if (l == 0 && !ch.fp) {
     // ball query: one warp a centre, the first K keys in index order
     const int K = ch.K, s0 = r0 / K, Q = nr / K;
     for (int qi = warp; qi < Q; qi += nwarps) {
-      int* id = sidx + qi * K;
+      int* id = sm.sidx + qi * K;
       const float qx = CX[(s0 + qi) * 3], qy = CX[(s0 + qi) * 3 + 1],
                   qz = CX[(s0 + qi) * 3 + 2];
       int count = 0;
@@ -139,205 +354,405 @@ __device__ void pn_layer_tile(const PnParams& p, const PnChain& ch, int ci, int 
       }
       ball_pad(id, count, K, 0);  // an empty ball reads key row 0
     }
-    __syncthreads();
-    for (int e = threadIdx.x; e < nr * cin; e += blockDim.x) {
-      const int r = e / cin, c = e - r * cin;
-      const int j = sidx[r];
-      const int s = s0 + r / K;
-      X[(size_t)r * ldi + c] = c < ch.Cf ? KF[(size_t)j * ch.Cf + c]
-                                         : KX[j * 3 + (c - ch.Cf)] - CX[s * 3 + (c - ch.Cf)];
+  } else if (l == 0) {  // the rows' 3-NN, found in an earlier phase (pn_three_nn)
+    for (int e = threadIdx.x; e < 3 * nr; e += blockDim.x) {
+      sm.sidx[e] = ch.nn_i[((size_t)b * ch.S + r0) * 3 + e];
+      sm.swt[e] = ch.nn_w[((size_t)b * ch.S + r0) * 3 + e];
     }
-  } else if (l == 0) {
-    // exact 3-NN: one warp a query, three (distance, index) argmin rounds
-    for (int r = warp; r < nr; r += nwarps) {
-      const int q = r0 + r;
-      const float qx = CX[q * 3], qy = CX[q * 3 + 1], qz = CX[q * 3 + 2];
-      float pd = -1.f;
-      int pi = -1;
-      for (int s = 0; s < 3; ++s) {
-        float bd = CUDART_INF_F;
-        int bi = 0x7fffffff;
-        for (int j = lane; j < ch.Nk; j += 32) {
-          const float d = sqdist3(KX[j * 3], KX[j * 3 + 1], KX[j * 3 + 2], qx, qy, qz);
-          const bool after = d > pd || (d == pd && j > pi);
-          if (after && d < bd) {
-            bd = d;
-            bi = j;
+  }
+  // the warp's share of the dense product: m-tile mw, the column tile's
+  // n-tiles nh, nh + 2, ...
+  const int mw = warp & 3, nh = warp >> 2;
+  const bool mlive = 16 * mw < nr;
+  float acc[PN_MAXNT / 2][4], small[PN_MAXNT / 2][4];
+#pragma unroll
+  for (int i = 0; i < PN_MAXNT / 2; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[i][e] = small[i][e] = 0.f;
+  const float4* w4 = reinterpret_cast<const float4*>(L.wtc);
+  const int kend = ks < 0 ? cin : min(cin, (ks + 1) * PN_KC);
+  for (int kc0 = ks < 0 ? 0 : ks * PN_KC; kc0 < kend; kc0 += PN_KC) {
+    const int kcn = min(PN_KC, cin - kc0), kcp = round_up(kcn, 8);
+    __syncthreads();  // the ids are in; the previous chunk's products are done
+    pn_tick(ck, kc0 == (ks < 0 ? 0 : ks * PN_KC) ? PN_T_IDS : PN_T_MMA);
+    // the chunk's columns: where each reads, raw or normalised
+    for (int c = threadIdx.x; c < kcn; c += blockDim.x) {
+      const int cc = kc0 + c;
+      PnCol cd;
+      if (l > 0) {  // the previous layer's statistics (its rows come by cp.async)
+        const PnLayer& P = ch.L[l - 1];
+        const int slot = PN_CHAINS + ci, gg = cc / (cin / 4);
+        cd.mean = st.mean[slot][b][gg];
+        cd.mul = st.rstd[slot][b][gg] * P.aux[cin + cc];
+        cd.bias = P.aux[2 * cin + cc];
+      } else if (!ch.fp) {  // [feats | dxyz]: the dxyz columns read no table
+        cd = cc < ch.kf.C ? pn_col_view(p, ch.kf, st, b, cc) : PnCol{};
+      } else {  // [skip | interp]
+        cd = cc < ch.skip.C ? pn_col_view(p, ch.skip, st, b, cc)
+                            : pn_col_view(p, ch.kf, st, b, cc - ch.skip.C);
+      }
+      sm.col[c] = cd;
+    }
+    __syncthreads();
+    pn_tick(ck, PN_T_COLS);
+    // a first layer's inputs: rows r = warp + 8 i (i < 8) of column c = lane
+    // + 32 j, the 8 rows' loads of a column independent, in flight together
+    auto col_vals = [&](int c, float (&v)[PN_ROWS / 8]) {
+      const int cc = kc0 + c;
+      if (c >= kcn) {
+#pragma unroll
+        for (int i = 0; i < PN_ROWS / 8; ++i) v[i] = 0.f;
+      } else if (!ch.fp) {
+        const int K = ch.K;
+        if (cc < ch.kf.C) {  // the key's features
+          const PnCol cd = sm.col[c];
+#pragma unroll
+          for (int i = 0; i < PN_ROWS / 8; ++i) {
+            const int r = warp + 8 * i;
+            v[i] = r < nr ? pn_val(cd, sm.sidx[r]) : 0.f;
+          }
+        } else {  // the key's offset from its centre
+          const int d = cc - ch.kf.C;
+#pragma unroll
+          for (int i = 0; i < PN_ROWS / 8; ++i) {
+            const int r = warp + 8 * i;
+            v[i] = r < nr ? KX[sm.sidx[r] * 3 + d] - CX[((r0 + r) / K) * 3 + d] : 0.f;
           }
         }
-        warp_argmin(bd, bi);
-        if (lane == 0) {
-          sidx[r * 3 + s] = bi;
-          swt[r * 3 + s] = 1.f / (bd + 1e-8f);
+      } else if (cc < ch.skip.C) {  // the query's skip features
+        const PnCol cd = sm.col[c];
+#pragma unroll
+        for (int i = 0; i < PN_ROWS / 8; ++i) {
+          const int r = warp + 8 * i;
+          v[i] = r < nr ? pn_val(cd, r0 + r) : 0.f;
         }
-        pd = bd;
-        pi = bi;
+      } else {  // the 3-NN interpolation, num / den
+        const PnCol cd = sm.col[c];
+#pragma unroll
+        for (int i = 0; i < PN_ROWS / 8; ++i) {
+          const int r = warp + 8 * i;
+          float num = 0.f, den = 0.f;
+          if (r < nr) {
+            const float f0 = pn_val(cd, sm.sidx[r * 3]), f1 = pn_val(cd, sm.sidx[r * 3 + 1]),
+                        f2 = pn_val(cd, sm.sidx[r * 3 + 2]);
+            const float w0 = sm.swt[r * 3], w1 = sm.swt[r * 3 + 1], w2 = sm.swt[r * 3 + 2];
+            num = w0 * f0;
+            den = w0;
+            num += w1 * f1;
+            den += w1;
+            num += w2 * f2;
+            den += w2;
+          }
+          v[i] = r < nr ? num / den : 0.f;
+        }
+      }
+    };
+    if (l > 0) {
+      // the previous layer's rows: copied raw by cp.async (16 bytes a copy,
+      // every copy in flight at once), then normalised in place
+      const float* H = ch.L[l - 1].H + ((size_t)b * ch.rows + r0) * cin + kc0;
+      const int q4 = kcp / 4;
+      for (int e = threadIdx.x; e < PN_ROWS * q4; e += blockDim.x) {
+        const int r = e / q4, c = 4 * (e - r * q4);
+        float* dst = sm.X + r * PN_LDX + c;
+        if (r < nr && c < kcn) cp_async16(dst, H + (size_t)r * cin + c);
+        else *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncthreads();
+      for (int e = threadIdx.x; e < nr * kcn; e += blockDim.x) {
+        const int r = e / kcn, c = e - r * kcn;
+        const PnCol& cd = sm.col[c];
+        float& x = sm.X[r * PN_LDX + c];
+        x = fmaxf((x - cd.mean) * cd.mul + cd.bias, 0.f);
+      }
+    } else {
+      for (int c = lane; c < kcp; c += 32) {
+        float v[PN_ROWS / 8];
+        col_vals(c, v);
+#pragma unroll
+        for (int i = 0; i < PN_ROWS / 8; ++i) sm.X[(warp + 8 * i) * PN_LDX + c] = v[i];
       }
     }
     __syncthreads();
-    const float* SK = ch.skip + (size_t)b * ch.S * ch.Cs;
-    for (int e = threadIdx.x; e < nr * cin; e += blockDim.x) {
-      const int r = e / cin, c = e - r * cin;
-      float v;
-      if (c < ch.Cs) {
-        v = SK[(size_t)(r0 + r) * ch.Cs + c];
-      } else {
-        float num = 0.f, den = 0.f;
-        for (int s = 0; s < 3; ++s) {
-          const float w = swt[r * 3 + s];
-          num += w * KF[(size_t)sidx[r * 3 + s] * ch.Cf + (c - ch.Cs)];
-          den += w;
+    pn_tick(ck, PN_T_BUILD);
+    if (mlive) {
+      // the B fragments of the warp's n-tiles, PN_PREF - 1 k-steps ahead in
+      // a register ring (static slots: the loop is unrolled by PN_PREF)
+      const int ks0 = kc0 / 8, nks = kcp / 8;
+      float4 wr[PN_PREF][PN_MAXNT / 2];
+      auto fetch = [&](int kt, float4 (&dst)[PN_MAXNT / 2]) {
+#pragma unroll
+        for (int i = 0; i < PN_MAXNT / 2; ++i) {
+          const int jj = nh + 2 * i;
+          if (jj < nj && kt < nks) dst[i] = __ldg(w4 + ((size_t)(ks0 + kt) * NT + j0 + jj) * 32 + lane);
         }
-        v = num / den;
+      };
+#pragma unroll
+      for (int d = 0; d < PN_PREF - 1; ++d) fetch(d, wr[d]);
+      for (int kt0 = 0; kt0 < nks; kt0 += PN_PREF) {
+#pragma unroll
+        for (int d = 0; d < PN_PREF; ++d) {
+          const int kt = kt0 + d;
+          fetch(kt + PN_PREF - 1, wr[(d + PN_PREF - 1) % PN_PREF]);
+          if (kt < nks) {
+            uint32_t ahi[4], alo[4];
+            load_a_split(sm.X, PN_LDX, 16 * mw, 8 * kt, ahi, alo);
+#pragma unroll
+            for (int i = 0; i < PN_MAXNT / 2; ++i)
+              if (nh + 2 * i < nj) mma_3xtf32_apart(acc[i], small[i], ahi, alo, wr[d][i]);
+          }
+        }
       }
-      X[(size_t)r * ldi + c] = v;
     }
-  } else {
-    // the previous layer's rows, normalised, through ReLU
-    const PnLayer& P = ch.L[l - 1];
-    const float* aux = P.W + (size_t)P.cin * P.cout;
-    const float* Hp = P.H + ((size_t)b * ch.rows + r0) * cin;
-    const int gsz = cin / 4;
-    for (int e = threadIdx.x; e < nr * cin; e += blockDim.x) {
-      const int r = e / cin, c = e - r * cin, g = c / gsz;
-      const float v = (Hp[(size_t)r * cin + c] - st.mean[ci][b][g]) *
-                          (st.rstd[ci][b][g] * aux[cin + c]) +
-                      aux[2 * cin + c];
-      X[(size_t)r * ldi + c] = fmaxf(v, 0.f);
+  }
+  if (ks >= 0) {  // a chunk's partial products, summed by the next phase
+    if (mlive) {
+      float* Pg = L.Pp + (((size_t)ks * p.B + b) * ch.rows + r0) * cout;
+#pragma unroll
+      for (int i = 0; i < PN_MAXNT / 2; ++i) {
+        const int jj = nh + 2 * i;
+        const int c = 8 * (j0 + jj) + 2 * tq, r = 16 * mw + gq;
+        if (jj < nj && c < cout) {
+          if (r < nr)
+            *reinterpret_cast<float2*>(Pg + (size_t)r * cout + c) =
+                make_float2(acc[i][0] + small[i][0], acc[i][1] + small[i][1]);
+          if (r + 8 < nr)
+            *reinterpret_cast<float2*>(Pg + (size_t)(r + 8) * cout + c) =
+                make_float2(acc[i][2] + small[i][2], acc[i][3] + small[i][3]);
+        }
+      }
+    }
+    pn_tick(ck, PN_T_MMA);
+    return;
+  }
+  // pre-activations into the output tile (columns local to the column tile)
+  if (mlive) {
+    const float* bias = L.wtc + (size_t)round_up(cin, 8) * NT * 8 * 2;
+#pragma unroll
+    for (int i = 0; i < PN_MAXNT / 2; ++i) {
+      const int jj = nh + 2 * i;
+      if (jj < nj) {
+        const int cl = 8 * jj + 2 * tq, c = 8 * j0 + cl;
+        const float b0 = __ldg(bias + c), b1 = __ldg(bias + c + 1);
+        const int r = 16 * mw + gq;
+        *reinterpret_cast<float2*>(sm.Hs + r * PN_LDH + cl) =
+            make_float2((acc[i][0] + small[i][0]) + b0, (acc[i][1] + small[i][1]) + b1);
+        *reinterpret_cast<float2*>(sm.Hs + (r + 8) * PN_LDH + cl) =
+            make_float2((acc[i][2] + small[i][2]) + b0, (acc[i][3] + small[i][3]) + b1);
+      }
     }
   }
   __syncthreads();
-  dense_rows<8>(L.W, L.W + (size_t)cin * cout, X, ldi, Hs, ldo, nr, cin, cout, false);
-  __syncthreads();
-  float* Hg = L.H + ((size_t)b * ch.rows + r0) * cout;
-  for (int e = threadIdx.x; e < nr * cout; e += blockDim.x) {
-    const int r = e / cout, c = e - r * cout;
-    Hg[(size_t)r * cout + c] = Hs[(size_t)r * ldo + c];
+  pn_tick(ck, PN_T_MMA);
+  pn_tile_out(ch, L, l, b, t, u, sm, ck);
+}
+
+// A split layer's tile: its chunks' partial products summed in order, then
+// the bias, into the output tile, and out as pn_item's.
+__device__ void pn_sum_item(const PnParams& p, const PnChain& ch, int l, int b, int t, int u,
+                            PnSmem& sm, PnClock& ck) {
+  const PnLayer& L = ch.L[l];
+  const int cout = L.cout, NT = round_up(cout, 8) / 8;
+  const int r0 = t * PN_ROWS, nr = min(PN_ROWS, ch.rows - r0);
+  const int j0 = u * L.nti, nj = min(L.nti, NT - j0);
+  const int c0 = 8 * j0, cw = min(8 * nj, cout - c0);
+  const float* bias = L.wtc + (size_t)round_up(L.cin, 8) * NT * 8 * 2;
+  const size_t split = (size_t)p.B * ch.rows * cout;
+  __syncthreads();  // the block's previous item is done with the buffers
+  pn_tick(ck, -1);
+  if (ck.s && threadIdx.x == 0) ++ck.s[PN_T_ITEMS];
+  for (int e = threadIdx.x; e < nr * cw; e += blockDim.x) {
+    const int r = e / cw, cl = e - r * cw;
+    const float* src = L.Pp + ((size_t)b * ch.rows + r0 + r) * cout + c0 + cl;
+    float v = src[0];
+    for (int k = 1; k < L.ks; ++k) v += src[k * split];
+    sm.Hs[r * PN_LDH + cl] = v + __ldg(bias + c0 + cl);
   }
-  for (int c = threadIdx.x; c < cout; c += blockDim.x) {
-    double s = 0.0, ss = 0.0;
-    for (int r = 0; r < nr; ++r) {
-      const float v = Hs[(size_t)r * ldo + c];
-      s += v;
-      ss += v * v;  // rounded to fp32, as the plain version squares
-    }
-    csum[2 * c] = s;
-    csum[2 * c + 1] = ss;
-  }
   __syncthreads();
-  if (threadIdx.x < 4) {
-    const int g = threadIdx.x, gsz = cout / 4;
-    double s = 0.0, ss = 0.0;
-    for (int c = g * gsz; c < (g + 1) * gsz; ++c) {
-      s += csum[2 * c];
-      ss += csum[2 * c + 1];
-    }
-    double* slot = L.part + ((size_t)b * L.tiles + t) * 8 + g * 2;
-    slot[0] = s;
-    slot[1] = ss;
+  pn_tick(ck, PN_T_BUILD);
+  pn_tile_out(ch, L, l, b, t, u, sm, ck);
+}
+
+// The sums of a split layer l of chain g, every tile strided over the grid.
+__device__ void pn_sum_layer(const PnParams& p, int g, int l, int ph, PnSmem& sm) {
+  const PnLayer& L = p.ch[g].L[l];
+  if (L.ks < 2) return;
+  PnClock ck{p.stamps ? p.stamps + ((size_t)blockIdx.x * PN_PHASES + ph) * PN_ST : nullptr, 0};
+  const int per = L.rt * L.ct;
+  for (int it = blockIdx.x; it < p.B * per; it += gridDim.x) {
+    const int bb = it / per, tu = it - bb * per;
+    pn_sum_item(p, p.ch[g], l, bb, tu / L.ct, tu % L.ct, sm, ck);
   }
 }
 
-// Layer l of chains a and b (b < 0: one chain): statistics of layer l - 1,
-// then every (chain, sample, tile) item, strided over the grid from block
-// `first` on.
-__device__ void pn_layer(const PnParams& p, int a, int b, int l, int first,
-                         PnStats& st, float* smem) {
-  if (l > 0) pn_stats(p, a, b, l - 1, st);
-  const int na = p.B * p.ch[a].L[l].tiles;
-  const int nb = b < 0 ? 0 : p.B * p.ch[b].L[l].tiles;
+// The exact 3-NN of query q of sample b of FP chain ch, by one warp: three
+// (distance, index) argmin rounds, weights 1 / (d + 1e-8).
+__device__ void pn_three_nn(const PnChain& ch, int b, int q) {
+  const int lane = threadIdx.x & 31;
+  const float* KX = ch.kx + (size_t)b * ch.Nk * 3;
+  const float* CX = ch.c + (size_t)b * ch.S * 3;
+  const float qx = CX[q * 3], qy = CX[q * 3 + 1], qz = CX[q * 3 + 2];
+  float pd = -1.f;
+  int pi = -1;
+  for (int s = 0; s < 3; ++s) {
+    float bd = CUDART_INF_F;
+    int bi = 0x7fffffff;
+    for (int j = lane; j < ch.Nk; j += 32) {
+      const float d = sqdist3(KX[j * 3], KX[j * 3 + 1], KX[j * 3 + 2], qx, qy, qz);
+      const bool after = d > pd || (d == pd && j > pi);
+      if (after && d < bd) {
+        bd = d;
+        bi = j;
+      }
+    }
+    warp_argmin(bd, bi);
+    if (lane == 0) {
+      ch.nn_i[((size_t)b * ch.S + q) * 3 + s] = bi;
+      ch.nn_w[((size_t)b * ch.S + q) * 3 + s] = 1.f / (bd + 1e-8f);
+    }
+    pd = bd;
+    pi = bi;
+  }
+}
+
+// Every FP level's 3-NN (their keys and queries are the FPS centres and
+// l1), one warp a query, strided over the grid's warps: once, off the FP
+// layers' path.
+__device__ void pn_nn_tasks(const PnParams& p) {
+  const int nw = blockDim.x >> 5;
+  const int w = blockIdx.x * nw + (threadIdx.x >> 5), all = gridDim.x * nw;
+  int base = 0;
+  for (int g = 6; g < PN_CHAINS; ++g) {
+    const PnChain& ch = p.ch[g];
+    const int n = p.B * ch.S;
+    for (int t = w - base; t < n; t += all)
+      if (t >= 0) pn_three_nn(ch, t / ch.S, t % ch.S);
+    base = (base + n) % all;
+  }
+}
+
+// Layer l of chains a and b (b < 0: one chain): the statistics it reads,
+// then every (chain, sample, row tile, column tile) item, strided over the
+// grid from block `first` on.
+__device__ void pn_layer(const PnParams& p, int a, int b, int l, int first, int ph,
+                         PnStats& st, PnSmem& sm) {
+  PnClock ck{p.stamps ? p.stamps + ((size_t)blockIdx.x * PN_PHASES + ph) * PN_ST : nullptr, 0};
+  __syncthreads();  // the block is done reading st
+  if (l > 0) {
+    pn_fill(p, PN_CHAINS, a, l - 1, st);
+    if (b >= 0) pn_fill(p, PN_CHAINS + 1, b, l - 1, st);
+  } else {  // a level's scales share their inputs
+    pn_fill_view(p, p.ch[a].kf, st);
+    pn_fill_view(p, p.ch[a].skip, st);
+  }
+  __syncthreads();
+  // an item a (sample, row tile, column tile) and, for a split layer, a chunk
+  const PnLayer& La = p.ch[a].L[l];
+  const int na = p.B * La.rt * La.ct * La.ks;
+  const int nb = b < 0 ? 0 : p.B * p.ch[b].L[l].rt * p.ch[b].L[l].ct * p.ch[b].L[l].ks;
   for (int it = (int)blockIdx.x - first; it < na + nb; it += gridDim.x) {
     if (it < 0) continue;
     const int ci = it < na ? 0 : 1;
-    const int idx = ci ? it - na : it;
     const PnChain& ch = p.ch[ci ? b : a];
-    pn_layer_tile(p, ch, ci, l, idx / ch.L[l].tiles, idx % ch.L[l].tiles, st, smem);
+    const PnLayer& L = ch.L[l];
+    const int idx = ci ? it - na : it, per = L.rt * L.ct;
+    const int ks = idx % L.ks, tile = idx / L.ks;
+    const int bb = tile / per, tu = tile - bb * per;
+    pn_item(p, ch, ci, l, bb, tu / L.ct, tu % L.ct, L.ks > 1 ? ks : -1, st, sm, ck);
   }
 }
 
-// The chains' outputs: relu(gn(last layer)), the max over each centre's K
-// slots for SA.
-__device__ void pn_finish(const PnParams& p, int a, int b, PnStats& st) {
-  const int nch = b < 0 ? 1 : 2;
-  pn_stats(p, a, b, p.ch[a].nl - 1, st);
-  for (int ci = 0; ci < nch; ++ci) {
-    const PnChain& ch = p.ch[ci ? b : a];
-    const PnLayer& L = ch.L[ch.nl - 1];
-    const float* aux = L.W + (size_t)L.cin * L.cout;
-    const int K = ch.fp ? 1 : ch.K, gsz = L.cout / 4;
-    const int total = p.B * ch.S * L.cout;
-    for (int e = blockIdx.x * blockDim.x + threadIdx.x; e < total;
-         e += gridDim.x * blockDim.x) {
-      const int c = e % L.cout, s = (e / L.cout) % ch.S, bb = e / (L.cout * ch.S);
-      const int g = c / gsz;
-      const float mean = st.mean[ci][bb][g], mul = st.rstd[ci][bb][g] * aux[L.cout + c];
-      const float bias = aux[2 * L.cout + c];
-      const float* h = L.H + ((size_t)bb * ch.rows + (size_t)s * K) * L.cout + c;
-      float m = -CUDART_INF_F;
-      for (int k = 0; k < K; ++k)
-        m = fmaxf(m, fmaxf((h[(size_t)k * L.cout] - mean) * mul + bias, 0.f));
-      ch.out[((size_t)bb * ch.S + s) * ch.out_ld + ch.out_off + c] = m;
-    }
-  }
+// Stamps phase `ph` of this block: its arrival at the phase's grid barrier
+// and its leaving it (%globaltimer ns); the last phase has no barrier.
+__device__ __forceinline__ void pn_sync(const PnParams& p, unsigned int& passed, int& ph,
+                                        bool last = false) {
+  unsigned long long* s =
+      p.stamps ? p.stamps + ((size_t)blockIdx.x * PN_PHASES + ph) * PN_ST : nullptr;
+  if (s && threadIdx.x == 0) s[0] = global_ns();
+  if (last) __syncthreads();
+  else grid_sync(p.bar, passed);
+  if (s && threadIdx.x == 0) s[1] = global_ns();
+  ++ph;
 }
 
-__global__ void __launch_bounds__(256) pn2mid_kernel(const __grid_constant__ PnParams p) {
+__global__ void __launch_bounds__(PN_THREADS, 2) pn2mid_kernel(const __grid_constant__ PnParams p) {
   extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
+  PnSmem& sm = *reinterpret_cast<PnSmem*>(smem4);
+  float* fps_smem = reinterpret_cast<float*>(smem4);
   __shared__ PnStats st;
   unsigned int passed = 0;
+  int ph = 0;
+  pn_sync(p, passed, ph, true);  // the start
   // FPS l1 -> c2, one block a sample
   for (int b = blockIdx.x; b < p.B; b += gridDim.x)
-    fps_centres(p.l1x + (size_t)b * p.N1 * 3, p.N1, p.S[0],
-                p.cx[0] + (size_t)b * p.S[0] * 3, smem);
-  grid_sync(p.bar, passed);
+    fps_centres(p.l1x + (size_t)b * p.N1 * 3, p.N1, p.S[0], p.cx[0] + (size_t)b * p.S[0] * 3,
+                fps_smem);
+  pn_sync(p, passed, ph);
   // sa2 .. sa4: the level's two scales side by side; c3 and c4 by FPS on
   // blocks [0, B) beside sa2's first layer
   for (int lv = 0; lv < 3; ++lv) {
-    int first = 0;
-    if (lv == 0) {
-      for (int b = blockIdx.x; b < p.B; b += gridDim.x) {
-        float* c3 = p.cx[1] + (size_t)b * p.S[1] * 3;
-        fps_centres(p.cx[0] + (size_t)b * p.S[0] * 3, p.S[0], p.S[1], c3, smem);
-        fps_centres(c3, p.S[1], p.S[2], p.cx[2] + (size_t)b * p.S[2] * 3, smem);
-      }
-      first = p.B;
-    }
     for (int l = 0; l < p.ch[2 * lv].nl; ++l) {
-      pn_layer(p, 2 * lv, 2 * lv + 1, l, l == 0 ? first : 0, st, smem);
-      grid_sync(p.bar, passed);
+      int first = 0;
+      if (lv == 0 && l == 0) {
+        for (int b = blockIdx.x; b < p.B; b += gridDim.x) {
+          float* c3 = p.cx[1] + (size_t)b * p.S[1] * 3;
+          fps_centres(p.cx[0] + (size_t)b * p.S[0] * 3, p.S[0], p.S[1], c3, fps_smem);
+          fps_centres(c3, p.S[1], p.S[2], p.cx[2] + (size_t)b * p.S[2] * 3, fps_smem);
+        }
+        first = p.B;
+      }
+      if (lv == 0 && l == 1) pn_nn_tasks(p);  // the centres are all picked
+      pn_layer(p, 2 * lv, 2 * lv + 1, l, first, ph, st, sm);
+      pn_sync(p, passed, ph);
     }
-    pn_finish(p, 2 * lv, 2 * lv + 1, st);
-    grid_sync(p.bar, passed);
   }
   // fp4, fp3, fp2
   for (int g = 6; g < PN_CHAINS; ++g) {
     for (int l = 0; l < p.ch[g].nl; ++l) {
-      pn_layer(p, g, -1, l, 0, st, smem);
-      grid_sync(p.bar, passed);
+      pn_layer(p, g, -1, l, 0, ph, st, sm);
+      pn_sync(p, passed, ph);
+      if (l == 0) {  // the split first layer's sums (its inputs are wide)
+        pn_sum_layer(p, g, 0, ph, sm);
+        pn_sync(p, passed, ph);
+      }
     }
-    pn_finish(p, g, -1, st);
-    if (g + 1 < PN_CHAINS) grid_sync(p.bar, passed);
   }
+  // fp2's output, normalised
+  __syncthreads();
+  pn_fill(p, PN_CHAINS - 1, PN_CHAINS - 1, p.ch[PN_CHAINS - 1].nl - 1, st);
+  __syncthreads();
+  const PnChain& last = p.ch[PN_CHAINS - 1];
+  const PnLayer& L = last.L[last.nl - 1];
+  const int total = p.B * last.S * L.cout;
+  for (int e = blockIdx.x * blockDim.x + threadIdx.x; e < total; e += gridDim.x * blockDim.x) {
+    const int c = e % L.cout, bb = e / (L.cout * last.S);
+    p.out[e] = pn_norm(L, st, PN_CHAINS - 1, bb, c, L.H[e]);
+  }
+  pn_sync(p, passed, ph, true);
 }
 
-static size_t pn_tile_smem(const PnChain& ch, int l, int R) {
-  const int cin = ch.L[l].cin, cout = ch.L[l].cout;
-  return sizeof(float) * (size_t)round_up(R, 8) * (round_up(cin, 4) + round_up(cout, 4)) +
-         sizeof(double) * 2 * cout + (sizeof(int) + sizeof(float)) * 3 * (size_t)R;
+// Host side: the column tiles of a layer with `rt` row tiles a sample: the
+// most n-tiles a tile (4, 2) that still gives 128 items over the B samples
+// (about one an SM), else 2.
+static inline int pn_nti(int B, int rt, int NT) {
+  for (int nti = PN_MAXNT; nti > 2; nti /= 2)
+    if ((long long)B * rt * ((NT + nti - 1) / nti) >= 128) return nti;
+  return 2;
 }
 
 // Host side: lays out the chains over the scratch (fbase floats, dbase
-// doubles; null bases give offsets only) and plans the tiles.  dims: the 9
-// groups' widths, nl[g] + 1 each from doff[g]; the weights of group g layer
-// l at woff (floats into wbuf, W then b, gn scale, gn bias).  Returns false
-// for widths that do not chain.
-static bool pn_plan(PnParams& p, size_t& nfloat, size_t& ndouble, size_t& smem,
-                    int& items, const float* wbuf, const int* dims,
-                    const int* doff, const int* nl, float* fbase, double* dbase,
-                    const float* l1x, const float* l1f, float* out, int B, int N1,
-                    int C1, const int* S, const int* ks, const float* r2) {
-  const size_t budget = 110 * 1024;  // two blocks an SM
+// doubles; null bases give offsets only) and plans the items.  dims: the 9
+// groups' widths, nl[g] + 1 each from doff[g]; group g layer l's dense
+// weights W [cin][cout] then aux [3][cout] at consecutive offsets of wbuf,
+// its split weights (K8 * N8 * 2 floats, then the bias padded to N8) at
+// consecutive offsets of wtc.  Returns false for widths that do not chain.
+static bool pn_plan(PnParams& p, size_t& nfloat, size_t& ndouble, int& items,
+                    const float* wbuf, const float* wtc, const int* dims, const int* doff,
+                    const int* nl, float* fbase, double* dbase, const float* l1x,
+                    const float* l1f, float* out, int B, int N1, int C1, const int* S,
+                    const int* ks, const float* r2) {
   nfloat = 0;
   ndouble = 0;
   auto F = [&](size_t n) {
@@ -351,6 +766,7 @@ static bool pn_plan(PnParams& p, size_t& nfloat, size_t& ndouble, size_t& smem,
     return ptr;
   };
   p.l1x = l1x;
+  p.out = out;
   p.B = B, p.N1 = N1;
   for (int i = 0; i < 3; ++i) {
     p.S[i] = S[i];
@@ -361,85 +777,91 @@ static bool pn_plan(PnParams& p, size_t& nfloat, size_t& ndouble, size_t& smem,
     if (nl[g] < 1 || nl[g] > PN_MAXL) return false;
     wout[g] = dims[doff[g] + nl[g]];
   }
-  // level outputs: l2_f, l3_f, l4_f (the two scales side by side), l3', l2'
-  const int cl[3] = {wout[0] + wout[1], wout[2] + wout[3], wout[4] + wout[5]};
-  float* lf[3];
-  for (int i = 0; i < 3; ++i) lf[i] = F((size_t)B * S[i] * cl[i]);
-  float* l3p = F((size_t)B * S[1] * wout[6]);
-  float* l2p = F((size_t)B * S[0] * wout[7]);
-  size_t woff = 0;
-  smem = sizeof(float) * 3 * (size_t)N1;  // the FPS
+  // the level outputs as views: l2_f, l3_f, l4_f (two scales side by
+  // side), l3' (fp4), l2' (fp3)
+  PnView lf[3];
+  for (int lv = 0; lv < 3; ++lv)
+    lf[lv] = {nullptr, S[lv], wout[2 * lv] + wout[2 * lv + 1], 2 * lv, 2 * lv + 1,
+              wout[2 * lv]};
+  const PnView l1 = {l1f, N1, C1, -1, -1, 0};
+  size_t woff = 0, toff = 0;
   items = 0;
   for (int g = 0; g < PN_CHAINS; ++g) {
     PnChain& ch = p.ch[g];
     ch.nl = nl[g];
     ch.fp = g >= 6;
+    ch.mx = ch.mn = ch.mxw = ch.mnw = nullptr;
+    ch.nn_i = nullptr;
+    ch.nn_w = nullptr;
     if (!ch.fp) {
       const int lv = g / 2;
       ch.c = p.cx[lv];
       ch.kx = lv ? p.cx[lv - 1] : l1x;
-      ch.kf = lv ? lf[lv - 1] : l1f;
+      ch.kf = lv ? lf[lv - 1] : l1;
+      ch.skip = {nullptr, 0, 0, -1, -1, 0};  // no skip (C = 0)
       ch.Nk = lv ? S[lv - 1] : N1;
-      ch.Cf = lv ? cl[lv - 1] : C1;
       ch.S = S[lv];
       ch.K = ks[g];
       ch.r2 = r2[g];
-      ch.skip = nullptr;
-      ch.Cs = 0;
       ch.rows = ch.S * ch.K;
-      ch.out = lf[lv];
-      ch.out_ld = cl[lv];
-      ch.out_off = g % 2 ? wout[g - 1] : 0;
-      if (dims[doff[g]] != ch.Cf + 3) return false;
+      if (dims[doff[g]] != ch.kf.C + 3 || ch.K < 1 || PN_ROWS % ch.K) return false;
+      ch.mxw = F((size_t)B * ch.S * wout[g]);
+      ch.mnw = F((size_t)B * ch.S * wout[g]);
+      ch.mx = ch.mxw, ch.mn = ch.mnw;
     } else {
       const int lv = 8 - g;  // fp4: queries c3 (lv 1), keys c4; fp2: queries l1
       ch.c = lv ? p.cx[lv - 1] : l1x;
       ch.S = lv ? S[lv - 1] : N1;
       ch.kx = p.cx[lv];
       ch.Nk = S[lv];
-      ch.kf = g == 6 ? lf[2] : g == 7 ? l3p : l2p;
-      ch.Cf = g == 6 ? cl[2] : wout[g - 1];
-      ch.skip = lv ? lf[lv - 1] : l1f;
-      ch.Cs = lv ? cl[lv - 1] : C1;
+      ch.kf = g == 6 ? lf[2] : PnView{nullptr, S[lv], wout[g - 1], g - 1, -1, wout[g - 1]};
+      ch.skip = lv ? lf[lv - 1] : l1;
       ch.K = 3;
       ch.r2 = 0.f;
       ch.rows = ch.S;
-      ch.out = g == 6 ? l3p : g == 7 ? l2p : out;
-      ch.out_ld = wout[g];
-      ch.out_off = 0;
-      if (dims[doff[g]] != ch.Cs + ch.Cf || ch.Nk < 3) return false;
+      ch.nn_i = reinterpret_cast<int*>(F((size_t)B * ch.S * 3));
+      ch.nn_w = F((size_t)B * ch.S * 3);
+      if (dims[doff[g]] != ch.skip.C + ch.kf.C || ch.Nk < 3) return false;
     }
     for (int l = 0; l < ch.nl; ++l) {
       PnLayer& L = ch.L[l];
       L.cin = dims[doff[g] + l];
       L.cout = dims[doff[g] + l + 1];
       if (L.cout % 4 || (l > 0 && L.cin != ch.L[l - 1].cout)) return false;
-      L.W = wbuf ? wbuf + woff : nullptr;
+      L.aux = wbuf ? wbuf + woff + (size_t)L.cin * L.cout : nullptr;
       woff += (size_t)L.cin * L.cout + 3 * (size_t)L.cout;
-      if (l == 0 && !ch.fp) {  // a tile holds whole centres: R = Q K
-        int Q = std::max(1, 64 / ch.K);
-        while (Q > 1 && pn_tile_smem(ch, l, Q * ch.K) > budget) Q /= 2;
-        L.R = Q * ch.K;
-      } else {
-        L.R = 64;
-        while (L.R > 8 && pn_tile_smem(ch, l, L.R) > budget) L.R /= 2;
-      }
-      if (pn_tile_smem(ch, l, L.R) > budget) return false;
-      smem = std::max(smem, pn_tile_smem(ch, l, L.R));
-      L.tiles = (ch.rows + L.R - 1) / L.R;
-      L.H = F((size_t)B * ch.rows * L.cout);
-      L.part = D((size_t)B * L.tiles * 8);
+      const int NT = round_up(L.cout, 8) / 8;
+      L.wtc = wtc ? wtc + toff : nullptr;
+      toff += (size_t)round_up(L.cin, 8) * NT * 8 * 2 + NT * 8;
+      L.rt = (ch.rows + PN_ROWS - 1) / PN_ROWS;
+      L.nti = pn_nti(B, L.rt, NT);
+      L.ct = (NT + L.nti - 1) / L.nti;
+      // an FP level's first layer (1536, 512, 352 inputs at ISAPCInet's
+      // widths, few rows) computes its input chunks apart: each item then
+      // builds 256 columns, not all of them
+      L.ks = ch.fp && l == 0 ? (L.cin + PN_KC - 1) / PN_KC : 1;
+      L.Pp = L.ks > 1 ? F((size_t)L.ks * B * ch.rows * L.cout) : nullptr;
+      const bool sa_last = !ch.fp && l == ch.nl - 1;
+      L.H = sa_last ? nullptr : F((size_t)B * ch.rows * L.cout);
+      L.part = D((size_t)B * L.rt * L.ct * 8);
     }
+    if (ch.fp) ch.mx = ch.mn = ch.L[ch.nl - 1].H;
   }
   for (int lv = 0; lv < 3; ++lv) {
     if (p.ch[2 * lv].nl != p.ch[2 * lv + 1].nl) return false;  // scales share barriers
-    for (int l = 0; l < p.ch[2 * lv].nl; ++l)
-      items = std::max(items, B * (p.ch[2 * lv].L[l].tiles + p.ch[2 * lv + 1].L[l].tiles +
-                                   (lv == 0 && l == 0)));
+    for (int l = 0; l < p.ch[2 * lv].nl; ++l) {
+      const PnLayer &La = p.ch[2 * lv].L[l], &Lb = p.ch[2 * lv + 1].L[l];
+      items = std::max(items, B * (La.rt * La.ct + Lb.rt * Lb.ct + (lv == 0 && l == 0)));
+    }
   }
   for (int g = 6; g < PN_CHAINS; ++g)
-    for (int l = 0; l < p.ch[g].nl; ++l) items = std::max(items, B * p.ch[g].L[l].tiles);
+    for (int l = 0; l < p.ch[g].nl; ++l)
+      items = std::max(items, B * p.ch[g].L[l].rt * p.ch[g].L[l].ct * p.ch[g].L[l].ks);
   return true;
+}
+
+static size_t pn_smem(int N1) {
+  return std::max(sizeof(PnSmem), fps_centres_smem(N1, PN_THREADS));
 }
 
 // Scratch sizes for pci_pn2mid: floats (fp32) and doubles, through out[0..1].
@@ -448,11 +870,11 @@ extern "C" int pci_pn2mid_scratch(const int* dims, const int* doff, const int* n
                                   const int* ks, const float* r2,
                                   long long* sizes) {
   PnParams p;
-  size_t nf, nd, smem;
+  size_t nf, nd;
   int items;
   if (B < 1 || B > PN_MAXB ||
-      !pn_plan(p, nf, nd, smem, items, nullptr, dims, doff, nl, nullptr, nullptr,
-               nullptr, nullptr, nullptr, B, N1, C1, S, ks, r2))
+      !pn_plan(p, nf, nd, items, nullptr, nullptr, dims, doff, nl, nullptr, nullptr, nullptr,
+               nullptr, nullptr, B, N1, C1, S, ks, r2))
     return (int)cudaErrorInvalidValue;
   sizes[0] = (long long)nf;
   sizes[1] = (long long)nd;
@@ -461,27 +883,37 @@ extern "C" int pci_pn2mid_scratch(const int* dims, const int* doff, const int* n
 
 // l1x [B][N1][3], l1f [B][N1][C1], wbuf the 24 layers (group order sa2 s0,
 // sa2 s1, sa3 s0, sa3 s1, sa4 s0, sa4 s1, fp4, fp3, fp2; each layer W
-// [cin][cout] then dense bias, gn scale, gn bias), fscratch / dscratch as
-// pci_pn2mid_scratch sizes them, out [B][N1][C_out], bar one zeroed
-// unsigned int.  S = (S2, S3, S4) centres a level; ks / r2: each SA
-// group's K and squared radius.
+// [cin][cout] then dense bias, gn scale, gn bias), wtc the same layers' W
+// and dense bias split for the tensor cores (_build.pack_tf32, a layer
+// after another), fscratch / dscratch as pci_pn2mid_scratch sizes them, out
+// [B][N1][C_out], bar one zeroed unsigned int.  S = (S2, S3, S4) centres a
+// level; ks / r2: each SA group's K and squared radius.  stamps: [grid,
+// PN_PHASES, PN_ST] unsigned 64-bit (zeroed; grid at most the SMs x 2), or
+// null.
 extern "C" int pci_pn2mid(const void* l1x, const void* l1f, const void* wbuf,
                           const int* dims, const int* doff, const int* nl,
                           void* fscratch, void* dscratch, void* out, void* bar,
                           int B, int N1, int C1, const int* S, const int* ks,
-                          const float* r2, void* stream) {
-  if (B < 1 || B > PN_MAXB || N1 > 16 * 256 || S[0] > 16 * 256 || S[0] > N1 ||
-      S[1] > S[0] || S[2] > S[1])
+                          const float* r2, const void* wtc, void* stamps, void* stream) {
+  if (B < 1 || B > PN_MAXB || N1 > 16 * PN_THREADS || S[0] > N1 || S[1] > S[0] ||
+      S[2] > S[1])
     return (int)cudaErrorInvalidValue;
   PnParams p;
-  size_t nf, nd, smem;
+  size_t nf, nd;
   int items;
-  if (!pn_plan(p, nf, nd, smem, items, static_cast<const float*>(wbuf), dims, doff, nl,
-               static_cast<float*>(fscratch), static_cast<double*>(dscratch),
-               static_cast<const float*>(l1x), static_cast<const float*>(l1f),
-               static_cast<float*>(out), B, N1, C1, S, ks, r2))
+  if (!pn_plan(p, nf, nd, items, static_cast<const float*>(wbuf),
+               static_cast<const float*>(wtc), dims, doff, nl, static_cast<float*>(fscratch),
+               static_cast<double*>(dscratch), static_cast<const float*>(l1x),
+               static_cast<const float*>(l1f), static_cast<float*>(out), B, N1, C1, S, ks,
+               r2))
     return (int)cudaErrorInvalidValue;
   p.bar = static_cast<unsigned int*>(bar);
-  return launch_cooperative(pn2mid_kernel, p, smem, items,
-                            static_cast<cudaStream_t>(stream));
+  p.stamps = static_cast<unsigned long long*>(stamps);
+  return launch_cooperative(pn2mid_kernel, p, pn_smem(N1), items,
+                            static_cast<cudaStream_t>(stream), PN_THREADS);
+}
+
+// The kernel's resources at 1,024 points a sample (common.cuh's kernel_attrs).
+extern "C" int pci_pn2mid_attrs(int* out) {
+  return kernel_attrs(pn2mid_kernel, pn_smem(1024), out, PN_THREADS);
 }

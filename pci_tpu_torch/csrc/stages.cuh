@@ -2,9 +2,11 @@
 // csrc/setconv.cu, csrc/knnconv.cu) and the megakernels that chain them in
 // one launch (csrc/flowenc.cu, csrc/flowmid.cu), so that both routes pick the
 // same points:
-//   - fps_chain: exact greedy farthest point sampling by one block;
-//     fps_warp_chain: the same picks by one warp, with no block barrier;
-//     fps_group_chain: by a few warps, one named barrier an iteration;
+//   - fps_warp_chain: exact greedy farthest point sampling by one warp,
+//     with no block barrier; fps_group_chain: the same picks by a few
+//     warps, one named barrier an iteration;
+//     fps_centres: a block's centres by the one-warp chain or the group
+//     chain by length (the megakernels' FPS);
 //   - ball_conv_tile: a set-conv's ball group + MLP + max for Q centres;
 //   - knn_conv_tile: a kNN-conv's group + MLP1 + max + skip + MLP2 for Q
 //     queries; knn_interp_tile: its 3-NN interpolation + skip + MLP2;
@@ -19,101 +21,6 @@
 
 // ---- greedy FPS ----------------------------------------------------------
 
-// Exact greedy FPS over the L points (sx, sy, sz) in shared memory, by every
-// thread of the block (PPT points a thread), starting at local index `far`.
-// Iteration `it` hands its pick to emit(it, index) on thread 0, then relaxes
-// every distance with (dx*dx + dy*dy) + dz*dz rounded op by op and takes
-// the first maximum, as jnp.argmax does; once every distance is 0 (npick >
-// L) the pick is index 0 again.
-template <int PPT, typename Emit>
-__device__ void fps_chain(const float* sx, const float* sy, const float* sz,
-                          int L, int npick, int far, Emit emit) {
-  __shared__ float wd[32];
-  __shared__ int wi[32];
-  __shared__ int far_s;
-  float dist[PPT];
-#pragma unroll
-  for (int t = 0; t < PPT; ++t) dist[t] = CUDART_INF_F;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int nwarps = blockDim.x >> 5;
-  for (int it = 0; it < npick; ++it) {
-    if (threadIdx.x == 0) emit(it, far);
-    const float cx = sx[far], cy = sy[far], cz = sz[far];
-    float bd = -1.f;
-    int bi = 0x7fffffff;
-#pragma unroll
-    for (int t = 0; t < PPT; ++t) {
-      const int j = threadIdx.x + t * blockDim.x;
-      if (j < L) {
-        const float d = sqdist3(sx[j], sy[j], sz[j], cx, cy, cz);
-        dist[t] = fminf(dist[t], d);
-        if (dist[t] > bd) {  // j grows with t: the first maximum is kept
-          bd = dist[t];
-          bi = j;
-        }
-      }
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      const float od = __shfl_xor_sync(0xffffffffu, bd, off);
-      const int oi = __shfl_xor_sync(0xffffffffu, bi, off);
-      if (od > bd || (od == bd && oi < bi)) {
-        bd = od;
-        bi = oi;
-      }
-    }
-    if (lane == 0) {
-      wd[warp] = bd;
-      wi[warp] = bi;
-    }
-    __syncthreads();
-    if (warp == 0) {
-      bd = lane < nwarps ? wd[lane] : -1.f;
-      bi = lane < nwarps ? wi[lane] : 0x7fffffff;
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        const float od = __shfl_xor_sync(0xffffffffu, bd, off);
-        const int oi = __shfl_xor_sync(0xffffffffu, bi, off);
-        if (od > bd || (od == bd && oi < bi)) {
-          bd = od;
-          bi = oi;
-        }
-      }
-      if (lane == 0) far_s = bi;
-    }
-    __syncthreads();
-    far = far_s;
-  }
-}
-
-// Greedy FPS from index 0 over the L points X [L][3] (device memory), by one
-// block: the npick centres' coordinates go to out [npick][3].  Needs 3 * L
-// floats of shared memory and L <= 16 * blockDim.x.
-__device__ __forceinline__ void fps_centres(const float* X, int L, int npick,
-                                            float* out, float* smem) {
-  float* sx = smem;
-  float* sy = sx + L;
-  float* sz = sy + L;
-  __syncthreads();
-  for (int j = threadIdx.x; j < L; j += blockDim.x) {
-    sx[j] = X[j * 3];
-    sy[j] = X[j * 3 + 1];
-    sz[j] = X[j * 3 + 2];
-  }
-  __syncthreads();
-  auto emit = [&](int it, int f) {
-    out[it * 3] = sx[f];
-    out[it * 3 + 1] = sy[f];
-    out[it * 3 + 2] = sz[f];
-  };
-  const int ppt = (L + blockDim.x - 1) / blockDim.x;
-  if (ppt <= 1) fps_chain<1>(sx, sy, sz, L, npick, 0, emit);
-  else if (ppt <= 2) fps_chain<2>(sx, sy, sz, L, npick, 0, emit);
-  else if (ppt <= 4) fps_chain<4>(sx, sy, sz, L, npick, 0, emit);
-  else if (ppt <= 8) fps_chain<8>(sx, sy, sz, L, npick, 0, emit);
-  else fps_chain<16>(sx, sy, sz, L, npick, 0, emit);
-}
-
 // Exact greedy FPS over L <= 32 * PPL points (p[j] = (x, y, z, -) in shared
 // memory, 32 * PPL slots) by ONE warp, with no block barrier: lane l keeps
 // the distances of points l, l + 32, ... in registers, -1 for a slot past L
@@ -123,7 +30,7 @@ __device__ __forceinline__ void fps_centres(const float* X, int L, int npick,
 // overlap), takes the lane's first maximum, then the largest distance by a
 // warp max over its bits (a non-negative fp32 orders as its uint32 bits)
 // and the lowest index among the lanes at it by a warp min:
-// fps_chain's picks (jnp.argmax's first maximum; index 0 again once every
+// jnp.argmax's picks (its first maximum; index 0 again once every
 // distance is 0), bit for bit.
 template <int PPL, typename Emit>
 __device__ void fps_warp_chain(const float4* p, int L, int npick, int far, Emit emit) {
@@ -173,7 +80,7 @@ __device__ __forceinline__ void named_barrier(int id, int threads) {
 // warp reduces the nw slots itself the same way: no second barrier and no
 // broadcast of the pick.  A warp writes slot buffer it & 1 only after the
 // barrier of iteration it - 1, which every warp passes only after reading
-// buffer it & 1 of iteration it - 2.  The picks are fps_chain's
+// buffer it & 1 of iteration it - 2.  The picks are fps_warp_chain's
 // (jnp.argmax's first maximum; index 0 again once every distance is 0),
 // bit for bit.
 template <int PPL, bool REGS, typename Emit>
@@ -252,6 +159,66 @@ __device__ __forceinline__ void fps_centres_warp(const float* X, int L, int npic
   else if (L <= 256) fps_warp_chain<8>(p, L, npick, 0, emit);
   else if (L <= 512) fps_warp_chain<16>(p, L, npick, 0, emit);
   else fps_warp_chain<32>(p, L, npick, 0, emit);
+}
+
+// Greedy FPS from index 0 over the L points X [L][3] (device memory) by
+// one block, called by every thread: the npick centres' coordinates go to
+// out [npick][3], visible to the whole block on return.  Up to
+// FPS_CENTRES_WARP_MAX points the block's first warp runs fps_centres_warp
+// (no block barrier an iteration; the other warps wait at the closing
+// barrier); above, every warp runs fps_group_chain (one named barrier an
+// iteration), L <= 16 * blockDim.x.  The picks are the chains', bit for
+// bit: jnp.argmax's from index 0.  Shared memory: fps_centres_smem(L, blockDim.x) bytes.
+#define FPS_CENTRES_WARP_MAX 256
+#define FPS_CENTRES_BAR 1  // the group chain's named barrier
+
+__host__ __device__ inline int fps_centres_ppl(int L, int threads) {
+  int ppl = 1;
+  while (ppl * threads < L) ppl *= 2;
+  return ppl;
+}
+
+__host__ __device__ inline size_t fps_centres_smem(int L, int threads) {
+  if (L <= FPS_CENTRES_WARP_MAX) return sizeof(float4) * (size_t)fps_warp_slots(L);
+  return sizeof(float) * 3 * (size_t)fps_centres_ppl(L, threads) * threads +
+         sizeof(uint2) * 2 * (size_t)(threads / 32);
+}
+
+__device__ __forceinline__ void fps_centres(const float* X, int L, int npick, float* out,
+                                            float* smem) {
+  __syncthreads();  // the block is done with smem, and X's writes (thread 0's) are visible
+  if (L <= FPS_CENTRES_WARP_MAX) {
+    if (threadIdx.x < 32) fps_centres_warp(X, L, npick, out, smem);
+  } else {
+    const int ppl = fps_centres_ppl(L, blockDim.x), Lp = ppl * blockDim.x;
+    float* sx = smem;
+    float* sy = sx + Lp;
+    float* sz = sy + Lp;
+    uint2* slots = reinterpret_cast<uint2*>(sz + Lp);
+    for (int j = threadIdx.x; j < Lp; j += blockDim.x) {
+      sx[j] = j < L ? X[j * 3] : 0.f;
+      sy[j] = j < L ? X[j * 3 + 1] : 0.f;
+      sz[j] = j < L ? X[j * 3 + 2] : 0.f;
+    }
+    __syncthreads();
+    auto emit = [&](int it, int f) {
+      out[it * 3] = sx[f];
+      out[it * 3 + 1] = sy[f];
+      out[it * 3 + 2] = sz[f];
+    };
+    const int nw = blockDim.x >> 5;
+    if (ppl <= 1)
+      fps_group_chain<1, true>(sx, sy, sz, L, npick, 0, threadIdx.x, nw, FPS_CENTRES_BAR, slots, emit);
+    else if (ppl <= 2)
+      fps_group_chain<2, true>(sx, sy, sz, L, npick, 0, threadIdx.x, nw, FPS_CENTRES_BAR, slots, emit);
+    else if (ppl <= 4)
+      fps_group_chain<4, true>(sx, sy, sz, L, npick, 0, threadIdx.x, nw, FPS_CENTRES_BAR, slots, emit);
+    else if (ppl <= 8)
+      fps_group_chain<8, true>(sx, sy, sz, L, npick, 0, threadIdx.x, nw, FPS_CENTRES_BAR, slots, emit);
+    else
+      fps_group_chain<16, true>(sx, sy, sz, L, npick, 0, threadIdx.x, nw, FPS_CENTRES_BAR, slots, emit);
+  }
+  __syncthreads();
 }
 
 // ---- the MLP routine a tile runs -----------------------------------------

@@ -62,11 +62,13 @@ _SIGNATURES = {
     "pci_flowmid": [_P] * 6 + [ctypes.POINTER(_P), _IP, _IP, _IP] + [_P] * 9
                    + [_I] * 8 + [_F, _I, _F, _I, _I, _P],
     "pci_fusion_tail": [_P, _P, _P, _P, _I, _I, _I, _P, _I, _I, _I, _I, _P],
-    "pci_fusion_cells": [_P] * 8 + [_I] * 3 + [_P] * 4 + [_I] * 6 + [_P],
+    "pci_fusion_cells": [_P] * 8 + [_I] * 3 + [_P] * 6 + [_I] * 6 + [_P],
+    "pci_fusion_cells_attrs": [_IP],
     "pci_pn2mid_scratch": [_IP, _IP, _IP, _I, _I, _I, _IP, _IP, _FP,
                            ctypes.POINTER(ctypes.c_longlong)],
     "pci_pn2mid": [_P, _P, _P, _IP, _IP, _IP, _P, _P, _P, _P, _I, _I, _I, _IP, _IP, _FP,
-                   _P],
+                   _P, _P, _P],
+    "pci_pn2mid_attrs": [_IP],
     "pci_auction_pass": [_P] * 8 + [_I, _I, _F, _F, _P],
     "pci_auction_chase": [_P] * 6 + [_I, _I, _F, _I, _P],
     "pci_auction_chase_cluster": [_P] * 7 + [_I, _I, _F, _I, _P],
@@ -327,6 +329,47 @@ def _pack(layers, device: torch.device):
         return torch.empty(0, device=device, dtype=torch.float32), []
     buf = torch.cat(parts).to(device=device, dtype=torch.float32).contiguous()
     return buf, dims
+
+
+def graph_replay(cache, limit: int, key, what: str, fn, *inputs):
+    """``fn(*inputs)`` of CUDA tensors, replayed from a CUDA graph captured
+    once per ``key`` into ``cache`` (an ``OrderedDict``; the ``limit`` most
+    recently used keys keep their graph and its memory): the inputs are
+    copied into the graph's own (a tensor passed twice is one there) and
+    the graph replays, so the host launches once.  The outputs are the
+    graph's tensors, overwritten by the next call of the same key: every
+    call of a key must come on the stream its graph was captured for
+    (another stream raises, as does a call during a capture).  The first
+    call of a key captures, which synchronizes the device."""
+    dev = inputs[0].device
+    stream = torch.cuda.current_stream(dev)
+    if torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(f"{what}: cannot be replayed inside a CUDA graph capture")
+    entry = cache.get(key)
+    if entry is not None and entry[0].cuda_stream != stream.cuda_stream:
+        raise RuntimeError(f"{what}: the graph for {key[1:]} was captured for stream "
+                           f"{entry[0]}, called on {stream}")
+    if entry is None:
+        with torch.inference_mode(False), torch.no_grad():
+            clones = {}
+            slots = [clones.setdefault(id(t), t.clone()) for t in inputs]
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(stream)
+            with torch.cuda.stream(side):  # the caches and allocations, before capture
+                fn(*slots)
+            stream.wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                out = fn(*slots)
+        entry = cache[key] = (stream, graph, slots, out)
+        if len(cache) > limit:
+            cache.popitem(last=False)
+    cache.move_to_end(key)
+    _, graph, slots, out = entry
+    for slot, t in zip(slots, inputs):
+        slot.copy_(t)
+    graph.replay()
+    return out
 
 
 def mlp_plain(h: torch.Tensor, layers, n_final: int = 0) -> torch.Tensor:

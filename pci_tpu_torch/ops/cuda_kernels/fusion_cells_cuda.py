@@ -10,10 +10,14 @@ fusion route at N >= 32,768.  The TPU kernel is approximate (it scans the
 the exact function of ``fusion_knn_cuda`` (its neighbours, slot for slot)
 and only skips chunks that cannot hold a neighbour.  The Morton sort, the
 chunk boxes and the per-tile chunk order are made here with torch ops, as
-the JAX package makes them with XLA ops outside its ``pallas_call``.
+the JAX package makes them with XLA ops outside its ``pallas_call``; on the
+card they replay from a CUDA graph captured once per shape
+(:func:`kernel_plan_graphed`).
 """
 
 from __future__ import annotations
+
+import collections
 
 import torch
 
@@ -22,7 +26,14 @@ from . import _build
 from .fusion_knn_cuda import SCORE_MLP, FusionResiKnn, fusion_plain, fusion_resi_plain
 
 CHUNK = 256  # keys a chunk
-TILE = 64  # sorted queries sharing one chunk order
+TILE = 64  # sorted queries sharing one chunk order (two warps of the kernel)
+# a tile's stamps: start, walk end, end (%globaltimer ns), chunks walked, pairs
+# scanned, list inserts, warp-chunks scanned lane by lane, and needer by needer
+STAMPS = 8
+# (device, shape) -> the prep's CUDA graph, its inputs and its plan, the most
+# recently used last; at most PLAN_GRAPHS shapes keep their graph
+_PLAN_GRAPHS: collections.OrderedDict = collections.OrderedDict()
+PLAN_GRAPHS = 4
 
 
 def fusion_cells_attention(combined: torch.Tensor, seg_ends: torch.Tensor,
@@ -52,8 +63,10 @@ def cells_plan(combined: torch.Tensor, split: torch.Tensor, chunk: int = CHUNK,
     """The kernel's inputs besides the cloud: ``(keys [B, 3, Np] sorted,
     ids [B, Np] int32 original row of each sorted key (N for a pad),
     boxes [B, nc, 4, 4] = (lo A, hi A, lo B, hi B) of each chunk, xyz and a
-    pad, order [B, nt, nc] int32 chunks by ascending tile bound, lbs
-    [B, nt, nc] those bounds)``; segment A is rows ``[0, split[b])``."""
+    pad, order [B, nt, nc] int32 chunks by ascending tile bound (for the
+    chunks of bound 0 a key below 0: the tile's own chunk first, then by
+    distance from it in the sorted order), lbs [B, nt, nc] those sort
+    keys)``; segment A is rows ``[0, split[b])``."""
     B, N, _ = combined.shape
     pts, perm = sort_by_morton(combined, (-N) % chunk)
     in_range = perm < N
@@ -61,16 +74,100 @@ def cells_plan(combined: torch.Tensor, split: torch.Tensor, chunk: int = CHUNK,
     seg = torch.stack([is_a, in_range & ~is_a], dim=1)  # [B, 2, Np]: A, B
     lo, hi = chunk_boxes(pts[:, None], chunk, seg)  # [B, 2, nc, 3]
     qlo, qhi = chunk_boxes(pts, tile, in_range)
-    lbs, order = torch.sort(box_lb(qlo[:, None], qhi[:, None], lo, hi).amin(dim=1), dim=-1)
+    lb = box_lb(qlo[:, None], qhi[:, None], lo, hi).amin(dim=1)  # [B, nt, nc]
+    # the chunks of bound 0 nearest first: a key below 0 by their distance in
+    # the sorted order from the tile's own chunk, so a query's lists fill
+    # from its nearest keys and later keys rarely enter (inserts, not scans,
+    # cost the kernel)
+    nt, nc = lb.shape[1:]
+    own = torch.arange(nt, device=lb.device)[:, None] * tile // chunk
+    gap = (torch.arange(nc, device=lb.device)[None, :] - own).abs().float()
+    lbs, order = torch.sort(torch.where(lb > 0, lb, -1.0 / (1.0 + gap)), dim=-1)
     boxes = torch.nn.functional.pad(torch.stack([lo, hi], dim=2), (0, 1))  # [B, 2, 2, nc, 4]
     boxes = boxes.permute(0, 3, 1, 2, 4).contiguous().reshape(B, -1, 4, 4)
     return pts.transpose(1, 2).contiguous(), perm, boxes, order.to(torch.int32), lbs
 
 
+def kernel_plan(combined: torch.Tensor, split: torch.Tensor):
+    """The kernel's plan: :func:`cells_plan`'s with the sorted keys as
+    ``[B, Np, 4]`` rows (x, y, z, original row as int32 bits; pads at
+    +1e15 with id N), each staged as one 16-byte copy, and the order the
+    tiles are handed out in, ``torder [B * nt]`` int32, the widest tile
+    boxes first (a wide tile holds sparse queries whose k-th neighbours
+    are far, so its walk is long; started first, it ends with the rest):
+    ``(keys, boxes, order, lbs, torder)``."""
+    pts, ids, boxes, order, lbs = cells_plan(combined, split)
+    keys = torch.cat([pts.transpose(1, 2), ids[..., None].view(torch.float32)], -1)
+    qlo, qhi = chunk_boxes(keys[..., :3], TILE, ids < combined.shape[1])
+    span = torch.clamp_min(qhi - qlo, 0.0)  # a tile of pad rows only: 0
+    torder = torch.argsort((span * span).sum(-1).reshape(-1), descending=True, stable=True)
+    return keys.contiguous(), boxes, order, lbs, torder.to(torch.int32)
+
+
+def kernel_plan_graphed(combined: torch.Tensor, split: torch.Tensor):
+    """:func:`kernel_plan` of CUDA tensors, replayed from a CUDA graph
+    captured once per shape (``_build.graph_replay``): the cloud and the
+    split are copied into the graph's inputs and the prep's ~30 small
+    launches run as one.  The plan's tensors are the graph's own, so a
+    plan must be consumed before the next call of its shape, on the
+    stream the graph was captured for (another stream raises)."""
+    key = (combined.device, tuple(combined.shape))
+    return _build.graph_replay(_PLAN_GRAPHS, PLAN_GRAPHS, key, "fusion_cells plan",
+                               kernel_plan, combined, split)
+
+
+def fusion_cells_launch(combined, seg, k, plan, layers=None, scanned=None, stamps=None):
+    """One launch of csrc/fusion_cells.cu on a :func:`kernel_plan` plan
+    (counted in ``fusion_cells_kernel.launches``): one-shot with
+    ``layers`` (the folded score MLP), else residual.  ``seg [B, 4]`` int32
+    = (N1, N, k1, k2).  ``scanned``: an int64 ``[1]`` CUDA tensor that gains
+    the (query, key) pairs scanned; ``stamps``: a zeroed int64 ``[B, nt,
+    STAMPS]`` CUDA tensor that takes each tile's start, walk end and end
+    (``%globaltimer`` ns), the chunks it walked, the pairs it scanned, its
+    list inserts, and its warps' chunk scans lane by lane and needer by
+    needer."""
+    dev = combined.device
+    B, N, _ = combined.shape
+    keys, boxes, order, lbs, torder = plan
+    for name, t in zip(("keys", "boxes", "order", "lbs", "torder"), plan):
+        if t.device != dev or not t.is_contiguous():
+            raise ValueError(f"fusion_cells kernel: the plan's {name} must be contiguous on {dev}")
+    if scanned is not None:
+        _build.require(scanned, "scanned", torch.int64, 1, dev)
+    if stamps is not None:
+        _build.require(stamps, "stamps", torch.int64, 3, dev)
+        if stamps.shape != (*order.shape[:2], STAMPS):
+            raise ValueError(f"fusion_cells stamps: {(*order.shape[:2], STAMPS)}")
+    Np = keys.shape[1]
+    ptr = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
+    if layers is not None:
+        dims = tuple(_build.layer_widths(layers))
+        if dims != SCORE_MLP:
+            raise ValueError(f"fusion_cells kernel is built for the {SCORE_MLP} score MLP, "
+                             f"got {dims}")
+        wtc = _build.pack_tf32(layers, dev, chain=True)
+        out, out_i, out_r = torch.empty_like(combined), None, None
+    else:
+        wtc, dims = None, (4, 0, 0, 0)
+        out = None
+        out_i = torch.empty((B, N, k), dtype=torch.int64, device=dev)
+        out_r = torch.empty((B, N, k, 3), dtype=torch.float32, device=dev)
+    nxt = torch.zeros(1, dtype=torch.int32, device=dev)  # the tile counter
+    err = _build.library().pci_fusion_cells(
+        combined.data_ptr(), keys.data_ptr(), boxes.data_ptr(), order.data_ptr(),
+        lbs.data_ptr(), torder.data_ptr(), seg.data_ptr(), ptr(wtc), *dims[1:], ptr(out), ptr(out_i),
+        ptr(out_r), ptr(scanned), ptr(stamps), nxt.data_ptr(), B, N, Np, Np // boxes.shape[1],
+        Np // order.shape[1], k, _build.stream_ptr(dev),
+    )
+    _build.check_launch("fusion_cells", err)
+    fusion_cells_kernel.launches += 1
+    return out if layers is not None else (out_i, out_r)
+
+
 def fusion_cells_kernel(combined, seg_ends, budgets, k, layers=None, scanned=None):
-    """One launch: one-shot with ``layers`` (the folded score MLP), else
-    residual.  ``scanned``: an int64 ``[1]`` CUDA tensor that gains the
-    number of (query, key) pairs the kernel scanned."""
+    """The prep (:func:`kernel_plan_graphed`) and one launch
+    (:func:`fusion_cells_launch`): one-shot with ``layers`` (the folded
+    score MLP), else residual."""
     dev = combined.device
     _build.require(combined, "combined", torch.float32, 3, dev)
     B, N, C = combined.shape
@@ -80,36 +177,9 @@ def fusion_cells_kernel(combined, seg_ends, budgets, k, layers=None, scanned=Non
         raise ValueError("fusion_cells kernel: k <= 32 (one lane a slot)")
     if seg_ends.shape != (B, 2) or budgets.shape != (B, 2):
         raise ValueError("fusion_cells kernel: two segments a batch row")
-    if scanned is not None:
-        _build.require(scanned, "scanned", torch.int64, 1, dev)
     seg = torch.cat([seg_ends, budgets], dim=1).to(dev, torch.int32).contiguous()
-    plan = cells_plan(combined, seg[:, 0])
-    if not all(t.is_contiguous() for t in plan):
-        raise ValueError("fusion_cells kernel: the plan's tensors must be contiguous")
-    keys, ids, boxes, order, lbs = plan
-    Np = keys.shape[-1]
-    null = 0
-    ptr = lambda t: t.data_ptr() if t is not None else null  # noqa: E731
-    if layers is not None:
-        wbuf, dims = _build.pack_layers(layers, dev)
-        if tuple(dims) != SCORE_MLP:
-            raise ValueError(f"fusion_cells kernel is built for the {SCORE_MLP} score MLP, "
-                             f"got {dims}")
-        out, out_i, out_r = torch.empty_like(combined), None, None
-    else:
-        wbuf, dims = None, [4, 0, 0, 0]
-        out = None
-        out_i = torch.empty((B, N, k), dtype=torch.int64, device=dev)
-        out_r = torch.empty((B, N, k, 3), dtype=torch.float32, device=dev)
-    err = _build.library().pci_fusion_cells(
-        combined.data_ptr(), keys.data_ptr(), ids.data_ptr(), boxes.data_ptr(),
-        order.data_ptr(), lbs.data_ptr(), seg.data_ptr(), ptr(wbuf), *dims[1:],
-        ptr(out), ptr(out_i), ptr(out_r), ptr(scanned), B, N, Np, CHUNK, TILE, k,
-        _build.stream_ptr(dev),
-    )
-    _build.check_launch("fusion_cells", err)
-    fusion_cells_kernel.launches += 1
-    return out if layers is not None else (out_i, out_r)
+    plan = kernel_plan_graphed(combined, seg[:, 0])
+    return fusion_cells_launch(combined, seg, k, plan, layers, scanned)
 
 
 fusion_cells_kernel.launches = 0

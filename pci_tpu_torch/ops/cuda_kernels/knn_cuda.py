@@ -154,17 +154,17 @@ def _own_chunk_keys(nt: int, nc: int, tiles_a_chunk: int, device: torch.device) 
     return -1.0 / (1.0 + gap)
 
 
-# (device, shapes, self) -> (stream, graph, points in, query in, plan), the
-# most recently used last; at most PLAN_GRAPHS shapes keep their graph
+# (device, shapes, self) -> the prep's CUDA graph, its inputs and its plan,
+# the most recently used last; at most PLAN_GRAPHS shapes keep their graph
 _PLAN_GRAPHS: collections.OrderedDict = collections.OrderedDict()
 PLAN_GRAPHS = 4
 
 
 def knn_cells_plan_graphed(query, points, self_knn: bool):
     """:func:`knn_cells_plan` of CUDA tensors, replayed from a CUDA graph
-    captured once a shape: the clouds are copied into the graph's inputs
-    and the prep's ~35 small launches run as one, so the host's launch time
-    leaves the call.
+    captured once a shape (``_build.graph_replay``): the clouds are copied
+    into the graph's inputs and the prep's ~35 small launches run as one,
+    so the host's launch time leaves the call.
 
     The plan's tensors are the graph's own: the next call of the same shape
     overwrites them, so a plan must be consumed (its kernel launched)
@@ -174,37 +174,12 @@ def knn_cells_plan_graphed(query, points, self_knn: bool):
     first call of a shape captures, which synchronizes the device; the
     ``PLAN_GRAPHS`` most recently used shapes keep their graph and its
     memory, an older one is dropped."""
-    dev = points.device
-    stream = torch.cuda.current_stream(dev)
-    if torch.cuda.is_current_stream_capturing():
-        raise RuntimeError("knn_cells plan: cannot be replayed inside a CUDA graph capture")
-    key = (dev, tuple(query.shape), tuple(points.shape), self_knn)
-    entry = _PLAN_GRAPHS.get(key)
-    if entry is not None and entry[0].cuda_stream != stream.cuda_stream:
-        raise RuntimeError(f"knn_cells plan: the graph for {key[1:]} was captured for stream "
-                           f"{entry[0]}, called on {stream}")
-    if entry is None:
-        with torch.inference_mode(False), torch.no_grad():
-            p_in = points.clone()
-            q_in = p_in if self_knn else query.clone()
-            side = torch.cuda.Stream(dev)
-            side.wait_stream(torch.cuda.current_stream(dev))
-            with torch.cuda.stream(side):  # the caches and allocations, before capture
-                knn_cells_plan(q_in, p_in, self_knn)
-            torch.cuda.current_stream(dev).wait_stream(side)
-            graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph):
-                plan = knn_cells_plan(q_in, p_in, self_knn)
-        entry = _PLAN_GRAPHS[key] = (stream, graph, p_in, q_in, plan)
-        if len(_PLAN_GRAPHS) > PLAN_GRAPHS:
-            _PLAN_GRAPHS.popitem(last=False)
-    _PLAN_GRAPHS.move_to_end(key)
-    _, graph, p_in, q_in, plan = entry
-    p_in.copy_(points)
-    if not self_knn:
-        q_in.copy_(query)
-    graph.replay()
-    return plan
+    key = (points.device, tuple(query.shape), tuple(points.shape), self_knn)
+    if self_knn:
+        return _build.graph_replay(_PLAN_GRAPHS, PLAN_GRAPHS, key, "knn_cells plan",
+                                   lambda p: knn_cells_plan(p, p, True), points)
+    return _build.graph_replay(_PLAN_GRAPHS, PLAN_GRAPHS, key, "knn_cells plan",
+                               lambda q, p: knn_cells_plan(q, p, False), query, points)
 
 
 def knn_cells_launch(query, points, k, plan, scanned=None, stamps=None):

@@ -29,6 +29,15 @@ MAX_BATCH = 16
 RADII = ((0.2, 0.4), (0.4, 0.8), (0.8, 1.6))
 KS = ((16, 32), (16, 32), (16, 32))
 GN_EPS = 1e-5
+# the kernel's phases, each ended by a grid barrier (the last by none): the
+# rows of its optional %globaltimer stamps (pn2mid_kernel(stamps=...))
+PHASES = ("start", "fps", *(f"{lv}.l{i}" for lv in ("sa2", "sa3", "sa4") for i in range(3)),
+          *(f"{lv}.{part}" for lv in ("fp4", "fp3", "fp2") for part in ("l0", "l0.sum", "l1")),
+          "finish")
+# a phase's stamps, a block: its arrival at and leaving of the phase's grid
+# barrier (%globaltimer ns), its summed ns in each part of its items, its items
+STAMP_PARTS = ("ids", "cols", "build", "mma", "out")
+STAMPS = 2 + len(STAMP_PARTS) + 1
 
 
 def gn_pointmlp_vars(mlp) -> list:
@@ -42,13 +51,21 @@ def gn_pointmlp_vars(mlp) -> list:
 
 class PackedGroups(list):
     """The nine groups ``[[(W, aux), ...], ...]`` that also carry their
-    kernel-layout buffer, so a module packs its weights once and not on
-    every launch."""
+    kernel-layout buffers (:func:`_pack`, :func:`pack_tc`), so a module
+    packs its weights once and not on every launch."""
 
     def __init__(self, groups):
         super().__init__(groups)
         device = self[0][0][0].device
         self.buf, self.dims, self.doff, self.nl = _pack(self, device)
+        self.wtc = pack_tc(self, device)
+
+
+def pack_tc(groups, dev) -> torch.Tensor:
+    """Every layer's W and dense bias split for the tensor cores
+    (``_build.pack_tf32``'s layout, a layer at a time, in group order): the
+    kernel's B operands."""
+    return torch.cat([_build.pack_tf32([(w.t(), aux[0])], dev) for g in groups for w, aux in g])
 
 
 def pn2mid_fused(l1_xyz: torch.Tensor, l1_f: torch.Tensor, groups,
@@ -94,7 +111,14 @@ def _pack(groups, dev):
     return buf, dims, doff, nl
 
 
-def pn2mid_kernel(l1_xyz, l1_f, groups, s_list, radii, ks):
+def pn2mid_kernel(l1_xyz, l1_f, groups, s_list, radii, ks, stamps=None):
+    """One launch.  ``stamps``: a zeroed int64 ``[blocks, len(PHASES),
+    STAMPS]`` CUDA tensor (blocks at least the launch's grid) that takes, for
+    each block and phase, its arrival at and leaving of the phase's grid
+    barrier (``%globaltimer`` ns), its time in each of ``STAMP_PARTS`` of its
+    items (the ball or 3-NN ids, the column tables, the input rows, the
+    products, the output and statistics) and its items (a measurement
+    launch only)."""
     dev = l1_xyz.device
     B, N1, _ = l1_xyz.shape
     C1 = l1_f.shape[-1]
@@ -105,9 +129,9 @@ def pn2mid_kernel(l1_xyz, l1_f, groups, s_list, radii, ks):
     if B > MAX_BATCH or N1 > 4096:
         raise ValueError(f"pn2mid kernel: at most {MAX_BATCH} samples of 4,096 points")
     if isinstance(groups, PackedGroups) and groups.buf.device == dev:
-        buf, dims, doff, nl = groups.buf, groups.dims, groups.doff, groups.nl
+        buf, dims, doff, nl, wtc = groups.buf, groups.dims, groups.doff, groups.nl, groups.wtc
     else:
-        buf, dims, doff, nl = _pack(groups, dev)
+        (buf, dims, doff, nl), wtc = _pack(groups, dev), pack_tc(groups, dev)
     ia = _build.int_array
     args = (ia(dims), ia(doff), ia(nl))
     shape = (B, N1, C1, ia(s_list), ia([k for lv in ks for k in lv]),
@@ -119,9 +143,15 @@ def pn2mid_kernel(l1_xyz, l1_f, groups, s_list, radii, ks):
     dscratch = torch.empty(sizes[1], dtype=torch.float64, device=dev)
     out = torch.empty((B, N1, dims[-1]), dtype=torch.float32, device=dev)
     bar = torch.zeros(1, dtype=torch.int32, device=dev)
+    if stamps is not None:
+        _build.require(stamps, "stamps", torch.int64, 3, dev)
+        if stamps.shape[1:] != (len(PHASES), STAMPS):
+            raise ValueError(f"pn2mid stamps: [blocks, {len(PHASES)}, {STAMPS}]")
     err = lib.pci_pn2mid(l1_xyz.data_ptr(), l1_f.data_ptr(), buf.data_ptr(), *args,
                          fscratch.data_ptr(), dscratch.data_ptr(), out.data_ptr(),
-                         bar.data_ptr(), *shape, _build.stream_ptr(dev))
+                         bar.data_ptr(), *shape, wtc.data_ptr(),
+                         stamps.data_ptr() if stamps is not None else None,
+                         _build.stream_ptr(dev))
     _build.check_launch("pn2mid", err)
     pn2mid_kernel.launches += 1
     return out
