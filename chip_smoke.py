@@ -39,7 +39,17 @@ each printing its own lines:
      launch, k = 96 the flat kernel (hold_knn_routes).  The attention
      kernels at ATTENTION_HOLDS (ragged N, k = 7 with d = 40 and 24, and
      the forward's scalar route at k = 32 and d = 128), the backward also
-     run twice for the same bits.
+     run twice for the same bits.  The ball query at BALL_HOLDS (far
+     outliers whose scans become whole-range tasks, an empty ball, N ragged
+     against the prefix, the task range and the ring stage, S < 8, eight
+     scales; indices equal), the residual fusion kNN at FUSION_RESI_HOLDS
+     (three and four segments, a segment shorter than its budget, a budget
+     past 16, duplicates, a cloud 300 m out; at 1, 2 and 4 key parts,
+     indices identical and residuals bit-equal), and PointsFusion at k = 48
+     at eval and in training (no kernel launched, equal to the plain
+     route).  The `stages fusion_resi` line of the all-gates-off request's
+     residual kNN: its time at 1, 2 and 4 parts and its items' scan, merge
+     and write from their %globaltimer stamps.
   4. serving: Interpolator.pointinet(npoints=16384) with the trained weights
      answers five requests (t=0.5, then upsample(factor=5)); the launch
      counters must rise by PER_REQUEST a request (2 FPS, 2 flowenc, 2
@@ -49,7 +59,7 @@ each printing its own lines:
   5. stream serving: Interpolator.stream_batch, 8 streams x 16,384 points
      at eight distinct t: every kernel against its plain version at every
      shape of one 8-stream call (the attention tail also with a payload
-     channel), the fused FlowNet3D route against the per-stage one on the
+     channel; `stages fusion_resi` of its one-shot-off residual kNN), the fused FlowNet3D route against the per-stage one on the
      same pairs (p99.9 <= 1e-4 m), five calls with PER_STREAM_CALL
      launches each, each stream's frame against a single request with the
      same permutations, ms per call, frames/s, busy share, peak memory;
@@ -64,7 +74,10 @@ each printing its own lines:
      pn2mid route and, with PCI_TPU_PN2_KERNEL=0, the per-stage one's
      sa2-fp2 FPS, ball queries and 3-NN; the transformer's kNN on the
      box-pruned kernel, with its `stages knn` lines: the torch prep, the
-     kernel, the pairs it scanned, its tiles; pn2mid at a batch of 17 in
+     kernel, the pairs it scanned, its tiles; the `stages ball` lines of
+     sa1's two ball queries: each query's stop key, the queries the prefix
+     leaves short of K, their tasks, the phases' spans from %globaltimer
+     stamps, the call by events, device and host time; pn2mid at a batch of 17 in
      two launches against its plain version; the `stages attention`
      lines at the request's shape), then five served requests
      with the launch counts of PER_REQUEST_ISAPCI each, the frame against
@@ -80,8 +93,9 @@ each printing its own lines:
      at three segments, PointsFusionMulti's form, and the chamfer's kNN
      over key prefixes, knn_pallas's valid_n; `stages knn` for the
      transformers' box-pruned kNNs; `stages attention`: the forward's and
-     the backward's %globaltimer stage split at the step's shape), then
-     one step's loss
+     the backward's %globaltimer stage split at the step's shape; `stages
+     ball` of the step's eight ball queries and `stages fusion_resi` of its
+     residual kNN), then one step's loss
      and gradients through the kernels against the plain versions from the
      same flows, permutations and FPS starts, then five steps with the
      launch counts of PER_STEP each, finite losses, the flow bit-unchanged
@@ -126,9 +140,10 @@ each printing its own lines:
      tile, and both kernels' %globaltimer phase split.
 Then a resources line for each kernel whose dense products run on the
 tensor cores (the one-shot fusion, flowmid, kNN-conv, flowenc and the
-attention pair, 3xTF32; kNN-conv's at the FeaturePropagation's plan) and
-for the auction's pass
-and cluster chase (at their last launch's shared memory): registers a thread,
+attention pair, 3xTF32; kNN-conv's at the FeaturePropagation's plan), for
+the auction's pass
+and cluster chase (at their last launch's shared memory) and for the
+residual fusion kNN (4 parts, k = 32): registers a thread,
 static and dynamic shared bytes, resident blocks an SM, its max error
 against its plain version relative to the output's largest magnitude; the
 kernels JSON line, the card line, and {"ok": true, ...} last.  A kernel's
@@ -166,7 +181,8 @@ TENSOR_KERNELS = {"fusion": "pci_fusion_attrs", "flowmid": "pci_flowmid_attrs",
                   "fusion_cells": "pci_fusion_cells_attrs", "pn2mid": "pci_pn2mid_attrs"}
 # kernels whose resources print on the `kernel resources` lines (C entry)
 RESOURCE_KERNELS = {**TENSOR_KERNELS, "auction_pass": "pci_auction_pass_attrs",
-                    "auction_chase": "pci_auction_chase_attrs"}
+                    "auction_chase": "pci_auction_chase_attrs",
+                    "fusion_resi": "pci_fusion_resi_attrs"}
 KERNEL_INFO = {  # name -> (source, TPU kernel it replaces)
     "fps": ("pci_tpu_torch/csrc/fps.cu",
             "pci_tpu/ops/pallas_kernels/fps_tpu.py:117"),
@@ -396,9 +412,10 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
-def scanned_keys(queries, keys, radii, ks) -> float:
-    """Keys a first-K-in-index-order ball scan reads: each query's scan
-    stops at the key where every scale holds its K hits."""
+def ball_stop(queries, keys, radii, ks) -> torch.Tensor:
+    """``[B, S]`` the keys a first-K-in-index-order ball scan reads for
+    each query: up to the key where every scale holds its K hits (N for a
+    query whose balls never hold K)."""
     from pci_tpu_torch.ops import square_distance
 
     N = keys.shape[1]
@@ -409,7 +426,13 @@ def scanned_keys(queries, keys, radii, ks) -> float:
         full = hits[..., -1] >= K
         at = torch.where(full, (hits < K).sum(-1) + 1, N)
         stop = at if stop is None else torch.maximum(stop, at)
-    return float(stop.sum().item())
+    return stop
+
+
+def scanned_keys(queries, keys, radii, ks) -> float:
+    """Keys a first-K-in-index-order ball scan reads: each query's scan
+    stops at the key where every scale holds its K hits."""
+    return float(ball_stop(queries, keys, radii, ks).sum().item())
 
 
 def sqdist(d: torch.Tensor) -> torch.Tensor:
@@ -1263,10 +1286,12 @@ def fusion_cells_stages_line(args, card: str, path: str, reps: int = 10) -> None
 def stages_only() -> None:
     """`python3 chip_smoke.py --stages`: the `stages fusion_cells` lines of
     one PointINet request at 65,536 and 32,768 points on the default route
-    and with one-shot off (the kernels' own route, recorded), and the
-    `stages pn2mid` line of one ISAPCInet request; no holds.  Also loaded by
-    path from an older tree's root to print the same lines for its
-    kernels."""
+    and with one-shot off (the kernels' own route, recorded), the `stages
+    pn2mid` and `stages ball` lines of one ISAPCInet request, the `stages
+    fusion_resi` lines of one PointINet request and one 8-stream call with
+    one-shot off, and the `stages ball` and `stages fusion_resi` lines of
+    one training step; no holds.  Also loaded by path from an older tree's
+    root to print the same lines for its kernels."""
     from pci_tpu_torch.serving import DEFAULT_WEIGHTS, Interpolator
 
     card = card_line()
@@ -1300,6 +1325,321 @@ def stages_only() -> None:
         interp.model([T(x) for x in fwd], keys_t, [T(x) for x in bwd],
                      torch.tensor([0.5], device=dev), z, perms=perms)
     pn2mid_stages_line(next(c[2] for c in calls if c[0] == "pn2mid"), card, "isapci")
+    for _, _, args, _ in (c for c in calls if c[0] == "ball"):
+        ball_stages_line(args, card, "isapci")
+    del calls, interp
+    # the residual kNN at PointINet's one-shot-off shapes: one request, one 8-stream call
+    model = Interpolator.pointinet(npoints=NPOINTS, weights=DEFAULT_WEIGHTS, device="cuda").model
+    pairs = [synthetic_pair(seed) for seed in range(STREAMS)]
+    for B, t in ((1, [0.5]), (STREAMS, list(STREAM_T))):
+        a = torch.from_numpy(np.stack([x for x, _ in pairs[:B]])).to(dev)
+        b = torch.from_numpy(np.stack([y for _, y in pairs[:B]])).to(dev)
+        z = torch.zeros_like(a)
+        calls = []
+        with torch.inference_mode(), record_calls(calls), gates(ONESHOT_OFF):
+            model(a, b, z, z, torch.tensor(t, device=dev))
+        fusion_resi_stages_line(next(c[2] for c in calls if c[0] == "fusion_resi"), card,
+                                f"pointinet B={B}, one-shot off")
+    del model
+    # and one training step's ball queries and residual kNN
+    calls = []
+    with record_calls(calls):
+        train_step_once(dev)
+    for _, _, args, _ in (c for c in calls if c[0] == "ball"):
+        ball_stages_line(args, card, "train")
+    fusion_resi_stages_line(next(c[2] for c in calls if c[0] == "fusion_resi"), card, "train")
+
+
+def train_step_once(dev) -> None:
+    """One training step of phase 7's model, optimizer and batch (for the
+    `stages` lines of --stages)."""
+    from pci_tpu_torch.convert import load_npz_tree, load_subtrees
+    from pci_tpu_torch.models import ISAPCInet
+    from pci_tpu_torch.serving import DEFAULT_WEIGHTS, init_weights
+    from pci_tpu_torch.train import make_interp_train_step, make_optimizer
+
+    model = ISAPCInet(FIELD)
+    init_weights(model, 0)
+    load_subtrees(model, load_npz_tree(DEFAULT_WEIGHTS))
+    model = model.to(dev)
+    step = make_interp_train_step(model, make_optimizer(TRAIN_LR, model, ("flow",)), ("flow",))
+    step(train_batch(dev), torch.Generator(device=dev).manual_seed(7), TRAIN_MOMENTUM)
+
+
+def host_us(fn, reps: int = 20) -> float:
+    """Median host microseconds to enqueue one call of ``fn`` (the card
+    idle before each; no synchronisation inside the timed span)."""
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e6)
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
+def ball_cloud(kind: str, B: int, N: int, S: int, seed: int):
+    """Keys ``[B, N, 3]`` and queries ``[B, S, 3]`` for a ball hold:
+    "gauss" (the queries are keys), "outliers" (2% of the keys and a
+    quarter of the queries 20 sigma out, so their balls stay short of K and
+    their scans become whole-range tasks), "empty" (the last query far from
+    every key: N - 1 in every slot)."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((B, N, 3)).astype(np.float32)
+    if kind == "outliers":
+        x[rng.random((B, N)) < 0.02] *= 20.0
+    q = x[:, rng.integers(0, N, S)].copy()
+    if kind == "outliers":
+        q[:, : S // 4] *= 20.0
+    if kind == "empty":
+        q[:, -1] = 1e3
+    dev = torch.device("cuda")
+    return torch.from_numpy(x).to(dev), torch.from_numpy(q).to(dev)
+
+
+# ball query holds beyond the served shapes: (cloud, B, N, S, radii, ks);
+# N ragged against the prefix, the task range and the ring stage; S < 8;
+# eight scales
+BALL_HOLDS = (
+    ("outliers", 1, 65536, 1024, (0.1, 0.2), (16, 32)),
+    ("outliers", 2, 9000, 300, (0.05, 0.1, 0.2), (8, 16, 64)),
+    ("empty", 1, 5001, 5, (0.2,), (32,)),
+    ("gauss", 2, 4099, 7, (0.3, 0.5), (16, 32)),
+    ("gauss", 1, 1000, 37, (0.2, 0.4), (16, 32)),
+    ("outliers", 1, 20000, 100, (0.02, 0.04, 0.06, 0.08, 0.1, 0.15, 0.2, 0.3),
+     (4, 8, 8, 16, 16, 32, 32, 64)),
+)
+
+
+def hold_ball(card: str) -> None:
+    """The ball kernel against its plain version at BALL_HOLDS: indices
+    equal; the queries whose scan passes the prefix, those that never fill,
+    the empty rows, and the time a call (CUDA events)."""
+    from pci_tpu_torch.ops.cuda_kernels.ball_cuda import PREFIX, ball_kernel, ball_plain
+
+    for i, (kind, B, N, S, radii, ks) in enumerate(BALL_HOLDS):
+        xyz, q = ball_cloud(kind, B, N, S, 1300 + i)
+        with torch.inference_mode():
+            got = ball_kernel(xyz, q, radii, ks)
+            torch.cuda.synchronize()
+            want = ball_plain(xyz, q, radii, ks, empty="last")
+            ms = cuda_ms(lambda: ball_kernel(xyz, q, radii, ks), 10)
+            stop = ball_stop(q, xyz, radii, ks)
+        for g, w in zip(got, want):
+            check(torch.equal(g, w), f"ball hold {kind} B={B} N={N} S={S}: indices differ")
+        empty = int(sum((w == N - 1).all(-1).sum().item() for w in want))
+        print(f"ball hold {kind} B={B} N={N} S={S} r={list(radii)} K={list(ks)}: indices equal "
+              f"to the plain version's; queries whose scan passes the prefix "
+              f"{int((stop > PREFIX).sum())} of {B * S} (never full {int((stop >= N).sum())}), "
+              f"empty rows {empty}; {ms:.4f} ms (CUDA events) on {card}")
+
+
+def ball_stages_line(args, card: str, path: str) -> None:
+    """The `stages ball` line of a recorded ball query: the distribution of
+    each query's stop key (ball_stop: mean, p99, max), the queries that
+    never fill, the call's time by CUDA events, by device time and on the
+    host (enqueue); then the queries the prefix left short of K, their
+    tasks, and the prefix's and the tasks' spans from the kernel's
+    %globaltimer stamps.  A tree whose kernel takes no stamps prints the
+    first part only."""
+    from pci_tpu_torch.ops.cuda_kernels import _build, ball_cuda
+
+    radii, ks, xyz, q = args
+    B, N = xyz.shape[:2]
+    S = q.shape[1]
+    call = lambda: ball_cuda.ball_query_multi(radii, ks, xyz, q)  # noqa: E731
+    with torch.inference_mode():
+        stop = ball_stop(q, xyz, radii, ks).float()
+        ev = cuda_ms(call, 10)
+        dev_ms = device_ms(call)
+        host = host_us(call)
+    head = (f"stages ball {path} B={B} N={N} S={S} r={list(radii)} K={list(ks)} on {card}: "
+            f"stop key mean {stop.mean().item():.1f} p99 {torch.quantile(stop, 0.99).item():.0f} "
+            f"max {stop.max().item():.0f} of {N}, never full {int((stop >= N).sum())} of {B * S}; "
+            f"call {ev:.4f} ms (CUDA events), device {dev_ms:.4f} ms, host {host:.1f} us "
+            f"(enqueue)")
+    if not hasattr(ball_cuda, "scratch_ints"):
+        print(head + "; no stamps in this kernel")
+        return
+    need = ball_cuda.scratch_ints(B, N, S, tuple(int(k) for k in ks))
+    rows = _build.library().pci_ball_stamp_rows(B, S)
+    with torch.inference_mode():
+        scratch = torch.zeros(max(need, 2), dtype=torch.int32, device=xyz.device)
+        stamps = torch.zeros((rows, ball_cuda.STAMPS), dtype=torch.int64, device=xyz.device)
+        ball_cuda.ball_kernel(xyz, q, radii, ks, stamps=stamps, scratch=scratch if need else None)
+        torch.cuda.synchronize()
+    t = stamps.cpu().double()
+    nb = -(-S // 8) * B
+    pre, task = t[:nb], t[nb:]
+    task = task[task[:, 0] > 0]
+    line = (f"; prefix ({ball_cuda.PREFIX} keys, {nb} blocks) span "
+            f"{float(pre[:, 1].max() - pre[:, 0].min()) * 1e-6:.4f} ms, a block mean "
+            f"{float((pre[:, 1] - pre[:, 0]).mean()) * 1e-6:.4f} max "
+            f"{float((pre[:, 1] - pre[:, 0]).max()) * 1e-6:.4f}; queries short of K after it "
+            f"{int(scratch[0].item()) if need else 0}")
+    if need and len(task):
+        line += (f", tasks {int(task[:, 2].sum())} of {ball_cuda.RANGE} keys, merges "
+                 f"{int(task[:, 3].sum())}, task span "
+                 f"{float(task[:, 1].max() - task[:, 0].min()) * 1e-6:.4f} ms (the prefix's "
+                 f"last block to the last task "
+                 f"{float(task[:, 1].max() - pre[:, 1].max()) * 1e-6:.4f}), busiest warp "
+                 f"{int(task[:, 2].max())} tasks")
+    print(head + line)
+
+
+def fusion_resi_case(kind: str, seed: int):
+    """(combined [2, N, 3], seg_ends, budgets, k) for a residual-kNN hold:
+    "f3" (three segments, PointsFusionMulti's form), "f4" (four), "short"
+    (a segment with fewer keys than its budget), "wide" (a budget past 16
+    in one segment), "dups" (a third of the points exact duplicates), "far"
+    (the cloud 300 m from the origin, where the kernel's three-FMA mark
+    cancels most)."""
+    rng = np.random.default_rng(seed)
+    N = {"f3": 3000, "f4": 4100, "short": 2000, "wide": 5000, "dups": 4096, "far": 4096}[kind]
+    x = (rng.standard_normal((2, N, 3)) * 5).astype(np.float32)
+    if kind == "dups":
+        x[:, 2 * N // 3:] = x[:, rng.integers(0, 2 * N // 3, N - 2 * N // 3)]
+    if kind == "far":
+        x += np.float32(300.0)
+    ends, buds = {
+        "f3": ([[N // 3, 2 * N // 3, N], [1000, 2500, N]], [[12, 10, 10], [8, 16, 8]]),
+        "f4": ([[1000, 2001, 3003, N], [500, 1500, 3000, N]], [[8, 8, 8, 8], [4, 12, 6, 10]]),
+        "short": ([[10, N], [N - 5, N]], [[16, 16], [20, 12]]),
+        "wide": ([[4000, N], [900, N]], [[29, 3], [4, 28]]),
+        "dups": ([[2048, N], [1024, N]], [[16, 16], [24, 8]]),
+        "far": ([[2048, N], [3000, N]], [[16, 16], [23, 9]]),
+    }[kind]
+    return torch.from_numpy(x).cuda(), torch.tensor(ends), torch.tensor(buds), 32
+
+
+FUSION_RESI_HOLDS = ("f3", "f4", "short", "wide", "dups", "far")
+
+
+def hold_fusion_resi(card: str) -> None:
+    """The residual fusion kNN against its plain version at
+    FUSION_RESI_HOLDS, its key ranges split over 1, 2 and 4 parts and by
+    the kernel's own choice: indices identical, residuals bit-equal."""
+    from pci_tpu_torch.ops.cuda_kernels.fusion_knn_cuda import fusion_resi_kernel, fusion_resi_plain
+
+    for i, kind in enumerate(FUSION_RESI_HOLDS):
+        combined, ends, buds, k = fusion_resi_case(kind, 1400 + i)
+        with torch.inference_mode():
+            want = fusion_resi_plain(combined, ends, buds, k)
+            for parts in (0, 1, 2, 4):
+                got = fusion_resi_kernel(combined, ends, buds, k, parts=parts)
+                torch.cuda.synchronize()
+                check(torch.equal(got[0], want[0]),
+                      f"fusion_resi hold {kind} parts={parts}: indices differ")
+                check(torch.equal(got[1], want[1]),
+                      f"fusion_resi hold {kind} parts={parts}: residuals not bit-equal")
+        print(f"fusion_resi hold {kind} B={combined.shape[0]} N={combined.shape[1]} k={k} "
+              f"ends={ends.tolist()} budgets={buds.tolist()}: indices identical and residuals "
+              f"bit-equal to the plain version's at 1, 2 and 4 parts and the kernel's choice "
+              f"on {card}")
+
+
+def fusion_resi_stages_line(args, card: str, path: str) -> None:
+    """The `stages fusion_resi` line of a recorded residual kNN: the call
+    by CUDA events and device time on the kernel's own choice of parts,
+    then with its key ranges split over 1, 2 and 4 parts (each held to the
+    plain version), and, from the chosen launch's per-item %globaltimer
+    stamps, the scan's, the merge's and the write's shares of the summed
+    item time, the items' mean and longest time, and the list inserts a
+    query.  A tree whose kernel takes no parts prints the call's times
+    only."""
+    import inspect
+
+    from pci_tpu_torch.ops.cuda_kernels import fusion_knn_cuda as FK
+
+    combined, seg_ends, budgets, k = args
+    B, N = combined.shape[:2]
+    with torch.inference_mode():
+        call = lambda: FK.fusion_resi_kernel(combined, seg_ends, budgets, k)  # noqa: E731
+        head = (f"stages fusion_resi {path} B={B} N={N} k={k} budgets={budgets.tolist()} on "
+                f"{card}: call {cuda_ms(call, 10):.4f} ms (CUDA events), device "
+                f"{device_ms(call):.4f} ms")
+        if "parts" not in inspect.signature(FK.fusion_resi_kernel).parameters:
+            print(head + "; no parts or stamps in this kernel")
+            return
+        want = FK.fusion_resi_plain(combined, seg_ends, budgets, k)
+        split = []
+        for parts in (1, 2, 4):
+            fn = lambda p=parts: FK.fusion_resi_kernel(combined, seg_ends, budgets, k, parts=p)  # noqa: E731
+            got = fn()
+            torch.cuda.synchronize()
+            check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+                  f"fusion_resi {path} parts={parts}: differs from the plain version")
+            split.append(f"{parts} {cuda_ms(fn, 10):.4f} / {device_ms(fn):.4f}")
+        stamps = torch.zeros((B * -(-N // FK.RESI_ITEM), FK.RESI_STAMPS), dtype=torch.int64,
+                             device=combined.device)
+        FK.fusion_resi_kernel(combined, seg_ends, budgets, k, stamps=stamps)
+        torch.cuda.synchronize()
+    t = stamps.cpu().double()
+    whole = t[:, 1] - t[:, 0]
+    tot = float(whole.sum())
+    print(head + " (the kernel's choice of parts); by parts, events / device ms: "
+          + ", ".join(split) + f"; {t.shape[0]} items of {FK.RESI_ITEM} queries: scan "
+          f"{float(t[:, 2].sum()) / tot:.3f}, merge {float(t[:, 3].sum()) / tot:.3f}, write "
+          f"{float(t[:, 4].sum()) / tot:.3f} of the summed item time, an item mean "
+          f"{float(whole.mean()) * 1e-6:.4f} ms max {float(whole.max()) * 1e-6:.4f}, span "
+          f"{float(t[:, 1].max() - t[:, 0].min()) * 1e-6:.4f} ms; list inserts "
+          f"{float(t[:, 5].sum()) / (B * N):.1f} a query")
+
+
+def hold_fusion_k48(card: str) -> None:
+    """PointsFusion at k = 48 on the card (ROADMAP C.4: the fusion kernels
+    take k <= 32): at eval and in training it launches no kernel and
+    equals the same call through the plain versions (training: the rows
+    and the gradients into both clouds)."""
+    import copy
+
+    from pci_tpu_torch.nn import PointsFusion
+    from pci_tpu_torch.ops.cuda_kernels import launch_counts, plain_versions, reset_launch_counts
+    from pci_tpu_torch.serving import init_weights
+
+    dev = torch.device("cuda")
+    n, k = 4096, 48
+    a_np, b_np = synthetic_pair(17, n)
+    a, b = (torch.from_numpy(x)[None].to(dev) for x in (a_np, b_np))
+    g = torch.Generator().manual_seed(18)
+    perms = tuple(torch.randperm(n, generator=g)[None].to(dev) for _ in range(2))
+    t = torch.tensor([0.3], device=dev)
+    base = PointsFusion()
+    init_weights(base, 19)
+    base = base.to(dev)
+    G = torch.randn(1, n, 3, generator=g).to(dev)
+    was = torch.are_deterministic_algorithms_enabled()
+    # the backward's index_add_ in one order (warn_only: the head's matmuls
+    # have no cuBLAS workspace setting here, and run alike on both routes)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for mode in ("eval", "train"):
+            outs = []
+            for plain in (False, True):
+                mod = copy.deepcopy(base).train(mode == "train")
+                x1 = a.clone().requires_grad_(mode == "train")
+                x2 = b.clone().requires_grad_(mode == "train")
+                reset_launch_counts()
+                with plain_versions() if plain else contextlib.nullcontext():
+                    if mode == "eval":
+                        with torch.inference_mode():
+                            outs.append([mod(x1, x2, k, t, perms=perms)])
+                    else:
+                        out = mod(x1, x2, k, t, perms=perms)
+                        (out * G).sum().backward()
+                        outs.append([out.detach(), x1.grad, x2.grad])
+                torch.cuda.synchronize()
+                fired = {name: c for name, c in launch_counts().items() if c}
+                check(not fired, f"fusion k={k} {mode}: launched {fired}")
+            for got, want in zip(*outs):
+                check(torch.equal(got, want), f"fusion k={k} {mode}: differs from the plain route")
+            print(f"fusion k={k} {mode} at {n} points on {card}: no kernel launched; "
+                  f"{'rows' if mode == 'eval' else 'rows and both gradients'} bit-equal to the "
+                  f"plain route's")
+    finally:
+        torch.use_deterministic_algorithms(was)
 
 
 def knn_walk_pairs(points, kth, chunk: int, tile: int) -> float:
@@ -1386,7 +1726,7 @@ def knn_stages(calls, card: str, path: str) -> None:
               + " (chunk/tile)")
 
 
-def phase_kernels(model, a, b, totals):
+def phase_kernels(model, a, b, totals, card: str):
     """PointINet's recorded main-path calls, kernel vs plain on the card: on
     the default route, then with all gates off."""
     from pci_tpu_torch.ops.cuda_kernels import plain_versions
@@ -1409,6 +1749,8 @@ def phase_kernels(model, a, b, totals):
     with torch.inference_mode(), plain_versions(), record_calls(calls), gates(ALL_OFF):
         model(a, b, z, z, torch.tensor([0.5], device=dev), perms=perms)
     hold_kernels(calls, len(calls), PER_REQUEST_ALL_OFF, totals, "pointinet, all gates off")
+    fusion_resi_stages_line(next(c[2] for c in calls if c[0] == "fusion_resi"), card,
+                            "pointinet, all gates off")
     return perms
 
 
@@ -1600,6 +1942,8 @@ def phase_streams(interp, card: str, totals: dict):
     extra = torch.randn(*resi.shape[:3], 1, generator=torch.Generator().manual_seed(6)).to(dev)
     calls.append((name, fn, (combined, resi, extra, layers), kw))
     hold_kernels(calls, request, PER_STREAM_CALL, totals, f"stream x{STREAMS}", unit="call")
+    fusion_resi_stages_line(next(c[2] for c in calls if c[0] == "fusion_resi"), card,
+                            f"stream x{STREAMS}, one-shot off")
     del calls, combined, resi, extra
 
     # the fused FlowNet3D route against the per-stage route, same pairs
@@ -1709,6 +2053,8 @@ def phase_isapci(card: str, totals: dict) -> dict:
         model(fwd_t, keys_t, bwd_t, tt, z, perms=perms)
     hold_kernels(calls, len(calls), PER_REQUEST_ISAPCI, totals, "isapci")
     knn_stages(calls, card, "isapci")
+    for _, _, args, _ in (c for c in calls if c[0] == "ball"):
+        ball_stages_line(args, card, "isapci")
     hold_pn2mid_batch(next(c[2] for c in calls if c[0] == "pn2mid"), card)
     pn2mid_stages_line(next(c[2] for c in calls if c[0] == "pn2mid"), card, "isapci")
     attention_stages_line(next(c[2] for c in calls if c[0] == "attention"), card, "isapci")
@@ -1872,6 +2218,9 @@ def phase_train(card: str, totals: dict) -> dict:
     calls.append(("knn", fn, (a, b, 8, torch.tensor([5, N][:B], device=dev)), {}))
     hold_kernels(calls, request, PER_STEP, totals, "train", unit="step")
     knn_stages(calls[:request], card, "train")
+    for _, _, args, _ in (c for c in calls[:request] if c[0] == "ball"):
+        ball_stages_line(args, card, "train")
+    fusion_resi_stages_line(next(c[2] for c in calls if c[0] == "fusion_resi"), card, "train")
     attention_stages_line(next(c[2] for c in calls if c[0] == "attention_bwd"), card, "train")
     del calls
 
@@ -2474,12 +2823,15 @@ def main() -> int:
     a_np, b_np = synthetic_pair()
     a = torch.from_numpy(a_np)[None].cuda()
     b = torch.from_numpy(b_np)[None].cuda()
-    perms = phase_kernels(interp.model, a, b, totals)
+    perms = phase_kernels(interp.model, a, b, totals, card)
     phase_stages(interp.model, card)
     hold_fps(card)
     hold_knn_cells(card)
     hold_knn_routes(card)
     hold_attention(card)
+    hold_ball(card)
+    hold_fusion_resi(card)
+    hold_fusion_k48(card)
 
     # 4. serving: warm up, then count the launches of five requests
     interp(a_np, b_np, 0.5)

@@ -22,7 +22,7 @@
 //     _build.pack_tf32(chain=True)) into shared memory once and keeps it
 //     for every group it walks, instead of each of 2,048 blocks reading
 //     51 KB again;
-//   - the scan (oneshot_slots) is budgeted_slot's: lane L keeps entry L of
+//   - the scan (oneshot_slots): lane L keeps entry L of
 //     two sorted top-k lists a query in registers, every lane tests one key
 //     against its segment's k-th distance, the few keys that pass (about
 //     k ln(N / k) a query) are inserted by a ballot and a shuffle, so the
@@ -48,15 +48,14 @@
 // The same file holds the training route's kernel, fusion_resi_kernel: it
 // replaces fusion_knn_tpu.py:knn_fusion_adaptive / knn_fusion_multi
 // (_fusion_core, the residual-emitting call with the fixed-neighbour VJP)
-// by the same budgeted extraction (budgeted_slot) over F <= 4 segments,
-// writing idx [B, N, k] and resi = neighbour - row [B, N, k, 3]; a slot its
-// segment cannot fill holds the row itself (zero residual).  Its backward
-// is a scatter-add of the residual gradient, outside any kernel, as in the
-// JAX package.  Bound: the 16,000^2 distances a cloud (8 flops each), so
-// operations; the extraction costs the same as in the one-shot kernel.
+// by the exact budgeted extraction over F <= 4 segments, writing idx [B,
+// N, k] and resi = neighbour - row [B, N, k, 3]; a slot its segment cannot
+// fill holds the row itself (zero residual).  Its backward is a
+// scatter-add of the residual gradient, outside any kernel, as in the JAX
+// package.  Bound: the N^2 distances a cloud (8 flops each), so
+// operations; its design is set out above the kernel.
 #include "fusion_head.cuh"
-
-#define FUS_TILE 2048
+#include "cells.cuh"
 
 __device__ __forceinline__ void list_insert(float& dL, int& iL, float& thr,
                                             int cap, float dn, int jn,
@@ -82,77 +81,6 @@ __device__ __forceinline__ void list_insert(float& dL, int& iL, float& thr,
   thr = __shfl_sync(FULL, dL, cap - 1);
 }
 
-// The budgeted F-segment self-kNN of one query, one warp a query: slots
-// [cum_f, cum_f + cap_f) hold segment f's cap_f nearest keys in ascending
-// (distance, index) order, segment f being rows [ends[f-1], ends[f]) and
-// cap_f its budget (clipped so the slots fit in the warp).  Each lane keeps
-// entry `lane` of one sorted list a segment in registers; the block streams
-// the keys through the shared tiles tx/ty/tz (every warp of the block takes
-// part, so all of them call this), every lane tests one key against its
-// segment's current cap-th distance, and the few keys that pass are
-// inserted by list_insert.  Returns the key index of slot `lane`, -1 for a
-// slot its segment could not fill (fewer keys than budget) or past the
-// budgets.
-template <int FM>
-__device__ __forceinline__ int budgeted_slot(const float* __restrict__ P,
-                                             int N, const int (&ends)[FM],
-                                             const int (&buds)[FM], int F,
-                                             float qx, float qy, float qz,
-                                             float* tx, float* ty, float* tz,
-                                             int lane) {
-  float dL[FM], thr[FM];
-  int iL[FM], cap[FM], cum[FM], lo[FM];
-  int used = 0, start = 0;
-#pragma unroll
-  for (int f = 0; f < FM; ++f) {
-    cap[f] = f < F ? max(0, min(buds[f], 32 - used)) : 0;
-    cum[f] = used;
-    used += cap[f];
-    lo[f] = start;
-    start = f < F ? max(start, ends[f]) : start;
-    dL[f] = CUDART_INF_F;
-    iL[f] = -1;
-    thr[f] = cap[f] > 0 ? CUDART_INF_F : -CUDART_INF_F;
-  }
-  for (int t0 = 0; t0 < N; t0 += FUS_TILE) {
-    const int tn = min(FUS_TILE, N - t0);
-    __syncthreads();
-    for (int e = threadIdx.x; e < tn; e += blockDim.x) {
-      tx[e] = P[(size_t)(t0 + e) * 3];
-      ty[e] = P[(size_t)(t0 + e) * 3 + 1];
-      tz[e] = P[(size_t)(t0 + e) * 3 + 2];
-    }
-    __syncthreads();
-    for (int base = 0; base < tn; base += 32) {
-      const int jl = base + lane;
-      const int j = t0 + jl;
-      float d = CUDART_INF_F, th = -CUDART_INF_F;
-      if (jl < tn) d = sqdist3(tx[jl], ty[jl], tz[jl], qx, qy, qz);
-#pragma unroll
-      for (int f = 0; f < FM; ++f)
-        if (f < F && j >= lo[f] && j < ends[f]) th = thr[f];
-      unsigned mask = __ballot_sync(FULL, d < th);
-      while (mask) {
-        const int src = __ffs(mask) - 1;
-        mask &= mask - 1;
-        const float dn = __shfl_sync(FULL, d, src);
-        const int jn = t0 + base + src;
-#pragma unroll
-        for (int f = 0; f < FM; ++f)  // one segment holds jn (warp-uniform)
-          if (f < F && jn >= lo[f] && jn < ends[f])
-            list_insert(dL[f], iL[f], thr[f], cap[f], dn, jn, lane);
-      }
-    }
-  }
-  int idx = -1;
-#pragma unroll
-  for (int f = 0; f < FM; ++f) {
-    const int v = __shfl_sync(FULL, iL[f], min(max(lane - cum[f], 0), 31));
-    if (lane >= cum[f] && lane < cum[f] + cap[f]) idx = v;
-  }
-  return idx;
-}
-
 // ---- the one-shot kernel --------------------------------------------------
 
 #define ONE_WARPS 16    // warps a block
@@ -175,14 +103,15 @@ __device__ __forceinline__ void stage_keys(const float* __restrict__ P, int t0, 
   cp_async_commit();
 }
 
-// budgeted_slot's two-segment scan (segment A = [0, n1), B = [n1, N),
-// budgets cap0 and cap1 <= 32 - cap0) for QW queries a warp, over the key
-// tiles of the one-shot kernel: the block streams the keys through two
-// tile buffers (`keys`, 2 x ONE_TILE xyz rows) by cp.async, the next tile
-// loading while every warp scans the current one.  For each query, the same
-// tests, the same insertions in the same order as budgeted_slot: the same
-// slots.  idx[i] is the key index of query i's slot `lane`, -1 for an
-// unfilled slot.
+// The budgeted two-segment scan (segment A = [0, n1), B = [n1, N),
+// budgets cap0 and cap1 <= 32 - cap0) for QW queries a warp, one lane a
+// list entry: each lane keeps entry `lane` of a query's sorted A and B
+// lists in registers, every lane tests one key against its segment's
+// current cap-th distance, and the few keys that pass go in by
+// list_insert.  The block streams the keys through two tile buffers
+// (`keys`, 2 x ONE_TILE xyz rows) by cp.async, the next tile loading while
+// every warp scans the current one.  idx[i] is the key index of query i's
+// slot `lane`, -1 for an unfilled slot.
 template <int QW>
 __device__ __forceinline__ void oneshot_slots(const float* __restrict__ P, int N, int n1,
                                               int cap0, int cap1, const float (&qx)[QW],
@@ -340,57 +269,424 @@ extern "C" int pci_fusion_attrs(int* out) {
   return kernel_attrs(fusion_kernel, oneshot_smem(), out, ONE_WARPS * 32);
 }
 
-template <int FM>
-__global__ void __launch_bounds__(256)
-fusion_resi_kernel(const float* __restrict__ pts, const int* __restrict__ ends_g,
-                   const int* __restrict__ buds_g, int F,
-                   long long* __restrict__ out_i, float* __restrict__ out_r,
-                   int N, int k) {
-  __shared__ float tx[FUS_TILE], ty[FUS_TILE], tz[FUS_TILE];
-  const int b = blockIdx.y;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int q = blockIdx.x * (blockDim.x >> 5) + warp;
-  const int qq = min(q, N - 1);
-  const float* P = pts + (size_t)b * N * 3;
-  int ends[FM], buds[FM];
+
+// ---- the residual kernel --------------------------------------------------
+//
+// The budgeted F-segment self-kNN's slots and residuals (the function of
+// fusion_knn_cuda.fusion_resi_plain).  The N^2 pairs are the work (5.1e8
+// at a training step's 2 x 16,000 points), so the design cuts the
+// instructions a pair and fills the card:
+//   - one thread a query, the keys broadcast from shared memory: a part's
+//     warps read the same key at once (no per-pair shuffle, ballot or slot
+//     select, and no lane-a-slot list: that walk was twice as slow for the
+//     cell-pruned kernel, PERF.md);
+//   - a pair costs one LDS.128 and three FMAs: each staged tile is packed
+//     as (x, y, z, |k|^2), and a key is marked when |k|^2 - 2 q.k is below
+//     the bound less |q|^2 plus a margin that covers both formulas'
+//     rounding (resi_limit), a superset of the keys whose exact distance
+//     (sqdist3, the plain version's) passes; only marked keys are measured
+//     exactly, so the lists, ties and slots are the exact scan's;
+//   - the segments one after another: a query scans segment f's keys in
+//     index order, then f + 1's, so one list of 16 or 32 entries (by the
+//     segment's budget) is live at a time in registers and its threshold
+//     is loop-invariant between inserts; keys in index order and a strict
+//     `<` keep ties on the lower index.  A list shorter than 16 or 32
+//     starts with -inf entries, so its last entry is the budget's k-th;
+//   - a segment's keys split over P parts (P x 2 warps a block for 64
+//     queries, P in 1, 2, 4 by how few items there are to fill the card
+//     with): each part keeps its own list over its contiguous key
+//     range, publishes its current k-th distance in shared memory, and
+//     marks a key only when it is below its own k-th and at most every
+//     other part's (a part's k-th bounds the final list, so the filter
+//     keeps a superset of it); part 0 then inserts the other parts' lists
+//     in order by (distance, index), which makes the final list the first
+//     k of the union, the flat scan's;
+//   - 32 keys at a time a lane marks, branch-free, the keys that pass the
+//     threshold as it stood, then inserts the marked ones, each checked
+//     again (a warp pays for the most inserts of one lane, not for every
+//     key some lane inserts);
+//   - each part streams its keys through its own RES_STAGES-deep cp.async
+//     ring (stage_keys' copies), synchronised by a named barrier of its
+//     warps; blocks are persistent over the (batch row, 64 queries) items;
+//   - the epilogue gathers each slot's neighbour, computes resi by
+//     __fsub_rn, and stages the item's idx and resi rows in shared memory
+//     so that both leave in coalesced 16-byte stores.
+#define RES_QW 2                // warps of queries a part
+#define RES_Q (RES_QW * 32)     // queries an item (a block's turn)
+#define RES_MAXP 4              // parts a segment at most
+#define RES_TK 256              // keys a ring stage
+#define RES_STAGES 3            // ring stages a part
+#define RES_PART_FLOATS (RES_STAGES * 3 * RES_TK + 4 * RES_TK)  // a part's ring, packed tile
+#define RES_STAMPS 6            // an item's: start, end, scan ns, merge ns, write ns, inserts
+
+struct ResiParams {
+  const float* pts;       // [B][N][3]
+  const int* ends;        // [B][F] cumulative segment ends
+  const int* buds;        // [B][F] budgets
+  long long* out_i;       // [B][N][k]
+  float* out_r;           // [B][N][k][3]
+  unsigned long long* stamps;  // [B * items a row][RES_STAMPS], or null
+  int F, B, N, k, P;
+};
+
+// Insert (d, id) into the list (bd, bi) sorted by distance, where every
+// listed key has a lower index (keys arrive in index order): a strict `<`.
+template <int KM>
+__device__ __forceinline__ void resi_insert(float (&bd)[KM], int (&bi)[KM], float d, int id) {
+  bool lt[KM];
 #pragma unroll
-  for (int f = 0; f < FM; ++f) {
-    ends[f] = f < F ? ends_g[b * F + f] : N;
-    buds[f] = f < F ? buds_g[b * F + f] : 0;
+  for (int i = 0; i < KM; ++i) lt[i] = d < bd[i];
+#pragma unroll
+  for (int i = KM - 1; i > 0; --i) {
+    if (lt[i]) {
+      bd[i] = lt[i - 1] ? bd[i - 1] : d;
+      bi[i] = lt[i - 1] ? bi[i - 1] : id;
+    }
   }
-  const float qx = P[qq * 3], qy = P[qq * 3 + 1], qz = P[qq * 3 + 2];
-  const int idx = budgeted_slot<FM>(P, N, ends, buds, F, qx, qy, qz, tx, ty,
-                                    tz, lane);
-  if (q < N && lane < k) {
-    const int j = idx >= 0 ? idx : q;  // unfilled slot: the row itself
-    const size_t o = ((size_t)b * N + q) * k + lane;
-    out_i[o] = j;
-    out_r[o * 3] = __fsub_rn(P[(size_t)j * 3], qx);
-    out_r[o * 3 + 1] = __fsub_rn(P[(size_t)j * 3 + 1], qy);
-    out_r[o * 3 + 2] = __fsub_rn(P[(size_t)j * 3 + 2], qz);
+  if (lt[0]) {
+    bd[0] = d;
+    bi[0] = id;
+  }
+}
+
+__device__ __forceinline__ void part_sync(int part, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(1 + part), "r"(threads) : "memory");
+}
+
+// Keys [k0, k0 + kn) of P (xyz interleaved) into a ring stage by the
+// part's `nt` threads (thread `pt`), as one cp.async group.
+__device__ __forceinline__ void resi_stage(const float* __restrict__ P, int k0, int kn,
+                                           float* dst, int pt, int nt) {
+  const float* src = P + (size_t)k0 * 3;
+  const int n = kn * 3;
+  if ((reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+    const int n4 = n >> 2;
+    for (int e = pt; e < n4; e += nt) cp_async16(dst + 4 * e, src + 4 * e);
+    for (int e = 4 * n4 + pt; e < n; e += nt) cp_async4(dst + e, src + e);
+  } else {
+    for (int e = pt; e < n; e += nt) cp_async4(dst + e, src + e);
+  }
+  cp_async_commit();
+}
+
+// The lowest of the other parts' published k-th distances, as the bound a
+// key must not exceed: returned one ulp up, so that `d < bound` is `d <=
+// their k-th` (inf stays inf).
+__device__ __forceinline__ float others_bound(const volatile float* pub, int P, int part,
+                                              int qi) {
+  float m = CUDART_INF_F;
+  for (int o = 0; o < P; ++o)
+    if (o != part) m = fminf(m, pub[o * RES_Q + qi]);
+  return m < CUDART_INF_F ? __int_as_float(__float_as_int(m) + 1) : m;
+}
+
+// 32 packed keys (x, y, z, |k|^2) of a tile from key `base`, the first
+// `lim_n` of them real: the mask of those whose |k|^2 - 2 q.k (three FMAs;
+// q2 = -2 q) is below `lim`, the bound less |q|^2 with the margin that
+// makes the mark a superset of sqdist3 < bound (resi_limit).
+template <bool EDGE>
+__device__ __forceinline__ unsigned mark32(const float4* kp, int base, int lim_n, float qx2,
+                                           float qy2, float qz2, float lim) {
+  unsigned mask = 0;
+#pragma unroll
+  for (int u = 0; u < 32; ++u) {
+    const float4 k = kp[base + u];
+    const float a = __fmaf_rn(qx2, k.x, __fmaf_rn(qy2, k.y, __fmaf_rn(qz2, k.z, k.w)));
+    bool pass = a < lim;
+    if (EDGE) pass = pass && u < lim_n;
+    mask |= (unsigned)pass << u;
+  }
+  return mask;
+}
+
+// The mark's limit for keys whose |k| is at most sqrt(kmax): sqdist3(k, q)
+// < bound implies |k|^2 - 2 q.k (three FMAs on |k|^2 rounded) < (bound -
+// |q|^2) + RES_MARGIN (bound + (|k| + |q|)^2).  The two sides' rounding
+// errors are below 7u bound and 12u (|k| + |q|)^2 (u = 2^-24, every
+// partial sum below (|k| + |q|)^2, sqdist3's relative error below 5u), and
+// computing the limit itself adds a few u more; the margin is 32u.  Marked
+// keys are then tested on sqdist3 itself.
+#define RES_MARGIN 1.9073486e-06f
+__device__ __forceinline__ float resi_limit(float bound, float qq, float r2) {
+  return bound < CUDART_INF_F ? (bound - qq) + RES_MARGIN * (bound + r2) : CUDART_INF_F;
+}
+
+// One part's scan of keys [a, e) for its query (qi, coordinates q) into a
+// KM-entry list holding the segment's `cap` nearest, with the other
+// parts' shared filter; returns the inserts it made.
+template <int KM>
+__device__ __forceinline__ int resi_scan(const float* __restrict__ P, int a, int e, float qx,
+                                         float qy, float qz, int cap, float (&bd)[KM],
+                                         int (&bi)[KM], float* ring, volatile float* pub,
+                                         float* kmx, int part, int nparts, int qi, int pt) {
+  const int nt = RES_QW * 32;
+  float4* kp = reinterpret_cast<float4*>(ring + RES_STAGES * 3 * RES_TK);  // the packed tile
+  const float qq = (qx * qx + qy * qy) + qz * qz, qn = sqrtf(qq);
+  const float qx2 = -2.f * qx, qy2 = -2.f * qy, qz2 = -2.f * qz;
+#pragma unroll
+  for (int i = 0; i < KM; ++i) {
+    bd[i] = i < KM - cap ? -CUDART_INF_F : CUDART_INF_F;
+    bi[i] = -1;
+  }
+  int inserts = 0;
+  const int tiles = e > a ? (e - a + RES_TK - 1) / RES_TK : 0;
+  for (int m = 0; m < RES_STAGES - 1; ++m) {
+    if (m < tiles)
+      resi_stage(P, a + m * RES_TK, min(RES_TK, e - a - m * RES_TK),
+                 ring + m * 3 * RES_TK, pt, nt);
+    else
+      cp_async_commit();
+  }
+  for (int m = 0; m < tiles; ++m) {
+    cp_async_wait<RES_STAGES - 2>();
+    part_sync(part, nt);  // tile m is in; every thread is done with tile m - 1
+    const int mn = m + RES_STAGES - 1;
+    if (mn < tiles)
+      resi_stage(P, a + mn * RES_TK, min(RES_TK, e - a - mn * RES_TK),
+                 ring + (mn % RES_STAGES) * 3 * RES_TK, pt, nt);
+    else
+      cp_async_commit();
+    const float* kt = ring + (m % RES_STAGES) * 3 * RES_TK;
+    const int tn = min(RES_TK, e - a - m * RES_TK);
+    const int j0 = a + m * RES_TK;
+    // the tile packed as (x, y, z, |k|^2), and its largest |k|^2
+    float mx = 0.f;
+    for (int t = pt; t < tn; t += nt) {
+      const float x = kt[3 * t], y = kt[3 * t + 1], z = kt[3 * t + 2];
+      const float kk = (x * x + y * y) + z * z;
+      kp[t] = make_float4(x, y, z, kk);
+      mx = fmaxf(mx, kk);
+    }
+#pragma unroll
+    for (int o = 16; o; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, o));
+    if ((pt & 31) == 0) kmx[part * RES_QW + (pt >> 5)] = mx;
+    part_sync(part, nt);  // packed
+    float km = kmx[part * RES_QW];
+#pragma unroll
+    for (int w = 1; w < RES_QW; ++w) km = fmaxf(km, kmx[part * RES_QW + w]);
+    const float rk = sqrtf(km) + qn, r2 = rk * rk;
+    for (int base = 0; base < tn; base += 32) {
+      const float bound = nparts > 1
+          ? fminf(bd[KM - 1], others_bound(pub, nparts, part, qi)) : bd[KM - 1];
+      const float lim = resi_limit(bound, qq, r2);
+      unsigned mask = base + 32 <= tn ? mark32<false>(kp, base, 32, qx2, qy2, qz2, lim)
+                                      : mark32<true>(kp, base, tn - base, qx2, qy2, qz2, lim);
+      if (mask) {
+        for (; mask; mask &= mask - 1) {
+          const int u = base + __ffs(mask) - 1;
+          const float4 k = kp[u];
+          const float d = sqdist3(k.x, k.y, k.z, qx, qy, qz);
+          if (d < bd[KM - 1]) {
+            resi_insert<KM>(bd, bi, d, j0 + u);
+            ++inserts;
+          }
+        }
+        if (nparts > 1) pub[part * RES_Q + qi] = bd[KM - 1];
+      }
+    }
+  }
+  cp_async_wait<0>();
+  return inserts;
+}
+
+// A segment: every part scans its key range, then part 0 inserts the
+// other parts' lists into its own (by (distance, index), each list in
+// order, stopping at its first entry that does not enter) and writes the
+// segment's slots [cum, cum + cap) of its query.
+template <int KM>
+__device__ void resi_segment(const float* __restrict__ P, int lo, int hi, int cap, int cum,
+                             float qx, float qy, float qz, float* region, volatile float* pub,
+                             float* kmx, int* slots, int part, int nparts, int qi, int pt,
+                             int& inserts, unsigned long long& t_merge) {
+  float bd[KM];
+  int bi[KM];
+  const int len = max(0, hi - lo);
+  const int chunk = round_up((len + nparts - 1) / nparts, 4);
+  const int a = lo + min(part * chunk, len), e = lo + min((part + 1) * chunk, len);
+  inserts += resi_scan<KM>(P, a, e, qx, qy, qz, cap, bd, bi, region + part * RES_PART_FLOATS,
+                           pub, kmx, part, nparts, qi, pt);
+  __syncthreads();  // every part done: the rings' space takes the lists
+  const unsigned long long t0 = global_ns();
+  float* ld = region;                                 // [nparts - 1][KM][RES_Q]
+  int* li = reinterpret_cast<int*>(region) + (nparts - 1) * KM * RES_Q;
+  if (part > 0) {
+#pragma unroll
+    for (int i = 0; i < KM; ++i) {
+      ld[((part - 1) * KM + i) * RES_Q + qi] = bd[i];
+      li[((part - 1) * KM + i) * RES_Q + qi] = bi[i];
+    }
+  }
+  pub[part * RES_Q + qi] = CUDART_INF_F;  // the next segment's filter starts open
+  __syncthreads();
+  if (part == 0) {
+    for (int o = 1; o < nparts; ++o) {
+      for (int i = KM - cap; i < KM; ++i) {
+        const float d = ld[((o - 1) * KM + i) * RES_Q + qi];
+        const int id = li[((o - 1) * KM + i) * RES_Q + qi];
+        if (id < 0 || !lex_less(d, id, bd[KM - 1], bi[KM - 1])) break;
+        list_insert<KM>(bd, bi, d, id);
+        ++inserts;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < KM; ++i)
+      if (i >= KM - cap) slots[qi * 33 + cum + i - (KM - cap)] = bi[i];
+  }
+  __syncthreads();  // the lists read: the next segment's rings may start
+  t_merge += global_ns() - t0;
+}
+
+__device__ __forceinline__ void copy_out(char* dst, const char* src, int bytes, int tid,
+                                         int nt) {
+  if ((reinterpret_cast<uintptr_t>(dst) & 15) == 0) {
+    const int n16 = bytes >> 4;
+    for (int e = tid; e < n16; e += nt)
+      reinterpret_cast<float4*>(dst)[e] = reinterpret_cast<const float4*>(src)[e];
+    for (int e = 4 * n16 + tid; e < (bytes >> 2); e += nt)
+      reinterpret_cast<float*>(dst)[e] = reinterpret_cast<const float*>(src)[e];
+  } else {
+    for (int e = tid; e < (bytes >> 2); e += nt)
+      reinterpret_cast<float*>(dst)[e] = reinterpret_cast<const float*>(src)[e];
+  }
+}
+
+// Shared memory: the region (the parts' rings, then the lists of parts 1..,
+// then the item's staged output), the published bounds, the slots and the
+// item's query rows.
+__host__ __device__ inline size_t resi_region_bytes(int P, int k) {
+  const size_t ring = (size_t)P * RES_PART_FLOATS * sizeof(float);
+  const size_t lists = (size_t)(P - 1) * 32 * RES_Q * 8;
+  const size_t outb = (size_t)RES_Q * k * (8 + 12);
+  const size_t m = ring > lists ? ring : lists;
+  return m > outb ? m : outb;
+}
+static size_t resi_smem(int P, int k) {
+  return resi_region_bytes(P, k) +
+         (RES_MAXP * RES_Q + RES_Q * 33 + 4 * RES_Q + 4 + RES_MAXP * RES_QW) * 4;
+}
+
+__global__ void __launch_bounds__(RES_MAXP * RES_Q)
+fusion_resi_kernel(ResiParams p) {
+  extern __shared__ float4 smem4[];
+  char* base = reinterpret_cast<char*>(smem4);
+  const size_t rb = resi_region_bytes(p.P, p.k);
+  float* region = reinterpret_cast<float*>(base);
+  volatile float* pub = reinterpret_cast<float*>(base + rb);
+  int* slots = reinterpret_cast<int*>(base + rb) + RES_MAXP * RES_Q;
+  float4* qrow = reinterpret_cast<float4*>(slots + RES_Q * 33);
+  int* ins_sum = reinterpret_cast<int*>(qrow + RES_Q);
+  float* kmx = reinterpret_cast<float*>(ins_sum + 4);  // [RES_MAXP][RES_QW] tile maxima
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int part = tid / RES_Q, pt = tid - part * RES_Q, qi = pt;
+  const int per_row = (p.N + RES_Q - 1) / RES_Q;
+  const int k = p.k;
+  for (int item = blockIdx.x; item < p.B * per_row; item += gridDim.x) {
+    const unsigned long long t_start = p.stamps ? global_ns() : 0ull;
+    const int b = item / per_row, q0 = (item - b * per_row) * RES_Q;
+    const int nq = min(RES_Q, p.N - q0);
+    const float* P = p.pts + (size_t)b * p.N * 3;
+    const int qq = q0 + min(qi, nq - 1);
+    const float qx = P[(size_t)qq * 3], qy = P[(size_t)qq * 3 + 1], qz = P[(size_t)qq * 3 + 2];
+    if (part == 0) {
+      for (int c = 0; c < 32; ++c) slots[qi * 33 + c] = -1;  // unfilled: the row itself
+      qrow[qi] = make_float4(qx, qy, qz, 0.f);
+    }
+    pub[part * RES_Q + qi] = CUDART_INF_F;
+    if (tid == 0) *ins_sum = 0;
+    __syncthreads();
+    int inserts = 0, used = 0, start = 0;
+    unsigned long long t_merge = 0;
+    for (int f = 0; f < p.F; ++f) {
+      const int end = p.ends[b * p.F + f];
+      const int cap = max(0, min(p.buds[b * p.F + f], k - used));
+      if (cap > 16)
+        resi_segment<32>(P, start, end, cap, used, qx, qy, qz, region, pub, kmx, slots, part,
+                         p.P, qi, pt, inserts, t_merge);
+      else if (cap > 0)
+        resi_segment<16>(P, start, end, cap, used, qx, qy, qz, region, pub, kmx, slots, part,
+                         p.P, qi, pt, inserts, t_merge);
+      used += cap;
+      start = max(start, end);
+    }
+    // the epilogue: each (query, slot)'s index and residual staged as the
+    // item's output rows, then stored
+    const unsigned long long t_write = p.stamps ? global_ns() : 0ull;
+    long long* si = reinterpret_cast<long long*>(region);
+    float* sr = reinterpret_cast<float*>(si + RES_Q * k);
+    for (int e = tid; e < nq * k; e += nt) {
+      const int qe = e / k, c = e - qe * k;
+      const int j = slots[qe * 33 + c] >= 0 ? slots[qe * 33 + c] : q0 + qe;
+      const float4 r = qrow[qe];
+      si[e] = j;
+      sr[3 * e] = __fsub_rn(P[(size_t)j * 3], r.x);
+      sr[3 * e + 1] = __fsub_rn(P[(size_t)j * 3 + 1], r.y);
+      sr[3 * e + 2] = __fsub_rn(P[(size_t)j * 3 + 2], r.z);
+    }
+    __syncthreads();
+    const size_t row0 = (size_t)b * p.N + q0;
+    copy_out(reinterpret_cast<char*>(p.out_i + row0 * k), reinterpret_cast<const char*>(si),
+             nq * k * 8, tid, nt);
+    copy_out(reinterpret_cast<char*>(p.out_r + row0 * k * 3), reinterpret_cast<const char*>(sr),
+             nq * k * 12, tid, nt);
+    if (p.stamps) {
+      atomicAdd(ins_sum, qi < nq ? inserts : 0);
+      __syncthreads();
+      if (tid == 0) {
+        unsigned long long* st = p.stamps + (size_t)item * RES_STAMPS;
+        const unsigned long long t_end = global_ns();
+        st[0] = t_start;
+        st[1] = t_end;
+        st[2] = t_write - t_start - t_merge;
+        st[3] = t_merge;
+        st[4] = t_end - t_write;
+        st[5] = *ins_sum;
+      }
+    }
+    __syncthreads();  // the staged rows are out before the next item's scan
   }
 }
 
 // pts [B, N, 3] fp32; ends, buds: device int32 [B, F] (cumulative segment
-// ends, the last == N; budgets summing to k) -> out_i [B, N, k] int64,
-// out_r [B, N, k, 3] fp32.  1 <= F <= 4, 1 <= k <= 32.
-extern "C" int pci_fusion_resi(const void* pts, const void* ends,
-                               const void* buds, int F, void* out_i,
-                               void* out_r, int B, int N, int k,
-                               void* stream) {
-  if (F < 1 || F > 4 || k < 1 || k > 32 || N < 1)
+// ends, the last == N; budgets) -> out_i [B, N, k] int64, out_r [B, N, k,
+// 3] fp32.  1 <= F <= 4, 1 <= k <= 32.  parts: 1, 2 or 4 key ranges a
+// segment, or 0 to choose by the query count; stamps: null, or zeroed
+// int64 [B * ceil(N / 64)][RES_STAMPS].
+extern "C" int pci_fusion_resi(const void* pts, const void* ends, const void* buds, int F,
+                               void* out_i, void* out_r, int B, int N, int k, int parts,
+                               void* stamps, void* stream) {
+  if (F < 1 || F > 4 || k < 1 || k > 32 || N < 1 || B < 1 ||
+      !(parts == 0 || parts == 1 || parts == 2 || parts == 4))
     return (int)cudaErrorInvalidValue;
-  const int warps = 8;
-  dim3 grid((N + warps - 1) / warps, B);
-  const float* p = static_cast<const float*>(pts);
-  const int* e = static_cast<const int*>(ends);
-  const int* bu = static_cast<const int*>(buds);
-  long long* oi = static_cast<long long*>(out_i);
-  float* orr = static_cast<float*>(out_r);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (F <= 2)
-    fusion_resi_kernel<2><<<grid, warps * 32, 0, st>>>(p, e, bu, F, oi, orr, N, k);
-  else
-    fusion_resi_kernel<4><<<grid, warps * 32, 0, st>>>(p, e, bu, F, oi, orr, N, k);
+  int dev = 0, sms = 0;
+  cudaError_t e;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
+  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return (int)e;
+  const long long items = (long long)B * ((N + RES_Q - 1) / RES_Q);
+  // the kernel's choice: split only where the items leave the card short
+  // of warps (on the H100, 4 parts took 16,384 points at B = 1 in 0.24 ms
+  // against 0.29 at one; at B = 2 x 16,000 one part was the fastest)
+  if (parts == 0) parts = items <= 2LL * sms ? 4 : items <= 3LL * sms ? 2 : 1;
+  const size_t smem = resi_smem(parts, k);
+  if ((e = allow_smem(fusion_resi_kernel, resi_smem(RES_MAXP, 32))) != cudaSuccess) return (int)e;
+  int per_sm = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fusion_resi_kernel, parts * RES_Q,
+                                                    smem);
+  if (e != cudaSuccess) return (int)e;
+  ResiParams p;
+  p.pts = static_cast<const float*>(pts);
+  p.ends = static_cast<const int*>(ends);
+  p.buds = static_cast<const int*>(buds);
+  p.out_i = static_cast<long long*>(out_i);
+  p.out_r = static_cast<float*>(out_r);
+  p.stamps = static_cast<unsigned long long*>(stamps);
+  p.F = F, p.B = B, p.N = N, p.k = k, p.P = parts;
+  const int grid = (int)std::max(1LL, std::min((long long)std::max(per_sm, 1) * sms, items));
+  fusion_resi_kernel<<<grid, parts * RES_Q, smem, static_cast<cudaStream_t>(stream)>>>(p);
   return (int)cudaGetLastError();
+}
+
+// The residual kernel's resources at 4 parts and k = 32.
+extern "C" int pci_fusion_resi_attrs(int* out) {
+  return kernel_attrs(fusion_resi_kernel, resi_smem(RES_MAXP, 32), out, RES_MAXP * RES_Q);
 }

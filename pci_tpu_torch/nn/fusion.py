@@ -37,7 +37,13 @@ from ..ops.cuda_kernels import (
     fusion_resi_knn,
     knn_fusion_attention,
 )
-from ..ops.cuda_kernels.fusion_knn_cuda import fusion_head
+from ..ops.cuda_kernels.fusion_knn_cuda import (
+    MAX_KERNEL_K,
+    FusionResiKnn,
+    fusion_head,
+    fusion_resi_plain,
+)
+from ..ops.cuda_kernels.fusion_tail_cuda import fusion_tail_plain
 from .mlp import PointMLP
 
 # N2 rounds to a multiple of _ALIGN; with k <= _ALIGN a segment with a
@@ -101,6 +107,17 @@ def _cells_route_ok(points: torch.Tensor, k: int, train: bool, n_seg: int = 2) -
             and (n_seg == 2 or not train))
 
 
+def _kernel_k_ok(k: int) -> bool:
+    """The fusion kernels' neighbour count: ``k <= MAX_KERNEL_K`` (32, one
+    lane a slot in csrc/fusion_knn.cu, csrc/fusion_tail.cu and
+    csrc/fusion_cells.cu).  A larger k takes the plain versions on any
+    device: the budgeted kNN inside the same fixed-neighbour autograd
+    function, then the head in PyTorch, the counterpart of the JAX
+    package's XLA route (``pci_tpu/nn/fusion.py:422-433``), which serves
+    any k.  Module-level for tests."""
+    return k <= MAX_KERNEL_K
+
+
 def random_perms(B: int, N: int, generator: torch.Generator | None,
                  device) -> torch.Tensor:
     """``[B, N]`` int64 uniform permutations from ``generator``."""
@@ -134,6 +151,11 @@ class PointsFusion(nn.Module):
         )
         seg_ends = torch.stack([N1, torch.full_like(N1, N)], dim=1)
         budgets = torch.stack([k1, k2], dim=1)
+        if not _kernel_k_ok(k):
+            _, resi = FusionResiKnn.apply(combined, seg_ends, budgets, k, fusion_resi_plain)
+            if self.training:
+                return fusion_head(combined, resi, lambda h: self.mlp(h, momentum))
+            return fusion_tail_plain(combined, resi, None, self.mlp.folded())
         cells = _cells_route_ok(combined, k, self.training)
         if _fusion_oneshot_ok(self.training, combined):
             oneshot = fusion_cells_attention if cells else knn_fusion_attention

@@ -49,13 +49,15 @@ _SIGNATURES = {
     "pci_fusion_attrs": [_IP],
     "pci_flowenc_attrs": [_IP],
     "pci_flowmid_attrs": [_IP],
-    "pci_ball": [_P, _P, _P, _FP, _IP, _I, _I, _I, _I, _P],
+    "pci_ball": [_P, _P, _P, _IP, _I, _I, _I, _I, _P, _P, _P],
+    "pci_ball_stamp_rows": [_I, _I],
     "pci_knn": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "pci_knn_cells": [_P] * 9 + [_I] * 7 + [_P],
     "pci_attention": [_P] * 7 + [_I, _I, _I, _P],
     "pci_attention_attrs": [_IP],
     "pci_attention_bwd_attrs": [_IP],
-    "pci_fusion_resi": [_P, _P, _P, _I, _P, _P, _I, _I, _I, _P],
+    "pci_fusion_resi": [_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _P, _P],
+    "pci_fusion_resi_attrs": [_IP],
     "pci_attention_bwd": [_P] * 11 + [_I, _I, _I, _I, _P],
     "pci_flowenc": [_P, _P, _P, _P, _IP, _I, _P, _IP, _I, _P, _P, _P, _P, _P, _I, _I,
                     _I, _I, _I, _F, _I, _F, _I, _P],

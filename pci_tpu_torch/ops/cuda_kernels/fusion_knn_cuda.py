@@ -11,7 +11,9 @@ beside its plain PyTorch version.
 - Residual kNN (training): the budgeted F-segment self-kNN's indices and
   residuals, differentiable in the cloud with fixed neighbours.  Replaces
   the same file's ``knn_fusion_adaptive`` / ``knn_fusion_multi``
-  (``_fusion_core`` and its custom VJP).
+  (``_fusion_core`` and its custom VJP).  One thread a query over keys
+  broadcast from shared memory, the segments one after another, each
+  segment's keys split over 1, 2 or 4 parts whose lists are merged.
 
 Both compute the exact XLA route of ``pci_tpu/nn/fusion.py:426-440``
 (``knn_prefix`` per segment + ``_prefix_merge`` / ``_budget_compact``), not
@@ -27,6 +29,9 @@ from . import _build
 from .knn_cuda import knn_plain
 
 MAX_SEGMENTS = 4  # the residual kernel keeps one top list a segment
+MAX_KERNEL_K = 32  # the fusion kernels' slots a query (one lane a slot in the heads)
+RESI_ITEM = 64  # queries a residual kernel item (csrc/fusion_knn.cu RES_Q)
+RESI_STAMPS = 6  # int64 an item's stamp row (RES_STAMPS)
 
 SCORE_MLP = (4, 64, 64, 128)  # the widths the kernel is built for
 
@@ -151,7 +156,13 @@ class FusionResiKnn(torch.autograd.Function):
         return g_comb - g_resi.sum(2), None, None, None, None
 
 
-def fusion_resi_kernel(combined, seg_ends, budgets, k):
+def fusion_resi_kernel(combined, seg_ends, budgets, k, parts: int = 0, stamps=None):
+    """One launch of csrc/fusion_knn.cu's residual kernel.  ``parts``: the
+    key ranges a segment is split over (1, 2 or 4; 0 lets the kernel choose
+    by the query count); ``stamps``: a zeroed int64 ``[B * ceil(N / 64),
+    RESI_STAMPS]`` CUDA tensor that takes each 64-query item's start and end
+    (``%globaltimer`` ns), its scan, merge and write ns, and its list
+    inserts (measurement only)."""
     dev = combined.device
     _build.require(combined, "combined", torch.float32, 3, dev)
     B, N, C = combined.shape
@@ -161,15 +172,22 @@ def fusion_resi_kernel(combined, seg_ends, budgets, k):
     if seg_ends.shape != (B, F) or budgets.shape != (B, F) or not 1 <= F <= MAX_SEGMENTS:
         raise ValueError(f"fusion_resi kernel: [B, F] segment ends and budgets, "
                          f"1 <= F <= {MAX_SEGMENTS}")
-    if not 1 <= k <= 32:
-        raise ValueError("fusion_resi kernel: k <= 32 (one lane a slot)")
+    if not 1 <= k <= MAX_KERNEL_K:
+        raise ValueError("fusion_resi kernel: k <= 32 (a list of at most 32 a segment)")
+    if parts not in (0, 1, 2, 4):
+        raise ValueError(f"fusion_resi kernel: parts {parts} not in 0, 1, 2, 4")
+    if stamps is not None:
+        _build.require(stamps, "stamps", torch.int64, 2, dev)
+        if stamps.shape != (B * -(-N // RESI_ITEM), RESI_STAMPS):
+            raise ValueError(f"fusion_resi stamps: {(B * -(-N // RESI_ITEM), RESI_STAMPS)}")
     ends = seg_ends.to(dev, torch.int32).contiguous()
     buds = budgets.to(dev, torch.int32).contiguous()
     idx = torch.empty((B, N, k), dtype=torch.int64, device=dev)
     resi = torch.empty((B, N, k, 3), dtype=torch.float32, device=dev)
     err = _build.library().pci_fusion_resi(
         combined.data_ptr(), ends.data_ptr(), buds.data_ptr(), F,
-        idx.data_ptr(), resi.data_ptr(), B, N, k, _build.stream_ptr(dev),
+        idx.data_ptr(), resi.data_ptr(), B, N, k, parts,
+        stamps.data_ptr() if stamps is not None else None, _build.stream_ptr(dev),
     )
     _build.check_launch("fusion_resi", err)
     fusion_resi_kernel.launches += 1

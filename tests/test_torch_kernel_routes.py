@@ -1,9 +1,10 @@
-"""The CUDA routes of three wrappers at shapes their kernels once refused,
+"""The CUDA routes of four callers at shapes their kernels once refused,
 where the JAX package runs a kernel or XLA: pn2mid over more than 16
 samples (split into launches of at most 16), ``ops.knn`` on clouds that
 are not xyz or with k in (64, 128] (the plain version, or the flat
-kernel's local-memory list), and ``ops.fps`` over more than 16,384 points a
-chain (the long-chain kernel).
+kernel's local-memory list), ``ops.fps`` over more than 16,384 points a
+chain (the long-chain kernel), and ``PointsFusion`` past k = 32 (the plain
+versions, no launch; at k = 32 still the fusion kernels).
 
 The CPU has no kernel, so each test forces the CUDA route
 (``_build.use_kernel`` patched true) and replaces the kernel library by a
@@ -16,7 +17,10 @@ holds the kernels themselves at these shapes on the card."""
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import ctypes
+import functools
 
 import jax.numpy as jnp
 import numpy as np
@@ -28,7 +32,7 @@ from pci_tpu.ops import knn as jax_knn
 from pci_tpu_torch import nn as tnn
 from pci_tpu_torch.ops import fps, knn
 from pci_tpu_torch.ops.cuda_kernels import _build
-from pci_tpu_torch.ops.cuda_kernels import fps_cuda, knn_cuda, pn2mid_cuda
+from pci_tpu_torch.ops.cuda_kernels import fps_cuda, fusion_knn_cuda, knn_cuda, pn2mid_cuda
 
 
 class StubLibrary:
@@ -198,3 +202,155 @@ def test_fps_long_chains_take_the_long_chain_kernel(cuda_route, N, exact, entry)
     if exact:
         jw = np.asarray(jax_fps(jnp.asarray(x.numpy()), npoint))
         np.testing.assert_array_equal(got.numpy(), jw)
+
+
+# ---- PointsFusion past the fusion kernels' k ---------------------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_fusion(seed: int, N: int):
+    """Two seeded clouds, two permutations and t for PointsFusion, the JAX
+    module, its variables (non-trivial BatchNorm statistics) as numpy, and
+    its eval rows at k = 48 with those permutations."""
+    import jax
+
+    import pci_tpu.nn.fusion as jfusion
+
+    rng = np.random.default_rng(seed)
+    a = (rng.standard_normal((1, N, 3)) * 2).astype(np.float32)
+    b = a + 0.2 * rng.standard_normal((1, N, 3)).astype(np.float32)
+    perms = [rng.permutation(N)[None].astype(np.int32) for _ in range(2)]
+    tt = np.array([0.3], np.float32)
+    jmod = jfusion.PointsFusion((64, 64, 128))
+    v = jmod.init({"params": jax.random.key(0), "sample": jax.random.key(1)},
+                  jnp.asarray(a), jnp.asarray(b), 32, jnp.asarray(tt))
+    v = jax.tree_util.tree_map(
+        lambda x: np.asarray(x + 0.01 * jnp.arange(x.size, dtype=x.dtype) if x.ndim == 1 else x), v)
+    draws = iter([jnp.asarray(p) for p in perms])
+    saved = jfusion._random_perms
+    jfusion._random_perms = lambda key, B, n: next(draws)
+    try:
+        want = np.asarray(jmod.apply(v, jnp.asarray(a), jnp.asarray(b), 48, jnp.asarray(tt),
+                                     rngs={"sample": jax.random.key(2)}))
+    finally:
+        jfusion._random_perms = saved
+    return (a, b, tt, perms), v, want
+
+
+def _fusion_inputs(seed: int, N: int = 1024):
+    """:func:`_jax_fusion`'s inputs and JAX rows, and a port module holding
+    its variables."""
+    from pci_tpu_torch.convert import flax_to_state_dict
+
+    inputs, v, want = _jax_fusion(seed, N)
+    mod = tnn.PointsFusion()
+    mod.load_state_dict(flax_to_state_dict(v))
+    return inputs, want, mod
+
+
+@pytest.mark.parametrize("mode", ["eval_oneshot", "eval_two_kernels", "train"])
+def test_points_fusion_past_k32_launches_nothing(cuda_route, monkeypatch, mode):
+    """PointsFusion at k = 48 on the forced CUDA route (each eval gate
+    forced as the mode says) launches no kernel (the stub fails any
+    launch): at eval its rows equal the JAX PointsFusion's at k = 48 on the
+    same weights and permutations (its XLA route; 1e-5, the cells route
+    test's tolerance); in training its rows and the gradients into both
+    clouds through FusionResiKnn equal the plain route's bit for bit."""
+    import pci_tpu_torch.nn.fusion as tfusion
+
+    monkeypatch.setattr(tfusion, "_fusion_oneshot_ok",
+                        lambda train, x: mode == "eval_oneshot" and not train)
+    (a, b, tt, perms), want, mod = _fusion_inputs(806)
+    tp = tuple(torch.from_numpy(p) for p in perms)
+    stub = cuda_route(StubLibrary())
+    k = 48
+    if mode != "train":
+        with torch.inference_mode():
+            got = mod.eval()(*(torch.from_numpy(x) for x in (a, b)), k, torch.from_numpy(tt),
+                             perms=tp).numpy()
+        assert stub.calls == []
+        np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
+        return
+    G = torch.from_numpy(np.random.default_rng(807).standard_normal((1, a.shape[1], 3))
+                         .astype(np.float32))
+    outs = []
+    for plain in (False, True):
+        m = copy.deepcopy(mod).train()
+        x1, x2 = torch.from_numpy(a).requires_grad_(), torch.from_numpy(b).requires_grad_()
+        with _build.plain_versions() if plain else contextlib.nullcontext():
+            out = m(x1, x2, k, torch.from_numpy(tt), perms=tp)
+            (out * G).sum().backward()
+        outs.append((out.detach(), x1.grad, x2.grad))
+    assert stub.calls == []
+    for got, want in zip(*outs):
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("mode, entries", [
+    ("eval_oneshot", ["pci_fusion"]),
+    ("eval_two_kernels", ["pci_fusion_resi", "pci_fusion_tail"]),
+    ("train", ["pci_fusion_resi"]),
+])
+def test_points_fusion_at_k32_takes_the_kernels(cuda_route, monkeypatch, mode, entries):
+    """At k = 32 the same forced route still launches the fusion kernels:
+    the one-shot kernel at eval, the residual kNN and the tail with
+    one-shot off, the residual kNN in training (the stubs write the plain
+    versions' results)."""
+    import pci_tpu_torch.nn.fusion as tfusion
+    from pci_tpu_torch.ops.cuda_kernels import fusion_tail_cuda
+
+    monkeypatch.setattr(tfusion, "_fusion_oneshot_ok",
+                        lambda train, x: mode == "eval_oneshot" and not train)
+    from pci_tpu_torch.serving import init_weights
+
+    rng = np.random.default_rng(808)
+    N = 256
+    a = (rng.standard_normal((1, N, 3)) * 2).astype(np.float32)
+    b = a + 0.2 * rng.standard_normal((1, N, 3)).astype(np.float32)
+    perms = [rng.permutation(N)[None] for _ in range(2)]
+    tt = np.array([0.3], np.float32)
+    mod = tnn.PointsFusion()
+    init_weights(mod, 809)
+    tp = tuple(torch.from_numpy(p) for p in perms)
+    k = 32
+    seen = {}
+
+    def resi(pts, ends, buds, F, oi, orr, B, N, k_, parts, stamps, stream):
+        x = torch.from_numpy(np.ctypeslib.as_array((ctypes.c_float * (B * N * 3)).from_address(
+            pts)).reshape(B, N, 3).copy())
+        e = np.ctypeslib.as_array((ctypes.c_int32 * (B * F)).from_address(ends)).reshape(B, F)
+        bu = np.ctypeslib.as_array((ctypes.c_int32 * (B * F)).from_address(buds)).reshape(B, F)
+        i, r = fusion_knn_cuda.fusion_resi_plain(x, torch.from_numpy(e.copy()),
+                                                 torch.from_numpy(bu.copy()), k_)
+        seen["resi"] = (x, i, r)
+        write(oi, i)
+        write(orr, r)
+
+    def tail(comb, res, extra, wbuf, h1, h2, h3, out, B, N, k_, Ce, stream):
+        x, _, r = seen["resi"]
+        write(out, fusion_tail_cuda.fusion_tail_plain(x, r, None, mod.mlp.folded()))
+
+    def oneshot(pts, seg, wtc, h1, h2, h3, out, B, N, stream):
+        x = torch.from_numpy(np.ctypeslib.as_array((ctypes.c_float * (B * N * 3)).from_address(
+            pts)).reshape(B, N, 3).copy())
+        s4 = np.ctypeslib.as_array((ctypes.c_int32 * (B * 4)).from_address(seg)).reshape(B, 4)
+        write(out, fusion_knn_cuda.fusion_plain(x, torch.from_numpy(s4[:, :2].copy()),
+                                                torch.from_numpy(s4[:, 2:].copy()),
+                                                mod.mlp.folded(), k))
+
+    stub = cuda_route(StubLibrary(pci_fusion_resi=resi, pci_fusion_tail=tail,
+                                  pci_fusion=oneshot))
+    x1, x2 = torch.from_numpy(a), torch.from_numpy(b)
+    if mode == "train":
+        got = mod.train()(x1.requires_grad_(), x2.requires_grad_(), k, torch.from_numpy(tt),
+                          perms=tp)
+        got.sum().backward()
+    else:
+        with torch.inference_mode():
+            got = mod.eval()(x1, x2, k, torch.from_numpy(tt), perms=tp)
+    assert [n for n, _ in stub.calls] == entries
+    with _build.plain_versions(), (torch.inference_mode() if mode != "train"
+                                   else contextlib.nullcontext()):
+        want = copy.deepcopy(mod)(torch.from_numpy(a), torch.from_numpy(b), k,
+                                  torch.from_numpy(tt), perms=tp)
+    torch.testing.assert_close(got.detach(), want.detach(), atol=1e-6, rtol=1e-6)
