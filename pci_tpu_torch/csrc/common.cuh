@@ -75,6 +75,26 @@ __device__ __forceinline__ float sqdist3(float ax, float ay, float az,
                    __fmul_rn(dz, dz));
 }
 
+// The three-FMA mark of the exact scans (csrc/fusion_knn.cu's residual kNN,
+// csrc/knn.cu's nearest neighbour).  A key staged as (x, y, z, |k|^2), with
+// |k|^2 = (x*x + y*y) + z*z, and a query q given as q2 = -2 q: mark_dot is
+// |k|^2 - 2 q.k in three FMAs, a pair's whole cost where the key is not
+// marked.  A key is marked when mark_dot falls below mark_limit(bound,
+// |q|^2, r2), r2 = (|k|max + |q|)^2 over the staged keys: sqdist3(k, q) <
+// bound implies mark_dot < (bound - |q|^2) + MARK_MARGIN (bound + r2).
+// The two sides' rounding errors are below 7u bound and 12u (|k| + |q|)^2
+// (u = 2^-24, every partial sum below (|k| + |q|)^2, sqdist3's relative
+// error below 5u), and computing the limit itself adds a few u more; the
+// margin is 32u.  So the marked keys are a superset of those the exact test
+// passes, and only they are measured with sqdist3 and compared.
+#define MARK_MARGIN 1.9073486e-06f
+__device__ __forceinline__ float mark_dot(float4 k, float qx2, float qy2, float qz2) {
+  return __fmaf_rn(qx2, k.x, __fmaf_rn(qy2, k.y, __fmaf_rn(qz2, k.z, k.w)));
+}
+__device__ __forceinline__ float mark_limit(float bound, float qq, float r2) {
+  return bound < CUDART_INF_F ? (bound - qq) + MARK_MARGIN * (bound + r2) : CUDART_INF_F;
+}
+
 // The ball scan shared by csrc/ball.cu and csrc/setconv.cu: one warp a
 // query walks the keys in index order, 32 at a time (lane l holds key
 // j = base + l).  One step places this step's in-radius keys in the

@@ -1,80 +1,18 @@
 // The fusion's attention head for one query, one warp a query and lane L
 // holding slot L (k <= 32): the folded score MLP over [resi |
-// safe_norm(resi)], the max over channels, and the softmax over the slots.
-// Two forms:
-//   - slot_score: scalar fp32, the activations in registers and the weights
-//     (common.cuh layout) in shared memory; the attention tail over given
-//     residuals (csrc/fusion_tail.cu);
-//   - score_tile / fused_row: on the tensor cores in 3xTF32
-//     (csrc/mma_tf32.cuh), the split weights in shared memory; the two
-//     one-shot kernels, flat (csrc/fusion_knn.cu) and cell-pruned
-//     (csrc/fusion_cells.cu), so that both give the same rows for the same
-//     neighbours.
+// safe_norm(resi)], the max over channels, and the softmax over the slots,
+// on the tensor cores in 3xTF32 (csrc/mma_tf32.cuh), the split weights in
+// shared memory (score_tile, head_weight, fused_row).  Every kernel that
+// runs the head takes it from here: the two one-shot kernels, flat
+// (csrc/fusion_knn.cu) and cell-pruned (csrc/fusion_cells.cu), and the tail
+// over given residuals (csrc/fusion_tail.cu), so that all give the same
+// rows for the same neighbours.
 #pragma once
 
 #include "common.cuh"
 #include "mma_tf32.cuh"
 
 #define FULL 0xffffffffu
-
-// Float offsets of the packed score MLP 4 -> H1 -> H2 -> H3 (common.cuh
-// layout: W row-major [in][out], then b, a layer).
-template <int H1, int H2, int H3>
-struct ScoreMlp {
-  static constexpr int W1 = 0, B1 = W1 + 4 * H1, W2 = B1 + H1, B2 = W2 + H1 * H2,
-                       W3 = B2 + H2, B3 = W3 + H2 * H3, NW = B3 + H3;
-};
-
-// max_c ReLU(MLP([rx, ry, rz, sqrt(r.r + 1e-12)])) for this lane's slot.
-template <int H1, int H2, int H3>
-__device__ __forceinline__ float slot_score(float rx, float ry, float rz,
-                                            const float* sw) {
-  using L = ScoreMlp<H1, H2, H3>;
-  const float f3 = sqrtf(rx * rx + ry * ry + rz * rz + 1e-12f);
-  float h1[H1];
-#pragma unroll
-  for (int o = 0; o < H1; ++o) {
-    float v = sw[L::B1 + o];
-    v = fmaf(rx, sw[L::W1 + 0 * H1 + o], v);
-    v = fmaf(ry, sw[L::W1 + 1 * H1 + o], v);
-    v = fmaf(rz, sw[L::W1 + 2 * H1 + o], v);
-    v = fmaf(f3, sw[L::W1 + 3 * H1 + o], v);
-    h1[o] = fmaxf(v, 0.f);
-  }
-  float h2[H2];
-#pragma unroll
-  for (int o = 0; o < H2; ++o) h2[o] = sw[L::B2 + o];
-#pragma unroll
-  for (int i = 0; i < H1; ++i) {
-#pragma unroll
-    for (int o = 0; o < H2; o += 4) {
-      const float4 w = *reinterpret_cast<const float4*>(sw + L::W2 + i * H2 + o);
-      h2[o] = fmaf(h1[i], w.x, h2[o]);
-      h2[o + 1] = fmaf(h1[i], w.y, h2[o + 1]);
-      h2[o + 2] = fmaf(h1[i], w.z, h2[o + 2]);
-      h2[o + 3] = fmaf(h1[i], w.w, h2[o + 3]);
-    }
-  }
-#pragma unroll
-  for (int o = 0; o < H2; ++o) h2[o] = fmaxf(h2[o], 0.f);
-  float score = -CUDART_INF_F;
-#pragma unroll 1
-  for (int o = 0; o < H3; o += 4) {
-    float a0 = sw[L::B3 + o], a1 = sw[L::B3 + o + 1], a2 = sw[L::B3 + o + 2],
-          a3 = sw[L::B3 + o + 3];
-#pragma unroll
-    for (int i = 0; i < H2; ++i) {
-      const float4 w = *reinterpret_cast<const float4*>(sw + L::W3 + i * H3 + o);
-      a0 = fmaf(h2[i], w.x, a0);
-      a1 = fmaf(h2[i], w.y, a1);
-      a2 = fmaf(h2[i], w.z, a2);
-      a3 = fmaf(h2[i], w.w, a3);
-    }
-    score = fmaxf(score, fmaxf(fmaxf(fmaxf(a0, 0.f), fmaxf(a1, 0.f)),
-                               fmaxf(fmaxf(a2, 0.f), fmaxf(a3, 0.f))));
-  }
-  return score;
-}
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -211,25 +149,34 @@ __device__ __forceinline__ void score_tile(const float* sw, float rx, float ry, 
   mhi = fmaxf(mhi, __shfl_xor_sync(FULL, mhi, 2));
 }
 
-// The fused row of one query from its slots on the tensor-core head: slot
-// `lane` holds the residual (rx, ry, rz) (zero for a slot that is inactive
-// or unfilled), the score MLP over [r | safe_norm(r)] in two 16-slot
-// tiles, the softmax over the active slots, and q + sum w r / sum w on
-// every lane.  sw: the split score MLP (ONE_NW floats) in shared memory.
-__device__ __forceinline__ float3 fused_row(const float* sw, float x, float y, float z,
-                                            float rx, float ry, float rz, bool active) {
+// Slot `lane`'s softmax weight before normalisation on the tensor-core
+// head (the caller divides by warp_sum): slot `lane` holds the residual
+// (rx, ry, rz) (zero for a slot that is inactive or unfilled), the score
+// MLP over [r | safe_norm(r)] in `tiles` 16-slot tiles (2, or 1 where
+// every slot past 15 is inactive: the warp-uniform skip of a tile whose
+// scores no active slot reads), exp(score - max over the active slots), 0
+// for an inactive slot.  sw: the split score MLP (ONE_NW floats) in shared
+// memory.
+__device__ __forceinline__ float head_weight(const float* sw, float rx, float ry, float rz,
+                                             bool active, int tiles = 2) {
   const int lane = threadIdx.x & 31;
   const float nr = sqrtf(rx * rx + ry * ry + rz * rz + 1e-12f);
-  float lo0, hi0, lo1, hi1;
+  float lo0, hi0, lo1 = 0.f, hi1 = 0.f;
   score_tile(sw, rx, ry, rz, nr, 0, lo0, hi0);
-  score_tile(sw, rx, ry, rz, nr, 1, lo1, hi1);
+  if (tiles > 1) score_tile(sw, rx, ry, rz, nr, 1, lo1, hi1);
   // slot s = 16 mt + r sits on lane 4 (r % 8), lo for r < 8, hi above
   const int src = (lane & 7) * 4;
   const float s00 = __shfl_sync(FULL, lo0, src), s01 = __shfl_sync(FULL, hi0, src);
   const float s10 = __shfl_sync(FULL, lo1, src), s11 = __shfl_sync(FULL, hi1, src);
   const float score = lane < 16 ? (lane < 8 ? s00 : s01) : (lane < 24 ? s10 : s11);
-  // softmax over the k slots, weighted sum
-  const float w = slot_weight(score, active);
+  return slot_weight(score, active);
+}
+
+// The fused row of one query from its slots on the tensor-core head
+// (head_weight over both tiles): q + sum w r / sum w on every lane.
+__device__ __forceinline__ float3 fused_row(const float* sw, float x, float y, float z,
+                                            float rx, float ry, float rz, bool active) {
+  const float w = head_weight(sw, rx, ry, rz, active);
   const float sw_ = warp_sum(w), ax = warp_sum(w * rx), ay = warp_sum(w * ry),
               az = warp_sum(w * rz);
   return make_float3(x + ax / sw_, y + ay / sw_, z + az / sw_);

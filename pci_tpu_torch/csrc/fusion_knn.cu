@@ -283,9 +283,9 @@ extern "C" int pci_fusion_attrs(int* out) {
 //   - a pair costs one LDS.128 and three FMAs: each staged tile is packed
 //     as (x, y, z, |k|^2), and a key is marked when |k|^2 - 2 q.k is below
 //     the bound less |q|^2 plus a margin that covers both formulas'
-//     rounding (resi_limit), a superset of the keys whose exact distance
-//     (sqdist3, the plain version's) passes; only marked keys are measured
-//     exactly, so the lists, ties and slots are the exact scan's;
+//     rounding (common.cuh mark_limit), a superset of the keys whose exact
+//     distance (sqdist3, the plain version's) passes; only marked keys are
+//     measured exactly, so the lists, ties and slots are the exact scan's;
 //   - the segments one after another: a query scans segment f's keys in
 //     index order, then f + 1's, so one list of 16 or 32 entries (by the
 //     segment's budget) is live at a time in registers and its threshold
@@ -381,34 +381,19 @@ __device__ __forceinline__ float others_bound(const volatile float* pub, int P, 
 }
 
 // 32 packed keys (x, y, z, |k|^2) of a tile from key `base`, the first
-// `lim_n` of them real: the mask of those whose |k|^2 - 2 q.k (three FMAs;
-// q2 = -2 q) is below `lim`, the bound less |q|^2 with the margin that
-// makes the mark a superset of sqdist3 < bound (resi_limit).
+// `lim_n` of them real: the mask of those whose mark_dot is below `lim`,
+// the bound's mark_limit (common.cuh: a superset of sqdist3 < bound).
 template <bool EDGE>
 __device__ __forceinline__ unsigned mark32(const float4* kp, int base, int lim_n, float qx2,
                                            float qy2, float qz2, float lim) {
   unsigned mask = 0;
 #pragma unroll
   for (int u = 0; u < 32; ++u) {
-    const float4 k = kp[base + u];
-    const float a = __fmaf_rn(qx2, k.x, __fmaf_rn(qy2, k.y, __fmaf_rn(qz2, k.z, k.w)));
-    bool pass = a < lim;
+    bool pass = mark_dot(kp[base + u], qx2, qy2, qz2) < lim;
     if (EDGE) pass = pass && u < lim_n;
     mask |= (unsigned)pass << u;
   }
   return mask;
-}
-
-// The mark's limit for keys whose |k| is at most sqrt(kmax): sqdist3(k, q)
-// < bound implies |k|^2 - 2 q.k (three FMAs on |k|^2 rounded) < (bound -
-// |q|^2) + RES_MARGIN (bound + (|k| + |q|)^2).  The two sides' rounding
-// errors are below 7u bound and 12u (|k| + |q|)^2 (u = 2^-24, every
-// partial sum below (|k| + |q|)^2, sqdist3's relative error below 5u), and
-// computing the limit itself adds a few u more; the margin is 32u.  Marked
-// keys are then tested on sqdist3 itself.
-#define RES_MARGIN 1.9073486e-06f
-__device__ __forceinline__ float resi_limit(float bound, float qq, float r2) {
-  return bound < CUDART_INF_F ? (bound - qq) + RES_MARGIN * (bound + r2) : CUDART_INF_F;
 }
 
 // One part's scan of keys [a, e) for its query (qi, coordinates q) into a
@@ -468,7 +453,7 @@ __device__ __forceinline__ int resi_scan(const float* __restrict__ P, int a, int
     for (int base = 0; base < tn; base += 32) {
       const float bound = nparts > 1
           ? fminf(bd[KM - 1], others_bound(pub, nparts, part, qi)) : bd[KM - 1];
-      const float lim = resi_limit(bound, qq, r2);
+      const float lim = mark_limit(bound, qq, r2);
       unsigned mask = base + 32 <= tn ? mark32<false>(kp, base, 32, qx2, qy2, qz2, lim)
                                       : mark32<true>(kp, base, tn - base, qx2, qy2, qz2, lim);
       if (mask) {

@@ -6,74 +6,145 @@
 // Replaces pci_tpu/ops/pallas_kernels/fusion_tail_tpu.py:
 // fusion_attention_tail, the eval route of PointsFusion with the one-shot
 // kernel off (after the residual kNN, csrc/fusion_knn.cu
-// fusion_resi_kernel).  The head is the one-shot kernel's
-// (csrc/fusion_head.cuh).
+// fusion_resi_kernel).  The head is the one-shot kernels'
+// (csrc/fusion_head.cuh), so the residual kNN and this tail give the rows
+// the one-shot kernel gives for the same neighbours.
 //
 // What bounds it on the H100: at B = 8, N = 16,384, k = 32 the residuals
-// are 50 MB (15 us at 3.35 TB/s) and the MLP 52 GFLOP (0.78 ms at 67
-// TFLOP/s fp32): operations.  The design: one warp a query, lane L owns slot
-// L, the weights (51 KB) in shared memory and the activations in registers,
-// so the [B, N, k, 128] activation block never exists; the softmax is a
-// warp max and warp sums.
+// are 50 MB (15 us at 3.35 TB/s) and the MLP 52 GFLOP, 157 GFLOP of TF32
+// products in the 3xTF32 split (0.32 ms at 495 TFLOP/s), against 1.6 ms of
+// the same MLP in scalar fp32: operations, on the tensor cores.  The design:
+//   - the head on the tensor cores (fusion_head.cuh head_weight: one warp a
+//     query, lane L slot L, two 16-slot row tiles through the three layers
+//     on mma.sync in 3xTF32, the activations in registers as accumulator
+//     fragments); a query with k <= 16 runs one tile; lanes at or past k
+//     are inactive (zero residual, weight 0);
+//   - persistent blocks of TAIL_WARPS warps, one an SM: each copies the
+//     split weights (_build.pack_tf32(chain=True), 101 KB, the layout rows
+//     4 and 12 take) into shared memory once, instead of each of N / 8
+//     blocks reading 51 KB again.  One block of 12 warps at 168 registers
+//     (104 bytes spilled a thread) ran faster than two of 8 at 128
+//     registers (320 bytes spilled), the head's fragments living in
+//     registers;
+//   - a warp takes rows gw, gw + W, gw + 2 W, ... (W the grid's warps) and
+//     prefetches the next row's k x 3 residuals into its other buffer by
+//     cp.async while the head of the current row runs; a payload is read
+//     from device memory after the head;
+//   - the softmax is a warp max and warp sums; lane 0 writes the row.
 #include "fusion_head.cuh"
 
-template <int H1, int H2, int H3>
-__global__ void __launch_bounds__(256)
-fusion_tail_kernel(const float* __restrict__ comb, const float* __restrict__ resi,
-                   const float* __restrict__ extra, const float* __restrict__ wbuf,
-                   float* __restrict__ out, int N, int k, int Ce) {
-  constexpr int NW = ScoreMlp<H1, H2, H3>::NW;
-  extern __shared__ float4 smem4[];
-  float* sw = reinterpret_cast<float*>(smem4);
-  for (int e = threadIdx.x; e < NW; e += blockDim.x) sw[e] = wbuf[e];
-  __syncthreads();
+#define TAIL_WARPS 12
+#define TAIL_BUF (32 * 3)  // floats a row's buffer
+#define TAIL_BLOCKS_PER_SM 1
 
-  const int b = blockIdx.y;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int q = blockIdx.x * (blockDim.x >> 5) + warp;
-  if (q >= N) return;  // the whole warp
-  const size_t row = (size_t)b * N + q;
-  const bool active = lane < k;
-  float rx = 0.f, ry = 0.f, rz = 0.f;
-  if (active) {
-    const float* r = resi + (row * k + lane) * 3;
-    rx = r[0];
-    ry = r[1];
-    rz = r[2];
+struct TailParams {
+  const float* comb;   // [rows][3]
+  const float* resi;   // [rows][k][3]
+  const float* extra;  // [rows][k][Ce], or null for Ce == 0
+  const float* wtc;    // the split score MLP, ONE_NW floats
+  float* out;          // [rows][3 + Ce]
+  long long rows;      // B N
+  int k, Ce;
+};
+
+// Row `row`'s residuals into `buf` by cp.async, one group (empty past the
+// last row).
+__device__ __forceinline__ void tail_stage(const TailParams& p, long long row, float* buf,
+                                           int lane) {
+  if (row < p.rows) {
+    const float* r = p.resi + row * p.k * 3;
+    for (int e = lane; e < 3 * p.k; e += 32) cp_async4(buf + e, r + e);
   }
-  const float w = slot_weight(slot_score<H1, H2, H3>(rx, ry, rz, sw), active);
-  const float sw_ = warp_sum(w), ax = warp_sum(w * rx), ay = warp_sum(w * ry),
-              az = warp_sum(w * rz);
-  float* o = out + row * (3 + Ce);
-  if (lane == 0) {
-    o[0] = comb[row * 3] + ax / sw_;
-    o[1] = comb[row * 3 + 1] + ay / sw_;
-    o[2] = comb[row * 3 + 2] + az / sw_;
-  }
-  for (int c = 0; c < Ce; ++c) {
-    const float v = warp_sum(active ? w * extra[(row * k + lane) * Ce + c] : 0.f);
-    if (lane == 0) o[3 + c] = v / sw_;
-  }
+  cp_async_commit();
 }
 
+__global__ void __launch_bounds__(TAIL_WARPS * 32, TAIL_BLOCKS_PER_SM)
+fusion_tail_kernel(const __grid_constant__ TailParams p) {
+  extern __shared__ float4 smem4[];
+  float* sw = reinterpret_cast<float*>(smem4);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float* bufs = sw + ONE_NW + warp * 2 * TAIL_BUF;
+  for (int e = threadIdx.x; e < ONE_NW / 4; e += blockDim.x)
+    cp_async16(smem4 + e, reinterpret_cast<const float4*>(p.wtc) + e);
+  cp_async_commit();
+  const long long gw = (long long)blockIdx.x * TAIL_WARPS + warp;
+  const long long W = (long long)gridDim.x * TAIL_WARPS;
+  tail_stage(p, gw, bufs, lane);
+  cp_async_wait<0>();
+  __syncthreads();  // the weights and every warp's first row are in
+  const int k = p.k, Ce = p.Ce, tiles = k > 16 ? 2 : 1;
+  const bool active = lane < k;
+  int cur = 0;
+  for (long long row = gw; row < p.rows; row += W) {
+    tail_stage(p, row + W, bufs + (cur ^ 1) * TAIL_BUF, lane);  // the next row, in flight
+    const float* buf = bufs + cur * TAIL_BUF;
+    float rx = 0.f, ry = 0.f, rz = 0.f;
+    if (active) {
+      rx = buf[3 * lane];
+      ry = buf[3 * lane + 1];
+      rz = buf[3 * lane + 2];
+    }
+    const float w = head_weight(sw, rx, ry, rz, active, tiles);
+    const float sw_ = warp_sum(w), ax = warp_sum(w * rx), ay = warp_sum(w * ry),
+                az = warp_sum(w * rz);
+    float* o = p.out + row * (3 + Ce);
+    if (lane == 0) {
+      o[0] = p.comb[row * 3] + ax / sw_;
+      o[1] = p.comb[row * 3 + 1] + ay / sw_;
+      o[2] = p.comb[row * 3 + 2] + az / sw_;
+    }
+    for (int c = 0; c < Ce; ++c) {
+      float x = 0.f;
+      if (active) x = p.extra[(row * k + lane) * Ce + c];
+      const float v = warp_sum(w * x);
+      if (lane == 0) o[3 + c] = v / sw_;
+    }
+    cp_async_wait<0>();
+    __syncwarp();  // the next row is in for every lane; this one is read
+    cur ^= 1;
+  }
+  cp_async_wait<0>();
+}
+
+static size_t tail_smem() { return sizeof(float) * (ONE_NW + TAIL_WARPS * 2 * TAIL_BUF); }
+
 // comb [B, N, 3], resi [B, N, k, 3], extra [B, N, k, Ce] (null for Ce == 0)
-// fp32; wbuf the packed score MLP (4 -> h1 -> h2 -> h3); out [B, N, 3 + Ce].
+// fp32; wtc the score MLP (4 -> h1 -> h2 -> h3) split by
+// _build.pack_tf32(..., chain=True); out [B, N, 3 + Ce].  A grid of
+// TAIL_BLOCKS_PER_SM blocks an SM (at most one a warp's row).
 extern "C" int pci_fusion_tail(const void* comb, const void* resi,
-                               const void* extra, const void* wbuf, int h1,
+                               const void* extra, const void* wtc, int h1,
                                int h2, int h3, void* out, int B, int N, int k,
                                int Ce, void* stream) {
-  if (h1 != 64 || h2 != 64 || h3 != 128 || k < 1 || k > 32 || Ce < 0 ||
-      (Ce > 0 && extra == nullptr))
+  if (h1 != ONE_H1 || h2 != ONE_H2 || h3 != ONE_H3 || k < 1 || k > 32 || Ce < 0 ||
+      (Ce > 0 && extra == nullptr) || B < 1 || N < 1)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * ScoreMlp<64, 64, 128>::NW;
-  cudaError_t e = allow_smem(fusion_tail_kernel<64, 64, 128>, smem);
+  const size_t smem = tail_smem();
+  cudaError_t e = allow_smem(fusion_tail_kernel, smem);
   if (e != cudaSuccess) return (int)e;
-  const int warps = 8;
-  dim3 grid((N + warps - 1) / warps, B);
-  fusion_tail_kernel<64, 64, 128><<<grid, warps * 32, smem,
-                                    static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(comb), static_cast<const float*>(resi),
-      static_cast<const float*>(extra), static_cast<const float*>(wbuf),
-      static_cast<float*>(out), N, k, Ce);
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
+  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return (int)e;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fusion_tail_kernel,
+                                                    TAIL_WARPS * 32, smem);
+  if (e != cudaSuccess) return (int)e;
+  TailParams p;
+  p.comb = static_cast<const float*>(comb);
+  p.resi = static_cast<const float*>(resi);
+  p.extra = static_cast<const float*>(extra);
+  p.wtc = static_cast<const float*>(wtc);
+  p.out = static_cast<float*>(out);
+  p.rows = (long long)B * N;
+  p.k = k;
+  p.Ce = Ce;
+  const long long blocks = (p.rows + TAIL_WARPS - 1) / TAIL_WARPS;
+  const int grid = (int)std::max(1LL, std::min((long long)std::max(per_sm, 1) * sms, blocks));
+  fusion_tail_kernel<<<grid, TAIL_WARPS * 32, smem, static_cast<cudaStream_t>(stream)>>>(p);
   return (int)cudaGetLastError();
+}
+
+// The tail kernel's resources (common.cuh's kernel_attrs).
+extern "C" int pci_fusion_tail_attrs(int* out) {
+  return kernel_attrs(fusion_tail_kernel, tail_smem(), out, TAIL_WARPS * 32);
 }

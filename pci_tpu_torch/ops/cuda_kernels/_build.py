@@ -52,6 +52,9 @@ _SIGNATURES = {
     "pci_ball": [_P, _P, _P, _IP, _I, _I, _I, _I, _P, _P, _P],
     "pci_ball_stamp_rows": [_I, _I],
     "pci_knn": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "pci_nearest": [_P] * 5 + [_I] * 3 + [_P] * 3,
+    "pci_nearest_shape": [_I, _I, _I, _IP],
+    "pci_nearest_attrs": [_IP],
     "pci_knn_cells": [_P] * 9 + [_I] * 7 + [_P],
     "pci_attention": [_P] * 7 + [_I, _I, _I, _P],
     "pci_attention_attrs": [_IP],
@@ -64,6 +67,7 @@ _SIGNATURES = {
     "pci_flowmid": [_P] * 6 + [ctypes.POINTER(_P), _IP, _IP, _IP] + [_P] * 9
                    + [_I] * 8 + [_F, _I, _F, _I, _I, _P],
     "pci_fusion_tail": [_P, _P, _P, _P, _I, _I, _I, _P, _I, _I, _I, _I, _P],
+    "pci_fusion_tail_attrs": [_IP],
     "pci_fusion_cells": [_P] * 8 + [_I] * 3 + [_P] * 6 + [_I] * 6 + [_P],
     "pci_fusion_cells_attrs": [_IP],
     "pci_pn2mid_scratch": [_IP, _IP, _IP, _I, _I, _I, _IP, _IP, _FP,

@@ -4,7 +4,10 @@ The CUDA kernel (csrc/fusion_tail.cu) and its plain PyTorch version.
 
 Replaces ``pci_tpu/ops/pallas_kernels/fusion_tail_tpu.py:fusion_attention_tail``
 (PointsFusion at eval with the one-shot kernel off, after the residual
-kNN ``fusion_resi_knn``).
+kNN ``fusion_resi_knn``).  The kernel runs the one-shot kernels' head
+(csrc/fusion_head.cuh) on the tensor cores in 3xTF32, from the score MLP
+split by ``_build.pack_tf32(..., chain=True)``, in persistent blocks that
+prefetch each warp's next row.
 """
 
 from __future__ import annotations
@@ -44,13 +47,14 @@ def fusion_tail_kernel(combined, resi, extra, layers):
         if extra.shape[:3] != (B, N, k):
             raise ValueError("fusion_tail kernel: extra is [B, N, k, Ce]")
         Ce = extra.shape[3]
-    wbuf, dims = _build.pack_layers(layers, dev)
-    if tuple(dims) != SCORE_MLP:
+    dims = tuple(_build.layer_widths(layers))
+    if dims != SCORE_MLP:
         raise ValueError(f"fusion_tail kernel is built for the {SCORE_MLP} score MLP, got {dims}")
+    wtc = _build.pack_tf32(layers, dev, chain=True)
     out = torch.empty((B, N, 3 + Ce), dtype=torch.float32, device=dev)
     err = _build.library().pci_fusion_tail(
         combined.data_ptr(), resi.data_ptr(), extra.data_ptr() if Ce else 0,
-        wbuf.data_ptr(), *dims[1:], out.data_ptr(), B, N, k, Ce,
+        wtc.data_ptr(), *dims[1:], out.data_ptr(), B, N, k, Ce,
         _build.stream_ptr(dev),
     )
     _build.check_launch("fusion_tail", err)

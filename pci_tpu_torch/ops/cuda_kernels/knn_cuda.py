@@ -19,10 +19,11 @@ surplus slots hold 1e30 and the indices ``valid_n, valid_n + 1, ...``.
   ``launches``), else the flat kernel's k-list forms, counted in
   ``knn_kernel.launches``.
 - ``pci_tpu/ops/pallas_kernels/knn_tpu.py:knn_pallas`` (the chamfer loss's
-  nearest neighbour, k=1): the kernel's one-running-minimum form, counted
-  in ``nearest_launches.launches``.  The TPU kernel takes k <= 128 and
-  buckets its keys; this one is exact and takes k <= 128 (above 64 its
-  list lives in local memory).
+  nearest neighbour, k=1, and ``valid_n`` prefixes): at k = 1 the
+  split-range kernel on a thread-block cluster (:func:`nearest_kernel`,
+  counted in ``nearest_launches.launches``), at k >= 2 the flat kernel's
+  list.  The TPU kernel takes k <= 128 and buckets its keys; these are
+  exact and take k <= 128 (above 64 the list lives in local memory).
 
 Route (:func:`kernel_route_ok`, decided by shape before any launch, as
 ``pci_tpu/ops/knn.py:_use_pallas`` decides): xyz clouds with ``1 <= k <=
@@ -37,6 +38,7 @@ Distances and indices carry no gradient: the inputs are detached, as
 from __future__ import annotations
 
 import collections
+import ctypes
 import functools
 import types
 
@@ -258,18 +260,62 @@ def _launch(query, points, k, valid_n):
 
 
 def knn_kernel(query, points, k, valid_n=None):
-    """Launch csrc/knn.cu; a launch of its k=1 form counts in
-    ``nearest_launches``, any other in ``knn_kernel.launches``."""
-    out = _launch(query, points, k, valid_n)
+    """Launch csrc/knn.cu: at k = 1 :func:`nearest_kernel` (counted in
+    ``nearest_launches``), else the list kernel (``knn_kernel.launches``)."""
     if k == 1:
-        nearest_launches.launches += 1
-    else:
-        knn_kernel.launches += 1
+        return nearest_kernel(query, points, valid_n)
+    out = _launch(query, points, k, valid_n)
+    knn_kernel.launches += 1
     return out
 
 
 knn_kernel.launches = 0
 nearest_launches = types.SimpleNamespace(launches=0)
+
+
+def nearest_shape(B: int, N: int, S: int):
+    """The k = 1 kernel's launch at these sizes: ``(C`` CTAs a cluster,
+    CTAs in the grid, the card's SMs``)``."""
+    out = (ctypes.c_int * 3)()
+    _build.check_launch("nearest shape", _build.library().pci_nearest_shape(B, N, S, out))
+    return tuple(out)
+
+
+def nearest_kernel(query, points, valid_n=None, marked=None, stamps=None):
+    """One launch of csrc/knn.cu's k = 1 kernel (the keys split over the
+    CTAs of a cluster, merged in range order): :func:`knn`'s function at
+    k = 1.  ``marked``: a zeroed int64 ``[1]`` CUDA tensor that gains the
+    pairs the three-FMA mark sent to the exact test; ``stamps``: a zeroed
+    int64 ``[CTAs, 2]`` tensor (:func:`nearest_shape`) taking each CTA's
+    start and end (``%globaltimer`` ns); both or neither (measurement
+    only)."""
+    dev = points.device
+    for name, t in (("query", query), ("points", points)):
+        _build.require(t, name, torch.float32, 3, dev)
+    B, N, C = points.shape
+    S = query.shape[1]
+    if C != 3 or query.shape[-1] != 3 or query.shape[0] != B or N < 1:
+        raise ValueError("nearest kernel takes [B, S, 3] queries and [B, N >= 1, 3] keys")
+    if (marked is None) != (stamps is None):
+        raise ValueError("nearest kernel: marked and stamps go together")
+    if marked is not None:
+        _build.require(marked, "marked", torch.int64, 1, dev)
+        _build.require(stamps, "stamps", torch.int64, 2, dev)
+        if stamps.shape != (nearest_shape(B, N, S)[1], 2):
+            raise ValueError(f"nearest kernel: stamps must be {(nearest_shape(B, N, S)[1], 2)}")
+    if valid_n is not None:
+        valid_n = valid_n.to(dev, torch.int32).reshape(B).contiguous()
+    dist = torch.empty((B, S, 1), dtype=torch.float32, device=dev)
+    idx = torch.empty((B, S, 1), dtype=torch.int64, device=dev)
+    err = _build.library().pci_nearest(
+        query.data_ptr(), points.data_ptr(),
+        None if valid_n is None else valid_n.data_ptr(), dist.data_ptr(), idx.data_ptr(),
+        B, N, S, None if marked is None else marked.data_ptr(),
+        None if stamps is None else stamps.data_ptr(), _build.stream_ptr(dev),
+    )
+    _build.check_launch("nearest", err)
+    nearest_launches.launches += 1
+    return dist, idx
 
 
 def select_min_k(d: torch.Tensor, k: int):

@@ -156,7 +156,7 @@ def fma32(a, b, c):
 
 def fma_mark(keys, q, bound, kmax):
     """``[Q, n]`` the residual kernel's mark of ``keys [n, 3]`` for the
-    queries ``q [Q, 3]`` (csrc/fusion_knn.cu mark32 and resi_limit):
+    queries ``q [Q, 3]`` (csrc/fusion_knn.cu mark32, common.cuh mark_limit):
     |k|^2 - 2 q.k in three fp32 FMAs below (bound - |q|^2) + 32u (bound +
     (sqrt(kmax) + |q|)^2)."""
     kk = norms(keys)[None]
