@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (pci_tpu_torch) of PointINet (at 16,384,
-32,768 and 65,536 points) and ISAPCInet (field=2, served and trained), and
-both eval CLIs with the EMD metric, on one NVIDIA card.
+32,768 and 65,536 points, on xyz clouds and with the intensity channel)
+and ISAPCInet (field=2, served and trained), and both eval CLIs with the
+EMD metric, on one NVIDIA card.
 
 Run from the repository root on a machine with a CUDA card:
 
@@ -52,7 +53,16 @@ each printing its own lines:
      duplicates tied across the ranks; indices and distances equal) and
      the attention tail at FUSION_TAIL_HOLDS (k = 7-32, payloads of 0-5
      channels), and its weighted sums alone against fp64 beside a single
-     TF32 product's.  The `stages fusion_resi` line of the all-gates-off request's
+     TF32 product's.  The one-shot kernels with a payload (rows 4 and 12,
+     the intensity of PointsFusionWithFeatures) at FUSION_PAYLOAD_HOLDS
+     (16,384 points at t = 0.5 and 0.2 with one channel; 0, 2 and 5
+     channels at smaller N; a segment shorter than its budget, whose
+     unfilled slots carry the row's own payload; the cells kernel at
+     65,536 and 32,768): xyz within 1e-4 of the plain version, the payload
+     channels within PAYLOAD_LIMIT, the payload sums against fp64 beside
+     a single TF32 product's, the cells kernel within 1e-6 m of the flat
+     one on the same cloud and payload; both kernels' resources with the
+     payload.  The `stages fusion_resi` line of the all-gates-off request's
      residual kNN: its time at 1, 2 and 4 parts and its items' scan, merge
      and write from their %globaltimer stamps; its `stages fusion_tail`
      line.
@@ -128,7 +138,8 @@ each printing its own lines:
      pci_tpu_torch.cli.test --field 2 --npoints 16000 --emd over four
      windows (the flow from the trained PointINet, the rest a seeded init)
      and cli.test_pointinet --dataset_name nuscenes --npoints 16384
-     --use_intensity 0 over four triplets (the trained PointINet), each
+     over four triplets (the trained PointINet), at --use_intensity 0 and
+     at its default --use_intensity 1 ([N, 4] clouds), each
      with the launch counts set to 0 just before: PER_WINDOW_ISAPCI /
      PER_TRIPLET a window, one auction pass and chase a pass of each EMD;
      mean CD and EMD, each EMD's converged flag, passes, hops and ms, the
@@ -148,6 +159,20 @@ each printing its own lines:
      auction` line of the 16,384-point EMD: the cluster chase's C and
      shared memory a CTA, the chase's device time a hop and the pass's a
      tile, and both kernels' %globaltimer phase split.
+ 10. PointINet with its intensity channel ([1, N, 4] clouds: the synthetic
+     pair and a seeded intensity in [0, 1]) at 16,384 and 65,536 points,
+     through PointINet.forward as the eval CLI calls it: one plain
+     request's dispatches on the default route and with one-shot off
+     (PER_REQUEST / PER_REQUEST_CELLS and their one-shot-off counts: the
+     payload rides the same launch), the one-shot call with its payload
+     and the tail with its extra channel against their plain versions,
+     the `stages fusion_payload` line (the one-shot kernel without and
+     with the payload on the request's cloud, CUDA events and device
+     time); five requests on each route with those launch counts, [N, 4]
+     finite frames, the frame against the plain forward and one-shot
+     off's against the default's, ms/frame beside the xyz request's
+     through the same model.
+Each phase prints the seconds since the start when it ends.
 Then a resources line for each kernel whose dense products run on the
 tensor cores (the one-shot fusion, the attention tail, flowmid, kNN-conv,
 flowenc and the attention pair, 3xTF32; kNN-conv's at the
@@ -552,10 +577,12 @@ def work(name, args, kw, out):
         k = args[-1]
         ops = 8.0 * cells_pairs(combined, seg_ends, budgets, k)
         if len(args) == 5:  # one-shot: the score MLP a slot (on the tensor cores,
-            layers = args[3]  # counted apart), the softmax and sums
-            ops += 6.0 * B * N * k
+            layers = args[3]  # counted apart), the softmax and sums, a payload's sums
+            payload = kw.get("payload")
+            ops += (6.0 + 2.0 * payload_width(payload)) * B * N * k
             w = [t for wb in layers for t in wb]
-            return nbytes(combined, seg_ends, budgets, out, *w), ops, mlp_flops(layers, B * N * k)
+            return (nbytes(combined, seg_ends, budgets, payload, out, *w), ops,
+                    mlp_flops(layers, B * N * k))
         return nbytes(combined, seg_ends, budgets, *out), ops + 3.0 * B * N * k
     if name == "pn2mid":
         return pn2mid_work(*args[:3], out)
@@ -679,9 +706,17 @@ def work(name, args, kw, out):
     combined, seg_ends, budgets, layers, k = args
     B, N, _ = combined.shape
     w = [t for wb in layers for t in wb]
-    # the distances and the softmax and sums; the score MLP on the tensor cores
-    ops = 8.0 * B * N * N + 6.0 * B * N * k
-    return nbytes(combined, seg_ends, budgets, out, *w), ops, mlp_flops(layers, B * N * k)
+    payload = kw.get("payload")
+    # the distances, the softmax and sums, a payload's sums (a multiply-add a
+    # slot and channel); the score MLP on the tensor cores
+    ops = 8.0 * B * N * N + (6.0 + 2.0 * payload_width(payload)) * B * N * k
+    return (nbytes(combined, seg_ends, budgets, payload, out, *w), ops,
+            mlp_flops(layers, B * N * k))
+
+
+def payload_width(payload) -> int:
+    """The channels of a one-shot fusion call's payload (0 for none)."""
+    return 0 if payload is None else payload.shape[-1]
 
 
 def bound_terms(nb: float, ops: float, tensor: float = 0.0):
@@ -722,10 +757,12 @@ def label(name, args, kw) -> str:
                f"budgets={args[2].tolist()}"
     if name == "fusion_cells":
         mode = "one-shot" if len(args) == 5 else "residual"
-        return f"{mode} N={args[0].shape[1]} k={args[-1]} budgets={args[2].tolist()}"
+        cp = f" Cp={payload_width(kw.get('payload'))}" if len(args) == 5 else ""
+        return f"{mode} N={args[0].shape[1]} k={args[-1]} budgets={args[2].tolist()}{cp}"
     if name == "pn2mid":
         return f"B={args[0].shape[0]} N1={args[0].shape[1]} C1={args[1].shape[-1]}"
-    return f"N={args[0].shape[1]} k={args[4]} budgets={args[2].tolist()}"
+    return (f"N={args[0].shape[1]} k={args[4]} budgets={args[2].tolist()} "
+            f"Cp={payload_width(kw.get('payload'))}")
 
 
 def relu_gates(q, g, delta, tail, rel: float = 1e-6, chunk: int = 4096):
@@ -812,6 +849,10 @@ def compare(name, got, want, where: str, args=()) -> float:
     if name == "flowenc":
         check(torch.equal(got[2], want[2]), f"flowenc {where}: set_conv2's centres differ")
         return max(compare("setconv", g, w, where) for g, w in zip(got[:2], want[:2]))
+    if name in ("fusion", "fusion_cells") and got.shape[-1] > 3:  # a payload's channels
+        pay = (got[..., 3:] - want[..., 3:]).abs().max().item()
+        check(pay <= PAYLOAD_LIMIT, f"{name} {where}: payload channels max |kernel - plain| "
+                                    f"{pay} > {PAYLOAD_LIMIT}")
     err = (got - want).abs().max().item()
     ok = torch.allclose(got, want, atol=1e-4, rtol=1e-4)
     check(ok, f"{name} {where}: max |kernel - plain| {err}")
@@ -1137,6 +1178,17 @@ FUSION_TAIL_HOLDS = ((1, 1001, 7, 0), (2, 3000, 16, 2), (1, 5000, 32, 1), (1, 77
 TAIL_SUM_LIMIT = 1e-6
 
 
+def seeded_score_mlp(g: torch.Generator, dev) -> list:
+    """A seeded fusion score MLP (4 -> 64 -> 64 -> 128) at the init scale
+    of a Dense layer, BatchNorm-free, on ``dev``."""
+    layers = []
+    for cin, cout in zip((4, 64, 64), (64, 64, 128)):
+        s = cin ** -0.5
+        layers.append(((torch.rand(cout, cin, generator=g) * 2 - 1) * s,
+                       (torch.rand(cout, generator=g) * 2 - 1) * s))
+    return [(w.to(dev), b.to(dev)) for w, b in layers]
+
+
 def tail_sum_errors(resi, extra, layers) -> tuple:
     """The weighted sums alone (``combined`` = 0, so no rounding of the
     sum into ``combined`` hides them) against fp64: the max abs error of
@@ -1173,12 +1225,7 @@ def hold_fusion_tail(card: str) -> None:
 
     dev = torch.device("cuda")
     g = torch.Generator().manual_seed(1600)
-    layers = []
-    for cin, cout in zip((4, 64, 64), (64, 64, 128)):
-        s = cin ** -0.5
-        layers.append(((torch.rand(cout, cin, generator=g) * 2 - 1) * s,
-                       (torch.rand(cout, generator=g) * 2 - 1) * s))
-    layers = [(w.to(dev), b.to(dev)) for w, b in layers]
+    layers = seeded_score_mlp(g, dev)
     for B, N, k, Ce in FUSION_TAIL_HOLDS:
         combined = (torch.randn(B, N, 3, generator=g) * 10).to(dev)
         resi = torch.randn(B, N, k, 3, generator=g).to(dev)
@@ -1198,6 +1245,155 @@ def hold_fusion_tail(card: str) -> None:
         check(e_k <= TAIL_SUM_LIMIT and e_k < e_tf,
               f"fusion_tail hold B={B} N={N} k={k} Ce={Ce}: weighted sums {e_k} from fp64 "
               f"(limit {TAIL_SUM_LIMIT}, one TF32 product {e_tf})")
+
+# the one-shot kernels with a payload (rows 4 and 12; the intensity of
+# PointsFusionWithFeatures): (kernel, N, Cp, t), k = 32; t gives the
+# fusion's own budgets (nn.fusion._adaptive_budgets), a tuple (N1, k1, k2) a
+# segment shorter than its budget (its unfilled slots carry the row's own
+# payload)
+FUSION_PAYLOAD_HOLDS = (("fusion", 16384, 1, 0.5), ("fusion", 16384, 1, 0.2),
+                        ("fusion", 3000, 0, 0.5), ("fusion", 3000, 2, 0.3),
+                        ("fusion", 5000, 5, 0.7), ("fusion", 2048, 1, (10, 20, 12)),
+                        ("fusion_cells", 65536, 1, 0.5), ("fusion_cells", 32768, 1, 0.5))
+# a payload channel (intensity in [0, 1]) against the plain version
+PAYLOAD_LIMIT = 1e-5
+
+
+def payload_sum_errors(got, combined, seg_ends, budgets, layers, k, payload) -> tuple:
+    """A one-shot kernel's payload channels, its weighted payload sums alone
+    (no cloud value enters them), against fp64 on the same neighbours and
+    residuals: the max abs error of the kernel, of the plain version in
+    fp32 and of the plain version with one TF32 product a layer (cuBLAS
+    with TF32 allowed)."""
+    from pci_tpu_torch.ops import index_points
+    from pci_tpu_torch.ops.cuda_kernels import _build
+    from pci_tpu_torch.ops.cuda_kernels.fusion_knn_cuda import (
+        fusion_head, fusion_plain, fusion_resi_plain)
+
+    layers64 = [(w.double(), b.double()) for w, b in layers]
+    with torch.inference_mode():
+        idx, resi = fusion_resi_plain(combined, seg_ends, budgets, k)
+        ref = fusion_head(combined.double(), resi.double(),
+                          lambda h: _build.mlp_plain(h, layers64),
+                          index_points(payload, idx).double())[..., 3:]
+        fp32 = fusion_plain(combined, seg_ends, budgets, layers, k, payload)[..., 3:]
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            tf32 = fusion_plain(combined, seg_ends, budgets, layers, k, payload)[..., 3:]
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+    return tuple((t.double() - ref).abs().max().item() for t in (got[..., 3:], fp32, tf32))
+
+
+def hold_fusion_payload(card: str) -> None:
+    """Rows 4 and 12 with a payload at FUSION_PAYLOAD_HOLDS, on a seeded
+    cloud (sigma 10 m) with a seeded payload in [0, 1] and a seeded score
+    MLP at the init scale (hold_fusion_tail's; phase 10 holds both kernels
+    with the trained one): against the plain version, the xyz within the
+    kernel holds' 1e-4 and the payload channels within PAYLOAD_LIMIT; the
+    payload channels against fp64 within TAIL_SUM_LIMIT and below a single
+    TF32 product's error (which the 1e-5 hold cannot tell from 3xTF32);
+    row 12 against row 4 on the same cloud and payload within 1e-6 m (the
+    same head on the same neighbours).  Then both kernels' resources with
+    the payload."""
+    from pci_tpu_torch.nn.fusion import _adaptive_budgets
+    from pci_tpu_torch.ops.cuda_kernels import fusion_cells_cuda as FC
+    from pci_tpu_torch.ops.cuda_kernels import fusion_knn_cuda as F
+    from pci_tpu_torch.ops.cuda_kernels._build import kernel_attrs
+
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(1500)
+    layers = seeded_score_mlp(g, dev)
+    k = 32
+    for name, N, Cp, t in FUSION_PAYLOAD_HOLDS:
+        combined = (torch.randn(1, N, 3, generator=g) * 10).to(dev)
+        payload = torch.rand(1, N, Cp, generator=g).to(dev) if Cp else None
+        if isinstance(t, tuple):
+            seg_ends, budgets = torch.tensor([[t[0], N]]), torch.tensor([t[1:]])
+        else:
+            N1, _, k1, k2 = _adaptive_budgets(N, k, torch.tensor([t]))
+            seg_ends = torch.stack([N1, torch.full_like(N1, N)], 1)
+            budgets = torch.stack([k1, k2], 1)
+        where = (f"{name} payload hold N={N} Cp={Cp} N1={int(seg_ends[0, 0])} "
+                 f"budgets={budgets.tolist()}")
+        with torch.inference_mode():
+            if name == "fusion":
+                got = F.fusion_kernel(combined, seg_ends, budgets, layers, k, payload)
+            else:
+                got = FC.fusion_cells_kernel(combined, seg_ends, budgets, k, layers,
+                                             payload=payload)
+            torch.cuda.synchronize()
+            want = F.fusion_plain(combined, seg_ends, budgets, layers, k, payload)
+        check(got.shape == (1, N, 3 + Cp), f"{where}: rows {tuple(got.shape)}")
+        e_xyz = (got[..., :3] - want[..., :3]).abs().max().item()
+        line, checks = f"{where}: max |kernel - plain| xyz {e_xyz:.3g} (<= 1e-4)", []
+        if Cp:
+            e_pay = (got[..., 3:] - want[..., 3:]).abs().max().item()
+            e_k, e_32, e_tf = payload_sum_errors(got, combined, seg_ends, budgets, layers, k,
+                                                 payload)
+            line += (f", payload {e_pay:.3g} (<= {PAYLOAD_LIMIT:g}); payload sums vs fp64: "
+                     f"kernel {e_k:.3g} (<= {TAIL_SUM_LIMIT:g}), plain fp32 {e_32:.3g}, plain "
+                     f"1xTF32 {e_tf:.3g}")
+            checks.append((e_k <= TAIL_SUM_LIMIT and e_k < e_tf,
+                           f"{where}: payload sums {e_k} from fp64 (limit {TAIL_SUM_LIMIT}, one "
+                           f"TF32 product {e_tf})"))
+        if name == "fusion_cells":
+            with torch.inference_mode():
+                flat = F.fusion_kernel(combined, seg_ends, budgets, layers, k, payload)
+                torch.cuda.synchronize()
+            e_flat = (got - flat).abs().max().item()
+            line += f"; against the flat one-shot kernel {e_flat:.3g} (<= 1e-6)"
+            checks.append((e_flat <= 1e-6, f"{where}: rows differ from the flat one-shot "
+                                           "kernel's"))
+        print(line + f" on {card}", flush=True)
+        compare(name, got, want, where)
+        for ok, msg in checks:
+            check(ok, msg)
+    for kname, entry in (("fusion", "pci_fusion_payload_attrs"),
+                         ("fusion_cells", "pci_fusion_cells_payload_attrs")):
+        print(f"kernel resources {kname} with a payload: {resources_text(kernel_attrs(entry))}")
+
+
+def resources_text(at: dict) -> str:
+    """A kernel's resources (``_build.kernel_attrs``) as the `kernel
+    resources` lines print them."""
+    return (f"{at['registers']} registers a thread, {at['static_smem']} static + "
+            f"{at['dynamic_smem']} dynamic shared bytes a block, {at['blocks_per_sm']} blocks "
+            f"of {at['threads']} threads ({at['blocks_per_sm'] * at['threads'] // 32} warps) an "
+            f"SM, {at['local_bytes']} local bytes a thread")
+
+
+def fusion_payload_stages_line(name, args, card: str, path: str, payload=None) -> None:
+    """The `stages fusion_payload` line of a recorded one-shot fusion call
+    (row 4, ``fusion``, or row 12, ``fusion_cells``, its prep included):
+    the call by CUDA events (median of 20) and its device time
+    (torch.profiler, 20 calls) without a payload and, where this tree's
+    kernel takes one, with ``payload`` (a seeded one-channel payload in [0,
+    1] when None) on the same cloud, so the same neighbours."""
+    import inspect
+
+    from pci_tpu_torch.ops.cuda_kernels import fusion_cells_cuda as FC
+    from pci_tpu_torch.ops.cuda_kernels import fusion_knn_cuda as F
+
+    combined, seg_ends, budgets, layers, k = args[:5]
+    combined = combined.float().contiguous()
+    kern = F.fusion_kernel if name == "fusion" else FC.fusion_cells_kernel
+    takes = "payload" in inspect.signature(kern).parameters
+    if payload is None:
+        payload = torch.rand(*combined.shape[:2], 1, generator=torch.Generator().manual_seed(7))
+    parts = []
+    for pay in (None, payload.to(combined.device).float().contiguous()) if takes else (None,):
+        kw = {} if pay is None else {"payload": pay}
+        if name == "fusion":
+            call = lambda kw=kw: F.fusion_kernel(combined, seg_ends, budgets, layers, k, **kw)  # noqa: E731
+        else:
+            call = lambda kw=kw: FC.fusion_cells_kernel(combined, seg_ends, budgets, k, layers, **kw)  # noqa: E731
+        with torch.inference_mode():
+            parts.append(f"Cp={payload_width(pay)} {cuda_ms(call, 20):.4f} ms (CUDA events), "
+                         f"device {device_ms(call, 20):.4f} ms")
+    print(f"stages fusion_payload {path} {name} N={combined.shape[1]} k={k} "
+          f"budgets={budgets.tolist()} on {card}: " + "; ".join(parts)
+          + ("" if takes else "; no payload in this kernel"))
 
 
 def nearest_stages_line(args, card: str, path: str) -> None:
@@ -1480,7 +1676,8 @@ def fusion_cells_stages_line(args, card: str, path: str, reps: int = 10) -> None
           f"by needer {float(t[:, 7].mean()):.1f} ({float(t[slow, 7]):.0f})")
 
 
-STAGE_KINDS = ("fusion_cells", "pn2mid", "ball", "fusion_resi", "fusion_tail", "nearest")
+STAGE_KINDS = ("fusion_cells", "pn2mid", "ball", "fusion_resi", "fusion_tail", "nearest",
+               "fusion_payload")
 
 
 def stages_only(kinds=STAGE_KINDS) -> None:
@@ -1491,7 +1688,9 @@ def stages_only(kinds=STAGE_KINDS) -> None:
     ISAPCInet request, the `stages fusion_resi` and `stages fusion_tail`
     lines of one PointINet request and one 8-stream call with one-shot off,
     and the `stages ball`, `stages fusion_resi` and `stages nearest` lines
-    of one training step; no holds.  ``kinds``: the lines to print (the
+    of one training step, the `stages fusion_payload` lines of one
+    PointINet request's one-shot fusion at 16,384 and 65,536 points; no
+    holds.  ``kinds``: the lines to print (the
     phases that feed none of them are skipped).  Also loaded by path from
     an older tree's root to print the same lines for its kernels."""
     from pci_tpu_torch.serving import DEFAULT_WEIGHTS, Interpolator
@@ -1568,6 +1767,18 @@ def stages_only(kinds=STAGE_KINDS) -> None:
         if "fusion_resi" in kinds:
             fusion_resi_stages_line(next(c[2] for c in calls if c[0] == "fusion_resi"), card,
                                     "train")
+    # rows 4 and 12 without and with a payload, on a request's own cloud
+    for n in (NPOINTS, 65536) if "fusion_payload" in kinds else ():
+        model = Interpolator.pointinet(npoints=n, weights=DEFAULT_WEIGHTS, device="cuda").model
+        a, b = (torch.from_numpy(x)[None].to(dev) for x in synthetic_pair(0, n))
+        z = torch.zeros_like(a)
+        calls = []
+        with torch.inference_mode(), record_calls(calls):
+            model(a, b, z, z, torch.tensor([0.5], device=dev))
+        name, _, args, _ = next(c for c in calls if c[0] in ("fusion", "fusion_cells"))
+        fusion_payload_stages_line(name, args, card, f"pointinet {n}")
+        del model, calls
+        torch.cuda.empty_cache()
 
 
 def train_step_once(dev) -> None:
@@ -2104,10 +2315,10 @@ def agreement(got, want, what: str):
 
 
 def serve_counts(serve_all, expected: dict, path: str, frames_a_call: int = 1,
-                 npoints: int = NPOINTS):
+                 npoints: int = NPOINTS, width: int = 3):
     """Counts set to 0, five requests (calls) served, counts read: each
     kernel of the path launched its per-request count, no other kernel
-    launched."""
+    launched; every frame ``[npoints, width]`` and finite."""
     from pci_tpu_torch.ops.cuda_kernels import launch_counts, reset_launch_counts
 
     torch.cuda.synchronize()
@@ -2120,7 +2331,7 @@ def serve_counts(serve_all, expected: dict, path: str, frames_a_call: int = 1,
     check(counts == {k: v * n_req for k, v in expected.items()},
           f"{path} launch counts {counts} != {expected} x {n_req}")
     for f in frames:
-        check(f.shape == (npoints, 3) and np.isfinite(f).all(), f"{path}: bad frame")
+        check(f.shape == (npoints, width) and np.isfinite(f).all(), f"{path}: bad frame")
     return counts
 
 
@@ -2660,6 +2871,91 @@ def phase_large(card: str, totals: dict) -> list:
     return paths
 
 
+def intensity_pair(n: int, seed: int = 0):
+    """:func:`synthetic_pair` with a seeded intensity channel in [0, 1]:
+    two ``[n, 4]`` clouds."""
+    rng = np.random.default_rng(seed + 100)
+    return tuple(np.concatenate([x, rng.random((n, 1)).astype(np.float32)], 1)
+                 for x in synthetic_pair(seed, n))
+
+
+def phase_intensity(card: str, totals: dict, model16) -> list:
+    """PointINet on ``[1, N, 4]`` clouds (xyz and a seeded intensity in [0,
+    1]) at 16,384 and 65,536 points, through ``PointINet.forward`` as the
+    eval CLI calls it (``Interpolator`` serves xyz): one plain request's
+    dispatches on the default route and with one-shot off (the payload on
+    the one-shot call, the tail's ``extra``), those two kernels against
+    their plain versions (`stages fusion_payload`: the one-shot call without
+    and with the payload), then five requests on each route with the launch
+    counts of the xyz path's (the payload rides the same launch), ``[N,
+    4]`` frames, the default route's frame against the plain forward and
+    one-shot off's against the default's, ms/frame beside the xyz path's
+    through the same model.  ``model16``: the 16,384-point model."""
+    from pci_tpu_torch.ops.cuda_kernels import plain_versions
+    from pci_tpu_torch.serving import DEFAULT_WEIGHTS, Interpolator
+
+    dev = torch.device("cuda")
+    paths = []
+    for n, oneshot, per_req, per_off in (
+            (NPOINTS, "fusion", PER_REQUEST, PER_REQUEST_ONESHOT_OFF),
+            (LARGE_N[0], "fusion_cells", PER_REQUEST_CELLS, PER_REQUEST_CELLS_ONESHOT_OFF)):
+        model = model16 if n == NPOINTS else Interpolator.pointinet(
+            npoints=n, weights=DEFAULT_WEIGHTS, device="cuda").model
+        a, b = (torch.from_numpy(x)[None].to(dev) for x in intensity_pair(n))
+        z = torch.zeros(1, n, 3, device=dev)
+        t = torch.tensor([0.5], device=dev)
+        perms = tuple(torch.randperm(n, generator=torch.Generator().manual_seed(s))[None].to(dev)
+                      for s in (1, 2))
+        path = f"pointinet {n} intensity"
+        calls = []
+        with torch.inference_mode(), plain_versions(), record_calls(calls):
+            model(a, b, z, z, t, perms=perms)
+            request = len(calls)
+            with gates(ONESHOT_OFF):
+                model(a, b, z, z, t, perms=perms)
+        for part, want in ((calls[:request], per_req), (calls[request:], per_off)):
+            got = {name: sum(1 for c in part if c[0] == name) for name in KERNEL_INFO}
+            check(got == want, f"{path}: dispatches {got}, expected {want}")
+        fusion = next(c for c in calls[:request] if c[0] == oneshot)
+        tail = next(c for c in calls[request:] if c[0] == "fusion_tail")
+        check(payload_width(fusion[3].get("payload")) == 1 and tail[2][2] is not None
+              and tail[2][2].shape[-1] == 1, f"{path}: the intensity is not the payload")
+        # the flow's kernels are phase 3's and 8's at these shapes: hold the
+        # two that take the intensity
+        hold_kernels([fusion, tail], 1, per(**{oneshot: 1}), totals, path)
+        fusion_payload_stages_line(oneshot, fusion[2], card, path, fusion[3]["payload"])
+        del calls
+
+        def serve(x1=a, x2=b):
+            with torch.inference_mode():
+                return model(x1, x2, z, z, t)[0].cpu().numpy()
+
+        def frame():
+            with torch.inference_mode():
+                return model(a, b, z, z, t, perms=perms)[0].cpu().numpy()
+
+        serve()  # warm-up
+        paths.append(serve_counts(lambda: [serve() for _ in range(5)], per_req, path,
+                                  npoints=n, width=4))
+        got = frame()
+        with plain_versions():
+            want = frame()
+        p999, mx = agreement(got, want, f"{path} frame vs plain")
+        check(p999 <= 1e-3 and mx <= 0.25, f"{path}: frame disagrees with the plain forward")
+        latency(serve, card, f"{path} (model call)")
+        latency(lambda: serve(a[..., :3], b[..., :3]), card, f"pointinet {n} xyz (model call)")
+        with gates(ONESHOT_OFF):
+            serve()  # warm-up
+            paths.append(serve_counts(lambda: [serve() for _ in range(5)], per_off,
+                                      f"{path}, one-shot off", npoints=n, width=4))
+            p999, mx = agreement(frame(), got, f"{path} frame, one-shot off vs default")
+            check(p999 <= 1e-3 and mx <= 0.25, f"{path}, one-shot off: frame disagrees")
+            latency(serve, card, f"{path}, one-shot off (model call)")
+        del model
+        torch.cuda.empty_cache()
+    return paths
+
+
 @contextlib.contextmanager
 def emd_calls(calls: list):
     """Record every EMD the eval CLIs compute: CUDA events around each
@@ -2990,8 +3286,8 @@ def phase_eval(totals: dict) -> list:
             paths[name] = ["--root", str(root / name / "lidar"),
                            "--scenes_list", str(root / name / "scenes.txt"),
                            "--scene_split_lib", str(root / name / "split")]
-        (root / "log_isapci").mkdir()
-        (root / "log_pointinet").mkdir()
+        for log in ("log_isapci", "log_pointinet", "log_pointinet_intensity"):
+            (root / log).mkdir()
         isapci = run_cli("isapci field=2 (cli.test --emd)", isapci_cli.main,
                          paths["window"] + ["--field", "2", "--npoints", "16000", "--interval",
                                             "5", "--sample_method", "random", "--emd",
@@ -3002,6 +3298,13 @@ def phase_eval(totals: dict) -> list:
                             + ["--npoints", "16384", "--interval", "5", "--use_intensity", "0",
                                "--pretrained_interp_model", str(DEFAULT_WEIGHTS)],
                             PER_TRIPLET, root / "log_pointinet")
+        # the CLI at its default, --use_intensity 1: [N, 4] clouds
+        intensity = run_cli("pointinet intensity (cli.test_pointinet, its default "
+                            "--use_intensity 1)", pointinet_cli.main,
+                            ["--dataset_name", "nuscenes"] + paths["triplet"]
+                            + ["--npoints", "16384", "--interval", "5",
+                               "--pretrained_interp_model", str(DEFAULT_WEIGHTS)],
+                            PER_TRIPLET, root / "log_pointinet_intensity")
     dev = torch.device("cuda")
     a, b = (torch.from_numpy(x).to(dev) for x in dup_pair(3, 1024))
     hold_auction(a, b, "1,024 (seeded pair, 10% duplicates)", whole=True, scipy_optimum=True)
@@ -3020,7 +3323,7 @@ def phase_eval(totals: dict) -> list:
     hold_auction(first["xyz1"], first["xyz2"], "16,384 (pointinet triplet 1 vs its ground "
                  "truth)", whole=True, totals=totals)
     stages_auction(first["xyz1"], first["xyz2"], "16,384 (pointinet triplet 1)", card_line())
-    return [isapci[0], pointinet[0]]
+    return [isapci[0], pointinet[0], intensity[0]]
 
 
 def main() -> int:
@@ -3034,6 +3337,11 @@ def main() -> int:
     from pci_tpu_torch.ops.cuda_kernels._build import kernel_attrs
     from pci_tpu_torch.serving import DEFAULT_WEIGHTS, Interpolator
 
+    start = time.perf_counter()
+
+    def phase_time(name: str) -> None:
+        print(f"phase {name} done: {time.perf_counter() - start:.1f} s since the start")
+
     # 1. device
     card = card_line()
     name = torch.cuda.get_device_name(0)
@@ -3045,6 +3353,7 @@ def main() -> int:
     # 2. build
     sources = len({source for source, _ in KERNEL_INFO.values()})
     print(f"build: {build_seconds():.1f} s (nvcc, sm_90a, {sources} sources)")
+    phase_time("2. build")
 
     # 3. kernels at PointINet's shapes
     totals = new_totals()
@@ -3063,6 +3372,8 @@ def main() -> int:
     hold_fusion_resi(card)
     hold_fusion_tail(card)
     hold_fusion_k48(card)
+    hold_fusion_payload(card)
+    phase_time("3. kernels")
 
     # 4. serving: warm up, then count the launches of five requests
     interp(a_np, b_np, 0.5)
@@ -3077,32 +3388,38 @@ def main() -> int:
     check(p999 <= 1e-3 and mx <= 0.25, "served frame disagrees with the plain forward")
     latency(lambda: interp(a_np, b_np, 0.5), card, "pointinet")
     device_share(lambda: interp(a_np, b_np, 0.5))
+    phase_time("4. serving")
 
     # 5. stream serving, and PointINet's routes with gates off
     counts_stream, counts_routes = phase_streams(interp, card, totals)
+    phase_time("5. streams and routes")
 
     # 6. ISAPCInet field=2
     counts_isapci = phase_isapci(card, totals)
+    phase_time("6. isapci")
 
     # 7. ISAPCInet field=2 training
     counts_train = phase_train(card, totals)
+    phase_time("7. training")
 
     # 8. PointINet at 65,536 and 32,768 points
     counts_large = phase_large(card, totals)
+    phase_time("8. large")
 
     # 9. the eval CLIs with the EMD metric
     counts_eval = phase_eval(totals)
+    phase_time("9. eval CLIs")
+
+    # 10. PointINet with its intensity channel, at 16,384 and 65,536 points
+    counts_intensity = phase_intensity(card, totals, interp.model)
+    phase_time("10. intensity")
 
     paths = [counts, counts_stream, *counts_routes, *counts_isapci, counts_train, *counts_large,
-             *counts_eval]
+             *counts_eval, *counts_intensity]
     for kname, entry in RESOURCE_KERNELS.items():  # the tensor-core and auction kernels
-        at, t = kernel_attrs(entry), totals[kname]
-        print(f"kernel resources {kname}: {at['registers']} registers a thread, "
-              f"{at['static_smem']} static + {at['dynamic_smem']} dynamic shared bytes a "
-              f"block, {at['blocks_per_sm']} blocks of {at['threads']} threads "
-              f"({at['blocks_per_sm'] * at['threads'] // 32} warps) an SM, "
-              f"{at['local_bytes']} local bytes a thread; max |kernel - plain| "
-              f"{t['err']:.3g}, {t['rel']:.3g} of the output's largest magnitude")
+        t = totals[kname]
+        print(f"kernel resources {kname}: {resources_text(kernel_attrs(entry))}; max |kernel - "
+              f"plain| {t['err']:.3g}, {t['rel']:.3g} of the output's largest magnitude")
     kernels = []
     for kname, (source, replaces) in KERNEL_INFO.items():
         t = totals[kname]

@@ -3,12 +3,14 @@
 PointINet20230424/test.py:27-87).
 
   python -m pci_tpu_torch.cli.test_pointinet --dataset_name nuscenes \
-      --root ... --scenes_list ... --scene_split_lib ... --use_intensity 0 \
+      --root ... --scenes_list ... --scene_split_lib ... \
       --pretrained_interp_model pci_tpu_torch/assets/pointinet_synth16k.npz
 
 Runs on the CUDA device; ``main(argv, device="cpu")`` runs the plain
-versions on the CPU.  The intensity channel (``--use_intensity 1``, the
-default) is not ported yet and is refused.
+versions on the CPU.  ``--use_intensity 1`` (the default) feeds ``[N, 4]``
+clouds (xyz + intensity): the fused frame carries the intensity, and CD
+and EMD are taken on its xyz, as the JAX CLI takes them;
+``--use_intensity 0`` feeds xyz clouds.
 """
 
 from __future__ import annotations
@@ -47,21 +49,17 @@ def parse_args(argv=None):
 
 def main(argv=None, device=None):
     args = parse_args(argv)
-    if args.use_intensity:
-        raise NotImplementedError(
-            "--use_intensity 1: the intensity channel (PointsFusionWithFeatures) is not "
-            "ported yet (ROADMAP A.5, B.2(a)); pass --use_intensity 0")
     device = resolve_device(device)
     if args.dataset_name == "kitti":
         dataset = KittiInterpolationDataset(
             args.root, npoints=args.npoints, interval=args.interval,
-            train=False, use_intensity=False, seed=args.seed,
+            train=False, use_intensity=bool(args.use_intensity), seed=args.seed,
         )
     else:
         dataset = NuscenesTripletDataset(
             args.root, args.scenes_list, args.scene_split_lib,
             npoints=args.npoints, interval=args.interval, train=False,
-            use_intensity=False, seed=args.seed,
+            use_intensity=bool(args.use_intensity), seed=args.seed,
         )
 
     # the JAX CLI draws one sample to initialise its model: draw it too, so

@@ -1,7 +1,7 @@
 // The fusion's budgeted two-segment self-kNN over a Morton-sorted, chunked
 // cloud, scanning only the chunks that can hold a neighbour; one-shot mode
-// adds the attention head (the fused rows), residual mode writes idx and
-// resi.
+// adds the attention head (the fused rows, and a payload's weighted sums),
+// residual mode writes idx and resi.
 //
 // Replaces pci_tpu/ops/pallas_kernels/fusion_cells_tpu.py:knn_fusion_cells
 // (and knn_fusion_cells_grad's forward), the JAX package's fusion route at
@@ -56,7 +56,10 @@
 //   - the slots go through shared memory to one warp a query (lane L slot
 //     L) for the head (fusion_head.cuh:fused_row, csrc/fusion_knn.cu's) on
 //     the tensor cores in 3xTF32: the same rows as the flat one-shot
-//     kernel for the same neighbours.
+//     kernel for the same neighbours; then a payload's weighted sums
+//     (fusion_head.cuh:payload_sums), each slot reading its neighbour's
+//     channels by original row (the slots hold original rows, so the
+//     payload never rides the Morton sort), an unfilled slot the query's.
 // Residual mode runs the same walk and writes idx and resi.  Each query
 // writes its own original row: no un-permute pass.
 #include "fusion_head.cuh"
@@ -79,13 +82,14 @@ struct CellsParams {
   const int* torder;    // [B * nt] tiles in the order they are handed out
   const int* seg;       // [B][4] = (N1, N, k1, k2)
   const float* wtc;     // the split score MLP (one-shot mode), or null
-  float* out;           // one-shot: fused [B][N][3]
+  const float* payload; // one-shot: [B][N][Cp] by original row, or null (Cp == 0)
+  float* out;           // one-shot: fused [B][N][3 + Cp]
   long long* out_i;     // residual: idx [B][N][k]
   float* out_r;         // residual: resi [B][N][k][3]
   unsigned long long* scanned;  // pairs scanned, or null
   unsigned long long* stamps;   // [B][nt][FC_STAMPS], or null
   int* next;            // the tile counter, zeroed
-  int B, N, Np, C, nc, nt, k;
+  int B, N, Np, C, nc, nt, k, Cp;
 };
 
 // The group's barrier (id 1 + group, FC_TQ threads), and the same with a
@@ -259,8 +263,9 @@ __device__ __forceinline__ void tile_walk(const CellsParams& p, int b, int tile,
 // query), then its two warps finish its queries, 32 each, one warp a query
 // (lane L slot L): the tensor-core head in one-shot mode, idx and resi in
 // residual mode.  The lists' sizes are chosen per tile by its row's
-// budgets: 16 and 16, or 32 for the segment with more than 16.
-template <bool ONESHOT>
+// budgets: 16 and 16, or 32 for the segment with more than 16.  PAY (one-shot
+// only): the instantiation with a payload's weighted sums.
+template <bool ONESHOT, bool PAY>
 __global__ void __launch_bounds__(FC_WARPS * 32, 1)
 fusion_cells_kernel(const __grid_constant__ CellsParams p) {
   extern __shared__ float4 smem4[];
@@ -330,12 +335,20 @@ fusion_cells_kernel(const __grid_constant__ CellsParams p) {
           ry = P[(size_t)idx * 3 + 1] - y;
           rz = P[(size_t)idx * 3 + 2] - z;
         }
-        const float3 o = fused_row(sw, x, y, z, rx, ry, rz, active);
+        float w, wsum;
+        const float3 o = fused_row(sw, x, y, z, rx, ry, rz, active, w, wsum);
+        float* dst = p.out + ((size_t)b * N + qi) * (PAY ? 3 + p.Cp : 3);
         if (lane == 0) {
-          float* dst = p.out + ((size_t)b * N + qi) * 3;
           dst[0] = o.x;
           dst[1] = o.y;
           dst[2] = o.z;
+        }
+        if constexpr (PAY) {
+          // the payload by original row: an unfilled active slot takes row qi's own
+          // (the slot read again: kept in a register across the head, it spills)
+          const int src = slots[(32 * half + i) * 33 + lane];
+          const float* xp = p.payload + ((size_t)b * N + (src >= 0 ? src : qi)) * p.Cp;
+          payload_sums(w, wsum, active, p.Cp, [&](int c) { return __ldg(xp + c); }, dst + 3);
         }
       } else if (lane < p.k) {
         const int j = idx >= 0 ? idx : qi;  // unfilled slot: the row itself
@@ -362,21 +375,21 @@ static size_t cells_smem(bool oneshot, int C) {
          sizeof(float4) * FC_GROUPS * FC_STAGES * (C + 4);
 }
 
-template <bool ONESHOT>
+template <bool ONESHOT, bool PAY>
 static cudaError_t launch_cells(const CellsParams& p, cudaStream_t st) {
   const size_t smem = cells_smem(ONESHOT, p.C);
-  cudaError_t e = allow_smem(fusion_cells_kernel<ONESHOT>, smem);
+  cudaError_t e = allow_smem(fusion_cells_kernel<ONESHOT, PAY>, smem);
   if (e != cudaSuccess) return e;
   int dev = 0, sms = 0, per_sm = 0;
   if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
   if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
     return e;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fusion_cells_kernel<ONESHOT>,
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fusion_cells_kernel<ONESHOT, PAY>,
                                                     FC_WARPS * 32, smem);
   if (e != cudaSuccess) return e;
   const long long tiles = (long long)p.B * p.nt;
   const int grid = (int)std::max(1LL, std::min((long long)std::max(per_sm, 1) * sms, tiles));
-  fusion_cells_kernel<ONESHOT><<<grid, FC_WARPS * 32, smem, st>>>(p);
+  fusion_cells_kernel<ONESHOT, PAY><<<grid, FC_WARPS * 32, smem, st>>>(p);
   return cudaGetLastError();
 }
 
@@ -385,14 +398,17 @@ static cudaError_t launch_cells(const CellsParams& p, cudaStream_t st) {
 // [B * Np / TQ] a permutation of the tiles (the order they are taken), seg
 // [B, 4] = (N1, N, k1, k2), next one zeroed int32, all on the device; TQ =
 // 64.  One-shot mode when wtc is not null (the score MLP 4 -> h1 -> h2 ->
-// h3 split by _build.pack_tf32(..., chain=True)): out [B, N, 3]; else out_i
-// [B, N, k] int64 and out_r [B, N, k, 3].  scanned: an unsigned 64-bit
+// h3 split by _build.pack_tf32(..., chain=True)), with a payload [B, N, Cp]
+// fp32 in the original row order (0 <= Cp <= PAYLOAD_MAX, null for Cp ==
+// 0): out [B, N, 3 + Cp]; else (Cp == 0) out_i [B, N, k] int64 and out_r
+// [B, N, k, 3].  scanned: an unsigned 64-bit
 // counter of the key pairs scanned, or null; stamps: [B, Np / TQ,
 // FC_STAMPS] unsigned 64-bit (zeroed), or null.
 extern "C" int pci_fusion_cells(const void* pts, const void* keys, const void* boxes,
                                 const void* order, const void* lbs, const void* torder,
                                 const void* seg,
-                                const void* wtc, int h1, int h2, int h3, void* out,
+                                const void* wtc, int h1, int h2, int h3,
+                                const void* payload, int Cp, void* out,
                                 void* out_i, void* out_r, void* scanned, void* stamps,
                                 void* next, int B, int N, int Np, int C, int TQ, int k,
                                 void* stream) {
@@ -400,6 +416,8 @@ extern "C" int pci_fusion_cells(const void* pts, const void* keys, const void* b
       Np % TQ || k < 1 || k > 32)
     return (int)cudaErrorInvalidValue;
   if (wtc && (h1 != ONE_H1 || h2 != ONE_H2 || h3 != ONE_H3)) return (int)cudaErrorInvalidValue;
+  if (Cp < 0 || Cp > PAYLOAD_MAX || (Cp > 0 && (payload == nullptr || wtc == nullptr)))
+    return (int)cudaErrorInvalidValue;
   CellsParams p;
   p.pts = static_cast<const float*>(pts);
   p.keys = static_cast<const float4*>(keys);
@@ -409,18 +427,26 @@ extern "C" int pci_fusion_cells(const void* pts, const void* keys, const void* b
   p.torder = static_cast<const int*>(torder);
   p.seg = static_cast<const int*>(seg);
   p.wtc = static_cast<const float*>(wtc);
+  p.payload = static_cast<const float*>(payload);
   p.out = static_cast<float*>(out);
   p.out_i = static_cast<long long*>(out_i);
   p.out_r = static_cast<float*>(out_r);
   p.scanned = static_cast<unsigned long long*>(scanned);
   p.stamps = static_cast<unsigned long long*>(stamps);
   p.next = static_cast<int*>(next);
-  p.B = B, p.N = N, p.Np = Np, p.C = C, p.nc = Np / C, p.nt = Np / TQ, p.k = k;
+  p.B = B, p.N = N, p.Np = Np, p.C = C, p.nc = Np / C, p.nt = Np / TQ, p.k = k, p.Cp = Cp;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return (int)(wtc ? launch_cells<true>(p, st) : launch_cells<false>(p, st));
+  return (int)(!wtc ? launch_cells<false, false>(p, st)
+                    : Cp ? launch_cells<true, true>(p, st) : launch_cells<true, false>(p, st));
 }
 
-// The one-shot kernel's resources at chunks of C keys (common.cuh's kernel_attrs).
+// The one-shot kernel's resources at chunks of 256 keys (common.cuh's
+// kernel_attrs), without and with the payload.
 extern "C" int pci_fusion_cells_attrs(int* out) {
-  return kernel_attrs(fusion_cells_kernel<true>, cells_smem(true, 256), out, FC_WARPS * 32);
+  return kernel_attrs(fusion_cells_kernel<true, false>, cells_smem(true, 256), out,
+                      FC_WARPS * 32);
+}
+extern "C" int pci_fusion_cells_payload_attrs(int* out) {
+  return kernel_attrs(fusion_cells_kernel<true, true>, cells_smem(true, 256), out,
+                      FC_WARPS * 32);
 }

@@ -2,8 +2,9 @@
 // holding slot L (k <= 32): the folded score MLP over [resi |
 // safe_norm(resi)], the max over channels, and the softmax over the slots,
 // on the tensor cores in 3xTF32 (csrc/mma_tf32.cuh), the split weights in
-// shared memory (score_tile, head_weight, fused_row).  Every kernel that
-// runs the head takes it from here: the two one-shot kernels, flat
+// shared memory (score_tile, head_weight, fused_row), then the weighted
+// payload sums (payload_sums).  Every kernel that runs the head takes it
+// from here: the two one-shot kernels, flat
 // (csrc/fusion_knn.cu) and cell-pruned (csrc/fusion_cells.cu), and the tail
 // over given residuals (csrc/fusion_tail.cu), so that all give the same
 // rows for the same neighbours.
@@ -173,11 +174,36 @@ __device__ __forceinline__ float head_weight(const float* sw, float rx, float ry
 }
 
 // The fused row of one query from its slots on the tensor-core head
-// (head_weight over both tiles): q + sum w r / sum w on every lane.
+// (head_weight over both tiles): q + sum w r / sum w on every lane.  w and
+// wsum return slot `lane`'s weight and the weights' sum, for
+// payload_sums.
 __device__ __forceinline__ float3 fused_row(const float* sw, float x, float y, float z,
-                                            float rx, float ry, float rz, bool active) {
-  const float w = head_weight(sw, rx, ry, rz, active);
-  const float sw_ = warp_sum(w), ax = warp_sum(w * rx), ay = warp_sum(w * ry),
-              az = warp_sum(w * rz);
-  return make_float3(x + ax / sw_, y + ay / sw_, z + az / sw_);
+                                            float rx, float ry, float rz, bool active,
+                                            float& w, float& wsum) {
+  w = head_weight(sw, rx, ry, rz, active);
+  wsum = warp_sum(w);
+  const float ax = warp_sum(w * rx), ay = warp_sum(w * ry), az = warp_sum(w * rz);
+  return make_float3(x + ax / wsum, y + ay / wsum, z + az / wsum);
+}
+
+// The most payload channels the one-shot kernels carry (rows 4 and 12; the
+// wrappers route a wider payload to the plain versions).
+#define PAYLOAD_MAX 8
+
+// A query's weighted payload sums after its head, the one definition that
+// the tail and both one-shot kernels share: for c < Cp, lane 0 writes
+// sum_slots w x_c / wsum to dst[c] (w, wsum: head_weight's slot weight and
+// their warp sum; dst null: no store, for a pad query).  value(c) reads
+// slot `lane`'s channel c from device memory; it is called for an active
+// slot only (an inactive one weighs 0).  Where a query's guard is a
+// branch the compiler cannot see is warp-uniform, call it outside the
+// branch with dst null: the flat one-shot kernel ran 13% slower with these
+// shuffles under its `q < N` test, 1-2% slower without (on an H100).
+template <class Value>
+__device__ __forceinline__ void payload_sums(float w, float wsum, bool active, int Cp,
+                                             const Value& value, float* dst) {
+  for (int c = 0; c < Cp; ++c) {
+    const float v = warp_sum(w * (active ? value(c) : 0.f));
+    if ((threadIdx.x & 31) == 0 && dst) dst[c] = v / wsum;
+  }
 }

@@ -1,15 +1,20 @@
 // One-shot attentive fusion: budgeted two-segment self-kNN of the combined
 // cloud + score MLP over [resi | safe-norm] + max over channels + softmax
-// over the k slots + combined + sum(w * resi).
+// over the k slots + combined + sum(w * resi), and for a payload (the
+// intensity of PointsFusionWithFeatures) sum(w * payload of the slot).
 //
 // Replaces pci_tpu/ops/pallas_kernels/fusion_knn_tpu.py:knn_fusion_attention
-// (its one-shot route, _fusion_impl with n_tail > 0 and no payload).  The
-// function it ports is the exact XLA route of pci_tpu/nn/fusion.py:426-440
-// (knn_prefix per segment + _prefix_merge + the attention tail), not the
-// TPU kernel's bucketed approximation: each query takes its exact k1
-// nearest keys in [0, N1) and its exact k2 nearest in [N1, N), ties to the
-// lower index.  A segment with fewer keys than its budget leaves slots
-// empty; they become zero residuals (a self-neighbour), as on the TPU.
+// (its one-shot route, _fusion_impl with n_tail > 0, with or without a
+// payload).  The function it ports is the exact XLA route of
+// pci_tpu/nn/fusion.py:426-440 and :519-535 (knn_prefix per segment +
+// _prefix_merge + the attention tail), not the TPU kernel's bucketed
+// approximation: each query takes its exact k1 nearest keys in [0, N1) and
+// its exact k2 nearest in [N1, N), ties to the lower index.  A segment with
+// fewer keys than its budget leaves slots empty; they become zero
+// residuals and carry the query's own payload (a self-neighbour), as on
+// the TPU.  The payload (PAYLOAD_MAX channels at most) is read after the
+// head from device memory, one 4-byte load and one warp sum a slot and
+// channel, beside the head's three MLP layers a slot.
 //
 // What bounds it on the H100: 16,384 x 16,384 distances (2.7e8 pairs,
 // ~2.1 GFLOP of scalar work) and the score MLP (16,384 x 32 slots x 12.3k
@@ -185,10 +190,16 @@ __device__ __forceinline__ void oneshot_slots(const float* __restrict__ P, int N
 // blockIdx.x, + gridDim.x, ...; a group's queries all in one batch row):
 // the block's warps scan the keys together, ONE_QW queries a warp (their
 // scans interleaved, for independent work while a load or a ballot is in
-// flight), then each warp runs its queries' heads on the tensor cores.
+// flight), then each warp runs its queries' heads on the tensor cores and,
+// in the PAY instantiation, after each head a payload's Cp weighted sums
+// (payload_sums): slot `lane` reads its neighbour's channels, an unfilled
+// active slot the query's own (the self-neighbour), from device memory.
+// The xyz instantiation is the kernel without the payload code.
+template <bool PAY>
 __global__ void __launch_bounds__(ONE_WARPS * 32, 1)
 fusion_kernel(const float* __restrict__ pts, const int* __restrict__ seg,
-              const float* __restrict__ wtc, float* __restrict__ out, int B, int N) {
+              const float* __restrict__ wtc, const float* __restrict__ payload, int Cp,
+              float* __restrict__ out, int B, int N) {
   extern __shared__ float4 smem4[];
   float* sw = reinterpret_cast<float*>(smem4);
   float* keys = sw + ONE_NW;  // 2 x ONE_TILE x 3
@@ -225,13 +236,19 @@ fusion_kernel(const float* __restrict__ pts, const int* __restrict__ seg,
         ry = P[(size_t)j * 3 + 1] - qy[i];
         rz = P[(size_t)j * 3 + 2] - qz[i];
       }
-      const float3 o = fused_row(sw, qx[i], qy[i], qz[i], rx, ry, rz, active);
+      float w, wsum;
+      const float3 o = fused_row(sw, qx[i], qy[i], qz[i], rx, ry, rz, active, w, wsum);
       const int q = q0 + i * ONE_WARPS;
+      float* dst = out + ((size_t)b * N + q) * (PAY ? 3 + Cp : 3);
       if (lane == 0 && q < N) {
-        float* dst = out + ((size_t)b * N + q) * 3;
         dst[0] = o.x;
         dst[1] = o.y;
         dst[2] = o.z;
+      }
+      if constexpr (PAY) {  // a pad query (q >= N) reads row N - 1 and stores nothing
+        const float* x = payload + ((size_t)b * N + (j >= 0 ? j : min(q, N - 1))) * Cp;
+        payload_sums(w, wsum, active, Cp, [&](int c) { return __ldg(x + c); },
+                     q < N ? dst + 3 : nullptr);
       }
     }
   }
@@ -241,32 +258,41 @@ static size_t oneshot_smem() { return sizeof(float) * (ONE_NW + 2 * 3 * ONE_TILE
 
 // seg: device int32 [B, 4] = (N1, N, k1, k2) per batch.  wtc: the score MLP
 // (4 -> h1 -> h2 -> h3) split by _build.pack_tf32(..., chain=True).
-// k1 + k2 <= 32.  A grid of one block an SM (at most one a group).
+// payload: [B, N, Cp] fp32, 0 <= Cp <= PAYLOAD_MAX (null for Cp == 0).  out
+// [B, N, 3 + Cp].  k1 + k2 <= 32.  A grid of one block an SM (at most one a
+// group).
 extern "C" int pci_fusion(const void* pts, const void* seg, const void* wtc,
-                          int h1, int h2, int h3, void* out, int B, int N,
-                          void* stream) {
-  if (h1 != ONE_H1 || h2 != ONE_H2 || h3 != ONE_H3 || N < 1 || B < 1)
+                          int h1, int h2, int h3, const void* payload, int Cp, void* out,
+                          int B, int N, void* stream) {
+  if (h1 != ONE_H1 || h2 != ONE_H2 || h3 != ONE_H3 || N < 1 || B < 1 || Cp < 0 ||
+      Cp > PAYLOAD_MAX || (Cp > 0 && payload == nullptr))
     return (int)cudaErrorInvalidValue;
+  const auto kernel = Cp > 0 ? fusion_kernel<true> : fusion_kernel<false>;
   const size_t smem = oneshot_smem();
-  cudaError_t e = allow_smem(fusion_kernel, smem);
+  cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return (int)e;
   int dev = 0, sms = 0, per_sm = 0;
   if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
   if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
     return (int)e;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fusion_kernel, ONE_WARPS * 32, smem);
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, ONE_WARPS * 32, smem);
   if (e != cudaSuccess) return (int)e;
   const long long groups = (long long)B * ((N + ONE_WARPS * ONE_QW - 1) / (ONE_WARPS * ONE_QW));
   const int grid = (int)std::max(1LL, std::min((long long)std::max(per_sm, 1) * sms, groups));
-  fusion_kernel<<<grid, ONE_WARPS * 32, smem, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<grid, ONE_WARPS * 32, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(pts), static_cast<const int*>(seg),
-      static_cast<const float*>(wtc), static_cast<float*>(out), B, N);
+      static_cast<const float*>(wtc), static_cast<const float*>(payload), Cp,
+      static_cast<float*>(out), B, N);
   return (int)cudaGetLastError();
 }
 
-// The one-shot kernel's resources (common.cuh's kernel_attrs).
+// The one-shot kernel's resources (common.cuh's kernel_attrs), without and
+// with the payload.
 extern "C" int pci_fusion_attrs(int* out) {
-  return kernel_attrs(fusion_kernel, oneshot_smem(), out, ONE_WARPS * 32);
+  return kernel_attrs(fusion_kernel<false>, oneshot_smem(), out, ONE_WARPS * 32);
+}
+extern "C" int pci_fusion_payload_attrs(int* out) {
+  return kernel_attrs(fusion_kernel<true>, oneshot_smem(), out, ONE_WARPS * 32);
 }
 
 

@@ -93,12 +93,8 @@ fusion_tail_kernel(const __grid_constant__ TailParams p) {
       o[1] = p.comb[row * 3 + 1] + ay / sw_;
       o[2] = p.comb[row * 3 + 2] + az / sw_;
     }
-    for (int c = 0; c < Ce; ++c) {
-      float x = 0.f;
-      if (active) x = p.extra[(row * k + lane) * Ce + c];
-      const float v = warp_sum(w * x);
-      if (lane == 0) o[3 + c] = v / sw_;
-    }
+    const float* x = p.extra + (row * k + lane) * Ce;  // slot `lane`'s channels
+    payload_sums(w, sw_, active, Ce, [&](int c) { return x[c]; }, o + 3);
     cp_async_wait<0>();
     __syncwarp();  // the next row is in for every lane; this one is read
     cur ^= 1;

@@ -1,6 +1,6 @@
 """Layers of the port (counterpart of ``pci_tpu.nn``)."""
 
-from .fusion import PointsFusion
+from .fusion import PointsFusion, PointsFusionWithFeatures
 from .heads import Outputer, Tnet
 from .layers import (
     Classifier,
@@ -32,6 +32,7 @@ __all__ = [
     "PointMLP",
     "Pointnet2FeatureAbstract",
     "PointsFusion",
+    "PointsFusionWithFeatures",
     "SetAbstractionMsg",
     "SetConv",
     "SetUpConv",

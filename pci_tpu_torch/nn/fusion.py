@@ -1,5 +1,5 @@
 """Adaptive attentive points fusion (counterpart of ``pci_tpu/nn/fusion.py``
-``PointsFusion``).
+``PointsFusion`` and ``PointsFusionWithFeatures``).
 
 Adaptive sampling takes ``N1 = N - N2`` points of warped cloud 1 and
 ``N2 ~ N * t`` (aligned to ``_ALIGN``) of warped cloud 2, each through its
@@ -18,6 +18,12 @@ card the same two routes run on the cell-pruned kernel
 package routes its 65,536-point protocol row; it gives the flat kernels'
 neighbours while scanning a small share of the pairs.
 
+``PointsFusionWithFeatures`` also carries per-point features (intensity)
+through the same merge and reduces them with the same attention weights:
+on the one-shot route as the kernel's payload (one launch, as without
+it), on the two-kernel route as the tail's ``extra``, gathered by the
+residual kNN's indices.
+
 The permutations come from ``torch.randperm`` with the caller's
 ``torch.Generator``: torch cannot reproduce ``jax.random``'s draws, so a
 caller that needs given permutations passes ``perms=(perm1, perm2)``.
@@ -30,6 +36,7 @@ import os
 import torch
 from torch import nn
 
+from ..ops import index_points
 from ..ops.cuda_kernels import (
     fusion_attention_tail,
     fusion_cells_attention,
@@ -39,6 +46,7 @@ from ..ops.cuda_kernels import (
 )
 from ..ops.cuda_kernels.fusion_knn_cuda import (
     MAX_KERNEL_K,
+    MAX_PAYLOAD,
     FusionResiKnn,
     fusion_head,
     fusion_resi_plain,
@@ -107,15 +115,23 @@ def _cells_route_ok(points: torch.Tensor, k: int, train: bool, n_seg: int = 2) -
             and (n_seg == 2 or not train))
 
 
-def _kernel_k_ok(k: int) -> bool:
-    """The fusion kernels' neighbour count: ``k <= MAX_KERNEL_K`` (32, one
-    lane a slot in csrc/fusion_knn.cu, csrc/fusion_tail.cu and
-    csrc/fusion_cells.cu).  A larger k takes the plain versions on any
-    device: the budgeted kNN inside the same fixed-neighbour autograd
-    function, then the head in PyTorch, the counterpart of the JAX
-    package's XLA route (``pci_tpu/nn/fusion.py:422-433``), which serves
-    any k.  Module-level for tests."""
-    return k <= MAX_KERNEL_K
+def _kernel_shape_ok(k: int, payload: torch.Tensor | None) -> bool:
+    """The fusion kernels' shapes: ``k <= MAX_KERNEL_K`` (32, one lane a
+    slot in csrc/fusion_knn.cu, csrc/fusion_tail.cu and
+    csrc/fusion_cells.cu) and a payload of at most ``MAX_PAYLOAD``
+    channels (the one-shot kernels').  Past either, the fusion takes the
+    plain versions on any device: the budgeted kNN inside the same
+    fixed-neighbour autograd function, then the head in PyTorch, the
+    counterpart of the JAX package's XLA route
+    (``pci_tpu/nn/fusion.py:422-433``), which serves any k.  Module-level
+    for tests."""
+    return k <= MAX_KERNEL_K and (payload is None or payload.shape[-1] <= MAX_PAYLOAD)
+
+
+def _neighbour_payload(payload, idx):
+    """Each slot's payload ``[B, N, k, C]`` by the residual kNN's indices
+    (a self-neighbour's slot holds the row, so its own payload), or None."""
+    return None if payload is None else index_points(payload, idx)
 
 
 def random_perms(B: int, N: int, generator: torch.Generator | None,
@@ -140,29 +156,64 @@ class PointsFusion(nn.Module):
         fused ``[B, N, 3]``.  ``perms``: optional ``(perm1, perm2)``
         ``[B, N]``; otherwise drawn from ``generator``.  ``momentum``: the
         score MLP's BatchNorm momentum in training."""
+        return self._fuse(points1, points2, None, k, t, perms, generator, momentum)
+
+    def _fuse(self, points1, points2, feats, k, t, perms, generator, momentum):
+        """The fusion of both classes: ``feats`` is None, or ``(feats1,
+        feats2)`` ``[B, N, C]`` carried through the same merge as their
+        clouds and reduced with the attention weights (the payload), ->
+        ``[B, N, 3 + C]``."""
         B, N, _ = points1.shape
         N1, N2, k1, k2 = _adaptive_budgets(N, k, t)
         if perms is None:
             perms = (random_perms(B, N, generator, points1.device),
                      random_perms(B, N, generator, points1.device))
-        combined, _ = _composed_shuffle_merge(
+        combined, gidx = _composed_shuffle_merge(
             [points1, points2], [p.to(points1.device) for p in perms],
             torch.stack([N1, N2], dim=1),
         )
+        payload = None
+        if feats is not None:
+            cat = torch.cat(feats, dim=1)
+            payload = torch.gather(cat, 1, gidx[..., None].expand(-1, -1, cat.shape[-1]))
         seg_ends = torch.stack([N1, torch.full_like(N1, N)], dim=1)
         budgets = torch.stack([k1, k2], dim=1)
-        if not _kernel_k_ok(k):
-            _, resi = FusionResiKnn.apply(combined, seg_ends, budgets, k, fusion_resi_plain)
+        if not _kernel_shape_ok(k, payload):
+            idx, resi = FusionResiKnn.apply(combined, seg_ends, budgets, k, fusion_resi_plain)
+            extra = _neighbour_payload(payload, idx)
             if self.training:
-                return fusion_head(combined, resi, lambda h: self.mlp(h, momentum))
-            return fusion_tail_plain(combined, resi, None, self.mlp.folded())
+                return fusion_head(combined, resi, lambda h: self.mlp(h, momentum), extra)
+            return fusion_tail_plain(combined, resi, extra, self.mlp.folded())
         cells = _cells_route_ok(combined, k, self.training)
         if _fusion_oneshot_ok(self.training, combined):
             oneshot = fusion_cells_attention if cells else knn_fusion_attention
-            return oneshot(combined, seg_ends, budgets, self.mlp.folded(), k)
+            return oneshot(combined, seg_ends, budgets, self.mlp.folded(), k, payload=payload)
         knn = fusion_cells_resi_knn if cells else fusion_resi_knn
-        _, resi = knn(combined, seg_ends, budgets, k)
+        idx, resi = knn(combined, seg_ends, budgets, k)
+        extra = _neighbour_payload(payload, idx)
         if self.training:
             # the head in PyTorch (pci_tpu/nn/fusion.py:282-292)
-            return fusion_head(combined, resi, lambda h: self.mlp(h, momentum))
-        return fusion_attention_tail(combined, resi, None, self.mlp.folded())
+            return fusion_head(combined, resi, lambda h: self.mlp(h, momentum), extra)
+        return fusion_attention_tail(combined, resi, extra, self.mlp.folded())
+
+
+class PointsFusionWithFeatures(PointsFusion):
+    """:class:`PointsFusion` that also carries a feature channel (LiDAR
+    intensity) through the attention weights, the counterpart of
+    ``pci_tpu/nn/fusion.py:PointsFusionWithFeatures``
+    (PointINet20230424/models/layers.py:335-430).  The same score MLP under
+    the same name, so both classes load one state dict."""
+
+    def forward(self, points1, points2, feats1, feats2, k: int, t, perms=None,
+                generator: torch.Generator | None = None, momentum: float = 0.1):
+        """``points1/2 [B, N, 3]`` warped clouds, ``feats1/2 [B, N, C]``
+        their features, ``t [B]`` -> fused ``[B, N, 3 + C]``: the xyz of
+        :class:`PointsFusion` and ``sum_k w * feature`` of the same
+        neighbours (a slot its segment cannot fill is the row itself and
+        carries the row's own).  Feature rows go through the clouds'
+        permutations.  On the card at eval the payload rides the one-shot
+        kernel's launch (up to ``MAX_PAYLOAD`` channels; wider ones take
+        the plain versions, as ``k > 32`` does).  ``feats1/2`` None:
+        :class:`PointsFusion`'s ``[B, N, 3]``."""
+        feats = None if feats1 is None else (feats1, feats2)
+        return self._fuse(points1, points2, feats, k, t, perms, generator, momentum)

@@ -45,8 +45,9 @@ _SIGNATURES = {
     "pci_setconv": [_P, _P, _P, _P, _IP, _I, _P, _I, _I, _I, _I, _F, _I, _P],
     "pci_knnconv": [_P, _P, _P, _P, _P, _P, _P, _IP, _I, _IP, _I, _P] + [_I] * 10 + [_P],
     "pci_knnconv_attrs": [_IP],
-    "pci_fusion": [_P, _P, _P, _I, _I, _I, _P, _I, _I, _P],
+    "pci_fusion": [_P, _P, _P, _I, _I, _I, _P, _I, _P, _I, _I, _P],
     "pci_fusion_attrs": [_IP],
+    "pci_fusion_payload_attrs": [_IP],
     "pci_flowenc_attrs": [_IP],
     "pci_flowmid_attrs": [_IP],
     "pci_ball": [_P, _P, _P, _IP, _I, _I, _I, _I, _P, _P, _P],
@@ -68,8 +69,9 @@ _SIGNATURES = {
                    + [_I] * 8 + [_F, _I, _F, _I, _I, _P],
     "pci_fusion_tail": [_P, _P, _P, _P, _I, _I, _I, _P, _I, _I, _I, _I, _P],
     "pci_fusion_tail_attrs": [_IP],
-    "pci_fusion_cells": [_P] * 8 + [_I] * 3 + [_P] * 6 + [_I] * 6 + [_P],
+    "pci_fusion_cells": [_P] * 8 + [_I] * 3 + [_P, _I] + [_P] * 6 + [_I] * 6 + [_P],
     "pci_fusion_cells_attrs": [_IP],
+    "pci_fusion_cells_payload_attrs": [_IP],
     "pci_pn2mid_scratch": [_IP, _IP, _IP, _I, _I, _I, _IP, _IP, _FP,
                            ctypes.POINTER(ctypes.c_longlong)],
     "pci_pn2mid": [_P, _P, _P, _IP, _IP, _IP, _P, _P, _P, _P, _I, _I, _I, _IP, _IP, _FP,

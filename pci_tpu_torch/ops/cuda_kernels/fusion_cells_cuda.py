@@ -1,7 +1,8 @@
 """The fusion's budgeted two-segment self-kNN by cell pruning, for large
 clouds: the CUDA kernel (csrc/fusion_cells.cu) in two modes, one-shot
-(the attention head inside: fused rows) and residual (idx and resi, with the
-fixed-neighbour backward), and its plain PyTorch version.
+(the attention head inside: fused rows, with a payload's weighted sums)
+and residual (idx and resi, with the fixed-neighbour backward), and its
+plain PyTorch version.
 
 Replaces ``pci_tpu/ops/pallas_kernels/fusion_cells_tpu.py``
 (``knn_fusion_cells`` and ``knn_fusion_cells_grad``), the JAX package's
@@ -23,7 +24,14 @@ import torch
 
 from ..cells import box_lb, chunk_boxes, sort_by_morton
 from . import _build
-from .fusion_knn_cuda import SCORE_MLP, FusionResiKnn, fusion_plain, fusion_resi_plain
+from .fusion_knn_cuda import (
+    SCORE_MLP,
+    FusionResiKnn,
+    as_payload,
+    fusion_plain,
+    fusion_resi_plain,
+    payload_channels,
+)
 
 CHUNK = 256  # keys a chunk
 TILE = 64  # sorted queries sharing one chunk order (two warps of the kernel)
@@ -37,16 +45,18 @@ PLAN_GRAPHS = 4
 
 
 def fusion_cells_attention(combined: torch.Tensor, seg_ends: torch.Tensor,
-                           budgets: torch.Tensor, layers, k: int) -> torch.Tensor:
+                           budgets: torch.Tensor, layers, k: int,
+                           payload: torch.Tensor | None = None) -> torch.Tensor:
     """:func:`fusion_knn_cuda.knn_fusion_attention`'s function (two
-    segments, ``seg_ends [B, 2]`` ending at N, ``budgets [B, 2]``), by the
-    cell-pruned kernel on a CUDA tensor.  Eval only."""
-    _build.check_eval_only("fusion_cells_attention", combined,
+    segments, ``seg_ends [B, 2]`` ending at N, ``budgets [B, 2]``, an
+    optional ``payload [B, N, Cp]``), by the cell-pruned kernel on a CUDA
+    tensor.  Eval only."""
+    _build.check_eval_only("fusion_cells_attention", combined, payload,
                            *[t for wb in layers for t in wb])
     if _build.use_kernel(combined):
         return fusion_cells_kernel(combined.float().contiguous(), seg_ends, budgets, k,
-                                   layers)
-    return fusion_cells_plain(combined, seg_ends, budgets, k, layers)
+                                   layers, payload=as_payload(payload))
+    return fusion_cells_plain(combined, seg_ends, budgets, k, layers, payload)
 
 
 def fusion_cells_resi_knn(combined: torch.Tensor, seg_ends: torch.Tensor,
@@ -116,11 +126,14 @@ def kernel_plan_graphed(combined: torch.Tensor, split: torch.Tensor):
                                kernel_plan, combined, split)
 
 
-def fusion_cells_launch(combined, seg, k, plan, layers=None, scanned=None, stamps=None):
+def fusion_cells_launch(combined, seg, k, plan, layers=None, scanned=None, stamps=None,
+                        payload=None):
     """One launch of csrc/fusion_cells.cu on a :func:`kernel_plan` plan
     (counted in ``fusion_cells_kernel.launches``): one-shot with
-    ``layers`` (the folded score MLP), else residual.  ``seg [B, 4]`` int32
-    = (N1, N, k1, k2).  ``scanned``: an int64 ``[1]`` CUDA tensor that gains
+    ``layers`` (the folded score MLP) and an optional ``payload [B, N,
+    Cp]`` in the original row order (the kernel reads it by the slots'
+    original rows), else residual.  ``seg [B, 4]`` int32 = (N1, N, k1,
+    k2).  ``scanned``: an int64 ``[1]`` CUDA tensor that gains
     the (query, key) pairs scanned; ``stamps``: a zeroed int64 ``[B, nt,
     STAMPS]`` CUDA tensor that takes each tile's start, walk end and end
     (``%globaltimer`` ns), the chunks it walked, the pairs it scanned, its
@@ -140,13 +153,17 @@ def fusion_cells_launch(combined, seg, k, plan, layers=None, scanned=None, stamp
             raise ValueError(f"fusion_cells stamps: {(*order.shape[:2], STAMPS)}")
     Np = keys.shape[1]
     ptr = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
+    Cp = payload_channels(payload, combined, "fusion_cells")
+    if Cp and layers is None:
+        raise ValueError("fusion_cells kernel: a payload in one-shot mode only")
     if layers is not None:
         dims = tuple(_build.layer_widths(layers))
         if dims != SCORE_MLP:
             raise ValueError(f"fusion_cells kernel is built for the {SCORE_MLP} score MLP, "
                              f"got {dims}")
         wtc = _build.pack_tf32(layers, dev, chain=True)
-        out, out_i, out_r = torch.empty_like(combined), None, None
+        out = torch.empty((B, N, 3 + Cp), dtype=torch.float32, device=dev)
+        out_i = out_r = None
     else:
         wtc, dims = None, (4, 0, 0, 0)
         out = None
@@ -155,7 +172,8 @@ def fusion_cells_launch(combined, seg, k, plan, layers=None, scanned=None, stamp
     nxt = torch.zeros(1, dtype=torch.int32, device=dev)  # the tile counter
     err = _build.library().pci_fusion_cells(
         combined.data_ptr(), keys.data_ptr(), boxes.data_ptr(), order.data_ptr(),
-        lbs.data_ptr(), torder.data_ptr(), seg.data_ptr(), ptr(wtc), *dims[1:], ptr(out), ptr(out_i),
+        lbs.data_ptr(), torder.data_ptr(), seg.data_ptr(), ptr(wtc), *dims[1:],
+        payload.data_ptr() if Cp else None, Cp, ptr(out), ptr(out_i),
         ptr(out_r), ptr(scanned), ptr(stamps), nxt.data_ptr(), B, N, Np, Np // boxes.shape[1],
         Np // order.shape[1], k, _build.stream_ptr(dev),
     )
@@ -164,10 +182,12 @@ def fusion_cells_launch(combined, seg, k, plan, layers=None, scanned=None, stamp
     return out if layers is not None else (out_i, out_r)
 
 
-def fusion_cells_kernel(combined, seg_ends, budgets, k, layers=None, scanned=None):
+def fusion_cells_kernel(combined, seg_ends, budgets, k, layers=None, scanned=None,
+                        payload=None):
     """The prep (:func:`kernel_plan_graphed`) and one launch
     (:func:`fusion_cells_launch`): one-shot with ``layers`` (the folded
-    score MLP), else residual."""
+    score MLP) and an optional ``payload``, else residual.  The payload
+    does not ride the Morton sort: the plan is the cloud's alone."""
     dev = combined.device
     _build.require(combined, "combined", torch.float32, 3, dev)
     B, N, C = combined.shape
@@ -179,17 +199,17 @@ def fusion_cells_kernel(combined, seg_ends, budgets, k, layers=None, scanned=Non
         raise ValueError("fusion_cells kernel: two segments a batch row")
     seg = torch.cat([seg_ends, budgets], dim=1).to(dev, torch.int32).contiguous()
     plan = kernel_plan_graphed(combined, seg[:, 0])
-    return fusion_cells_launch(combined, seg, k, plan, layers, scanned)
+    return fusion_cells_launch(combined, seg, k, plan, layers, scanned, payload=payload)
 
 
 fusion_cells_kernel.launches = 0
 
 
-def fusion_cells_plain(combined, seg_ends, budgets, k, layers=None):
+def fusion_cells_plain(combined, seg_ends, budgets, k, layers=None, payload=None):
     """The kernel's signature and function.  It computes through the flat
-    plain versions (:func:`fusion_knn_cuda.fusion_plain` with ``layers``,
-    :func:`fusion_knn_cuda.fusion_resi_plain` without), since pruning
-    changes which pairs are scanned, not the neighbours."""
+    plain versions (:func:`fusion_knn_cuda.fusion_plain` with ``layers``
+    and the payload, :func:`fusion_knn_cuda.fusion_resi_plain` without),
+    since pruning changes which pairs are scanned, not the neighbours."""
     if layers is not None:
-        return fusion_plain(combined, seg_ends, budgets, layers, k)
+        return fusion_plain(combined, seg_ends, budgets, layers, k, payload)
     return fusion_resi_plain(combined, seg_ends, budgets, k)

@@ -2,12 +2,15 @@
 beside its plain PyTorch version.
 
 - One-shot attentive fusion (eval): budgeted two-segment self-kNN + score
-  MLP + softmax over k + weighted residual sum.  Replaces
+  MLP + softmax over k + weighted residual sum, and the weighted sum of a
+  payload (``PointsFusionWithFeatures``' intensity) of up to
+  ``MAX_PAYLOAD`` channels.  Replaces
   ``pci_tpu/ops/pallas_kernels/fusion_knn_tpu.py:knn_fusion_attention``
-  (one-shot route, no payload).  Persistent blocks, one an SM, keep the
-  score MLP split for the tensor cores (3xTF32, ``_build.pack_tf32(...,
-  chain=True)``) in shared memory; a warp a query scans the keys through
-  cp.async double-buffered tiles, then runs its head on ``mma.sync``.
+  (one-shot route, with or without a payload).  Persistent blocks, one an
+  SM, keep the score MLP split for the tensor cores (3xTF32,
+  ``_build.pack_tf32(..., chain=True)``) in shared memory; a warp a query
+  scans the keys through cp.async double-buffered tiles, then runs its
+  head on ``mma.sync`` and its payload sums.
 - Residual kNN (training): the budgeted F-segment self-kNN's indices and
   residuals, differentiable in the cloud with fixed neighbours.  Replaces
   the same file's ``knn_fusion_adaptive`` / ``knn_fusion_multi``
@@ -30,6 +33,7 @@ from .knn_cuda import knn_plain
 
 MAX_SEGMENTS = 4  # the residual kernel keeps one top list a segment
 MAX_KERNEL_K = 32  # the fusion kernels' slots a query (one lane a slot in the heads)
+MAX_PAYLOAD = 8  # payload channels the one-shot kernels carry (csrc/fusion_head.cuh PAYLOAD_MAX)
 RESI_ITEM = 64  # queries a residual kernel item (csrc/fusion_knn.cu RES_Q)
 RESI_STAMPS = 6  # int64 an item's stamp row (RES_STAMPS)
 
@@ -43,7 +47,8 @@ def safe_norm(x: torch.Tensor) -> torch.Tensor:
 
 
 def knn_fusion_attention(combined: torch.Tensor, seg_ends: torch.Tensor,
-                         budgets: torch.Tensor, layers, k: int) -> torch.Tensor:
+                         budgets: torch.Tensor, layers, k: int,
+                         payload: torch.Tensor | None = None) -> torch.Tensor:
     """Fuse each row of ``combined [B, N, 3]`` with its neighbours.
 
     Row ``n`` takes its exact ``budgets[b, 0]`` nearest rows in
@@ -51,21 +56,42 @@ def knn_fusion_attention(combined: torch.Tensor, seg_ends: torch.Tensor,
     ``[seg_ends[b, 0], N)`` (ties to the lower index; a segment shorter
     than its budget leaves zero residuals, a self-neighbour).  With
     ``resi = neighbour - row``: ``score = max_c MLP([resi | safe_norm])``,
-    ``w = softmax_k(score)``, output ``row + sum_k w * resi``.
+    ``w = softmax_k(score)``, output ``row + sum_k w * resi``, and for a
+    ``payload [B, N, Cp]`` (``Cp <= MAX_PAYLOAD`` on the card) ``sum_k w *
+    payload[neighbour]`` appended (a self-neighbour carries the row's own),
+    so ``[B, N, 3 + Cp]``.
 
     ``seg_ends`` / ``budgets``: ``[B, 2]`` int, ``seg_ends[:, 1] == N``,
     budgets summing to ``k``; ``layers``: the folded score MLP
     (``4 -> 64 -> 64 -> 128``, ReLU after each layer).
     """
-    _build.check_eval_only("knn_fusion_attention", combined,
+    _build.check_eval_only("knn_fusion_attention", combined, payload,
                            *[t for wb in layers for t in wb])
     if _build.use_kernel(combined):
         return fusion_kernel(combined.float().contiguous(), seg_ends, budgets,
-                             layers, k)
-    return fusion_plain(combined, seg_ends, budgets, layers, k)
+                             layers, k, as_payload(payload))
+    return fusion_plain(combined, seg_ends, budgets, layers, k, payload)
 
 
-def fusion_kernel(combined, seg_ends, budgets, layers, k):
+def as_payload(payload):
+    """A payload as the one-shot kernels take it: fp32, contiguous."""
+    return None if payload is None else payload.float().contiguous()
+
+
+def payload_channels(payload, combined, name: str) -> int:
+    """``Cp`` of a one-shot kernel's ``payload [B, N, Cp]`` (0 for None),
+    checked against ``combined [B, N, 3]`` and ``MAX_PAYLOAD``."""
+    if payload is None:
+        return 0
+    _build.require(payload, "payload", torch.float32, 3, combined.device)
+    if payload.shape[:2] != combined.shape[:2]:
+        raise ValueError(f"{name} kernel: payload is [B, N, Cp], got {tuple(payload.shape)}")
+    if payload.shape[2] > MAX_PAYLOAD:
+        raise ValueError(f"{name} kernel: a payload of at most {MAX_PAYLOAD} channels")
+    return payload.shape[2]
+
+
+def fusion_kernel(combined, seg_ends, budgets, layers, k, payload=None):
     dev = combined.device
     _build.require(combined, "combined", torch.float32, 3, dev)
     B, N, C = combined.shape
@@ -75,15 +101,17 @@ def fusion_kernel(combined, seg_ends, budgets, layers, k):
         raise ValueError("fusion kernel: k <= 32 (one lane a slot)")
     if seg_ends.shape != (B, 2) or budgets.shape != (B, 2):
         raise ValueError("fusion kernel: two segments a batch row")
+    Cp = payload_channels(payload, combined, "fusion")
     dims = tuple([layers[0][0].shape[1]] + [w.shape[0] for w, _ in layers]) if layers else ()
     if dims != SCORE_MLP:
         raise ValueError(f"fusion kernel is built for the {SCORE_MLP} score MLP, got {dims}")
     wtc = _build.pack_tf32(layers, dev, chain=True)
     seg = torch.cat([seg_ends, budgets], dim=1).to(dev, torch.int32).contiguous()
-    out = torch.empty_like(combined)
+    out = torch.empty((B, N, 3 + Cp), dtype=torch.float32, device=dev)
     err = _build.library().pci_fusion(
         combined.data_ptr(), seg.data_ptr(), wtc.data_ptr(), *dims[1:],
-        out.data_ptr(), B, N, _build.stream_ptr(dev),
+        payload.data_ptr() if Cp else None, Cp, out.data_ptr(), B, N,
+        _build.stream_ptr(dev),
     )
     _build.check_launch("fusion", err)
     fusion_kernel.launches += 1
@@ -93,11 +121,14 @@ def fusion_kernel(combined, seg_ends, budgets, layers, k):
 fusion_kernel.launches = 0
 
 
-def fusion_plain(combined, seg_ends, budgets, layers, k):
-    """The residual kNN's plain version, then :func:`fusion_head`."""
+def fusion_plain(combined, seg_ends, budgets, layers, k, payload=None):
+    """The residual kNN's plain version, then :func:`fusion_head`, with
+    the payload gathered by the same indices (a self-neighbour's slot holds
+    the row itself, so it carries the row's own payload)."""
     combined = combined.float()
-    _, resi = fusion_resi_plain(combined, seg_ends, budgets, k)
-    return fusion_head(combined, resi, lambda h: _build.mlp_plain(h, layers))
+    idx, resi = fusion_resi_plain(combined, seg_ends, budgets, k)
+    extra = None if payload is None else index_points(payload.float(), idx)
+    return fusion_head(combined, resi, lambda h: _build.mlp_plain(h, layers), extra)
 
 
 def fusion_head(combined, resi, score, extra=None):

@@ -3,14 +3,15 @@ against the JAX package's, on CPU at the tiny sizes of
 ``tests/test_cli.py`` (64 points, interval 3, field 1, widths 32).
 
 - ``cli.test`` (ISAPCInet, ``--emd``) and ``cli.test_pointinet``
-  (PointINet, nuScenes triplets, ``--use_intensity 0``) run end to end
+  (PointINet, nuScenes triplets, at ``--use_intensity 0`` and at its
+  default ``--use_intensity 1``, xyz + intensity clouds) run end to end
   with ``device="cpu"`` beside the JAX CLIs, on the same weights (the
   JAX ISAPCInet's seeded init exported to npz; the trained PointINet)
   and the same fusion permutations: their ``metrics.jsonl`` records carry
   the JAX CLIs' keys, each window's CD and EMD agree with the JAX CLI's
   within 1e-3 relative, and
   each CD equals ``chamfer_per_sample`` of the port's own forward.
-- ``--use_intensity 1`` and ``--use_tnet 0`` are refused.
+- ``--use_tnet 0`` is refused.
 - ``load_params`` / ``load_flow_into`` from the JAX variable tree as npz
   equal ``convert``'s conversion; the port's own files round-trip; an
   orbax directory is refused; ``BestKeeper.best_path`` picks the lowest
@@ -76,11 +77,11 @@ def window_args(scene, extra=()):
             "--tr_out_c", "32", *extra]
 
 
-def triplet_args(scene, extra=()):
+def triplet_args(scene, extra=(), intensity: int = 0):
     return ["--dataset_name", "nuscenes", "--root", str(scene / "lidar"),
             "--scenes_list", str(scene / "scenes.txt"), "--scene_split_lib",
             str(scene / "split"), "--npoints", "64", "--interval", "3",
-            "--use_intensity", "0", *extra]
+            "--use_intensity", str(intensity), *extra]
 
 
 def records(log_dir):
@@ -121,7 +122,8 @@ def runs(scene, tmp_path_factory):
     """Each CLI run once on the CPU, the JAX CLI first, on the same weights
     and fusion permutations: ``{cli: (port records, JAX records)}``.
     ISAPCInet takes the JAX CLI's seeded init, exported to npz, as the
-    port's ``--pretrained_self_model``; PointINet the trained weights."""
+    port's ``--pretrained_self_model``; PointINet the trained weights, at
+    ``--use_intensity 0`` and 1."""
     recorded = {}
 
     def build_and_record(args, example):
@@ -137,7 +139,9 @@ def runs(scene, tmp_path_factory):
                 ("isapci", jtest_cli.main, test_cli.main, window_args(scene, ["--emd"]),
                  None),
                 ("pointinet", jpointinet_cli.main, pointinet_cli.main,
-                 triplet_args(scene, JAX_WEIGHTS), triplet_args(scene, WEIGHTS))):
+                 triplet_args(scene, JAX_WEIGHTS), triplet_args(scene, WEIGHTS)),
+                ("pointinet_intensity", jpointinet_cli.main, pointinet_cli.main,
+                 triplet_args(scene, JAX_WEIGHTS, 1), triplet_args(scene, WEIGHTS, 1))):
             jlog = tmp_path_factory.mktemp(f"{name}_jax")
             jmain(jargs + ["--log_dir", str(jlog)])
             if args is None:
@@ -160,7 +164,7 @@ def test_cli_records_have_the_jax_keys(runs):
         assert [r["step"] for r in port] == list(range(len(port)))
 
 
-@pytest.mark.parametrize("cli", ["isapci", "pointinet"])
+@pytest.mark.parametrize("cli", ["isapci", "pointinet", "pointinet_intensity"])
 def test_cli_windows_match_the_jax_clis(runs, cli):
     """Each window's CD and EMD against the JAX CLI's on the same weights,
     samples and fusion permutations, both within the model-parity
@@ -174,10 +178,11 @@ def test_cli_windows_match_the_jax_clis(runs, cli):
         assert r["emd"] == pytest.approx(w["emd"], rel=1e-3)
 
 
-@pytest.mark.parametrize("cli", ["isapci", "pointinet"])
+@pytest.mark.parametrize("cli", ["isapci", "pointinet", "pointinet_intensity"])
 def test_cli_cd_is_the_forwards_chamfer(runs, scene, monkeypatch, cli):
     """Each window's logged CD is ``chamfer_per_sample`` of the model the
-    CLI builds, on the dataset's window, with the run's permutations."""
+    CLI builds, on the dataset's window, with the run's permutations (with
+    intensity: the ``[1, N, 4]`` frame's xyz against the ground truth's)."""
     fixed_perms(monkeypatch)
     if cli == "isapci":
         args = test_cli.parse_args(runs[cli][2])
@@ -188,7 +193,8 @@ def test_cli_cd_is_the_forwards_chamfer(runs, scene, monkeypatch, cli):
     else:
         ds = NuscenesTripletDataset(str(scene / "lidar"), str(scene / "scenes.txt"),
                                     str(scene / "split"), npoints=64, interval=3,
-                                    train=False, use_intensity=False, seed=0)
+                                    train=False, use_intensity=cli == "pointinet_intensity",
+                                    seed=0)
         ds[0]  # the CLI's draw before its windows
         model = PointINet()
         init_weights(model, 0)
@@ -203,19 +209,15 @@ def test_cli_cd_is_the_forwards_chamfer(runs, scene, monkeypatch, cli):
             else:
                 out = model(b["ini_pc"], b["end_pc"], b["color"], b["color"], b["t"])
                 gt = b["mid_pc"]
-            got.append(float(chamfer_per_sample(out, gt).mean()))
+                assert out.shape[-1] == gt.shape[-1] == (4 if cli == "pointinet_intensity" else 3)
+            got.append(float(chamfer_per_sample(out[..., :3], gt[..., :3]).mean()))
     assert got == [r["cd"] for r in runs[cli][0]]
 
 
-@pytest.mark.parametrize("cli,flag", [("isapci", ["--use_tnet", "0"]),
-                                      ("pointinet", ["--use_intensity", "1"])])
+@pytest.mark.parametrize("cli,flag", [("isapci", ["--use_tnet", "0"])])
 def test_unported_options_are_refused(scene, tmp_path, cli, flag):
     with pytest.raises(NotImplementedError, match="ROADMAP A.5"):
-        if cli == "isapci":
-            test_cli.main(window_args(scene, flag + ["--log_dir", str(tmp_path)]), device="cpu")
-        else:
-            pointinet_cli.main(triplet_args(scene) + flag + ["--log_dir", str(tmp_path)],
-                               device="cpu")
+        test_cli.main(window_args(scene, flag + ["--log_dir", str(tmp_path)]), device="cpu")
 
 
 def test_checkpoint_formats(tmp_path):

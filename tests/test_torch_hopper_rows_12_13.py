@@ -328,8 +328,8 @@ def test_fusion_cells_wrapper_launch_arguments(cuda_route, oneshot):
     """fusion_cells_attention / fusion_cells_resi_knn on the forced CUDA
     route launch once with the plan's tensors (keys [B, Np, 4], chunks of
     CHUNK keys, tiles of TILE queries), the score MLP split in the chained
-    TF32 layout (one-shot; null in residual mode), a zeroed tile counter and
-    no stamps; the stub writes the plain version's result, which comes back
+    TF32 layout (one-shot; null in residual mode), no payload, a zeroed tile
+    counter and no stamps; the stub writes the plain version's result, which comes back
     unchanged."""
     rng = np.random.default_rng(1230 + oneshot)
     B, N, k = 2, 700, 32
@@ -341,11 +341,12 @@ def test_fusion_cells_wrapper_launch_arguments(cuda_route, oneshot):
     with _build.plain_versions():
         want = fusion_cells_cuda.fusion_cells_plain(x, seg, bud, k, layers if oneshot else None)
 
-    def run(pts, keys, boxes, order, lbs, torder, segp, wtc, h1, h2, h3, out, out_i, out_r,
-            scanned, stamps, nxt, B_, N_, Np, C, TQ, k_, stream):
+    def run(pts, keys, boxes, order, lbs, torder, segp, wtc, h1, h2, h3, payload, Cp, out,
+            out_i, out_r, scanned, stamps, nxt, B_, N_, Np, C, TQ, k_, stream):
         assert (B_, N_, Np, C, TQ, k_) == (B, N, 768, fusion_cells_cuda.CHUNK,
                                            fusion_cells_cuda.TILE, k)
         assert pts == x.data_ptr() and scanned is None and stamps is None
+        assert payload is None and Cp == 0
         assert read_i32(nxt) == 0
         if oneshot:
             assert wtc == layers.tf32(chain=True).data_ptr() and (h1, h2, h3) == (64, 64, 128)

@@ -330,7 +330,8 @@ def test_points_fusion_at_k32_takes_the_kernels(cuda_route, monkeypatch, mode, e
         x, _, r = seen["resi"]
         write(out, fusion_tail_cuda.fusion_tail_plain(x, r, None, mod.mlp.folded()))
 
-    def oneshot(pts, seg, wtc, h1, h2, h3, out, B, N, stream):
+    def oneshot(pts, seg, wtc, h1, h2, h3, payload, Cp, out, B, N, stream):
+        assert payload is None and Cp == 0  # PointsFusion carries no payload
         x = torch.from_numpy(np.ctypeslib.as_array((ctypes.c_float * (B * N * 3)).from_address(
             pts)).reshape(B, N, 3).copy())
         s4 = np.ctypeslib.as_array((ctypes.c_int32 * (B * 4)).from_address(seg)).reshape(B, 4)

@@ -417,6 +417,8 @@ def _grad_calls():
     _, tail = folded_layers(rng, (3, 8, 8, 8, 8))
     tail = [(w, b) for w, b in tail]
     seg = torch.tensor([[32, 64]])
+    # an intensity payload that needs a gradient (its own draws: the others' stay)
+    pay = torch.rand(1, 64, 1, generator=torch.Generator().manual_seed(111)).requires_grad_()
     g = t_(cloud(rng, 1, 64 * 4, 16)).reshape(1, 64, 4, 16)
     _, enc2 = folded_layers(rng, (3 + 8, 8))
     mid = [folded_layers(rng, w)[1] for w in ((3 + 6 + 6, 8), (3 + 8, 8), (3 + 8, 8), (3 + 8 + 8, 8),
@@ -436,6 +438,8 @@ def _grad_calls():
         "setconv": lambda: setconv_cuda.setconv_fused(x, f, x[:, :8], 0.5, 4, sc),
         "knnconv": lambda: knnconv_cuda.knnconv_fused(x, x, f, None, None, 4, sc, []),
         "fusion": lambda: fusion_knn_cuda.knn_fusion_attention(x, seg, torch.tensor([[16, 16]]), fu, 32),
+        "fusion_payload": lambda: fusion_knn_cuda.knn_fusion_attention(
+            x.detach(), seg, torch.tensor([[16, 16]]), fu, 32, payload=pay),
         "ball": lambda: ball_cuda.ball_query_multi([0.5, 1.0], [4, 8], x, x[:, :8]),
         "knn": lambda: knn_cuda.knn(x, x, 4),
         "attention": lambda: attention_cuda.vector_attention(
@@ -448,16 +452,20 @@ def _grad_calls():
         "fusion_tail": lambda: fusion_tail_cuda.fusion_attention_tail(x, resi, None, fu),
         "fusion_cells": lambda: fusion_cells_cuda.fusion_cells_attention(
             x, seg, torch.tensor([[16, 16]]), fu, 32),
+        "fusion_cells_payload": lambda: fusion_cells_cuda.fusion_cells_attention(
+            x.detach(), seg, torch.tensor([[16, 16]]), fu, 32, payload=pay),
         "pn2mid": lambda: pn2mid_cuda.pn2mid_fused(x, f.repeat(1, 1, 2), pn2, (32, 16, 8)),
     }
 
 
-@pytest.mark.parametrize("kernel", ["fps", "setconv", "knnconv", "fusion", "ball",
-                                    "knn", "attention", "flowenc", "flowmid",
-                                    "fusion_tail", "fusion_cells", "pn2mid"])
+@pytest.mark.parametrize("kernel", ["fps", "setconv", "knnconv", "fusion", "fusion_payload",
+                                    "ball", "knn", "attention", "flowenc", "flowmid",
+                                    "fusion_tail", "fusion_cells", "fusion_cells_payload",
+                                    "pn2mid"])
 def test_eval_only_kernels_refuse_grad(kernel):
     """The eval kernels of differentiable values (set-conv, kNN-conv, the
-    one-shot fusion (flat and cell-pruned), the eval attention, the
+    one-shot fusion (flat and cell-pruned, also for a payload that needs a
+    gradient beside a cloud that does not), the eval attention, the
     FlowNet3D megakernels, the fusion's attention tail, PointNet++'s
     mid-section) define no backward and refuse an
     input that needs a gradient; the index-only ones (FPS, ball query,
