@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (pci_tpu_torch) of PointINet (at 16,384,
-32,768 and 65,536 points, on xyz clouds and with the intensity channel)
-and ISAPCInet (field=2, served and trained), and both eval CLIs with the
-EMD metric, on one NVIDIA card.
+32,768 and 65,536 points, on xyz clouds and with the intensity channel),
+ISAPCInet (field=2, served and trained), PointINet2 (field=2, at eval),
+and both eval CLIs with the EMD metric, on one NVIDIA card.
 
 Run from the repository root on a machine with a CUDA card:
 
@@ -46,9 +46,17 @@ each printing its own lines:
      scales; indices equal), the residual fusion kNN at FUSION_RESI_HOLDS
      (three and four segments, a segment shorter than its budget, a budget
      past 16, duplicates, a cloud 300 m out; at 1, 2 and 4 key parts,
-     indices identical and residuals bit-equal), and PointsFusion at k = 48
+     indices identical and residuals bit-equal), and PointsFusion at k = 96
      at eval and in training (no kernel launched, equal to the plain
-     route).  The k = 1 kNN (csrc/knn.cu nearest_kernel) at NEAREST_HOLDS
+     route).  Rows 4, 4b and 7 at k = 48 and 64, their k <= 64
+     instantiations, at FUSION64_HOLDS and FUSION64_MULTI_HOLDS (t near 0
+     and 1, a segment shorter than its budget, payloads, three segments
+     with a cloud the budgets' clamp leaves empty): row 4b bit-equal at
+     every part count, rows 4 and 7 within 1e-4 and their weighted sums
+     against fp64 within TAIL_SUM_LIMIT, then their resources.
+     TransformerLayer at ATTENTION_ROUTE_HOLDS (d_model 20 and 256 at eval,
+     128 in training): no attention launch, equal to the plain route.
+     The k = 1 kNN (csrc/knn.cu nearest_kernel) at NEAREST_HOLDS
      (the eval windows' shapes, a cluster edge, prefixes of 0 and past N,
      duplicates tied across the ranks; indices and distances equal) and
      the attention tail at FUSION_TAIL_HOLDS (k = 7-32, payloads of 0-5
@@ -172,6 +180,17 @@ each printing its own lines:
      finite frames, the frame against the plain forward and one-shot
      off's against the default's, ms/frame beside the xyz request's
      through the same model.
+ 11. PointINet2 field=2 at eval (flows and the key fusion from the trained
+     PointINet, Wnet and the k = 64 fusions a seeded init): one
+     16,384-point request through the model's forward and
+     make_interp_eval_step at the trainer's 16,000 points, batch 2: one
+     plain call's dispatches against PER_REQUEST_POINTINET2 (and one-shot
+     off's, PER_REQUEST_POINTINET2_ONESHOT_OFF; the step's,
+     PER_EVAL_STEP_POINTINET2), its fusion kernels (rows 4, 4b and 7 at k
+     = 32 and 64) against their plain versions at these shapes, then five
+     requests (steps) on each route with those counts, the frames against
+     the plain forward, one-shot off's against the default's, finite
+     chamfers, ms a request (step) and the busy share.
 Each phase prints the seconds since the start when it ends.
 Then a resources line for each kernel whose dense products run on the
 tensor cores (the one-shot fusion, the attention tail, flowmid, kNN-conv,
@@ -191,6 +210,7 @@ Exits non-zero, with no result line, when CUDA is missing or a phase fails.
 from __future__ import annotations
 
 import contextlib
+import copy
 import importlib
 import json
 import os
@@ -309,6 +329,19 @@ LARGE_N = (65536, 32768)  # paper Table 6's other protocol rows
 # kernel's k=1 form; the one-shot fusion is eval only
 PER_STEP = per(fps=6 + 8, flowenc=6, flowmid=8, knnconv=8, ball=8, knn=8, knn_cells=2,
                attention=2, attention_bwd=2, fusion_resi=1, nearest=2)
+# PointINet2 field=2 (phase 11), one request: the key PointINet (2
+# encodings and 2 decodes of FlowNet3D, its one-shot fusion at k = 32), the
+# ring flows from one FlowNet3D.multi over the 6 frames (6 encodings, 4
+# decodes), the two ring fusions at k = 64 (the one-shot kernel's k <= 64
+# instantiation), fusion2's residual kNN over 3 segments at k = 64 (its
+# GroupNorm head is PyTorch's); with one-shot off each PointsFusion is the
+# residual kNN and the tail; its eval step adds the chamfer's two k = 1 kNNs
+PER_REQUEST_POINTINET2 = per(fps=2 + 6, flowenc=2 + 6, flowmid=2 + 4, knnconv=2 + 4,
+                             fusion=1 + 2, fusion_resi=1)
+PER_REQUEST_POINTINET2_ONESHOT_OFF = per(fps=2 + 6, flowenc=2 + 6, flowmid=2 + 4,
+                                         knnconv=2 + 4, fusion_resi=3 + 1, fusion_tail=3)
+PER_EVAL_STEP_POINTINET2 = per(**{**PER_REQUEST_POINTINET2, "nearest": 2})
+FUSION_KINDS = ("fusion", "fusion_resi", "fusion_tail")
 STREAMS = 8
 STREAM_T = tuple((i + 1) / (STREAMS + 1) for i in range(STREAMS))
 FIELD = 2
@@ -1504,6 +1537,60 @@ def hold_attention(card: str) -> None:
               f"bit-equal; {ms:.4f} ms, plain {plain_ms:.4f} ms (CUDA events) on {card}")
 
 
+# TransformerLayer shapes outside the attention kernels (d_points, d_model,
+# mode): d_model 20 (not a multiple of 8) and 256 (past the forward's 128)
+# at eval, 128 in training (past the backward's 64)
+ATTENTION_ROUTE_HOLDS = ((64, 20, "eval"), (64, 256, "eval"), (64, 128, "train"))
+
+
+def hold_attention_routes(card: str) -> None:
+    """TransformerLayer (k = 16, 4,096 points, seeded weights) at
+    ATTENTION_ROUTE_HOLDS on the card: the attention tail takes its plain
+    version by shape before any launch (training: both directions decided
+    at the forward), so neither attention kernel launches; the rows (and in
+    training every gradient) against the same call through the plain
+    versions, within 1e-5 of their largest magnitude (the kNN's
+    index_points backward adds by atomics)."""
+    from pci_tpu_torch.nn import TransformerLayer
+    from pci_tpu_torch.ops.cuda_kernels import launch_counts, plain_versions, reset_launch_counts
+    from pci_tpu_torch.serving import init_weights
+
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(1660)
+    for d_points, d_model, mode in ATTENTION_ROUTE_HOLDS:
+        base = TransformerLayer(d_points, d_model, 16)
+        init_weights(base, 1661)
+        base = base.to(dev).train(mode == "train")
+        xyz = torch.randn(1, 4096, 3, generator=g).to(dev)
+        feats = torch.randn(1, 4096, d_points, generator=g).to(dev)
+        G = torch.randn(1, 4096, d_points, generator=g).to(dev)
+        outs, fired = [], {}
+        for plain in (False, True):
+            layer = copy.deepcopy(base)
+            f = feats.clone().requires_grad_(mode == "train")
+            reset_launch_counts()
+            with plain_versions() if plain else contextlib.nullcontext():
+                if mode == "eval":
+                    with torch.inference_mode():
+                        outs.append([layer(xyz, f)[0]])
+                else:
+                    out = layer(xyz, f)[0]
+                    (out * G).sum().backward()
+                    outs.append([out.detach(), f.grad] + [p.grad for p in layer.parameters()])
+            torch.cuda.synchronize()
+            if not plain:
+                fired = {n: c for n, c in launch_counts().items() if c}
+        where = f"attention route hold TransformerLayer({d_points}, {d_model}, 16) {mode}"
+        check(not fired.get("attention") and not fired.get("attention_bwd"),
+              f"{where}: launched {fired}")
+        err = max(((a - b).abs().max() / b.abs().max().clamp(min=1e-30)).item()
+                  for a, b in zip(*outs))
+        check(err <= 1e-5, f"{where}: {err} of the largest magnitude from the plain route")
+        print(f"{where} on {card}: launches {fired} (no attention kernel); rows"
+              f"{' and gradients' if mode == 'train' else ''} within {err:.3g} of their largest "
+              f"magnitude of the plain route's")
+
+
 def attention_stages_line(args, card: str, path: str) -> None:
     """The `stages attention` lines: the forward's and the backward's
     %globaltimer stage split (attention_cuda.attention_stages) at a path's
@@ -2019,11 +2106,11 @@ def fusion_resi_stages_line(args, card: str, path: str) -> None:
           f"{float(t[:, 5].sum()) / (B * N):.1f} a query")
 
 
-def hold_fusion_k48(card: str) -> None:
-    """PointsFusion at k = 48 on the card (ROADMAP C.4: the fusion kernels
-    take k <= 32): at eval and in training it launches no kernel and
-    equals the same call through the plain versions (training: the rows
-    and the gradients into both clouds)."""
+def hold_fusion_k96(card: str) -> None:
+    """PointsFusion at k = 96 on the card (the fusion kernels take k <=
+    64): at eval and in training it launches no kernel and equals the same
+    call through the plain versions (training: the rows and the gradients
+    into both clouds)."""
     import copy
 
     from pci_tpu_torch.nn import PointsFusion
@@ -2031,7 +2118,7 @@ def hold_fusion_k48(card: str) -> None:
     from pci_tpu_torch.serving import init_weights
 
     dev = torch.device("cuda")
-    n, k = 4096, 48
+    n, k = 4096, 96
     a_np, b_np = synthetic_pair(17, n)
     a, b = (torch.from_numpy(x)[None].to(dev) for x in (a_np, b_np))
     g = torch.Generator().manual_seed(18)
@@ -2071,6 +2158,132 @@ def hold_fusion_k48(card: str) -> None:
                   f"plain route's")
     finally:
         torch.use_deterministic_algorithms(was)
+
+
+# rows 4, 4b and 7 past k = 32 (their k <= 64 instantiations, two slots a
+# lane): (N, k, t, Cp); t gives PointsFusion's budgets
+# (nn.fusion._adaptive_budgets), t near 0 and 1 a segment's budget past 32,
+# a tuple (N1, k1, k2) a segment shorter than its budget; Cp a payload's
+# channels for row 4 (row 7 takes them as its extra)
+FUSION64_HOLDS = ((16384, 64, 0.5, 0), (16384, 48, 0.3, 0), (4096, 64, 0.02, 0),
+                  (4096, 64, 0.98, 1), (2048, 64, (10, 40, 24), 0), (3000, 48, (700, 30, 18), 2),
+                  (5000, 64, 0.5, 1))
+# PointsFusionMulti's residual kNN (row 4b at F = 3): (N, k, w) with w
+# Wnet's first two weights (nn.fusion._multi_budgets): PointINet2's usual
+# split, one past 32 in a cloud, and a cloud the cumulative clamp leaves
+# with 0 points and 0 slots
+FUSION64_MULTI_HOLDS = ((16384, 64, (0.08, 0.09)), (16000, 48, (0.6, 0.1)),
+                        (4096, 64, (0.99, 0.004)))
+
+
+def fusion_sum_errors(got, combined, seg_ends, budgets, layers, k) -> tuple:
+    """A one-shot kernel's weighted residual sums ``got - combined`` (on a
+    cloud near the origin, where that difference rounds below 1e-7) against
+    fp64 on the plain version's neighbours: the max abs error of the
+    kernel, of the plain version in fp32 and of the plain version with one
+    TF32 product a layer."""
+    from pci_tpu_torch.ops.cuda_kernels import _build
+    from pci_tpu_torch.ops.cuda_kernels.fusion_knn_cuda import fusion_head, fusion_plain, \
+        fusion_resi_plain
+
+    layers64 = [(w.double(), b.double()) for w, b in layers]
+    with torch.inference_mode():
+        _, resi = fusion_resi_plain(combined, seg_ends, budgets, k)
+        zero = torch.zeros_like(combined, dtype=torch.float64)
+        ref = fusion_head(zero, resi.double(), lambda h: _build.mlp_plain(h, layers64))
+        fp32 = fusion_plain(combined, seg_ends, budgets, layers, k)[..., :3]
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            tf32 = fusion_plain(combined, seg_ends, budgets, layers, k)[..., :3]
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+    return tuple(((t[..., :3] - combined).double() - ref).abs().max().item()
+                 for t in (got, fp32, tf32))
+
+
+def hold_fusion_k64(card: str) -> None:
+    """Rows 4, 4b and 7 at k = 48 and 64 (their k <= 64 instantiations) at
+    FUSION64_HOLDS and FUSION64_MULTI_HOLDS, on seeded clouds (sigma 1 m)
+    with hold_fusion_tail's seeded score MLP: row 4b's indices identical and
+    residuals bit-equal to the plain version's at 1, 2 and 4 parts and the
+    kernel's choice; row 4 and row 7 (on row 4b's residuals, with the
+    payload gathered by its indices as extra) within 1e-4 of their plain
+    versions, payload channels within PAYLOAD_LIMIT, and their weighted
+    sums against fp64 within TAIL_SUM_LIMIT and below one TF32 product's
+    error (row 4 on its residual sums, row 7 with combined = 0, the
+    payloads' sums alone).  Then the k <= 64 instantiations' resources."""
+    from pci_tpu_torch.nn.fusion import _adaptive_budgets, _multi_budgets
+    from pci_tpu_torch.ops import index_points
+    from pci_tpu_torch.ops.cuda_kernels import fusion_knn_cuda as F
+    from pci_tpu_torch.ops.cuda_kernels import fusion_tail_cuda as T
+    from pci_tpu_torch.ops.cuda_kernels._build import kernel_attrs
+
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(1650)
+    layers = seeded_score_mlp(g, dev)
+    cases = []
+    for N, k, t, Cp in FUSION64_HOLDS:
+        if isinstance(t, tuple):
+            seg_ends, budgets = torch.tensor([[t[0], N]]), torch.tensor([t[1:]])
+        else:
+            N1, _, k1, k2 = _adaptive_budgets(N, k, torch.tensor([t]))
+            seg_ends = torch.stack([N1, torch.full_like(N1, N)], 1)
+            budgets = torch.stack([k1, k2], 1)
+        cases.append((N, k, seg_ends, budgets, Cp))
+    for N, k, w in FUSION64_MULTI_HOLDS:
+        n_all, k_all = _multi_budgets(N, k, torch.tensor([w]))
+        cases.append((N, k, torch.cumsum(n_all, 1), k_all, 0))
+    for N, k, seg_ends, budgets, Cp in cases:
+        combined = torch.randn(1, N, 3, generator=g).to(dev)
+        payload = torch.rand(1, N, Cp, generator=g).to(dev) if Cp else None
+        where = f"N={N} k={k} ends={seg_ends.tolist()} budgets={budgets.tolist()} Cp={Cp}"
+        with torch.inference_mode():
+            want = F.fusion_resi_plain(combined, seg_ends, budgets, k)
+            for parts in (0, 1, 2, 4):
+                got = F.fusion_resi_kernel(combined, seg_ends, budgets, k, parts=parts)
+                torch.cuda.synchronize()
+                check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+                      f"fusion_resi k64 hold {where} parts={parts}: differs from the plain "
+                      "version")
+        line = (f"fusion k64 hold {where}: fusion_resi indices identical and residuals "
+                f"bit-equal at 1, 2, 4 parts and the kernel's choice")
+        idx, resi = want
+        extra = index_points(payload, idx) if Cp else None
+        with torch.inference_mode():
+            got = T.fusion_tail_kernel(combined, resi, extra, layers)
+            torch.cuda.synchronize()
+            plain = T.fusion_tail_plain(combined, resi, extra, layers)
+        e = compare("fusion_tail", got, plain, f"k64 hold {where}")
+        e_k, e_32, e_tf = tail_sum_errors(resi, extra, layers)
+        line += (f"; fusion_tail {e:.3g} from plain, sums vs fp64 {e_k:.3g} (plain fp32 "
+                 f"{e_32:.3g}, 1xTF32 {e_tf:.3g})")
+        check(e_k <= TAIL_SUM_LIMIT and e_k < e_tf,
+              f"fusion_tail k64 hold {where}: weighted sums {e_k} from fp64")
+        if seg_ends.shape[1] == 2:
+            with torch.inference_mode():
+                got = F.fusion_kernel(combined, seg_ends, budgets, layers, k, payload)
+                torch.cuda.synchronize()
+                plain = F.fusion_plain(combined, seg_ends, budgets, layers, k, payload)
+            check(got.shape == (1, N, 3 + Cp), f"fusion k64 hold {where}: rows {tuple(got.shape)}")
+            e = compare("fusion", got, plain, f"k64 hold {where}")
+            e_k, e_32, e_tf = fusion_sum_errors(got, combined, seg_ends, budgets, layers, k)
+            line += (f"; fusion {e:.3g} from plain, residual sums vs fp64 {e_k:.3g} (plain fp32 "
+                     f"{e_32:.3g}, 1xTF32 {e_tf:.3g})")
+            check(e_k <= TAIL_SUM_LIMIT and e_k < e_tf,
+                  f"fusion k64 hold {where}: weighted sums {e_k} from fp64")
+            if Cp:
+                p_k, p_32, p_tf = payload_sum_errors(got, combined, seg_ends, budgets, layers, k,
+                                                     payload)
+                line += f", payload sums vs fp64 {p_k:.3g} (1xTF32 {p_tf:.3g})"
+                check(p_k <= TAIL_SUM_LIMIT and p_k < p_tf,
+                      f"fusion k64 hold {where}: payload sums {p_k} from fp64")
+        print(line + f" on {card}", flush=True)
+    for kname, entry in (("fusion", "pci_fusion64_attrs"),
+                         ("fusion", "pci_fusion64_payload_attrs"),
+                         ("fusion_resi", "pci_fusion_resi64_attrs"),
+                         ("fusion_tail", "pci_fusion_tail64_attrs")):
+        print(f"kernel resources {kname} at k <= 64 ({entry}): "
+              f"{resources_text(kernel_attrs(entry))}")
 
 
 def knn_walk_pairs(points, kth, chunk: int, tile: int) -> float:
@@ -2956,6 +3169,175 @@ def phase_intensity(card: str, totals: dict, model16) -> list:
     return paths
 
 
+def fusion_k(name, args) -> int:
+    """The k of a recorded fusion call (rows 4, 4b, 7)."""
+    return args[1].shape[2] if name == "fusion_tail" else args[-1]
+
+
+def queued_ms(fn, reps: int = 20) -> float:
+    """Milliseconds a call of ``fn`` takes in a run of ``reps`` calls
+    queued back to back between two CUDA events, after two warm-up calls:
+    the device's time a call wherever the host enqueues a call faster than
+    the device runs it (no profiler: in a long process torch.profiler has
+    read kernels as 0 ms)."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def fusion64_stages_lines(calls, card: str, path: str) -> None:
+    """The `stages fusion64` line of each recorded fusion call past k = 32
+    (rows 4, 4b and 7 on their k <= 64 instantiations): CUDA events around
+    one call (median of 10, the host's launch included) and a call's share
+    of 20 queued back to back (the device's time)."""
+    with torch.inference_mode():
+        for name, fn, args, kw in calls:
+            if fusion_k(name, args) <= 32:
+                continue
+            call = lambda: fn(*args, **kw)  # noqa: E731
+            print(f"stages fusion64 {path} {name} {label(name, args, kw)} on {card}: "
+                  f"{cuda_ms(call, 10):.4f} ms (CUDA events, one call), {queued_ms(call):.4f} "
+                  f"ms a call of 20 queued")
+
+
+def pointinet2_model(dev):
+    """PointINet2 field=2 on ``dev``, eval: the trained PointINet
+    (assets/pointinet_synth16k.npz) as its key PointINet (flow and fusion)
+    and as its ring flow; Wnet, the ring fusions and fusion2 a seeded
+    init."""
+    from pci_tpu_torch.convert import flax_to_state_dict, load_npz_tree
+    from pci_tpu_torch.models import PointINet2
+    from pci_tpu_torch.serving import DEFAULT_WEIGHTS, init_weights
+
+    model = PointINet2(FIELD)
+    init_weights(model, 1100)
+    trained = flax_to_state_dict(load_npz_tree(DEFAULT_WEIGHTS))
+    own = {f"pointinet.{k}": v for k, v in trained.items()}
+    own.update({k: v for k, v in trained.items() if k.startswith("flow.")})
+    missing, unexpected = model.load_state_dict(own, strict=False)
+    check(not unexpected and not any(k.startswith(("flow.", "pointinet.")) for k in missing),
+          f"pointinet2 weights: missing {missing[:5]}, unexpected {unexpected[:5]}")
+    return model.to(dev).eval()
+
+
+def phase_pointinet2(card: str, totals: dict) -> list:
+    """PointINet2 field=2 at eval (its ring and multi-cloud fusions at k =
+    64): one 16,384-point request (a seeded six-frame window, B = 1)
+    through the model's forward, and ``make_interp_eval_step`` at the
+    trainer's 16,000 points, B = 2 (train_batch's windows).  For each: one
+    plain call's dispatches on the default route (and for the request with
+    one-shot off) against their counts, its fusion kernels (rows 4, 4b and
+    7, at k = 32 and 64) against their plain versions at these shapes;
+    then five requests (steps) with the counts set to 0 before, the frames
+    against the plain forward on the same permutations, one-shot off's
+    against the default's, ms a request (step) by CUDA events, and the
+    device's busy share."""
+    from pci_tpu_torch.ops.cuda_kernels import launch_counts, plain_versions, reset_launch_counts
+    from pci_tpu_torch.train import make_interp_eval_step
+
+    dev = torch.device("cuda")
+    model = pointinet2_model(dev)
+    paths = []
+    fwd, (k0, k1), bwd, _ = synthetic_window()
+    T = lambda x: torch.from_numpy(x)[None].to(dev)  # noqa: E731
+    args = ([T(x) for x in fwd], [T(k0), T(k1)], [T(x) for x in bwd],
+            torch.tensor([0.5], device=dev), torch.zeros(1, NPOINTS, 3, device=dev))
+    g = torch.Generator().manual_seed(1101)
+    perms = [torch.randperm(NPOINTS, generator=g)[None].to(dev)
+             for _ in range(2 + 2 * FIELD + FIELD + 1)]
+    path = f"pointinet2 {NPOINTS}"
+    calls = []
+    with torch.inference_mode(), plain_versions(), record_calls(calls):
+        model(*args, perms=perms)
+        request = len(calls)
+        with gates(ONESHOT_OFF):
+            model(*args, perms=perms)
+    for part, want, route in ((calls[:request], PER_REQUEST_POINTINET2, "default"),
+                              (calls[request:], PER_REQUEST_POINTINET2_ONESHOT_OFF,
+                               "one-shot off")):
+        got = {name: sum(1 for c in part if c[0] == name) for name in KERNEL_INFO}
+        check(got == want, f"{path} {route}: dispatches {got}, expected {want}")
+        # the flow's kernels are phase 3's at these shapes: hold the fusion's
+        fus = [c for c in part if c[0] in FUSION_KINDS]
+        hold_kernels(fus, len(fus), per(**{n: want[n] for n in FUSION_KINDS}), totals,
+                     f"{path} {route}")
+        fusion64_stages_lines(fus, card, f"{path} {route}")
+    del calls
+
+    def serve(p=None):
+        with torch.inference_mode():
+            return model(*args, perms=p)[0].cpu().numpy()
+
+    for route, want, values in (("default", PER_REQUEST_POINTINET2, {}),
+                                ("one-shot off", PER_REQUEST_POINTINET2_ONESHOT_OFF,
+                                 ONESHOT_OFF)):
+        with gates(values):
+            serve()  # warm-up
+            paths.append(serve_counts(lambda: [serve() for _ in range(5)], want,
+                                      f"{path} {route}"))
+            got = serve(perms)
+            with plain_versions():
+                plain = serve(perms)
+            p999, mx = agreement(got, plain, f"{path} {route} frame vs plain")
+            check(p999 <= 1e-3 and mx <= 0.25, f"{path} {route}: frame disagrees with the plain "
+                                               "forward")
+            if route == "default":
+                default = got
+            else:
+                p999, mx = agreement(got, default, f"{path} frame, one-shot off vs default")
+                check(p999 <= 1e-3 and mx <= 0.25, f"{path}: one-shot off disagrees")
+            latency(serve, card, f"{path} {route} (model call)")
+            if route == "default":
+                device_share(serve)
+
+    # the eval step at the trainer's shape
+    batch = train_batch(dev)
+    step = make_interp_eval_step(model)
+    draws = lambda: torch.Generator(device=dev).manual_seed(1102)  # noqa: E731
+    path = f"pointinet2 eval step {TRAIN_N} x {len(TRAIN_T)}"
+    calls = []
+    with plain_versions(), record_calls(calls):
+        _, plain = step(batch, draws())
+    got = {name: sum(1 for c in calls if c[0] == name) for name in KERNEL_INFO}
+    check(got == PER_EVAL_STEP_POINTINET2, f"{path}: dispatches {got}, expected "
+                                           f"{PER_EVAL_STEP_POINTINET2}")
+    fus = [c for c in calls if c[0] in FUSION_KINDS]
+    hold_kernels(fus, len(fus), per(**{n: PER_EVAL_STEP_POINTINET2[n] for n in FUSION_KINDS}),
+                 totals, path)
+    fusion64_stages_lines(fus, card, path)
+    del calls
+    step(batch, draws())  # warm-up
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    outs = [step(batch, draws()) for _ in range(5)]
+    counts = launch_counts()
+    print(f"{path}: 5 steps, launches {counts}")
+    check(counts == {k: 5 * v for k, v in PER_EVAL_STEP_POINTINET2.items()},
+          f"{path} launch counts {counts} != {PER_EVAL_STEP_POINTINET2} x 5")
+    for cd, frame in outs:
+        check(cd.shape == (len(TRAIN_T),) and bool(torch.isfinite(cd).all())
+              and frame.shape == (len(TRAIN_T), TRAIN_N, 3) and bool(torch.isfinite(frame).all()),
+              f"{path}: chamfer {cd} or frames not finite")
+    print(f"{path}: chamfer a sample {[round(float(c), 6) for c in outs[0][0]]}")
+    for b in range(len(TRAIN_T)):
+        p999, mx = agreement(outs[0][1][b].cpu().numpy(), plain[b].cpu().numpy(),
+                             f"{path} sample {b} frame vs plain")
+        check(p999 <= 1e-3 and mx <= 0.25, f"{path}: frame {b} disagrees with the plain forward")
+    paths.append(per(**{k: 5 * v for k, v in PER_EVAL_STEP_POINTINET2.items()}))
+    latency(lambda: step(batch, draws()), card, f"{path} (a step, {len(TRAIN_T)} frames)")
+    device_share(lambda: step(batch, draws()), requests=3, unit="step")
+    del model
+    torch.cuda.empty_cache()
+    return paths
+
+
 @contextlib.contextmanager
 def emd_calls(calls: list):
     """Record every EMD the eval CLIs compute: CUDA events around each
@@ -3368,10 +3750,12 @@ def main() -> int:
     hold_knn_routes(card)
     hold_nearest(card)
     hold_attention(card)
+    hold_attention_routes(card)
     hold_ball(card)
     hold_fusion_resi(card)
     hold_fusion_tail(card)
-    hold_fusion_k48(card)
+    hold_fusion_k96(card)
+    hold_fusion_k64(card)
     hold_fusion_payload(card)
     phase_time("3. kernels")
 
@@ -3414,8 +3798,12 @@ def main() -> int:
     counts_intensity = phase_intensity(card, totals, interp.model)
     phase_time("10. intensity")
 
+    # 11. PointINet2 field=2 at eval: a request and the eval step
+    counts_pointinet2 = phase_pointinet2(card, totals)
+    phase_time("11. pointinet2")
+
     paths = [counts, counts_stream, *counts_routes, *counts_isapci, counts_train, *counts_large,
-             *counts_eval, *counts_intensity]
+             *counts_eval, *counts_intensity, *counts_pointinet2]
     for kname, entry in RESOURCE_KERNELS.items():  # the tensor-core and auction kernels
         t = totals[kname]
         print(f"kernel resources {kname}: {resources_text(kernel_attrs(entry))}; max |kernel - "

@@ -1,5 +1,6 @@
 // The fusion's attention head for one query, one warp a query and lane L
-// holding slot L (k <= 32): the folded score MLP over [resi |
+// holding slot L (k <= 32), or slots L and 32 + L (k <= 64: head_weight2,
+// fused_row2, payload_sums2): the folded score MLP over [resi |
 // safe_norm(resi)], the max over channels, and the softmax over the slots,
 // on the tensor cores in 3xTF32 (csrc/mma_tf32.cuh), the split weights in
 // shared memory (score_tile, head_weight, fused_row), then the weighted
@@ -186,6 +187,58 @@ __device__ __forceinline__ float3 fused_row(const float* sw, float x, float y, f
   return make_float3(x + ax / wsum, y + ay / wsum, z + az / wsum);
 }
 
+// ---- up to 64 slots, two a lane -------------------------------------------
+
+// Slots `lane` (half 0, residual x0 y0 z0) and 32 + lane (half 1, x1 y1 z1)
+// of one query, k <= 64: the same score_tile over `tiles` 16-slot tiles (1 to
+// 4, one loop: a tile past the last active slot is not run; tile mt reads
+// half mt / 2), then the softmax over both halves at once.  This is the
+// merge of the TPU kernel's online softmax over two blocks of slots
+// (fusion_knn_tpu.py:online_softmax_step) with both halves' scores still in
+// registers: the max of the two halves' maxima comes first, so no partial
+// sum is rescaled.  w0 / w1: the two slots' weights before normalisation
+// (exp(score - max over the active slots)), 0 for an inactive slot.
+__device__ __forceinline__ void head_weight2(const float* sw, float x0, float y0, float z0,
+                                             float x1, float y1, float z1, bool act0, bool act1,
+                                             int tiles, float& w0, float& w1) {
+  const int lane = threadIdx.x & 31, src = (lane & 7) * 4;
+  const float n0 = sqrtf(x0 * x0 + y0 * y0 + z0 * z0 + 1e-12f);
+  const float n1 = sqrtf(x1 * x1 + y1 * y1 + z1 * z1 + 1e-12f);
+  float s0 = 0.f, s1 = 0.f;
+#pragma unroll 1
+  for (int mt = 0; mt < tiles; ++mt) {
+    const bool hi = mt >= 2;
+    float lo, up;
+    score_tile(sw, hi ? x1 : x0, hi ? y1 : y0, hi ? z1 : z0, hi ? n1 : n0, mt & 1, lo, up);
+    // slot 16 (mt & 1) + r of the half sits on lane 4 (r % 8), lo for r < 8
+    const float a = __shfl_sync(FULL, lo, src), b = __shfl_sync(FULL, up, src);
+    if ((lane >> 4) == (mt & 1)) {
+      const float v = (lane & 8) ? b : a;
+      if (hi) s1 = v;
+      else s0 = v;
+    }
+  }
+  float m = fmaxf(act0 ? s0 : -CUDART_INF_F, act1 ? s1 : -CUDART_INF_F);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) m = fmaxf(m, __shfl_xor_sync(FULL, m, off));
+  w0 = act0 ? expf(s0 - m) : 0.f;
+  w1 = act1 ? expf(s1 - m) : 0.f;
+}
+
+// The fused row of one query over up to 64 slots (head_weight2): q + sum w
+// r / sum w on every lane; w0, w1 and wsum return the lane's two slot
+// weights and the weights' sum, for payload_sums2.
+__device__ __forceinline__ float3 fused_row2(const float* sw, float x, float y, float z,
+                                             float rx0, float ry0, float rz0, float rx1,
+                                             float ry1, float rz1, bool act0, bool act1,
+                                             int tiles, float& w0, float& w1, float& wsum) {
+  head_weight2(sw, rx0, ry0, rz0, rx1, ry1, rz1, act0, act1, tiles, w0, w1);
+  wsum = warp_sum(w0 + w1);
+  const float ax = warp_sum(w0 * rx0 + w1 * rx1), ay = warp_sum(w0 * ry0 + w1 * ry1),
+              az = warp_sum(w0 * rz0 + w1 * rz1);
+  return make_float3(x + ax / wsum, y + ay / wsum, z + az / wsum);
+}
+
 // The most payload channels the one-shot kernels carry (rows 4 and 12; the
 // wrappers route a wider payload to the plain versions).
 #define PAYLOAD_MAX 8
@@ -204,6 +257,18 @@ __device__ __forceinline__ void payload_sums(float w, float wsum, bool active, i
                                              const Value& value, float* dst) {
   for (int c = 0; c < Cp; ++c) {
     const float v = warp_sum(w * (active ? value(c) : 0.f));
+    if ((threadIdx.x & 31) == 0 && dst) dst[c] = v / wsum;
+  }
+}
+
+// payload_sums over two slots a lane (head_weight2): value(c, h) reads
+// channel c of slot 32 h + lane, for an active slot only.
+template <class Value>
+__device__ __forceinline__ void payload_sums2(float w0, float w1, float wsum, bool act0,
+                                              bool act1, int Cp, const Value& value,
+                                              float* dst) {
+  for (int c = 0; c < Cp; ++c) {
+    const float v = warp_sum(w0 * (act0 ? value(c, 0) : 0.f) + w1 * (act1 ? value(c, 1) : 0.f));
     if ((threadIdx.x & 31) == 0 && dst) dst[c] = v / wsum;
   }
 }

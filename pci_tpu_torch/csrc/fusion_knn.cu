@@ -49,6 +49,12 @@
 //     never exists.
 // The scan and the head of one block alternate (a two-phase block); the
 // other SMs' blocks and the 16 warps of each keep both units busy.
+// k <= 64 (PointINet2's ring fusions, pci_fusion64) is an instantiation of
+// its own (S = 2), so that k <= 32 keeps its registers and time: each lane
+// holds list entries L and 32 + L (list_insert2: two ballots, the shifts
+// of both halves), and the head runs the same 16-slot tiles up to four
+// times (fusion_head.cuh head_weight2), the softmax taken over both halves
+// at once.
 //
 // The same file holds the training route's kernel, fusion_resi_kernel: it
 // replaces fusion_knn_tpu.py:knn_fusion_adaptive / knn_fusion_multi
@@ -58,7 +64,9 @@
 // fill holds the row itself (zero residual).  Its backward is a
 // scatter-add of the residual gradient, outside any kernel, as in the JAX
 // package.  Bound: the N^2 distances a cloud (8 flops each), so
-// operations; its design is set out above the kernel.
+// operations; its design is set out above the kernel.  k <= 64 runs the
+// KMAX = 64 instantiation (a 64-entry list for a segment's budget past 32,
+// and shared-memory lists and slot rows sized for it).
 #include "fusion_head.cuh"
 #include "cells.cuh"
 
@@ -86,6 +94,41 @@ __device__ __forceinline__ void list_insert(float& dL, int& iL, float& thr,
   thr = __shfl_sync(FULL, dL, cap - 1);
 }
 
+// list_insert for a list of up to 64 entries, two a lane: entry `lane` in
+// (d0, i0) and entry 32 + lane in (d1, i1); `cap` <= 64.
+__device__ __forceinline__ void list_insert2(float& d0, int& i0, float& d1, int& i1, float& thr,
+                                             int cap, float dn, int jn, int lane) {
+  if (!(dn < thr)) return;  // warp-uniform
+  const int p = __popc(__ballot_sync(FULL, d0 <= dn)) + __popc(__ballot_sync(FULL, d1 <= dn));
+  const float u0 = __shfl_up_sync(FULL, d0, 1), u1 = __shfl_up_sync(FULL, d1, 1);
+  const int v0 = __shfl_up_sync(FULL, i0, 1), v1 = __shfl_up_sync(FULL, i1, 1);
+  const float e31 = __shfl_sync(FULL, d0, 31);  // entry 31 moves to entry 32
+  const int j31 = __shfl_sync(FULL, i0, 31);
+  if (32 + lane > p) {
+    d1 = lane ? u1 : e31;
+    i1 = lane ? v1 : j31;
+  } else if (32 + lane == p) {
+    d1 = dn;
+    i1 = jn;
+  }
+  if (lane > p) {
+    d0 = u0;
+    i0 = v0;
+  } else if (lane == p) {
+    d0 = dn;
+    i0 = jn;
+  }
+  if (32 + lane >= cap) {
+    d1 = CUDART_INF_F;
+    i1 = -1;
+  }
+  if (lane >= cap) {
+    d0 = CUDART_INF_F;
+    i0 = -1;
+  }
+  thr = cap <= 32 ? __shfl_sync(FULL, d0, cap - 1) : __shfl_sync(FULL, d1, cap - 33);
+}
+
 // ---- the one-shot kernel --------------------------------------------------
 
 #define ONE_WARPS 16    // warps a block
@@ -109,25 +152,29 @@ __device__ __forceinline__ void stage_keys(const float* __restrict__ P, int t0, 
 }
 
 // The budgeted two-segment scan (segment A = [0, n1), B = [n1, N),
-// budgets cap0 and cap1 <= 32 - cap0) for QW queries a warp, one lane a
-// list entry: each lane keeps entry `lane` of a query's sorted A and B
-// lists in registers, every lane tests one key against its segment's
-// current cap-th distance, and the few keys that pass go in by
-// list_insert.  The block streams the keys through two tile buffers
-// (`keys`, 2 x ONE_TILE xyz rows) by cp.async, the next tile loading while
-// every warp scans the current one.  idx[i] is the key index of query i's
-// slot `lane`, -1 for an unfilled slot.
-template <int QW>
+// budgets cap0 and cap1 <= 32 S - cap0) for QW queries a warp, S list
+// entries a lane: each lane keeps entries `lane` (and, for S = 2, 32 +
+// lane) of a query's sorted A and B lists in registers, every lane tests
+// one key against its segment's current cap-th distance, and the few keys
+// that pass go in by list_insert (list_insert2).  The block streams the
+// keys through two tile buffers (`keys`, 2 x ONE_TILE xyz rows) by
+// cp.async, the next tile loading while every warp scans the current one.
+// idx[i][h] is the key index of query i's slot 32 h + lane, -1 for an
+// unfilled slot.
+template <int QW, int S>
 __device__ __forceinline__ void oneshot_slots(const float* __restrict__ P, int N, int n1,
                                               int cap0, int cap1, const float (&qx)[QW],
                                               const float (&qy)[QW], const float (&qz)[QW],
-                                              float* keys, int lane, int (&idx)[QW]) {
-  float dA[QW], dB[QW], thrA[QW], thrB[QW];
-  int iA[QW], iB[QW];
+                                              float* keys, int lane, int (&idx)[QW][S]) {
+  float dA[QW][S], dB[QW][S], thrA[QW], thrB[QW];
+  int iA[QW][S], iB[QW][S];
 #pragma unroll
   for (int i = 0; i < QW; ++i) {
-    dA[i] = dB[i] = CUDART_INF_F;
-    iA[i] = iB[i] = -1;
+#pragma unroll
+    for (int h = 0; h < S; ++h) {
+      dA[i][h] = dB[i][h] = CUDART_INF_F;
+      iA[i][h] = iB[i][h] = -1;
+    }
     thrA[i] = cap0 > 0 ? CUDART_INF_F : -CUDART_INF_F;
     thrB[i] = cap1 > 0 ? CUDART_INF_F : -CUDART_INF_F;
   }
@@ -170,8 +217,15 @@ __device__ __forceinline__ void oneshot_slots(const float* __restrict__ P, int N
             mask &= mask - 1;
             const float dn = __shfl_sync(FULL, d[i][u], src);
             const int jn = t0 + base + 32 * u + src;
-            if (jn < n1) list_insert(dA[i], iA[i], thrA[i], cap0, dn, jn, lane);  // warp-uniform
-            else list_insert(dB[i], iB[i], thrB[i], cap1, dn, jn, lane);
+            if constexpr (S == 1) {
+              if (jn < n1) list_insert(dA[i][0], iA[i][0], thrA[i], cap0, dn, jn, lane);  // warp-uniform
+              else list_insert(dB[i][0], iB[i][0], thrB[i], cap1, dn, jn, lane);
+            } else {
+              if (jn < n1)
+                list_insert2(dA[i][0], iA[i][0], dA[i][1], iA[i][1], thrA[i], cap0, dn, jn, lane);
+              else
+                list_insert2(dB[i][0], iB[i][0], dB[i][1], iB[i][1], thrB[i], cap1, dn, jn, lane);
+            }
           }
         }
       }
@@ -180,8 +234,18 @@ __device__ __forceinline__ void oneshot_slots(const float* __restrict__ P, int N
   }
 #pragma unroll
   for (int i = 0; i < QW; ++i) {
-    const int vB = __shfl_sync(FULL, iB[i], min(max(lane - cap0, 0), 31));
-    idx[i] = lane < cap0 ? iA[i] : (lane < cap0 + cap1 ? vB : -1);
+    if constexpr (S == 1) {
+      const int vB = __shfl_sync(FULL, iB[i][0], min(max(lane - cap0, 0), 31));
+      idx[i][0] = lane < cap0 ? iA[i][0] : (lane < cap0 + cap1 ? vB : -1);
+    } else {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        // slot s = 32 h + lane: A's entry s, or B's entry s - cap0
+        const int s = 32 * h + lane, e = s - cap0;
+        const int b0 = __shfl_sync(FULL, iB[i][0], e & 31), b1 = __shfl_sync(FULL, iB[i][1], e & 31);
+        idx[i][h] = s < cap0 ? iA[i][h] : (s < cap0 + cap1 ? (e >= 32 ? b1 : b0) : -1);
+      }
+    }
   }
 }
 
@@ -194,8 +258,10 @@ __device__ __forceinline__ void oneshot_slots(const float* __restrict__ P, int N
 // in the PAY instantiation, after each head a payload's Cp weighted sums
 // (payload_sums): slot `lane` reads its neighbour's channels, an unfilled
 // active slot the query's own (the self-neighbour), from device memory.
-// The xyz instantiation is the kernel without the payload code.
-template <bool PAY>
+// The xyz instantiation is the kernel without the payload code.  S = 1
+// serves k <= 32 (lane L slot L); S = 2 serves k <= 64, lane L holding slots
+// L and 32 + L, its head over up to four 16-slot tiles (head_weight2).
+template <bool PAY, int S>
 __global__ void __launch_bounds__(ONE_WARPS * 32, 1)
 fusion_kernel(const float* __restrict__ pts, const int* __restrict__ seg,
               const float* __restrict__ wtc, const float* __restrict__ payload, int Cp,
@@ -214,41 +280,77 @@ fusion_kernel(const float* __restrict__ pts, const int* __restrict__ seg,
     const int q0 = (grp - b * per_row) * G + warp;  // queries q0 + i ONE_WARPS
     const float* P = pts + (size_t)b * N * 3;
     const int n1 = seg[b * 4 + 0];
-    const int cap0 = max(0, min(seg[b * 4 + 2], 32));
-    const int cap1 = max(0, min(seg[b * 4 + 3], 32 - cap0));
+    const int cap0 = max(0, min(seg[b * 4 + 2], 32 * S));
+    const int cap1 = max(0, min(seg[b * 4 + 3], 32 * S - cap0));
     float qx[ONE_QW], qy[ONE_QW], qz[ONE_QW];
-    int idx[ONE_QW];
+    int idx[ONE_QW][S];
 #pragma unroll
     for (int i = 0; i < ONE_QW; ++i) {
       const int qq = min(q0 + i * ONE_WARPS, N - 1);
       qx[i] = P[qq * 3], qy[i] = P[qq * 3 + 1], qz[i] = P[qq * 3 + 2];
     }
-    oneshot_slots<ONE_QW>(P, N, max(n1, 0), cap0, cap1, qx, qy, qz, keys, lane, idx);
+    oneshot_slots<ONE_QW, S>(P, N, max(n1, 0), cap0, cap1, qx, qy, qz, keys, lane, idx);
 
 #pragma unroll
     for (int i = 0; i < ONE_QW; ++i) {
-      // slot `lane`: [0, cap0) from segment A, [cap0, cap0 + cap1) from B
-      const bool active = lane < cap0 + cap1;
-      const int j = idx[i];
-      float rx = 0.f, ry = 0.f, rz = 0.f;
-      if (active && j >= 0) {
-        rx = P[(size_t)j * 3] - qx[i];
-        ry = P[(size_t)j * 3 + 1] - qy[i];
-        rz = P[(size_t)j * 3 + 2] - qz[i];
-      }
-      float w, wsum;
-      const float3 o = fused_row(sw, qx[i], qy[i], qz[i], rx, ry, rz, active, w, wsum);
-      const int q = q0 + i * ONE_WARPS;
-      float* dst = out + ((size_t)b * N + q) * (PAY ? 3 + Cp : 3);
-      if (lane == 0 && q < N) {
-        dst[0] = o.x;
-        dst[1] = o.y;
-        dst[2] = o.z;
-      }
-      if constexpr (PAY) {  // a pad query (q >= N) reads row N - 1 and stores nothing
-        const float* x = payload + ((size_t)b * N + (j >= 0 ? j : min(q, N - 1))) * Cp;
-        payload_sums(w, wsum, active, Cp, [&](int c) { return __ldg(x + c); },
-                     q < N ? dst + 3 : nullptr);
+      if constexpr (S == 1) {
+        // slot `lane`: [0, cap0) from segment A, [cap0, cap0 + cap1) from B
+        const bool active = lane < cap0 + cap1;
+        const int j = idx[i][0];
+        float rx = 0.f, ry = 0.f, rz = 0.f;
+        if (active && j >= 0) {
+          rx = P[(size_t)j * 3] - qx[i];
+          ry = P[(size_t)j * 3 + 1] - qy[i];
+          rz = P[(size_t)j * 3 + 2] - qz[i];
+        }
+        float w, wsum;
+        const float3 o = fused_row(sw, qx[i], qy[i], qz[i], rx, ry, rz, active, w, wsum);
+        const int q = q0 + i * ONE_WARPS;
+        float* dst = out + ((size_t)b * N + q) * (PAY ? 3 + Cp : 3);
+        if (lane == 0 && q < N) {
+          dst[0] = o.x;
+          dst[1] = o.y;
+          dst[2] = o.z;
+        }
+        if constexpr (PAY) {  // a pad query (q >= N) reads row N - 1 and stores nothing
+          const float* x = payload + ((size_t)b * N + (j >= 0 ? j : min(q, N - 1))) * Cp;
+          payload_sums(w, wsum, active, Cp, [&](int c) { return __ldg(x + c); },
+                       q < N ? dst + 3 : nullptr);
+        }
+      } else {
+        // slots `lane` and 32 + lane, as above
+        const int kk = cap0 + cap1;
+        const bool act0 = lane < kk, act1 = 32 + lane < kk;
+        const int j0 = idx[i][0], j1 = idx[i][1];
+        float rx0 = 0.f, ry0 = 0.f, rz0 = 0.f, rx1 = 0.f, ry1 = 0.f, rz1 = 0.f;
+        if (act0 && j0 >= 0) {
+          rx0 = P[(size_t)j0 * 3] - qx[i];
+          ry0 = P[(size_t)j0 * 3 + 1] - qy[i];
+          rz0 = P[(size_t)j0 * 3 + 2] - qz[i];
+        }
+        if (act1 && j1 >= 0) {
+          rx1 = P[(size_t)j1 * 3] - qx[i];
+          ry1 = P[(size_t)j1 * 3 + 1] - qy[i];
+          rz1 = P[(size_t)j1 * 3 + 2] - qz[i];
+        }
+        float w0, w1, wsum;
+        const float3 o = fused_row2(sw, qx[i], qy[i], qz[i], rx0, ry0, rz0, rx1, ry1, rz1, act0,
+                                    act1, max((kk + 15) / 16, 1), w0, w1, wsum);
+        const int q = q0 + i * ONE_WARPS;
+        float* dst = out + ((size_t)b * N + q) * (PAY ? 3 + Cp : 3);
+        if (lane == 0 && q < N) {
+          dst[0] = o.x;
+          dst[1] = o.y;
+          dst[2] = o.z;
+        }
+        if constexpr (PAY) {
+          const size_t self = (size_t)b * N + min(q, N - 1);
+          const float* x0 = payload + (j0 >= 0 ? (size_t)b * N + j0 : self) * Cp;
+          const float* x1 = payload + (j1 >= 0 ? (size_t)b * N + j1 : self) * Cp;
+          payload_sums2(w0, w1, wsum, act0, act1, Cp,
+                        [&](int c, int h) { return __ldg((h ? x1 : x0) + c); },
+                        q < N ? dst + 3 : nullptr);
+        }
       }
     }
   }
@@ -256,18 +358,14 @@ fusion_kernel(const float* __restrict__ pts, const int* __restrict__ seg,
 
 static size_t oneshot_smem() { return sizeof(float) * (ONE_NW + 2 * 3 * ONE_TILE); }
 
-// seg: device int32 [B, 4] = (N1, N, k1, k2) per batch.  wtc: the score MLP
-// (4 -> h1 -> h2 -> h3) split by _build.pack_tf32(..., chain=True).
-// payload: [B, N, Cp] fp32, 0 <= Cp <= PAYLOAD_MAX (null for Cp == 0).  out
-// [B, N, 3 + Cp].  k1 + k2 <= 32.  A grid of one block an SM (at most one a
-// group).
-extern "C" int pci_fusion(const void* pts, const void* seg, const void* wtc,
-                          int h1, int h2, int h3, const void* payload, int Cp, void* out,
-                          int B, int N, void* stream) {
+template <int S>
+static int fusion_launch(const void* pts, const void* seg, const void* wtc, int h1, int h2,
+                         int h3, const void* payload, int Cp, void* out, int B, int N,
+                         void* stream) {
   if (h1 != ONE_H1 || h2 != ONE_H2 || h3 != ONE_H3 || N < 1 || B < 1 || Cp < 0 ||
       Cp > PAYLOAD_MAX || (Cp > 0 && payload == nullptr))
     return (int)cudaErrorInvalidValue;
-  const auto kernel = Cp > 0 ? fusion_kernel<true> : fusion_kernel<false>;
+  const auto kernel = Cp > 0 ? fusion_kernel<true, S> : fusion_kernel<false, S>;
   const size_t smem = oneshot_smem();
   cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return (int)e;
@@ -286,13 +384,35 @@ extern "C" int pci_fusion(const void* pts, const void* seg, const void* wtc,
   return (int)cudaGetLastError();
 }
 
+// seg: device int32 [B, 4] = (N1, N, k1, k2) per batch.  wtc: the score MLP
+// (4 -> h1 -> h2 -> h3) split by _build.pack_tf32(..., chain=True).
+// payload: [B, N, Cp] fp32, 0 <= Cp <= PAYLOAD_MAX (null for Cp == 0).  out
+// [B, N, 3 + Cp].  k1 + k2 <= 32 (pci_fusion) or <= 64 (pci_fusion64, two
+// slots a lane).  A grid of one block an SM (at most one a group).
+extern "C" int pci_fusion(const void* pts, const void* seg, const void* wtc,
+                          int h1, int h2, int h3, const void* payload, int Cp, void* out,
+                          int B, int N, void* stream) {
+  return fusion_launch<1>(pts, seg, wtc, h1, h2, h3, payload, Cp, out, B, N, stream);
+}
+extern "C" int pci_fusion64(const void* pts, const void* seg, const void* wtc,
+                            int h1, int h2, int h3, const void* payload, int Cp, void* out,
+                            int B, int N, void* stream) {
+  return fusion_launch<2>(pts, seg, wtc, h1, h2, h3, payload, Cp, out, B, N, stream);
+}
+
 // The one-shot kernel's resources (common.cuh's kernel_attrs), without and
-// with the payload.
+// with the payload, at k <= 32 and k <= 64.
 extern "C" int pci_fusion_attrs(int* out) {
-  return kernel_attrs(fusion_kernel<false>, oneshot_smem(), out, ONE_WARPS * 32);
+  return kernel_attrs(fusion_kernel<false, 1>, oneshot_smem(), out, ONE_WARPS * 32);
 }
 extern "C" int pci_fusion_payload_attrs(int* out) {
-  return kernel_attrs(fusion_kernel<true>, oneshot_smem(), out, ONE_WARPS * 32);
+  return kernel_attrs(fusion_kernel<true, 1>, oneshot_smem(), out, ONE_WARPS * 32);
+}
+extern "C" int pci_fusion64_attrs(int* out) {
+  return kernel_attrs(fusion_kernel<false, 2>, oneshot_smem(), out, ONE_WARPS * 32);
+}
+extern "C" int pci_fusion64_payload_attrs(int* out) {
+  return kernel_attrs(fusion_kernel<true, 2>, oneshot_smem(), out, ONE_WARPS * 32);
 }
 
 
@@ -503,8 +623,8 @@ __device__ __forceinline__ int resi_scan(const float* __restrict__ P, int a, int
 // A segment: every part scans its key range, then part 0 inserts the
 // other parts' lists into its own (by (distance, index), each list in
 // order, stopping at its first entry that does not enter) and writes the
-// segment's slots [cum, cum + cap) of its query.
-template <int KM>
+// segment's slots [cum, cum + cap) of its query (a slot row of SS ints).
+template <int KM, int SS>
 __device__ void resi_segment(const float* __restrict__ P, int lo, int hi, int cap, int cum,
                              float qx, float qy, float qz, float* region, volatile float* pub,
                              float* kmx, int* slots, int part, int nparts, int qi, int pt,
@@ -541,7 +661,7 @@ __device__ void resi_segment(const float* __restrict__ P, int lo, int hi, int ca
     }
 #pragma unroll
     for (int i = 0; i < KM; ++i)
-      if (i >= KM - cap) slots[qi * 33 + cum + i - (KM - cap)] = bi[i];
+      if (i >= KM - cap) slots[qi * SS + cum + i - (KM - cap)] = bi[i];
   }
   __syncthreads();  // the lists read: the next segment's rings may start
   t_merge += global_ns() - t0;
@@ -562,29 +682,35 @@ __device__ __forceinline__ void copy_out(char* dst, const char* src, int bytes, 
 }
 
 // Shared memory: the region (the parts' rings, then the lists of parts 1..,
-// then the item's staged output), the published bounds, the slots and the
-// item's query rows.
-__host__ __device__ inline size_t resi_region_bytes(int P, int k) {
+// then the item's staged output), the published bounds, the slots (rows of
+// KMAX + 1 ints) and the item's query rows.
+__host__ __device__ inline size_t resi_region_bytes(int P, int k, int KMAX) {
   const size_t ring = (size_t)P * RES_PART_FLOATS * sizeof(float);
-  const size_t lists = (size_t)(P - 1) * 32 * RES_Q * 8;
+  const size_t lists = (size_t)(P - 1) * KMAX * RES_Q * 8;
   const size_t outb = (size_t)RES_Q * k * (8 + 12);
   const size_t m = ring > lists ? ring : lists;
   return m > outb ? m : outb;
 }
-static size_t resi_smem(int P, int k) {
-  return resi_region_bytes(P, k) +
-         (RES_MAXP * RES_Q + RES_Q * 33 + 4 * RES_Q + 4 + RES_MAXP * RES_QW) * 4;
+static size_t resi_smem(int P, int k, int KMAX) {
+  return resi_region_bytes(P, k, KMAX) +
+         (RES_MAXP * RES_Q + RES_Q * (KMAX + 1) + 4 * RES_Q + 4 + RES_MAXP * RES_QW) * 4;
 }
 
+// KMAX = 32 serves k <= 32 (lists of 16 or 32 entries); KMAX = 64 serves k
+// <= 64 and adds the 64-entry list for a segment's budget past 32: an
+// instantiation of its own, so that k <= 32 keeps its registers and shared
+// memory.
+template <int KMAX>
 __global__ void __launch_bounds__(RES_MAXP * RES_Q)
 fusion_resi_kernel(ResiParams p) {
+  constexpr int SS = KMAX + 1;  // a query's slot row (odd: no bank conflicts)
   extern __shared__ float4 smem4[];
   char* base = reinterpret_cast<char*>(smem4);
-  const size_t rb = resi_region_bytes(p.P, p.k);
+  const size_t rb = resi_region_bytes(p.P, p.k, KMAX);
   float* region = reinterpret_cast<float*>(base);
   volatile float* pub = reinterpret_cast<float*>(base + rb);
   int* slots = reinterpret_cast<int*>(base + rb) + RES_MAXP * RES_Q;
-  float4* qrow = reinterpret_cast<float4*>(slots + RES_Q * 33);
+  float4* qrow = reinterpret_cast<float4*>(slots + RES_Q * SS);
   int* ins_sum = reinterpret_cast<int*>(qrow + RES_Q);
   float* kmx = reinterpret_cast<float*>(ins_sum + 4);  // [RES_MAXP][RES_QW] tile maxima
   const int tid = threadIdx.x, nt = blockDim.x;
@@ -599,7 +725,7 @@ fusion_resi_kernel(ResiParams p) {
     const int qq = q0 + min(qi, nq - 1);
     const float qx = P[(size_t)qq * 3], qy = P[(size_t)qq * 3 + 1], qz = P[(size_t)qq * 3 + 2];
     if (part == 0) {
-      for (int c = 0; c < 32; ++c) slots[qi * 33 + c] = -1;  // unfilled: the row itself
+      for (int c = 0; c < KMAX; ++c) slots[qi * SS + c] = -1;  // unfilled: the row itself
       qrow[qi] = make_float4(qx, qy, qz, 0.f);
     }
     pub[part * RES_Q + qi] = CUDART_INF_F;
@@ -610,12 +736,15 @@ fusion_resi_kernel(ResiParams p) {
     for (int f = 0; f < p.F; ++f) {
       const int end = p.ends[b * p.F + f];
       const int cap = max(0, min(p.buds[b * p.F + f], k - used));
-      if (cap > 16)
-        resi_segment<32>(P, start, end, cap, used, qx, qy, qz, region, pub, kmx, slots, part,
-                         p.P, qi, pt, inserts, t_merge);
+      if (KMAX > 32 && cap > 32)
+        resi_segment<KMAX, SS>(P, start, end, cap, used, qx, qy, qz, region, pub, kmx, slots,
+                               part, p.P, qi, pt, inserts, t_merge);
+      else if (cap > 16)
+        resi_segment<32, SS>(P, start, end, cap, used, qx, qy, qz, region, pub, kmx, slots,
+                             part, p.P, qi, pt, inserts, t_merge);
       else if (cap > 0)
-        resi_segment<16>(P, start, end, cap, used, qx, qy, qz, region, pub, kmx, slots, part,
-                         p.P, qi, pt, inserts, t_merge);
+        resi_segment<16, SS>(P, start, end, cap, used, qx, qy, qz, region, pub, kmx, slots,
+                             part, p.P, qi, pt, inserts, t_merge);
       used += cap;
       start = max(start, end);
     }
@@ -626,7 +755,7 @@ fusion_resi_kernel(ResiParams p) {
     float* sr = reinterpret_cast<float*>(si + RES_Q * k);
     for (int e = tid; e < nq * k; e += nt) {
       const int qe = e / k, c = e - qe * k;
-      const int j = slots[qe * 33 + c] >= 0 ? slots[qe * 33 + c] : q0 + qe;
+      const int j = slots[qe * SS + c] >= 0 ? slots[qe * SS + c] : q0 + qe;
       const float4 r = qrow[qe];
       si[e] = j;
       sr[3 * e] = __fsub_rn(P[(size_t)j * 3], r.x);
@@ -659,13 +788,13 @@ fusion_resi_kernel(ResiParams p) {
 
 // pts [B, N, 3] fp32; ends, buds: device int32 [B, F] (cumulative segment
 // ends, the last == N; budgets) -> out_i [B, N, k] int64, out_r [B, N, k,
-// 3] fp32.  1 <= F <= 4, 1 <= k <= 32.  parts: 1, 2 or 4 key ranges a
+// 3] fp32.  1 <= F <= 4, 1 <= k <= 64.  parts: 1, 2 or 4 key ranges a
 // segment, or 0 to choose by the query count; stamps: null, or zeroed
 // int64 [B * ceil(N / 64)][RES_STAMPS].
 extern "C" int pci_fusion_resi(const void* pts, const void* ends, const void* buds, int F,
                                void* out_i, void* out_r, int B, int N, int k, int parts,
                                void* stamps, void* stream) {
-  if (F < 1 || F > 4 || k < 1 || k > 32 || N < 1 || B < 1 ||
+  if (F < 1 || F > 4 || k < 1 || k > 64 || N < 1 || B < 1 ||
       !(parts == 0 || parts == 1 || parts == 2 || parts == 4))
     return (int)cudaErrorInvalidValue;
   int dev = 0, sms = 0;
@@ -678,11 +807,12 @@ extern "C" int pci_fusion_resi(const void* pts, const void* ends, const void* bu
   // of warps (on the H100, 4 parts took 16,384 points at B = 1 in 0.24 ms
   // against 0.29 at one; at B = 2 x 16,000 one part was the fastest)
   if (parts == 0) parts = items <= 2LL * sms ? 4 : items <= 3LL * sms ? 2 : 1;
-  const size_t smem = resi_smem(parts, k);
-  if ((e = allow_smem(fusion_resi_kernel, resi_smem(RES_MAXP, 32))) != cudaSuccess) return (int)e;
+  const int kmax = k > 32 ? 64 : 32;  // the instantiation, by k
+  const auto kernel = kmax > 32 ? fusion_resi_kernel<64> : fusion_resi_kernel<32>;
+  const size_t smem = resi_smem(parts, k, kmax);
+  if ((e = allow_smem(kernel, resi_smem(RES_MAXP, kmax, kmax))) != cudaSuccess) return (int)e;
   int per_sm = 0;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fusion_resi_kernel, parts * RES_Q,
-                                                    smem);
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, parts * RES_Q, smem);
   if (e != cudaSuccess) return (int)e;
   ResiParams p;
   p.pts = static_cast<const float*>(pts);
@@ -693,11 +823,16 @@ extern "C" int pci_fusion_resi(const void* pts, const void* ends, const void* bu
   p.stamps = static_cast<unsigned long long*>(stamps);
   p.F = F, p.B = B, p.N = N, p.k = k, p.P = parts;
   const int grid = (int)std::max(1LL, std::min((long long)std::max(per_sm, 1) * sms, items));
-  fusion_resi_kernel<<<grid, parts * RES_Q, smem, static_cast<cudaStream_t>(stream)>>>(p);
+  kernel<<<grid, parts * RES_Q, smem, static_cast<cudaStream_t>(stream)>>>(p);
   return (int)cudaGetLastError();
 }
 
-// The residual kernel's resources at 4 parts and k = 32.
+// The residual kernel's resources at 4 parts, k = 32 and k = 64.
 extern "C" int pci_fusion_resi_attrs(int* out) {
-  return kernel_attrs(fusion_resi_kernel, resi_smem(RES_MAXP, 32), out, RES_MAXP * RES_Q);
+  return kernel_attrs(fusion_resi_kernel<32>, resi_smem(RES_MAXP, 32, 32), out,
+                      RES_MAXP * RES_Q);
+}
+extern "C" int pci_fusion_resi64_attrs(int* out) {
+  return kernel_attrs(fusion_resi_kernel<64>, resi_smem(RES_MAXP, 64, 64), out,
+                      RES_MAXP * RES_Q);
 }

@@ -30,11 +30,15 @@
 //     prefetches the next row's k x 3 residuals into its other buffer by
 //     cp.async while the head of the current row runs; a payload is read
 //     from device memory after the head;
-//   - the softmax is a warp max and warp sums; lane 0 writes the row.
+//   - the softmax is a warp max and warp sums; lane 0 writes the row;
+//   - k <= 64 (PointINet2's ring fusions with the one-shot kernel off) is
+//     the S = 2 instantiation: two slots a lane, up to four 16-slot tiles
+//     through the same head (head_weight2), a 64 x 3 row buffer; k <= 32
+//     keeps its own.
 #include "fusion_head.cuh"
 
 #define TAIL_WARPS 12
-#define TAIL_BUF (32 * 3)  // floats a row's buffer
+#define TAIL_BUF (32 * 3)  // floats a row's buffer, for 32 slots
 #define TAIL_BLOCKS_PER_SM 1
 
 struct TailParams {
@@ -58,12 +62,18 @@ __device__ __forceinline__ void tail_stage(const TailParams& p, long long row, f
   cp_async_commit();
 }
 
+// S = 1 serves k <= 32 (lane L slot L, one or two 16-slot tiles); S = 2
+// serves k <= 64: lane L holds slots L and 32 + L, up to four 16-slot
+// tiles through the same head (fusion_head.cuh head_weight2), a row buffer
+// of 64 x 3 floats.
+template <int S>
 __global__ void __launch_bounds__(TAIL_WARPS * 32, TAIL_BLOCKS_PER_SM)
 fusion_tail_kernel(const __grid_constant__ TailParams p) {
   extern __shared__ float4 smem4[];
   float* sw = reinterpret_cast<float*>(smem4);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float* bufs = sw + ONE_NW + warp * 2 * TAIL_BUF;
+  constexpr int BUF = S * TAIL_BUF;
+  float* bufs = sw + ONE_NW + warp * 2 * BUF;
   for (int e = threadIdx.x; e < ONE_NW / 4; e += blockDim.x)
     cp_async16(smem4 + e, reinterpret_cast<const float4*>(p.wtc) + e);
   cp_async_commit();
@@ -76,25 +86,48 @@ fusion_tail_kernel(const __grid_constant__ TailParams p) {
   const bool active = lane < k;
   int cur = 0;
   for (long long row = gw; row < p.rows; row += W) {
-    tail_stage(p, row + W, bufs + (cur ^ 1) * TAIL_BUF, lane);  // the next row, in flight
-    const float* buf = bufs + cur * TAIL_BUF;
+    tail_stage(p, row + W, bufs + (cur ^ 1) * BUF, lane);  // the next row, in flight
+    const float* buf = bufs + cur * BUF;
     float rx = 0.f, ry = 0.f, rz = 0.f;
     if (active) {
       rx = buf[3 * lane];
       ry = buf[3 * lane + 1];
       rz = buf[3 * lane + 2];
     }
-    const float w = head_weight(sw, rx, ry, rz, active, tiles);
-    const float sw_ = warp_sum(w), ax = warp_sum(w * rx), ay = warp_sum(w * ry),
-                az = warp_sum(w * rz);
-    float* o = p.out + row * (3 + Ce);
-    if (lane == 0) {
-      o[0] = p.comb[row * 3] + ax / sw_;
-      o[1] = p.comb[row * 3 + 1] + ay / sw_;
-      o[2] = p.comb[row * 3 + 2] + az / sw_;
+    if constexpr (S == 1) {
+      const float w = head_weight(sw, rx, ry, rz, active, tiles);
+      const float sw_ = warp_sum(w), ax = warp_sum(w * rx), ay = warp_sum(w * ry),
+                  az = warp_sum(w * rz);
+      float* o = p.out + row * (3 + Ce);
+      if (lane == 0) {
+        o[0] = p.comb[row * 3] + ax / sw_;
+        o[1] = p.comb[row * 3 + 1] + ay / sw_;
+        o[2] = p.comb[row * 3 + 2] + az / sw_;
+      }
+      const float* x = p.extra + (row * k + lane) * Ce;  // slot `lane`'s channels
+      payload_sums(w, sw_, active, Ce, [&](int c) { return x[c]; }, o + 3);
+    } else {
+      const bool act1 = 32 + lane < k;  // slot 32 + lane
+      float rx1 = 0.f, ry1 = 0.f, rz1 = 0.f;
+      if (act1) {
+        rx1 = buf[3 * (32 + lane)];
+        ry1 = buf[3 * (32 + lane) + 1];
+        rz1 = buf[3 * (32 + lane) + 2];
+      }
+      float w0, w1, sw_;
+      const float3 f = fused_row2(sw, p.comb[row * 3], p.comb[row * 3 + 1], p.comb[row * 3 + 2],
+                                  rx, ry, rz, rx1, ry1, rz1, active, act1, (k + 15) / 16, w0,
+                                  w1, sw_);
+      float* o = p.out + row * (3 + Ce);
+      const float* x = p.extra + (row * k + lane) * Ce;  // slots `lane` and 32 + lane's channels
+      if (lane == 0) {
+        o[0] = f.x;
+        o[1] = f.y;
+        o[2] = f.z;
+      }
+      payload_sums2(w0, w1, sw_, active, act1, Ce,
+                    [&](int c, int h) { return x[h * 32 * Ce + c]; }, o + 3);
     }
-    const float* x = p.extra + (row * k + lane) * Ce;  // slot `lane`'s channels
-    payload_sums(w, sw_, active, Ce, [&](int c) { return x[c]; }, o + 3);
     cp_async_wait<0>();
     __syncwarp();  // the next row is in for every lane; this one is read
     cur ^= 1;
@@ -102,27 +135,32 @@ fusion_tail_kernel(const __grid_constant__ TailParams p) {
   cp_async_wait<0>();
 }
 
-static size_t tail_smem() { return sizeof(float) * (ONE_NW + TAIL_WARPS * 2 * TAIL_BUF); }
+static size_t tail_smem(int S) {
+  return sizeof(float) * (ONE_NW + TAIL_WARPS * 2 * S * TAIL_BUF);
+}
 
 // comb [B, N, 3], resi [B, N, k, 3], extra [B, N, k, Ce] (null for Ce == 0)
 // fp32; wtc the score MLP (4 -> h1 -> h2 -> h3) split by
-// _build.pack_tf32(..., chain=True); out [B, N, 3 + Ce].  A grid of
-// TAIL_BLOCKS_PER_SM blocks an SM (at most one a warp's row).
+// _build.pack_tf32(..., chain=True); out [B, N, 3 + Ce]; 1 <= k <= 64 (the
+// instantiation by k: S = 2 past 32).  A grid of TAIL_BLOCKS_PER_SM blocks
+// an SM (at most one a warp's row).
 extern "C" int pci_fusion_tail(const void* comb, const void* resi,
                                const void* extra, const void* wtc, int h1,
                                int h2, int h3, void* out, int B, int N, int k,
                                int Ce, void* stream) {
-  if (h1 != ONE_H1 || h2 != ONE_H2 || h3 != ONE_H3 || k < 1 || k > 32 || Ce < 0 ||
+  if (h1 != ONE_H1 || h2 != ONE_H2 || h3 != ONE_H3 || k < 1 || k > 64 || Ce < 0 ||
       (Ce > 0 && extra == nullptr) || B < 1 || N < 1)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = tail_smem();
-  cudaError_t e = allow_smem(fusion_tail_kernel, smem);
+  const int S = k > 32 ? 2 : 1;
+  const auto fusion_tail_kernel_s = S == 2 ? fusion_tail_kernel<2> : fusion_tail_kernel<1>;
+  const size_t smem = tail_smem(S);
+  cudaError_t e = allow_smem(fusion_tail_kernel_s, smem);
   if (e != cudaSuccess) return (int)e;
   int dev = 0, sms = 0, per_sm = 0;
   if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
   if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
     return (int)e;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fusion_tail_kernel,
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fusion_tail_kernel_s,
                                                     TAIL_WARPS * 32, smem);
   if (e != cudaSuccess) return (int)e;
   TailParams p;
@@ -136,11 +174,14 @@ extern "C" int pci_fusion_tail(const void* comb, const void* resi,
   p.Ce = Ce;
   const long long blocks = (p.rows + TAIL_WARPS - 1) / TAIL_WARPS;
   const int grid = (int)std::max(1LL, std::min((long long)std::max(per_sm, 1) * sms, blocks));
-  fusion_tail_kernel<<<grid, TAIL_WARPS * 32, smem, static_cast<cudaStream_t>(stream)>>>(p);
+  fusion_tail_kernel_s<<<grid, TAIL_WARPS * 32, smem, static_cast<cudaStream_t>(stream)>>>(p);
   return (int)cudaGetLastError();
 }
 
-// The tail kernel's resources (common.cuh's kernel_attrs).
+// The tail kernel's resources (common.cuh's kernel_attrs), k <= 32 and k <= 64.
 extern "C" int pci_fusion_tail_attrs(int* out) {
-  return kernel_attrs(fusion_tail_kernel, tail_smem(), out, TAIL_WARPS * 32);
+  return kernel_attrs(fusion_tail_kernel<1>, tail_smem(1), out, TAIL_WARPS * 32);
+}
+extern "C" int pci_fusion_tail64_attrs(int* out) {
+  return kernel_attrs(fusion_tail_kernel<2>, tail_smem(2), out, TAIL_WARPS * 32);
 }

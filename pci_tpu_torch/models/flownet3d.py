@@ -12,7 +12,9 @@ head.  Two routes, picked per call by the JAX package's gates:
   (``knnconv_fused(..., n_final=1)``);
 - per stage (``PCI_TPU_ENC_KERNEL`` / ``PCI_TPU_MID_KERNEL`` set to
   anything but "1", or a CPU tensor): every stage is one kernel call and
-  the classifier plain PyTorch.
+  the classifier plain PyTorch.  It is also the route where a gradient
+  could flow (``_build.needs_grad``, the JAX package's ``has_tangents``
+  test): its stages then run by differentiable ops (``nn/layers.py``).
 
 Both routes pick the same points: the megakernels run the per-stage
 kernels' bodies.
@@ -35,7 +37,7 @@ from ..nn.layers import (
     require_eval,
 )
 from ..nn.mlp import cached_fold
-from ..ops.cuda_kernels import flowenc_fused, flowmid_fused, knnconv_fused
+from ..ops.cuda_kernels import _build, flowenc_fused, flowmid_fused, knnconv_fused
 
 
 def _enc_ok(train: bool, x: torch.Tensor) -> bool:
@@ -75,7 +77,7 @@ class FlowNet3D(nn.Module):
         """Two-level set-conv encoding of one cloud -> (xyz, feats, p_1,
         f_1, p_2, f_2), reusable across every pair the cloud is in."""
         require_eval(self)
-        if _enc_ok(self.training, xyz):
+        if _enc_ok(self.training, xyz) and not _build.needs_grad(self, xyz, feats):
             return self._encode_fused(xyz, feats)
         p_1, f_1 = self.set_conv1(xyz, feats)
         p_2, f_2 = self.set_conv2(p_1, f_1)
@@ -96,7 +98,7 @@ class FlowNet3D(nn.Module):
         require_eval(self)
         xyza, featsa, pa_1, fa_1, pa_2, fa_2 = enc_a
         pb_2, fb_2 = enc_b[4], enc_b[5]
-        if _mid_ok(self.training, xyza):
+        if _mid_ok(self.training, xyza) and not _build.needs_grad(self, enc_a, enc_b):
             return self._decode_fused(xyza, featsa, pa_1, fa_1, pa_2, fa_2, pb_2, fb_2)
         emb = self.flow_embedding(pa_2, pb_2, fa_2, fb_2)
         pa_3, fa_3 = self.set_conv3(pa_2, emb)

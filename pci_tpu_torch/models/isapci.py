@@ -1,8 +1,9 @@
-"""ISAPCInet (counterpart of ``pci_tpu/models/isapci.py`` ``ISAPCInet``
-with the flow frozen): 4*field FlowNet3D flows over the window (each
-distinct frame encoded once), Tnet time weighting, PointNet++ feature
-abstraction and a point transformer over the 2*field*N-point flow cloud,
-flow regression, linear warp, adaptive attentive fusion.
+"""ISAPCInet and PointINet2 (counterparts of ``pci_tpu/models/isapci.py``
+``ISAPCInet`` and ``PointINet2`` with the flow frozen).  ISAPCInet:
+4*field FlowNet3D flows over the window (each distinct frame encoded
+once), Tnet time weighting, PointNet++ feature abstraction and a point
+transformer over the 2*field*N-point flow cloud, flow regression, linear
+warp, adaptive attentive fusion.
 
 In train mode the flows are computed as at eval (FlowNet3D stays in eval
 mode with its running statistics, under ``torch.no_grad()``: the JAX
@@ -22,12 +23,12 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from ..nn.fusion import PointsFusion
-from ..nn.heads import Outputer, Tnet
+from ..nn.fusion import PointsFusion, PointsFusionMulti
+from ..nn.heads import Outputer, Tnet, Wnet
 from ..nn.pointnet2 import Pointnet2FeatureAbstract
 from ..nn.transformer import TransformerLayer
 from .flownet3d import FlowNet3D
-from .pointinet import FUSION_K
+from .pointinet import FUSION_K, PointINet
 
 
 def flow_pair_plan(field: int):
@@ -138,3 +139,73 @@ class ISAPCInet(nn.Module):
             flows = self.window_flows(forward_pcds, key_pcds, backward_pcds, ini_feature)
         return self.from_flows(*flows, key_pcds, t, perms=perms, generator=generator,
                                momentum=momentum)
+
+
+RING_FUSION_K = 64  # PointINet2's ring and multi-cloud fusions (the reference's k = 64)
+
+
+class PointINet2(nn.Module):
+    """Key-pair PointINet, a ``PointsFusion`` of each ring's warped pair,
+    and the ``Wnet``-weighted ``PointsFusionMulti`` over the key fusion and
+    the rings (``pci_tpu/models/isapci.py:PointINet2``,
+    Models/Models.py:130-188), eval with the flows frozen.  Submodules carry
+    flax's names (``wnet``, ``pointinet`` with its own ``flow`` and
+    ``fusion``, ``flow``, ``fusion_ring{i}``, ``fusion2``), so
+    ``convert.flax_to_state_dict`` loads a JAX checkpoint unchanged.  The
+    key PointINet fuses at k = 32, the rings and ``fusion2`` at
+    ``RING_FUSION_K``.
+
+    ``field`` >= 1: the JAX module cannot be built at field 0 (its
+    ``Wnet`` ends in a Dense of 6 field = 0 features, whose initializer
+    divides by zero), so neither can this one."""
+
+    def __init__(self, field: int):
+        super().__init__()
+        if field < 1:
+            raise ValueError(f"PointINet2: field >= 1 (the JAX PointINet2 cannot be built at "
+                             f"field {field})")
+        self.field = field
+        self.wnet = Wnet(field)
+        self.pointinet = PointINet()
+        self.flow = FlowNet3D()
+        for i in range(1, field + 1):
+            self.add_module(f"fusion_ring{i}", PointsFusion())
+        self.fusion2 = PointsFusionMulti()
+
+    def forward(self, forward_pcds, key_pcds, backward_pcds, t, ini_feature, perms=None,
+                generator: torch.Generator | None = None):
+        """``make_interp_eval_step``'s call: ``forward_pcds`` the ``field``
+        frames before the key pair (nearest first), ``key_pcds`` its 2
+        frames, ``backward_pcds`` the ``field`` after it, each ``[B, N,
+        3]``; ``t [B]``; ``ini_feature [B, N, 3]`` zeros -> ``[B, N, 3]``.
+        ``perms``: the 2 + 2 field + (field + 1) fusion permutations ``[B,
+        N]`` in the JAX module's draw order (the key PointINet's two, each
+        ring's two, then ``fusion2``'s one a cloud); otherwise drawn from
+        ``generator``.  The ring flows come from one ``FlowNet3D.multi``
+        over the 2 field + 2 frames (each encoded once) on the JAX pair
+        plan, divided by the ring's index."""
+        field = self.field
+        t32 = t.float()
+        draws = iter(perms) if perms is not None else None
+
+        def take(n):
+            return None if draws is None else [next(draws) for _ in range(n)]
+
+        weights = self.wnet(t32[:, None])  # [B, 6 field]
+        fused = [self.pointinet(key_pcds[0], key_pcds[1], ini_feature, ini_feature, t32,
+                                perms=take(2), generator=generator)]
+        clouds = list(forward_pcds) + list(backward_pcds) + [key_pcds[0], key_pcds[1]]
+        k0, k1 = 2 * field, 2 * field + 1
+        pairs = []
+        for i in range(1, field + 1):
+            pairs += [(field - i, k0), (field + i - 1, k1)]
+        with torch.no_grad():  # the frozen flow (the JAX module's stop_gradient)
+            flows = self.flow.multi(clouds, [ini_feature] * len(clouds), pairs)
+        tb = t32[:, None, None]
+        for i in range(1, field + 1):
+            warped1 = key_pcds[0] + flows[2 * (i - 1)] / i * tb
+            warped2 = key_pcds[1] + flows[2 * (i - 1) + 1] / i * (1.0 - tb)
+            fused.append(getattr(self, f"fusion_ring{i}")(
+                warped1, warped2, RING_FUSION_K, t32, perms=take(2), generator=generator))
+        return self.fusion2(fused, RING_FUSION_K, weights, perms=take(field + 1),
+                            generator=generator)

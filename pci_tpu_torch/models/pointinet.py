@@ -37,7 +37,8 @@ class PointINet(nn.Module):
         # (the flow's kernels take contiguous clouds)
         xyz1, extra1 = points1[..., :3].contiguous(), points1[..., 3:]
         xyz2, extra2 = points2[..., :3].contiguous(), points2[..., 3:]
-        flow12, flow21 = self.flow.bidirectional(xyz1, xyz2, feats1, feats2)
+        with torch.no_grad():  # the frozen flow (the JAX model's stop_gradient)
+            flow12, flow21 = self.flow.bidirectional(xyz1, xyz2, feats1, feats2)
         tb = t.float()[:, None, None]
         warped1 = xyz1 + flow12 * tb
         warped2 = xyz2 + flow21 * (1.0 - tb)

@@ -1,7 +1,7 @@
 """Layers of the port (counterpart of ``pci_tpu.nn``)."""
 
-from .fusion import PointsFusion, PointsFusionWithFeatures
-from .heads import Outputer, Tnet
+from .fusion import PointsFusion, PointsFusionMulti, PointsFusionWithFeatures
+from .heads import Outputer, Tnet, Wnet
 from .layers import (
     Classifier,
     FeaturePropagation,
@@ -32,12 +32,14 @@ __all__ = [
     "PointMLP",
     "Pointnet2FeatureAbstract",
     "PointsFusion",
+    "PointsFusionMulti",
     "PointsFusionWithFeatures",
     "SetAbstractionMsg",
     "SetConv",
     "SetUpConv",
     "Tnet",
     "TransformerLayer",
+    "Wnet",
     "fold_pointmlp_vars",
     "fps_start",
     "gather_split",

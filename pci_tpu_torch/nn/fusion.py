@@ -24,6 +24,16 @@ on the one-shot route as the kernel's payload (one launch, as without
 it), on the two-kernel route as the tail's ``extra``, gathered by the
 residual kNN's indices.
 
+``PointsFusionMulti`` (PointINet2's last fusion) merges F clouds with
+budgets from ``Wnet``'s weights: the budgeted F-segment residual kNN (one
+kernel on the card), then a GroupNorm score MLP in PyTorch.
+
+At eval with a gradient that could flow (``_build.needs_grad``: grad mode
+on and an input or a parameter requiring grad, the counterpart of the
+JAX package's ``ops.has_tangents``) the eval function runs by
+differentiable ops: the residual kNN with its fixed-neighbour backward,
+then the head in PyTorch on the BatchNorms' running statistics.
+
 The permutations come from ``torch.randperm`` with the caller's
 ``torch.Generator``: torch cannot reproduce ``jax.random``'s draws, so a
 caller that needs given permutations passes ``perms=(perm1, perm2)``.
@@ -38,6 +48,7 @@ from torch import nn
 
 from ..ops import index_points
 from ..ops.cuda_kernels import (
+    _build,
     fusion_attention_tail,
     fusion_cells_attention,
     fusion_cells_resi_knn,
@@ -47,6 +58,7 @@ from ..ops.cuda_kernels import (
 from ..ops.cuda_kernels.fusion_knn_cuda import (
     MAX_KERNEL_K,
     MAX_PAYLOAD,
+    MAX_SEGMENTS,
     FusionResiKnn,
     fusion_head,
     fusion_resi_plain,
@@ -55,7 +67,8 @@ from ..ops.cuda_kernels.fusion_tail_cuda import fusion_tail_plain
 from .mlp import PointMLP
 
 # N2 rounds to a multiple of _ALIGN; with k <= _ALIGN a segment with a
-# positive neighbour budget always holds at least k points
+# positive neighbour budget always holds at least k points (past it, a
+# segment shorter than its budget leaves self-neighbour slots)
 _ALIGN = 32
 
 # From this many points on the fusion runs on the cell-pruned kernel
@@ -73,6 +86,26 @@ def _adaptive_budgets(N: int, k: int, t: torch.Tensor):
     N2 = torch.maximum(N2, _ALIGN * (k2 > 0).to(torch.int32))
     N2 = torch.minimum(N2, N - _ALIGN * (k1 > 0).to(torch.int32))
     return N - N2, N2, k1, k2
+
+
+def _multi_budgets(N: int, k: int, w_head: torch.Tensor):
+    """Per-cloud sample and neighbour budgets of F clouds from ``w_head
+    [B, F - 1]`` (the last cloud takes the remainders): ``(n_all [B, F],
+    k_all [B, F])`` int32, every n a multiple of ``_ALIGN`` and the last
+    cloud at least ``_ALIGN`` points; a cloud the cumulative clamp leaves
+    with no points gets no neighbour slots.  Computed in fp32 in the order
+    of ``pci_tpu/nn/fusion.py:_multi_budgets``: ``floor(k * w)`` and the
+    rounding of ``N * w / _ALIGN`` are rounding-sensitive."""
+    w = w_head.float()
+    k_budget = torch.floor(k * w).to(torch.int32)
+    n_b = (torch.floor(N * w / _ALIGN + 0.5) * _ALIGN).to(torch.int32)
+    n_b = torch.maximum(n_b, _ALIGN * (k_budget > 0).to(torch.int32))
+    cum = torch.cumsum(n_b, dim=1).clamp(max=N - _ALIGN).to(torch.int32)
+    n_b = torch.diff(cum, dim=1, prepend=torch.zeros_like(cum[:, :1]))
+    n_all = torch.cat([n_b, N - cum[:, -1:]], dim=1)
+    k_budget = torch.where(n_b > 0, k_budget, torch.zeros_like(k_budget))
+    k_all = torch.cat([k_budget, k - k_budget.sum(dim=1, keepdim=True, dtype=torch.int32)], 1)
+    return n_all, k_all
 
 
 def _composed_shuffle_merge(points_list, perms, n_all):
@@ -116,9 +149,10 @@ def _cells_route_ok(points: torch.Tensor, k: int, train: bool, n_seg: int = 2) -
 
 
 def _kernel_shape_ok(k: int, payload: torch.Tensor | None) -> bool:
-    """The fusion kernels' shapes: ``k <= MAX_KERNEL_K`` (32, one lane a
-    slot in csrc/fusion_knn.cu, csrc/fusion_tail.cu and
-    csrc/fusion_cells.cu) and a payload of at most ``MAX_PAYLOAD``
+    """The fusion kernels' shapes: ``k <= MAX_KERNEL_K`` (64: one lane a
+    slot up to 32 and two past it, in csrc/fusion_knn.cu and
+    csrc/fusion_tail.cu; the cells route keeps its own k <= 32,
+    :func:`_cells_route_ok`) and a payload of at most ``MAX_PAYLOAD``
     channels (the one-shot kernels').  Past either, the fusion takes the
     plain versions on any device: the budgeted kNN inside the same
     fixed-neighbour autograd function, then the head in PyTorch, the
@@ -178,23 +212,24 @@ class PointsFusion(nn.Module):
             payload = torch.gather(cat, 1, gidx[..., None].expand(-1, -1, cat.shape[-1]))
         seg_ends = torch.stack([N1, torch.full_like(N1, N)], dim=1)
         budgets = torch.stack([k1, k2], dim=1)
-        if not _kernel_shape_ok(k, payload):
-            idx, resi = FusionResiKnn.apply(combined, seg_ends, budgets, k, fusion_resi_plain)
-            extra = _neighbour_payload(payload, idx)
-            if self.training:
-                return fusion_head(combined, resi, lambda h: self.mlp(h, momentum), extra)
-            return fusion_tail_plain(combined, resi, extra, self.mlp.folded())
-        cells = _cells_route_ok(combined, k, self.training)
-        if _fusion_oneshot_ok(self.training, combined):
+        shape_ok = _kernel_shape_ok(k, payload)
+        grad = not self.training and _build.needs_grad(self, combined, payload)
+        cells = shape_ok and _cells_route_ok(combined, k, self.training)
+        if shape_ok and not grad and _fusion_oneshot_ok(self.training, combined):
             oneshot = fusion_cells_attention if cells else knn_fusion_attention
             return oneshot(combined, seg_ends, budgets, self.mlp.folded(), k, payload=payload)
-        knn = fusion_cells_resi_knn if cells else fusion_resi_knn
-        idx, resi = knn(combined, seg_ends, budgets, k)
+        if shape_ok:
+            knn = fusion_cells_resi_knn if cells else fusion_resi_knn
+            idx, resi = knn(combined, seg_ends, budgets, k)
+        else:
+            idx, resi = FusionResiKnn.apply(combined, seg_ends, budgets, k, fusion_resi_plain)
         extra = _neighbour_payload(payload, idx)
-        if self.training:
-            # the head in PyTorch (pci_tpu/nn/fusion.py:282-292)
+        if self.training or grad:
+            # the head in PyTorch (pci_tpu/nn/fusion.py:282-292), at eval on
+            # the BatchNorms' running statistics
             return fusion_head(combined, resi, lambda h: self.mlp(h, momentum), extra)
-        return fusion_attention_tail(combined, resi, extra, self.mlp.folded())
+        tail = fusion_attention_tail if shape_ok else fusion_tail_plain
+        return tail(combined, resi, extra, self.mlp.folded())
 
 
 class PointsFusionWithFeatures(PointsFusion):
@@ -217,3 +252,41 @@ class PointsFusionWithFeatures(PointsFusion):
         :class:`PointsFusion`'s ``[B, N, 3]``."""
         feats = None if feats1 is None else (feats1, feats2)
         return self._fuse(points1, points2, feats, k, t, perms, generator, momentum)
+
+
+class PointsFusionMulti(nn.Module):
+    """Fusion across F = field + 1 clouds with per-cloud budgets (the
+    counterpart of ``pci_tpu/nn/fusion.py:PointsFusionMulti``,
+    Utils/Layers.py:286-381): cloud j < F - 1 takes ``n_j ~ N w_j`` sampled
+    points and ``floor(k w_j)`` neighbours (:func:`_multi_budgets`), the
+    last cloud the remainders.  The score MLP has GroupNorm(C/8) layers
+    (``PointMLP_0``, flax's name), which no kernel can fold, so after the
+    budgeted F-segment residual kNN (one kernel on the card, the plain
+    version on the CPU; its fixed-neighbour backward) the head runs in
+    PyTorch."""
+
+    def __init__(self):
+        super().__init__()
+        self.mlp = PointMLP(4, (64, 64, 128), norm="group_div")
+
+    def forward(self, points_list, k: int, weights, perms=None,
+                generator: torch.Generator | None = None):
+        """``points_list``: F clouds ``[B, N, 3]``; ``weights [B, >= F - 1]``
+        (only ``weights[:, :F - 1]`` is read, as in the JAX module: PointINet2
+        passes ``Wnet``'s ``[B, 6 field]``) -> fused ``[B, N, 3]``.
+        ``perms``: F ``[B, N]`` permutations, one a cloud; otherwise drawn
+        from ``generator``."""
+        F = len(points_list)
+        B, N, _ = points_list[0].shape
+        dev = points_list[0].device
+        n_all, k_all = _multi_budgets(N, k, weights[:, :F - 1])
+        if perms is None:
+            perms = [random_perms(B, N, generator, dev) for _ in range(F)]
+        combined, _ = _composed_shuffle_merge(list(points_list), [p.to(dev) for p in perms],
+                                              n_all.to(dev))
+        seg_ends = torch.cumsum(n_all, dim=1)
+        if k <= MAX_KERNEL_K and F <= MAX_SEGMENTS:
+            _, resi = fusion_resi_knn(combined, seg_ends, k_all, k)
+        else:
+            _, resi = FusionResiKnn.apply(combined, seg_ends, k_all, k, fusion_resi_plain)
+        return fusion_head(combined, resi, self.mlp)

@@ -1,6 +1,7 @@
 """Time-conditioning and output heads (counterpart of
-``pci_tpu/nn/heads.py``): ``Tnet`` and ``Outputer``.  Dense stacks with
-GroupNorm(C/8), ``torch.matmul``s all (no kernel of the port).
+``pci_tpu/nn/heads.py``): ``Tnet``, ``Wnet`` and ``Outputer``.  Dense
+stacks with GroupNorm(C/8), ``torch.matmul``s all (no kernel of the
+port).
 ``dense.i`` / ``gn.i`` are flax's ``Dense_i`` / ``GroupNorm_i``.
 """
 
@@ -12,16 +13,16 @@ from torch import nn
 from .norm import GroupNorm
 
 
-class Tnet(nn.Module):
-    """``t [B, 1]`` -> softmax weights ``[B, 2 * field]`` over the flow
-    candidates."""
+class _TimeHead(nn.Module):
+    """``t [B, 1]`` -> softmax weights ``[B, out]``: Dense, GroupNorm(C/8)
+    and ReLU over ``widths``, then Dense(out)."""
 
-    def __init__(self, field: int):
+    def __init__(self, widths, out: int):
         super().__init__()
-        widths = [1, 64, 256, 256, 64]
+        widths = [1, *widths]
         self.dense = nn.ModuleList(
             [nn.Linear(a, b) for a, b in zip(widths[:-1], widths[1:])]
-            + [nn.Linear(64, 2 * field)])
+            + [nn.Linear(widths[-1], out)])
         self.gn = nn.ModuleList(GroupNorm(w // 8, w) for w in widths[1:])
 
     def forward(self, t: torch.Tensor) -> torch.Tensor:
@@ -29,6 +30,22 @@ class Tnet(nn.Module):
         for dense, gn in zip(self.dense, self.gn):
             h = torch.relu(gn(dense(h)))
         return torch.softmax(self.dense[-1](h), dim=-1)
+
+
+class Tnet(_TimeHead):
+    """``t [B, 1]`` -> softmax weights ``[B, 2 * field]`` over the flow
+    candidates (widths 64, 256, 256, 64)."""
+
+    def __init__(self, field: int):
+        super().__init__((64, 256, 256, 64), 2 * field)
+
+
+class Wnet(_TimeHead):
+    """``t [B, 1]`` -> softmax weights ``[B, 6 * field]``, PointINet2's
+    fusion budgets (widths 128, 512, 512, 128)."""
+
+    def __init__(self, field: int):
+        super().__init__((128, 512, 512, 128), 6 * field)
 
 
 class Outputer(nn.Module):

@@ -6,7 +6,11 @@ Eval only (FlowNet3D is frozen while the port trains ISAPCInet; its
 training waits for backward paths of the set-conv and kNN-conv kernels):
 every stage folds its BatchNorms into the Dense weights and runs as ONE
 fused kernel call (a CUDA kernel on the card, its plain PyTorch version on
-the CPU).  These are FlowNet3D's per-stage route; its fused route
+the CPU).  Where a gradient could flow (``_build.needs_grad``: grad mode
+on and an input or a parameter requiring grad, the JAX package's
+``ops.has_tangents``) a stage runs the same eval function by
+differentiable ops instead: its plain version with the unfolded
+``PointMLP`` (BatchNorm on its running statistics).  These are FlowNet3D's per-stage route; its fused route
 (``models/flownet3d.py``) runs the same folds through the megakernels.
 Channel concat orders follow the JAX
 package, because they define the weight layout: SetConv groups
@@ -23,7 +27,9 @@ import torch
 from torch import nn
 
 from .. import ops
-from ..ops.cuda_kernels import fold_bn_layers, knnconv_fused, setconv_fused
+from ..ops.cuda_kernels import _build, fold_bn_layers, knnconv_fused, setconv_fused
+from ..ops.cuda_kernels.knnconv_cuda import knnconv_plain
+from ..ops.cuda_kernels.setconv_cuda import setconv_plain
 from .mlp import PointMLP, cached_fold
 from .norm import BatchNorm
 
@@ -77,6 +83,9 @@ class SetConv(nn.Module):
         # exact=False: interleaved FPS chains at N >= 4096, the JAX
         # package's accelerator route (SetConv.fps_exact defaults to False)
         new_xyz = ops.fps_points(xyz, self.npoint, 0, exact=False)
+        if _build.needs_grad(self, xyz, feats):
+            return new_xyz, setconv_plain(xyz, feats, new_xyz, self.radius, self.nsample,
+                                          self.mlp)
         pooled = setconv_fused(xyz, feats, new_xyz, self.radius, self.nsample,
                                self.mlp.folded())
         return new_xyz, pooled
@@ -93,6 +102,9 @@ class FlowEmbedding(nn.Module):
 
     def forward(self, xyz1, xyz2, feats1, feats2):
         require_eval(self)
+        if _build.needs_grad(self, xyz1, xyz2, feats1, feats2):
+            return knnconv_plain(xyz1, xyz2, feats2, feats1, None, self.nsample, self.mlp, [],
+                                 False)
         return knnconv_fused(xyz1, xyz2, feats2, feats1, None, self.nsample,
                              self.mlp.folded(), [])
 
@@ -112,6 +124,9 @@ class SetUpConv(nn.Module):
 
     def forward(self, coarse_xyz, dense_xyz, coarse_feats, dense_feats):
         require_eval(self)
+        if _build.needs_grad(self, coarse_xyz, dense_xyz, coarse_feats, dense_feats):
+            return knnconv_plain(dense_xyz, coarse_xyz, coarse_feats, None, dense_feats,
+                                 self.nsample, self.conv1 or [], self.conv2, False)
         return knnconv_fused(dense_xyz, coarse_xyz, coarse_feats, None,
                              dense_feats, self.nsample,
                              fold_pointmlp_vars(self.conv1),
@@ -128,6 +143,9 @@ class FeaturePropagation(nn.Module):
 
     def forward(self, sub_xyz, dense_xyz, sub_feats, dense_feats):
         require_eval(self)
+        if _build.needs_grad(self, sub_xyz, dense_xyz, sub_feats, dense_feats):
+            return knnconv_plain(dense_xyz, sub_xyz, sub_feats, None, dense_feats, 3, [],
+                                 self.mlp, True)
         return knnconv_fused(dense_xyz, sub_xyz, sub_feats, None, dense_feats,
                              3, [], self.mlp.folded(), interp=True)
 

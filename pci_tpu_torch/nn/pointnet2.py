@@ -1,7 +1,8 @@
 """PointNet++ multi-scale-grouping encoder/decoder over flow fields
 (counterpart of ``pci_tpu/nn/pointnet2.py``).  Two routes, picked per call
 by the JAX package's gate ``PCI_TPU_PN2_KERNEL`` (``_pn2mid_ok``): at eval
-on a CUDA tensor that needs no gradient, sa2 .. fp2 (everything on sa1's
+on a CUDA tensor where no gradient could flow (``_build.needs_grad``: the
+input and the module's parameters), sa2 .. fp2 (everything on sa1's
 1,024 points) is ONE kernel (``pn2mid_fused``); otherwise, and always in
 training, every SA and FP level is a stage of its own.
 
@@ -13,8 +14,8 @@ GroupNorm; the ball query and FPS run on their kernels (on detached
 clouds: their indices carry no gradient), and the gathers they feed are
 differentiable.  The FP interpolation runs on the kNN-conv kernel at eval
 and, as the JAX package routes it at train, through
-``ops.three_nn_interpolate`` under autograd in training (its 3-NN on the
-kNN kernel).  In training each SA level draws its FPS start from the
+``ops.three_nn_interpolate`` under autograd in training or where a
+gradient could flow (its 3-NN on the kNN kernel).  In training each SA level draws its FPS start from the
 ``generator`` (``layers.fps_start``).
 """
 
@@ -27,7 +28,7 @@ import torch
 from torch import nn
 
 from .. import ops
-from ..ops.cuda_kernels import ball_query_multi, knnconv_fused
+from ..ops.cuda_kernels import _build, ball_query_multi, knnconv_fused
 from ..ops.cuda_kernels.pn2mid_cuda import PackedGroups, gn_pointmlp_vars, pn2mid_fused
 from .layers import fps_start, gather_split
 from .mlp import PointMLP, cached_fold
@@ -80,7 +81,7 @@ class FeaturePropagationP2(nn.Module):
         [B, N, D]`` or None, ``sub_feats [B, S, C]`` -> ``[B, N, C']``."""
         if sub_xyz.shape[1] == 1:
             interp = sub_feats.expand(-1, dense_xyz.shape[1], -1)
-        elif self.training:
+        elif self.training or _build.needs_grad(dense_xyz, sub_xyz, sub_feats):
             interp = ops.three_nn_interpolate(dense_xyz, sub_xyz, sub_feats, "eps")
         else:
             interp = knnconv_fused(dense_xyz, sub_xyz, sub_feats, None, None, 3,
@@ -121,7 +122,7 @@ class Pointnet2FeatureAbstract(nn.Module):
         """``xyz [B, M, 3]`` (flow vectors as a cloud) -> ``[B, M, out]``;
         ``generator``: the training FPS starts' (see ``layers.fps_start``)."""
         l1_xyz, l1_f = self.sa1(xyz, None, generator)
-        if _pn2mid_ok(self.training, l1_f):
+        if _pn2mid_ok(self.training, l1_f) and not _build.needs_grad(self):
             l1_f = self._mid_fused(l1_xyz, l1_f)
         else:
             l2_xyz, l2_f = self.sa2(l1_xyz, l1_f, generator)

@@ -10,7 +10,11 @@ offsets ``delta = xyz - knn_xyz``, then the vector-attention tail and
 ``fc2`` plus the residual.
 The tail is one kernel on the card: the eval kernel, or in training the
 trainable route (the same forward kernel and a backward kernel), as the
-TPU's ``vector_attention_trainable``.  Returns ``(out, None)``, as the TPU
+TPU's ``vector_attention_trainable``; each routes by shape before any
+launch (``attention_cuda.kernel_route_ok`` / ``bwd_route_ok``: widths
+the kernels do not take run the plain versions).  At eval with a gradient
+that could flow (``_build.needs_grad``) the layer takes the trainable
+route, as the JAX layer takes its XLA expression under a tangent.  Returns ``(out, None)``, as the TPU
 routes do: the ``[B, N, k, d]`` attention maps are what the tail kernels
 exist not to write.  The dense layers are ``torch.matmul``s.
 """
@@ -21,7 +25,7 @@ import torch
 from torch import nn
 
 from ..ops import index_points
-from ..ops.cuda_kernels import knn, vector_attention, vector_attention_trainable
+from ..ops.cuda_kernels import _build, knn, vector_attention, vector_attention_trainable
 
 
 class TransformerLayer(nn.Module):
@@ -51,6 +55,7 @@ class TransformerLayer(nn.Module):
         delta = xyz[:, :, None, :] - knn_xyz  # [B, N, k, 3]
         tail = [(m.weight, m.bias) for m in (self.fc_delta_0, self.fc_delta_1,
                                             self.fc_gamma_0, self.fc_gamma_1)]
-        tail_fn = vector_attention_trainable if self.training else vector_attention
+        trainable = self.training or _build.needs_grad(self, xyz, feats)
+        tail_fn = vector_attention_trainable if trainable else vector_attention
         res = tail_fn(self.w_qs(x), g, delta, tail)
         return self.fc2(res) + feats.float(), None

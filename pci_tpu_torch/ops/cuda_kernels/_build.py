@@ -46,8 +46,11 @@ _SIGNATURES = {
     "pci_knnconv": [_P, _P, _P, _P, _P, _P, _P, _IP, _I, _IP, _I, _P] + [_I] * 10 + [_P],
     "pci_knnconv_attrs": [_IP],
     "pci_fusion": [_P, _P, _P, _I, _I, _I, _P, _I, _P, _I, _I, _P],
+    "pci_fusion64": [_P, _P, _P, _I, _I, _I, _P, _I, _P, _I, _I, _P],
     "pci_fusion_attrs": [_IP],
     "pci_fusion_payload_attrs": [_IP],
+    "pci_fusion64_attrs": [_IP],
+    "pci_fusion64_payload_attrs": [_IP],
     "pci_flowenc_attrs": [_IP],
     "pci_flowmid_attrs": [_IP],
     "pci_ball": [_P, _P, _P, _IP, _I, _I, _I, _I, _P, _P, _P],
@@ -62,6 +65,7 @@ _SIGNATURES = {
     "pci_attention_bwd_attrs": [_IP],
     "pci_fusion_resi": [_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _P, _P],
     "pci_fusion_resi_attrs": [_IP],
+    "pci_fusion_resi64_attrs": [_IP],
     "pci_attention_bwd": [_P] * 11 + [_I, _I, _I, _I, _P],
     "pci_flowenc": [_P, _P, _P, _P, _IP, _I, _P, _IP, _I, _P, _P, _P, _P, _P, _I, _I,
                     _I, _I, _I, _F, _I, _F, _I, _P],
@@ -69,6 +73,7 @@ _SIGNATURES = {
                    + [_I] * 8 + [_F, _I, _F, _I, _I, _P],
     "pci_fusion_tail": [_P, _P, _P, _P, _I, _I, _I, _P, _I, _I, _I, _I, _P],
     "pci_fusion_tail_attrs": [_IP],
+    "pci_fusion_tail64_attrs": [_IP],
     "pci_fusion_cells": [_P] * 8 + [_I] * 3 + [_P, _I] + [_P] * 6 + [_I] * 6 + [_P],
     "pci_fusion_cells_attrs": [_IP],
     "pci_fusion_cells_payload_attrs": [_IP],
@@ -106,6 +111,31 @@ def use_kernel(t: torch.Tensor) -> bool:
     if t.device.type == "cuda":
         return True
     raise ValueError(f"no kernel or plain route for device {t.device}")
+
+
+def needs_grad(*items) -> bool:
+    """Whether a gradient could flow through an eval call: grad mode on,
+    and a tensor among ``items`` (or inside a list or tuple of them), or a
+    parameter of an ``nn.Module`` among them, requires grad.  The
+    counterpart of the JAX package's ``ops.has_tangents``: where it holds,
+    an eval layer computes its eval function by differentiable ops
+    (unfolded, BatchNorm on its running statistics) instead of an eval-only
+    kernel, whose wrapper would refuse the call (:func:`check_eval_only`).
+    Served paths run under ``torch.inference_mode()``, where it is false."""
+    if not torch.is_grad_enabled():
+        return False
+    stack = list(items)
+    while stack:
+        it = stack.pop()
+        if isinstance(it, torch.Tensor):
+            if it.requires_grad:
+                return True
+        elif isinstance(it, torch.nn.Module):
+            if any(p.requires_grad for p in it.parameters()):
+                return True
+        elif isinstance(it, (list, tuple)):
+            stack.extend(it)
+    return False
 
 
 def check_eval_only(name: str, *tensors) -> None:
@@ -382,7 +412,12 @@ def graph_replay(cache, limit: int, key, what: str, fn, *inputs):
 
 def mlp_plain(h: torch.Tensor, layers, n_final: int = 0) -> torch.Tensor:
     """Plain folded MLP chain: ``relu(h @ W.T + b)`` per layer, the last
-    ``n_final`` layers linear."""
+    ``n_final`` layers linear.  ``layers`` may also be a module computing
+    the chain unfolded (an eval-mode ``PointMLP``, whose BatchNorms take
+    their running statistics): the differentiable eval route of
+    :func:`needs_grad` (``n_final`` 0)."""
+    if isinstance(layers, torch.nn.Module):
+        return layers(h)
     for i, (w, b) in enumerate(layers):
         h = torch.nn.functional.linear(h, w, b)
         if i < len(layers) - n_final:

@@ -26,6 +26,7 @@ from . import _build
 
 BWD_MAX_D = 64  # the backward holds five [64, d] tiles and its weight
 # gradients' partial in shared memory
+FWD_MAX_D, MAX_K = 128, 32  # the forward kernel's widths, both kernels' slots
 # the forward's tensor-core route (csrc/attention.cu attention_tc_kernel):
 # one warp a query, its slots one 16-row tile, up to 8 n-tiles in registers
 TC_MAX_D, TC_MAX_K = 64, 16
@@ -43,14 +44,28 @@ def vector_attention(q: torch.Tensor, g: torch.Tensor, delta: torch.Tensor,
     ``[(W [d, 3], b), (W [d, d], b), (W, b), (W, b)]`` of fc_delta_0,
     fc_delta_1, fc_gamma_0, fc_gamma_1 (``nn.Linear`` layout) ->
     ``res [B, N, d]`` fp32.  The kernel takes ``d <= 128`` (a multiple of 8)
-    and ``k <= 32``: on the tensor cores at ``d <= 64`` and ``k <= 16``
-    (:func:`tc_route_ok`), the scalar route otherwise."""
+    and ``k <= 32`` (:func:`kernel_route_ok`): on the tensor cores at ``d
+    <= 64`` and ``k <= 16`` (:func:`tc_route_ok`), the scalar route
+    otherwise; other shapes take the plain version on any device, decided
+    before any launch (the JAX layer's XLA expression)."""
     _build.check_eval_only("vector_attention", q, g, delta,
                            *[t for wb in tail for t in wb])
-    if _build.use_kernel(q):
+    if _build.use_kernel(q) and kernel_route_ok(q.shape[-1], g.shape[2]):
         return attention_kernel(q.float().contiguous(), g.float().contiguous(),
                                 delta.float().contiguous(), tail)
     return attention_plain(q, g, delta, tail)
+
+
+def kernel_route_ok(d: int, k: int) -> bool:
+    """The forward kernel's shapes: ``d`` a multiple of 8 in [8, 128] and
+    ``1 <= k <= 32``."""
+    return d % 8 == 0 and 8 <= d <= FWD_MAX_D and 1 <= k <= MAX_K
+
+
+def bwd_route_ok(d: int, k: int) -> bool:
+    """The trainable route's kernels: the forward's shapes with ``d <=
+    64``, where the backward kernel also fits."""
+    return kernel_route_ok(d, k) and d <= BWD_MAX_D
 
 
 def tc_route_ok(d: int, k: int) -> bool:
@@ -107,9 +122,9 @@ def attention_kernel(q, g, delta, tail, stamps=None):
     if g.shape != (B, N, k, 2 * d) or delta.shape != (B, N, k, 3):
         raise ValueError(f"attention kernel: q {tuple(q.shape)}, g {tuple(g.shape)}, "
                          f"delta {tuple(delta.shape)} do not fit")
-    if d % 8 or not 8 <= d <= 128 or not 1 <= k <= 32:
-        raise ValueError(f"attention kernel takes d <= 128 (a multiple of 8) and "
-                         f"k <= 32, got d={d} k={k}")
+    if not kernel_route_ok(d, k):
+        raise ValueError(f"attention kernel takes d <= {FWD_MAX_D} (a multiple of 8) and "
+                         f"k <= {MAX_K}, got d={d} k={k}")
     shapes = [tuple(w.shape) for w, _ in tail]
     if shapes != [(d, 3), (d, d), (d, d), (d, d)]:
         raise ValueError(f"attention kernel: tail layer shapes {shapes} for d={d}")
@@ -156,8 +171,9 @@ def vector_attention_trainable(q: torch.Tensor, g: torch.Tensor,
                                delta: torch.Tensor, tail) -> torch.Tensor:
     """:func:`vector_attention` with gradients for every input and every
     weight and bias of ``tail``: the forward kernel, then the backward
-    kernel (on a CUDA tensor; the plain versions on the CPU).  The
-    backward takes the route the forward took."""
+    kernel (on a CUDA tensor at :func:`bwd_route_ok`'s shapes, decided for
+    both directions at the forward; the plain versions elsewhere and on the
+    CPU).  The backward takes the route the forward took."""
     (wd0, bd0), (wd1, bd1), (wg0, bg0), (wg1, bg1) = tail
     return _VectorAttention.apply(q, g, delta, wd0, bd0, wd1, bd1, wg0, bg0,
                                   wg1, bg1)
@@ -167,7 +183,7 @@ class _VectorAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, g, delta, *weights):
         tail = list(zip(weights[0::2], weights[1::2]))
-        ctx.kernel = _build.use_kernel(q)
+        ctx.kernel = _build.use_kernel(q) and bwd_route_ok(q.shape[-1], g.shape[2])
         if ctx.kernel:
             out = attention_kernel(q.float().contiguous(), g.float().contiguous(),
                                    delta.float().contiguous(), tail)
@@ -219,8 +235,8 @@ def attention_bwd_kernel(q, g, delta, tail, gout, stamps=None):
     if g.shape != (B, N, k, 2 * d) or delta.shape != (B, N, k, 3) or gout.shape != q.shape:
         raise ValueError(f"attention backward: q {tuple(q.shape)}, g {tuple(g.shape)}, "
                          f"delta {tuple(delta.shape)}, gout {tuple(gout.shape)} do not fit")
-    if not 1 <= d <= BWD_MAX_D or not 1 <= k <= 32:
-        raise ValueError(f"attention backward kernel takes d <= {BWD_MAX_D} and k <= 32, "
+    if not 1 <= d <= BWD_MAX_D or not 1 <= k <= MAX_K:
+        raise ValueError(f"attention backward kernel takes d <= {BWD_MAX_D} and k <= {MAX_K}, "
                          f"got d={d} k={k}")
     wbuf = _cached("fp32", tail, lambda: pack_tail(tail, dev))
     blocks = _sm_count(dev)

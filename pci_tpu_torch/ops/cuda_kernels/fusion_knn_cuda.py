@@ -32,7 +32,10 @@ from . import _build
 from .knn_cuda import knn_plain
 
 MAX_SEGMENTS = 4  # the residual kernel keeps one top list a segment
-MAX_KERNEL_K = 32  # the fusion kernels' slots a query (one lane a slot in the heads)
+# the flat fusion kernels' slots a query: one lane a slot up to 32, two a
+# lane up to 64 (each kernel's k <= 64 instantiation, chosen by k at launch)
+MAX_KERNEL_K = 64
+LANE_K = 32  # the k <= 32 instantiations' slots
 MAX_PAYLOAD = 8  # payload channels the one-shot kernels carry (csrc/fusion_head.cuh PAYLOAD_MAX)
 RESI_ITEM = 64  # queries a residual kernel item (csrc/fusion_knn.cu RES_Q)
 RESI_STAMPS = 6  # int64 an item's stamp row (RES_STAMPS)
@@ -97,8 +100,8 @@ def fusion_kernel(combined, seg_ends, budgets, layers, k, payload=None):
     B, N, C = combined.shape
     if C != 3:
         raise ValueError("fusion kernel takes [B, N, 3] clouds")
-    if k > 32:
-        raise ValueError("fusion kernel: k <= 32 (one lane a slot)")
+    if not 1 <= k <= MAX_KERNEL_K:
+        raise ValueError(f"fusion kernel: k <= {MAX_KERNEL_K} (two slots a lane at most)")
     if seg_ends.shape != (B, 2) or budgets.shape != (B, 2):
         raise ValueError("fusion kernel: two segments a batch row")
     Cp = payload_channels(payload, combined, "fusion")
@@ -108,7 +111,8 @@ def fusion_kernel(combined, seg_ends, budgets, layers, k, payload=None):
     wtc = _build.pack_tf32(layers, dev, chain=True)
     seg = torch.cat([seg_ends, budgets], dim=1).to(dev, torch.int32).contiguous()
     out = torch.empty((B, N, 3 + Cp), dtype=torch.float32, device=dev)
-    err = _build.library().pci_fusion(
+    entry = _build.library().pci_fusion if k <= LANE_K else _build.library().pci_fusion64
+    err = entry(
         combined.data_ptr(), seg.data_ptr(), wtc.data_ptr(), *dims[1:],
         payload.data_ptr() if Cp else None, Cp, out.data_ptr(), B, N,
         _build.stream_ptr(dev),
@@ -154,7 +158,7 @@ def fusion_resi_knn(combined: torch.Tensor, seg_ends: torch.Tensor,
     cannot fill (fewer rows than budget) holds the row itself.
 
     ``seg_ends`` / ``budgets``: ``[B, F]`` int, ``F <= 4``, the last end
-    ``N``, budgets summing to ``k <= 32``.  Returns ``(idx [B, N, k]``
+    ``N``, budgets summing to ``k <= 64``.  Returns ``(idx [B, N, k]``
     int64, ``resi [B, N, k, 3]`` = neighbour - row``)``.  ``resi`` is
     differentiable in ``combined`` with the neighbours held fixed:
     ``d combined = scatter_add(idx, d resi) - sum_k d resi``, the JAX
@@ -204,7 +208,8 @@ def fusion_resi_kernel(combined, seg_ends, budgets, k, parts: int = 0, stamps=No
         raise ValueError(f"fusion_resi kernel: [B, F] segment ends and budgets, "
                          f"1 <= F <= {MAX_SEGMENTS}")
     if not 1 <= k <= MAX_KERNEL_K:
-        raise ValueError("fusion_resi kernel: k <= 32 (a list of at most 32 a segment)")
+        raise ValueError(f"fusion_resi kernel: k <= {MAX_KERNEL_K} (a list of at most "
+                         f"{MAX_KERNEL_K} a segment)")
     if parts not in (0, 1, 2, 4):
         raise ValueError(f"fusion_resi kernel: parts {parts} not in 0, 1, 2, 4")
     if stamps is not None:

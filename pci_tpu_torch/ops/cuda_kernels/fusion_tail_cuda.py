@@ -15,7 +15,7 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from .fusion_knn_cuda import SCORE_MLP, fusion_head
+from .fusion_knn_cuda import MAX_KERNEL_K, SCORE_MLP, fusion_head
 
 
 def fusion_attention_tail(combined: torch.Tensor, resi: torch.Tensor,
@@ -39,8 +39,9 @@ def fusion_tail_kernel(combined, resi, extra, layers):
     _build.require(resi, "resi", torch.float32, 4, dev)
     B, N, C = combined.shape
     k = resi.shape[2]
-    if C != 3 or resi.shape != (B, N, k, 3) or not 1 <= k <= 32:
-        raise ValueError("fusion_tail kernel: [B, N, 3] rows, [B, N, k <= 32, 3] residuals")
+    if C != 3 or resi.shape != (B, N, k, 3) or not 1 <= k <= MAX_KERNEL_K:
+        raise ValueError(f"fusion_tail kernel: [B, N, 3] rows, [B, N, k <= {MAX_KERNEL_K}, 3] "
+                         "residuals")
     Ce = 0
     if extra is not None:
         _build.require(extra, "extra", torch.float32, 4, dev)

@@ -15,7 +15,7 @@ KITTI 4-channel mode) in the port, held on the CPU against the JAX package.
   the stub records each C entry's arguments and writes the plain version's
   result): the one-shot kernel (flat, and cell-pruned with the cells gate
   patched low) launched once with the payload; one-shot off, the residual
-  kNN and the tail with ``Ce = 1``; k = 48 and a payload wider than
+  kNN and the tail with ``Ce = 1``; k = 96 and a payload wider than
   ``MAX_PAYLOAD`` launch nothing and give the plain route's rows.
 
 chip_smoke.py holds the payload kernels themselves against their plain
@@ -301,10 +301,11 @@ def test_oneshot_off_runs_the_tail_with_the_payload(cuda_route, monkeypatch):
     torch.testing.assert_close(got, plain_rows(mod, args, k, tt, perms), atol=1e-6, rtol=1e-6)
 
 
-@pytest.mark.parametrize("k, C", [(48, 1), (32, fusion_knn_cuda.MAX_PAYLOAD + 1)])
+@pytest.mark.parametrize("k, C", [(96, 1), (32, fusion_knn_cuda.MAX_PAYLOAD + 1)])
 @pytest.mark.parametrize("oneshot", [True, False])
 def test_past_the_kernels_shapes_launches_nothing(cuda_route, monkeypatch, k, C, oneshot):
-    """k = 48, or a payload of MAX_PAYLOAD + 1 channels, on the forced CUDA
+    """k = 96 (past the fusion kernels' k <= 64), or a payload of
+    MAX_PAYLOAD + 1 channels, on the forced CUDA
     route at eval (either one-shot gate): the plain versions by the explicit
     route, no launch (the stub fails any), the rows of the plain route; the
     one-shot wrapper itself refuses the wide payload."""

@@ -1,10 +1,14 @@
-"""The CUDA routes of four callers at shapes their kernels once refused,
+"""The CUDA routes of five callers at shapes their kernels once refused,
 where the JAX package runs a kernel or XLA: pn2mid over more than 16
 samples (split into launches of at most 16), ``ops.knn`` on clouds that
 are not xyz or with k in (64, 128] (the plain version, or the flat
 kernel's local-memory list), ``ops.fps`` over more than 16,384 points a
-chain (the long-chain kernel), and ``PointsFusion`` past k = 32 (the plain
-versions, no launch; at k = 32 still the fusion kernels).
+chain (the long-chain kernel), ``PointsFusion`` past k = 64 (the plain
+versions, no launch; at k = 32, 48 and 64 the fusion kernels, past 32
+their two-slots-a-lane instantiations) and ``PointsFusionMulti`` (one
+residual kNN launch), and ``TransformerLayer`` at widths its attention
+kernels do not take (the plain versions, no launch; in training both
+directions decided at the forward).
 
 The CPU has no kernel, so each test forces the CUDA route
 (``_build.use_kernel`` patched true) and replaces the kernel library by a
@@ -32,7 +36,13 @@ from pci_tpu.ops import knn as jax_knn
 from pci_tpu_torch import nn as tnn
 from pci_tpu_torch.ops import fps, knn
 from pci_tpu_torch.ops.cuda_kernels import _build
-from pci_tpu_torch.ops.cuda_kernels import fps_cuda, fusion_knn_cuda, knn_cuda, pn2mid_cuda
+from pci_tpu_torch.ops.cuda_kernels import (
+    attention_cuda,
+    fps_cuda,
+    fusion_knn_cuda,
+    knn_cuda,
+    pn2mid_cuda,
+)
 
 
 class StubLibrary:
@@ -61,6 +71,22 @@ def write(ptr: int, t: torch.Tensor) -> None:
     """``t``'s bytes to the output pointer ``ptr`` (what a kernel stores)."""
     t = t.contiguous()
     ctypes.memmove(ptr, t.data_ptr(), t.numel() * t.element_size())
+
+
+def read(ptr: int, shape, ctype=ctypes.c_float) -> torch.Tensor:
+    """A copy of the ``shape`` array at the input pointer ``ptr`` (what a
+    kernel reads)."""
+    n = int(np.prod(shape))
+    return torch.from_numpy(np.ctypeslib.as_array((ctype * n).from_address(ptr))
+                            .reshape(shape).copy())
+
+
+def knn_stub(qp, pp, vn, dp, ip, B, N, S, k, stream):
+    """``pci_knn`` (k >= 2) by the plain kNN on the arrays it is given."""
+    assert vn is None
+    d, i = knn_cuda.knn_plain(read(qp, (B, S, 3)), read(pp, (B, N, 3)), k)
+    write(dp, d)
+    write(ip, i)
 
 
 @pytest.fixture
@@ -211,7 +237,7 @@ def test_fps_long_chains_take_the_long_chain_kernel(cuda_route, N, exact, entry)
 def _jax_fusion(seed: int, N: int):
     """Two seeded clouds, two permutations and t for PointsFusion, the JAX
     module, its variables (non-trivial BatchNorm statistics) as numpy, and
-    its eval rows at k = 48 with those permutations."""
+    its eval rows at k = 96 with those permutations."""
     import jax
 
     import pci_tpu.nn.fusion as jfusion
@@ -230,7 +256,7 @@ def _jax_fusion(seed: int, N: int):
     saved = jfusion._random_perms
     jfusion._random_perms = lambda key, B, n: next(draws)
     try:
-        want = np.asarray(jmod.apply(v, jnp.asarray(a), jnp.asarray(b), 48, jnp.asarray(tt),
+        want = np.asarray(jmod.apply(v, jnp.asarray(a), jnp.asarray(b), 96, jnp.asarray(tt),
                                      rngs={"sample": jax.random.key(2)}))
     finally:
         jfusion._random_perms = saved
@@ -250,12 +276,13 @@ def _fusion_inputs(seed: int, N: int = 1024):
 
 @pytest.mark.parametrize("mode", ["eval_oneshot", "eval_two_kernels", "train"])
 def test_points_fusion_past_k32_launches_nothing(cuda_route, monkeypatch, mode):
-    """PointsFusion at k = 48 on the forced CUDA route (each eval gate
-    forced as the mode says) launches no kernel (the stub fails any
-    launch): at eval its rows equal the JAX PointsFusion's at k = 48 on the
-    same weights and permutations (its XLA route; 1e-5, the cells route
-    test's tolerance); in training its rows and the gradients into both
-    clouds through FusionResiKnn equal the plain route's bit for bit."""
+    """PointsFusion at k = 96, past the fusion kernels' k <= 64, on the
+    forced CUDA route (each eval gate forced as the mode says) launches no
+    kernel (the stub fails any launch): at eval its rows equal the JAX
+    PointsFusion's at k = 96 on the same weights and permutations (its XLA
+    route; 1e-5, the cells route test's tolerance); in training its rows
+    and the gradients into both clouds through FusionResiKnn equal the
+    plain route's bit for bit."""
     import pci_tpu_torch.nn.fusion as tfusion
 
     monkeypatch.setattr(tfusion, "_fusion_oneshot_ok",
@@ -263,7 +290,7 @@ def test_points_fusion_past_k32_launches_nothing(cuda_route, monkeypatch, mode):
     (a, b, tt, perms), want, mod = _fusion_inputs(806)
     tp = tuple(torch.from_numpy(p) for p in perms)
     stub = cuda_route(StubLibrary())
-    k = 48
+    k = 96
     if mode != "train":
         with torch.inference_mode():
             got = mod.eval()(*(torch.from_numpy(x) for x in (a, b)), k, torch.from_numpy(tt),
@@ -296,6 +323,25 @@ def test_points_fusion_at_k32_takes_the_kernels(cuda_route, monkeypatch, mode, e
     the one-shot kernel at eval, the residual kNN and the tail with
     one-shot off, the residual kNN in training (the stubs write the plain
     versions' results)."""
+    _fusion_takes_the_kernels(cuda_route, monkeypatch, mode, entries, 32)
+
+
+@pytest.mark.parametrize("k", [48, 64])
+@pytest.mark.parametrize("mode, entries", [
+    ("eval_oneshot", ["pci_fusion64"]),
+    ("eval_two_kernels", ["pci_fusion_resi", "pci_fusion_tail"]),
+    ("train", ["pci_fusion_resi"]),
+])
+def test_points_fusion_at_k48_k64_takes_the_kernels(cuda_route, monkeypatch, mode, entries, k):
+    """At k = 48 and 64 (PointINet2's ring fusions) the forced route
+    launches the fusion kernels' k <= 64 instantiations: the one-shot
+    kernel's own entry at eval, the residual kNN and the tail (their k
+    chooses the instantiation) with one-shot off, the residual kNN in
+    training; the rows equal the plain route's."""
+    _fusion_takes_the_kernels(cuda_route, monkeypatch, mode, entries, k)
+
+
+def _fusion_takes_the_kernels(cuda_route, monkeypatch, mode, entries, k):
     import pci_tpu_torch.nn.fusion as tfusion
     from pci_tpu_torch.ops.cuda_kernels import fusion_tail_cuda
 
@@ -312,35 +358,31 @@ def test_points_fusion_at_k32_takes_the_kernels(cuda_route, monkeypatch, mode, e
     mod = tnn.PointsFusion()
     init_weights(mod, 809)
     tp = tuple(torch.from_numpy(p) for p in perms)
-    k = 32
     seen = {}
 
     def resi(pts, ends, buds, F, oi, orr, B, N, k_, parts, stamps, stream):
-        x = torch.from_numpy(np.ctypeslib.as_array((ctypes.c_float * (B * N * 3)).from_address(
-            pts)).reshape(B, N, 3).copy())
-        e = np.ctypeslib.as_array((ctypes.c_int32 * (B * F)).from_address(ends)).reshape(B, F)
-        bu = np.ctypeslib.as_array((ctypes.c_int32 * (B * F)).from_address(buds)).reshape(B, F)
-        i, r = fusion_knn_cuda.fusion_resi_plain(x, torch.from_numpy(e.copy()),
-                                                 torch.from_numpy(bu.copy()), k_)
+        assert k_ == k
+        x = read(pts, (B, N, 3))
+        e, bu = read(ends, (B, F), ctypes.c_int32), read(buds, (B, F), ctypes.c_int32)
+        i, r = fusion_knn_cuda.fusion_resi_plain(x, e, bu, k_)
         seen["resi"] = (x, i, r)
         write(oi, i)
         write(orr, r)
 
     def tail(comb, res, extra, wbuf, h1, h2, h3, out, B, N, k_, Ce, stream):
+        assert k_ == k
         x, _, r = seen["resi"]
         write(out, fusion_tail_cuda.fusion_tail_plain(x, r, None, mod.mlp.folded()))
 
     def oneshot(pts, seg, wtc, h1, h2, h3, payload, Cp, out, B, N, stream):
         assert payload is None and Cp == 0  # PointsFusion carries no payload
-        x = torch.from_numpy(np.ctypeslib.as_array((ctypes.c_float * (B * N * 3)).from_address(
-            pts)).reshape(B, N, 3).copy())
-        s4 = np.ctypeslib.as_array((ctypes.c_int32 * (B * 4)).from_address(seg)).reshape(B, 4)
-        write(out, fusion_knn_cuda.fusion_plain(x, torch.from_numpy(s4[:, :2].copy()),
-                                                torch.from_numpy(s4[:, 2:].copy()),
-                                                mod.mlp.folded(), k))
+        x = read(pts, (B, N, 3))
+        s4 = read(seg, (B, 4), ctypes.c_int32)
+        assert int(s4[0, 2] + s4[0, 3]) == k
+        write(out, fusion_knn_cuda.fusion_plain(x, s4[:, :2], s4[:, 2:], mod.mlp.folded(), k))
 
     stub = cuda_route(StubLibrary(pci_fusion_resi=resi, pci_fusion_tail=tail,
-                                  pci_fusion=oneshot))
+                                  **{"pci_fusion" if k <= 32 else "pci_fusion64": oneshot}))
     x1, x2 = torch.from_numpy(a), torch.from_numpy(b)
     if mode == "train":
         got = mod.train()(x1.requires_grad_(), x2.requires_grad_(), k, torch.from_numpy(tt),
@@ -355,3 +397,87 @@ def test_points_fusion_at_k32_takes_the_kernels(cuda_route, monkeypatch, mode, e
         want = copy.deepcopy(mod)(torch.from_numpy(a), torch.from_numpy(b), k,
                                   torch.from_numpy(tt), perms=tp)
     torch.testing.assert_close(got.detach(), want.detach(), atol=1e-6, rtol=1e-6)
+
+
+def test_points_fusion_multi_launches_one_residual_knn(cuda_route):
+    """PointsFusionMulti over three clouds at k = 64 (PointINet2's fusion2)
+    launches the residual kNN once, its three segments and Wnet-sized
+    budgets as ``_multi_budgets`` gives them, then its GroupNorm head in
+    PyTorch; the rows equal the plain route's."""
+    from pci_tpu_torch.nn.fusion import _multi_budgets
+    from pci_tpu_torch.serving import init_weights
+
+    rng = np.random.default_rng(810)
+    N, k = 512, 64
+    clouds = [torch.from_numpy((rng.standard_normal((1, N, 3)) * 2).astype(np.float32))
+              for _ in range(3)]
+    perms = [torch.from_numpy(rng.permutation(N)[None]) for _ in range(3)]
+    weights = torch.softmax(torch.from_numpy(rng.standard_normal((1, 12)).astype(np.float32)), -1)
+    mod = tnn.PointsFusionMulti()
+    init_weights(mod, 811)
+    n_all, k_all = _multi_budgets(N, k, weights[:, :2])
+
+    def resi(pts, ends, buds, F, oi, orr, B, N_, k_, parts, stamps, stream):
+        e, bu = read(ends, (B, F), ctypes.c_int32), read(buds, (B, F), ctypes.c_int32)
+        assert (F, k_) == (3, k) and torch.equal(e, torch.cumsum(n_all, 1).to(torch.int32))
+        assert torch.equal(bu, k_all)
+        i, r = fusion_knn_cuda.fusion_resi_plain(read(pts, (B, N_, 3)), e, bu, k_)
+        write(oi, i)
+        write(orr, r)
+
+    stub = cuda_route(StubLibrary(pci_fusion_resi=resi))
+    with torch.inference_mode():
+        got = mod.eval()(clouds, k, weights, perms=perms)
+        assert [n for n, _ in stub.calls] == ["pci_fusion_resi"]
+        with _build.plain_versions():
+            want = mod(clouds, k, weights, perms=perms)
+    torch.testing.assert_close(got, want, atol=1e-6, rtol=1e-6)
+
+
+# ---- TransformerLayer at widths its attention kernels do not take -----------------
+
+
+@pytest.mark.parametrize("d_model", [20, 256])
+def test_transformer_eval_outside_the_kernels_widths_launches_nothing(cuda_route, d_model):
+    """Eval ``TransformerLayer(64, d_model, 16)`` at d_model = 20 (not a
+    multiple of 8) and 256 (past the forward kernel's 128) routes its tail
+    to the plain version before any launch (the JAX layer's XLA
+    expression): only the kNN launches, and the rows equal the plain
+    route's."""
+    torch.manual_seed(812)
+    layer = tnn.TransformerLayer(64, d_model, 16).eval()
+    rng = np.random.default_rng(813)
+    xyz, feats = _cloud(rng, 1, 256, 3), _cloud(rng, 1, 256, 64)
+    stub = cuda_route(StubLibrary(pci_knn=knn_stub))
+    with torch.inference_mode():
+        got, _ = layer(xyz, feats)
+        assert [n for n, _ in stub.calls] == ["pci_knn"]
+        with _build.plain_versions():
+            want, _ = layer(xyz, feats)
+    assert attention_cuda.kernel_route_ok(d_model, 16) is False
+    torch.testing.assert_close(got, want, atol=0, rtol=0)
+
+
+def test_transformer_training_at_d128_runs_the_plain_directions(cuda_route):
+    """Training ``TransformerLayer(64, 128, 16)``: the forward kernel takes
+    d = 128 but the backward kernel stops at 64, so the trainable route
+    decides at its forward to run both directions plain: no attention
+    launch, and the rows and every gradient equal the plain route's."""
+    torch.manual_seed(814)
+    base = tnn.TransformerLayer(64, 128, 16).train()
+    rng = np.random.default_rng(815)
+    xyz, feats = _cloud(rng, 1, 200, 3), _cloud(rng, 1, 200, 64)
+    G = _cloud(rng, 1, 200, 64)
+    stub = cuda_route(StubLibrary(pci_knn=knn_stub))
+    outs = []
+    for plain in (False, True):
+        layer = copy.deepcopy(base)
+        f = feats.clone().requires_grad_()
+        with _build.plain_versions() if plain else contextlib.nullcontext():
+            out, _ = layer(xyz, f)
+            (out * G).sum().backward()
+        outs.append([out.detach(), f.grad] + [p.grad for p in layer.parameters()])
+    assert {n for n, _ in stub.calls} == {"pci_knn"}
+    assert attention_cuda.kernel_route_ok(128, 16) and not attention_cuda.bwd_route_ok(128, 16)
+    for got, want in zip(*outs, strict=True):
+        torch.testing.assert_close(got, want, atol=0, rtol=0)

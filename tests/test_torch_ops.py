@@ -450,6 +450,11 @@ def _grad_calls():
             x, f.repeat(1, 1, 2), x[:, :32], f.repeat(1, 1, 2)[:, :32], x[:, 32:],
             f.repeat(1, 1, 2)[:, 32:], mid, 8, 4, 8, 1.0, 4, 2.0, 4, 4),
         "fusion_tail": lambda: fusion_tail_cuda.fusion_attention_tail(x, resi, None, fu),
+        # the k <= 64 instantiations (two slots a lane)
+        "fusion_k64": lambda: fusion_knn_cuda.knn_fusion_attention(
+            x, seg, torch.tensor([[32, 32]]), fu, 64),
+        "fusion_tail_k64": lambda: fusion_tail_cuda.fusion_attention_tail(
+            x, resi.repeat(1, 1, 8, 1), None, fu),
         "fusion_cells": lambda: fusion_cells_cuda.fusion_cells_attention(
             x, seg, torch.tensor([[16, 16]]), fu, 32),
         "fusion_cells_payload": lambda: fusion_cells_cuda.fusion_cells_attention(
@@ -461,11 +466,12 @@ def _grad_calls():
 @pytest.mark.parametrize("kernel", ["fps", "setconv", "knnconv", "fusion", "fusion_payload",
                                     "ball", "knn", "attention", "flowenc", "flowmid",
                                     "fusion_tail", "fusion_cells", "fusion_cells_payload",
-                                    "pn2mid"])
+                                    "pn2mid", "fusion_k64", "fusion_tail_k64"])
 def test_eval_only_kernels_refuse_grad(kernel):
     """The eval kernels of differentiable values (set-conv, kNN-conv, the
     one-shot fusion (flat and cell-pruned, also for a payload that needs a
-    gradient beside a cloud that does not), the eval attention, the
+    gradient beside a cloud that does not; the flat one and the tail also
+    at k = 64, their two-slots-a-lane instantiations), the eval attention, the
     FlowNet3D megakernels, the fusion's attention tail, PointNet++'s
     mid-section) define no backward and refuse an
     input that needs a gradient; the index-only ones (FPS, ball query,
