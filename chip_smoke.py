@@ -190,7 +190,22 @@ each printing its own lines:
      = 32 and 64) against their plain versions at these shapes, then five
      requests (steps) on each route with those counts, the frames against
      the plain forward, one-shot off's against the default's, finite
-     chamfers, ms a request (step) and the busy share.
+     chamfers, ms a request (step) and the busy share.  Then one request at
+     65,536 points (B = 1, the paper's 128-beam row) on the cell-pruned
+     routes: the key fusion and the rings on row 12 (k = 32 and 64),
+     fusion2 as three masked passes of row 10 (PER_REQUEST_POINTINET2_LARGE;
+     one-shot off: row 12's residual mode and the tail,
+     PER_REQUEST_POINTINET2_LARGE_ONESHOT_OFF), its fusion calls against
+     their plain versions, five requests on each route, the frames against
+     the plain forward, ms a request, the busy share, and the same call on
+     the parent's route (the flat rows 4 and 4b at k = 64) for comparison.
+     Then the kernel holds at 32,768 and 65,536 points: row 12 at k = 48
+     and 64 (CELLS64_HOLDS, both modes, a one-channel payload; residuals
+     bit-equal, rows within 1e-4, the weighted sums against fp64), row 10's
+     masked passes at MASKED_HOLDS (F = 3, Wnet-like budgets, a segment
+     shorter than its budget beside a budget of 0; idx and resi bit-equal;
+     each pass's scanned pairs beside the flat scan's), each timed beside
+     the flat kernels, then their resources beside the k <= 32 ones.
 Each phase prints the seconds since the start when it ends.
 Then a resources line for each kernel whose dense products run on the
 tensor cores (the one-shot fusion, the attention tail, flowmid, kNN-conv,
@@ -205,6 +220,10 @@ bound_ms is the larger of its bytes over HBM_BYTES_PER_S and its
 operations over FP32_FLOPS, where a tensor-core kernel's dense products
 count apart, at 3 x FLOP over TF32_FLOPS.
 Exits non-zero, with no result line, when CUDA is missing or a phase fails.
+
+`python3 chip_smoke.py --stages [kinds]` prints only the `stages` lines;
+`python3 chip_smoke.py --ptxas [csrc directory]` only the ptxas lines of
+PTXAS_SOURCES (this tree's, or an older tree's unpacked by `git archive`).
 """
 
 from __future__ import annotations
@@ -341,7 +360,19 @@ PER_REQUEST_POINTINET2 = per(fps=2 + 6, flowenc=2 + 6, flowmid=2 + 4, knnconv=2 
 PER_REQUEST_POINTINET2_ONESHOT_OFF = per(fps=2 + 6, flowenc=2 + 6, flowmid=2 + 4,
                                          knnconv=2 + 4, fusion_resi=3 + 1, fusion_tail=3)
 PER_EVAL_STEP_POINTINET2 = per(**{**PER_REQUEST_POINTINET2, "nearest": 2})
+# PointINet2 field=2 at 65,536 points (the cell-pruned routes, k <= 64): the
+# same flows at that size, the key fusion (k = 32) and the two rings (k =
+# 64) on the cells kernel (row 12), fusion2 as three masked passes of the
+# box-pruned kNN (row 10, fusion_cells_multi_knn); with one-shot off each
+# PointsFusion is row 12's residual mode and the tail
+POINTINET2_LARGE_N = 65536
+PER_REQUEST_POINTINET2_LARGE = per(fps=2 + 6, flowenc=2 + 6, flowmid=2 + 4, knnconv=2 + 4,
+                                   fusion_cells=1 + 2, knn_cells=3)
+PER_REQUEST_POINTINET2_LARGE_ONESHOT_OFF = per(fps=2 + 6, flowenc=2 + 6, flowmid=2 + 4,
+                                               knnconv=2 + 4, fusion_cells=1 + 2,
+                                               knn_cells=3, fusion_tail=3)
 FUSION_KINDS = ("fusion", "fusion_resi", "fusion_tail")
+LARGE_FUSION_KINDS = ("fusion_cells", "knn_cells_multi", "fusion_tail")
 STREAMS = 8
 STREAM_T = tuple((i + 1) / (STREAMS + 1) for i in range(STREAMS))
 FIELD = 2
@@ -415,12 +446,42 @@ def cuda_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
+def self_resi_call(query, points, k):
+    """The box-pruned kernel call ``ops.knn_self_resi`` makes on a large
+    cloud (its plain version under plain_versions()): ``(sq_dists, idx,
+    resi)``."""
+    from pci_tpu_torch.ops.cuda_kernels.knn_cuda import knn_cells
+
+    return knn_cells(points, points, k, emit_resi=True)
+
+
+def call_launches(call) -> tuple:
+    """(kernel, launches) of a recorded call: the F-segment fusion route
+    (``knn_cells_multi``) launches the box-pruned kNN once a segment."""
+    name, _, args, _ = call
+    if name == "knn_cells_multi":
+        return "knn_cells", args[1].shape[1]
+    return name, 1
+
+
+def dispatch_counts(calls) -> dict:
+    """Launches by kernel of recorded calls."""
+    counts = dict.fromkeys(KERNEL_INFO, 0)
+    for c in calls:
+        kind, n = call_launches(c)
+        counts[kind] += n
+    return counts
+
+
 @contextlib.contextmanager
 def record_calls(calls: list):
     """Record the arguments of every kernel dispatch the model makes, and of
     the trainable attention's backward (at the gradient it receives).  A
     kNN dispatch is recorded under the kernel its route takes on the card
-    (``knn_cells`` where ``knn_cuda.cells_route_ok``, else ``knn``)."""
+    (``knn_cells`` where ``knn_cuda.cells_route_ok``, else ``knn``; the
+    transformer's ``knn_self_resi`` as the ``knn_cells`` call it makes);
+    the fusion's F-segment route as ``knn_cells_multi`` (F launches of
+    ``knn_cells``, call_launches)."""
     from pci_tpu_torch.ops.cuda_kernels import attention_bwd
     from pci_tpu_torch.ops.cuda_kernels.knn_cuda import cells_route_ok
 
@@ -439,6 +500,8 @@ def record_calls(calls: list):
              (mods["nn.fusion"], "fusion_resi_knn", "fusion_resi"),
              (mods["nn.fusion"], "fusion_cells_attention", "fusion_cells"),
              (mods["nn.fusion"], "fusion_cells_resi_knn", "fusion_cells"),
+             (mods["nn.fusion"], "fusion_cells_multi_knn", "knn_cells_multi"),
+             (mods["nn.transformer"], "knn_self_resi", "knn_cells"),
              (mods["nn.pointnet2"], "pn2mid_fused", "pn2mid"),
              (mods["nn.pointnet2"], "ball_query_multi", "ball"),
              (mods["nn.pointnet2"], "knnconv_fused", "knnconv"),
@@ -457,7 +520,10 @@ def record_calls(calls: list):
             if _name == "knn" and cells_route_ok(args[0], args[1], args[2], kw.get(
                     "valid_n", args[3] if len(args) > 3 else None)):
                 name = "knn_cells"
-            calls.append((name, _fn, args, kw))
+            if _attr == "knn_self_resi":  # held as the kernel call it makes
+                calls.append((name, self_resi_call, (args[0], args[0], args[1]), {}))
+            else:
+                calls.append((name, _fn, args, kw))
             depth[0] += 1
             try:
                 out = _fn(*args, **kw)
@@ -540,6 +606,42 @@ def cells_pairs(combined, seg_ends, budgets, k) -> float:
                 need |= (lo[:, 0] <= hi[:, 0]) & (sqdist(gap) <= thr[seg][q0:q0 + 8192, None])
             total += float(need.sum()) * CHUNK
     return total
+
+
+def multi_work(combined, seg_ends, budgets, k, out):
+    """The F-segment route's (bytes, operations): its cloud, budgets and
+    output read or written once, each pass's plan (the torch prep), and for
+    each pass the pairs an exact box-pruned scan of the segment's keys must
+    touch at that pass's final k-th distance (every key of the segment
+    where it holds fewer keys than the budget), 8 operations a pair, then 3
+    a residual slot."""
+    from pci_tpu_torch.ops.cuda_kernels.fusion_cells_cuda import segment_slots
+    from pci_tpu_torch.ops.cuda_kernels.knn_cuda import CELLS_CHUNK, knn_cells_plan
+
+    idx, resi = out
+    B, N, _ = combined.shape
+    F = seg_ends.shape[1]
+    caps, col0 = (t.cpu() for t in segment_slots(budgets.cpu(), k))
+    ends = seg_ends.cpu().tolist()
+    d = sqdist(resi)  # [B, N, k]
+    plan_bytes, pairs = 0.0, 0.0
+    pos = torch.arange(N, device=combined.device)
+    for f in range(F):
+        for b in range(B):
+            lo, hi = (0 if f == 0 else max(ends[b][:f])), ends[b][f]
+            cap, c0 = int(caps[b, f]), int(col0[b, f])
+            if cap == 0 or hi <= lo:
+                continue
+            if hi - lo < cap:
+                kth = torch.full((1, N), float("inf"), device=combined.device)
+            else:
+                kth = d[b:b + 1, :, c0:c0 + cap].amax(-1)
+            pairs += knn_cells_pairs(combined[b:b + 1], combined[b:b + 1, lo:hi], kth,
+                                     CELLS_CHUNK)
+        valid = pos[None, :] < seg_ends[:, f:f + 1].to(combined.device)
+        plan_bytes += nbytes(*knn_cells_plan(combined, combined, True, key_valid=valid))
+    return (nbytes(combined, seg_ends, budgets, idx, resi) + plan_bytes,
+            8.0 * pairs + 3.0 * B * N * k)
 
 
 def knn_cells_pairs(query, points, kth, chunk: int) -> float:
@@ -702,7 +804,10 @@ def work(name, args, kw, out):
         query, points = args[:2]
         plan = {id(t): t for t in knn_cells_plan(query, points, query is points)}
         pairs = knn_cells_pairs(query, points, out[0][..., -1], CELLS_CHUNK)
-        return nbytes(query, points, *out, *plan.values()), 8.0 * pairs
+        resi = 3.0 * out[2].shape[:-1].numel() if len(out) > 2 else 0.0  # the residuals
+        return nbytes(query, points, *out, *plan.values()), 8.0 * pairs + resi
+    if name == "knn_cells_multi":
+        return multi_work(*args, out)
     if name in ("knn", "nearest"):
         query, points, k = args[:3]
         B, S, _ = query.shape
@@ -785,7 +890,7 @@ def label(name, args, kw) -> str:
         return f"B={args[0].shape[0]} S={args[0].shape[1]} N={args[1].shape[1]} k={args[2]}{valid}"
     if name in ("attention", "attention_bwd"):
         return f"B={args[0].shape[0]} N={args[0].shape[1]} k={args[1].shape[2]} d={args[0].shape[2]}"
-    if name == "fusion_resi":
+    if name in ("fusion_resi", "knn_cells_multi"):
         return f"B={args[0].shape[0]} N={args[0].shape[1]} k={args[3]} ends={args[1].tolist()} " \
                f"budgets={args[2].tolist()}"
     if name == "fusion_cells":
@@ -866,8 +971,10 @@ def compare(name, got, want, where: str, args=()) -> float:
     if name in ("knn", "knn_cells", "nearest"):
         check(torch.equal(got[1], want[1]), f"{name} {where}: indices differ")
         check(torch.equal(got[0], want[0]), f"{name} {where}: distances not bit-equal")
+        if len(got) > 2:  # emit_resi
+            check(torch.equal(got[2], want[2]), f"{name} {where}: residuals not bit-equal")
         return 0.0
-    if name in ("fusion_resi", "fusion_cells") and isinstance(got, tuple):
+    if name in ("fusion_resi", "fusion_cells", "knn_cells_multi") and isinstance(got, tuple):
         check(torch.equal(got[0], want[0]), f"{name} {where}: indices differ")
         check(torch.equal(got[1], want[1]), f"{name} {where}: residuals not bit-equal")
         return 0.0
@@ -915,7 +1022,7 @@ def library_call(name, args):
     if name in ("knn", "knn_cells") and not valid:
         query, points, k = args[:3]
         return lambda: cdist_topk(query, points, k)
-    if name == "fusion_resi":
+    if name in ("fusion_resi", "knn_cells_multi"):
         combined, seg_ends, budgets, k = args
         ends = seg_ends.tolist()
         # segment s spans [ends[s-1], ends[s]); its budget capped as the kernel caps it
@@ -955,7 +1062,7 @@ def hold_kernels(calls, request: int, expected: dict, totals: dict, path: str,
     from pci_tpu_torch.ops.cuda_kernels import plain_versions
 
     own = new_totals()
-    counts = {n: sum(1 for c in calls[:request] if c[0] == n) for n in KERNEL_INFO}
+    counts = dispatch_counts(calls[:request])
     check(counts == expected, f"{path} dispatches {counts} a {unit}, expected {expected}")
     with torch.inference_mode():
         for i, (name, fn, args, kw) in enumerate(calls):
@@ -988,7 +1095,7 @@ def hold_kernels(calls, request: int, expected: dict, totals: dict, path: str,
                   f"({basis}){scalar} max_abs_err={err:.3g}"
                   + (f" rel_err={rel:.3g}" if name in TENSOR_KERNELS else "")
                   + (f" library_ms={lib_ms:.4f}" if lib_ms is not None else ""))
-            t = own[name]
+            t = own[call_launches((name, fn, args, kw))[0]]
             t["err"] = max(t["err"], err)
             t["rel"] = max(t["rel"], rel)
             if i < request:  # one request's worth of launches
@@ -1767,6 +1874,31 @@ STAGE_KINDS = ("fusion_cells", "pn2mid", "ball", "fusion_resi", "fusion_tail", "
                "fusion_payload")
 
 
+PTXAS_SOURCES = ("knn_cells.cu", "fusion_cells.cu")  # the sources PR 17 changed
+
+
+def ptxas_lines(csrc: str, sources=PTXAS_SOURCES) -> None:
+    """``ptxas`` lines for each kernel of ``sources`` under ``csrc`` (this
+    tree's ``pci_tpu_torch/csrc``, or an older tree's unpacked by ``git
+    archive``), compiled with the build's flags and ``-Xptxas -v`` into a
+    temporary directory: registers, stack frame, spill stores and loads."""
+    import re
+    import tempfile
+
+    from pci_tpu_torch.ops.cuda_kernels import _build
+
+    with tempfile.TemporaryDirectory() as tmp:
+        for src in sources:
+            out = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-c",
+                                  os.path.join(csrc, src), "-o", os.path.join(tmp, "k.o")],
+                                 capture_output=True, text=True, check=True).stderr
+            for name, stack, stores, loads, regs in re.findall(
+                    r"entry function '(\w+)'.*?(\d+) bytes stack frame, (\d+) bytes spill "
+                    r"stores, (\d+) bytes spill loads.*?Used (\d+) registers", out, re.S):
+                print(f"ptxas {csrc}/{src} {name}: {regs} registers, {stack} bytes stack, "
+                      f"{stores} bytes spill stores, {loads} bytes spill loads")
+
+
 def stages_only(kinds=STAGE_KINDS) -> None:
     """`python3 chip_smoke.py --stages`: the `stages fusion_cells` and
     `stages fusion_tail` lines of one PointINet request at 65,536 and 32,768
@@ -2323,6 +2455,8 @@ def knn_stages(calls, card: str, path: str) -> None:
         self_knn = query is points
         with torch.inference_mode():
             call = cuda_ms(lambda: knn_cuda.knn_cells_kernel(query, points, k), 10)
+            resi_call = cuda_ms(lambda: knn_cuda.knn_cells(points, points, k, emit_resi=True),
+                                10) if self_knn else None
             flat = cuda_ms(lambda: knn_cuda.knn_kernel(query, points, k), 5)
             plan = knn_cuda.knn_cells_plan(query, points, self_knn)
             prep = cuda_ms(lambda: knn_cuda.knn_cells_plan_graphed(query, points, self_knn), 10)
@@ -2346,8 +2480,10 @@ def knn_stages(calls, card: str, path: str) -> None:
         B, S, N = points.shape[0], query.shape[1], points.shape[1]
         span = float(t[:, 1].max() - t[:, 0].min()) * 1e-6
         slow = b * plan[3].shape[1] + tt
+        seg = (f"; the segment form with emit_resi, knn_self_resi's: {resi_call:.4f} ms"
+               if resi_call is not None else "")
         print(f"stages knn {path} B={B} S={S} N={N} k={k} on {card}: call {call:.4f} ms (prep "
-              f"included; flat kernel {flat:.4f} ms; CUDA events), prep {prep:.4f} ms (CUDA "
+              f"included; flat kernel {flat:.4f} ms{seg}; CUDA events), prep {prep:.4f} ms (CUDA "
               f"graph replay; eager {eager:.4f} ms; CUDA events, median of 10), kernel "
               f"{kern:.4f} ms (device time; {span:.4f} ms first tile start to last tile end "
               f"in the stamped launch), pairs scanned "
@@ -2700,6 +2836,7 @@ def phase_isapci(card: str, totals: dict) -> dict:
     with torch.inference_mode(), plain_versions(), record_calls(calls):
         model(fwd_t, keys_t, bwd_t, tt, z, perms=perms)
     hold_kernels(calls, len(calls), PER_REQUEST_ISAPCI, totals, "isapci")
+    hold_knn_self_resi(calls)
     knn_stages(calls, card, "isapci")
     for _, _, args, _ in (c for c in calls if c[0] == "ball"):
         ball_stages_line(args, card, "isapci")
@@ -3034,7 +3171,7 @@ def phase_large(card: str, totals: dict) -> list:
             second = len(calls)
             with gates(ONESHOT_OFF):
                 model(a, b, z, z, torch.tensor([0.5], device=dev), perms=perms)
-        off = {name: sum(1 for c in calls[second:] if c[0] == name) for name in KERNEL_INFO}
+        off = dispatch_counts(calls[second:])
         check(off == PER_REQUEST_CELLS_ONESHOT_OFF,
               f"pointinet at {n}, one-shot off: dispatches {off}, expected "
               f"{PER_REQUEST_CELLS_ONESHOT_OFF}")
@@ -3127,7 +3264,7 @@ def phase_intensity(card: str, totals: dict, model16) -> list:
             with gates(ONESHOT_OFF):
                 model(a, b, z, z, t, perms=perms)
         for part, want in ((calls[:request], per_req), (calls[request:], per_off)):
-            got = {name: sum(1 for c in part if c[0] == name) for name in KERNEL_INFO}
+            got = dispatch_counts(part)
             check(got == want, f"{path}: dispatches {got}, expected {want}")
         fusion = next(c for c in calls[:request] if c[0] == oneshot)
         tail = next(c for c in calls[request:] if c[0] == "fusion_tail")
@@ -3262,7 +3399,7 @@ def phase_pointinet2(card: str, totals: dict) -> list:
     for part, want, route in ((calls[:request], PER_REQUEST_POINTINET2, "default"),
                               (calls[request:], PER_REQUEST_POINTINET2_ONESHOT_OFF,
                                "one-shot off")):
-        got = {name: sum(1 for c in part if c[0] == name) for name in KERNEL_INFO}
+        got = dispatch_counts(part)
         check(got == want, f"{path} {route}: dispatches {got}, expected {want}")
         # the flow's kernels are phase 3's at these shapes: hold the fusion's
         fus = [c for c in part if c[0] in FUSION_KINDS]
@@ -3305,7 +3442,7 @@ def phase_pointinet2(card: str, totals: dict) -> list:
     calls = []
     with plain_versions(), record_calls(calls):
         _, plain = step(batch, draws())
-    got = {name: sum(1 for c in calls if c[0] == name) for name in KERNEL_INFO}
+    got = dispatch_counts(calls)
     check(got == PER_EVAL_STEP_POINTINET2, f"{path}: dispatches {got}, expected "
                                            f"{PER_EVAL_STEP_POINTINET2}")
     fus = [c for c in calls if c[0] in FUSION_KINDS]
@@ -3336,6 +3473,247 @@ def phase_pointinet2(card: str, totals: dict) -> list:
     del model
     torch.cuda.empty_cache()
     return paths
+
+
+def hold_knn_self_resi(calls) -> None:
+    """ops.knn_self_resi on each large self cloud the request gave the
+    transformer (its box-pruned residual route) against ops.knn (the
+    kernel) and the gather: indices and residuals bit-equal."""
+    from pci_tpu_torch.ops import index_points, knn, knn_self_resi
+
+    for name, fn, args, _ in calls:
+        if fn is not self_resi_call:
+            continue
+        points, k = args[1], args[2]
+        with torch.inference_mode():
+            idx, resi = knn_self_resi(points, k)
+            _, want = knn(points, points, k)
+            gathered = index_points(points, want) - points[:, :, None, :]
+        check(torch.equal(idx, want) and torch.equal(resi, gathered),
+              f"knn_self_resi N={points.shape[1]} k={k}: differs from knn and the gather")
+        print(f"knn_self_resi hold N={points.shape[1]} k={k}: indices and residuals bit-equal "
+              "to knn (the kernel) and the gather")
+
+
+def parent_cells_gate(fn):
+    """The parent tree's cells gate: k <= 32, two segments (the rings at
+    k = 64 and fusion2 took the flat rows 4 and 4b at every size)."""
+    return lambda points, k, train, n_seg=2: fn(points, k, train, n_seg) and k <= 32 \
+        and n_seg == 2
+
+
+def phase_pointinet2_large(card: str, totals: dict) -> list:
+    """PointINet2 field=2 at eval on one POINTINET2_LARGE_N-point request
+    (a seeded six-frame window, B = 1; phase 11's weights): the cell-pruned
+    routes (the rings on row 12 at k = 64, fusion2 on row 10's masked
+    passes).  One plain call's dispatches on the default route and with
+    one-shot off against their counts, its fusion calls against their
+    plain versions, their `stages fusion64` lines; five requests on each
+    route with those counts, the frames against the plain forward (and
+    one-shot off's against the default's), ms a request and the busy
+    share; then the parent's route for the same call
+    (the flat rows 4 and 4b at k = 64: rings and fusion2), ms a request."""
+    import pci_tpu_torch.nn.fusion as tfusion
+    from pci_tpu_torch.ops.cuda_kernels import plain_versions
+
+    dev = torch.device("cuda")
+    n = POINTINET2_LARGE_N
+    model = pointinet2_model(dev)
+    fwd, (k0, k1), bwd, _ = synthetic_window(n)
+    T = lambda x: torch.from_numpy(x)[None].to(dev)  # noqa: E731
+    args = ([T(x) for x in fwd], [T(k0), T(k1)], [T(x) for x in bwd],
+            torch.tensor([0.5], device=dev), torch.zeros(1, n, 3, device=dev))
+    g = torch.Generator().manual_seed(1103)
+    perms = [torch.randperm(n, generator=g)[None].to(dev)
+             for _ in range(2 + 2 * FIELD + FIELD + 1)]
+    path = f"pointinet2 {n}"
+    routes = (("default", PER_REQUEST_POINTINET2_LARGE, {}),
+              ("one-shot off", PER_REQUEST_POINTINET2_LARGE_ONESHOT_OFF, ONESHOT_OFF))
+    for route, want, values in routes:
+        calls = []
+        with torch.inference_mode(), plain_versions(), record_calls(calls), gates(values):
+            model(*args, perms=perms)
+        got = dispatch_counts(calls)
+        check(got == want, f"{path} {route}: dispatches {got}, expected {want}")
+        fus = [c for c in calls if c[0] in LARGE_FUSION_KINDS]
+        hold_kernels(fus, len(fus), per(**{kind: want[kind] for kind in (
+            "fusion_cells", "knn_cells", "fusion_tail")}), totals, f"{path} {route}")
+        fusion64_stages_lines(fus, card, f"{path} {route}")
+    del calls, fus
+
+    def serve(p=None):
+        with torch.inference_mode():
+            return model(*args, perms=p)[0].cpu().numpy()
+
+    with plain_versions():
+        plain = serve(perms)
+    paths = []
+    for route, want, values in routes:
+        with gates(values):
+            serve()  # warm-up
+            paths.append(serve_counts(lambda: [serve() for _ in range(5)], want,
+                                      f"{path} {route}", npoints=n))
+            got = serve(perms)
+            p999, mx = agreement(got, plain, f"{path} {route} frame vs plain")
+            check(p999 <= 1e-3 and mx <= 0.25, f"{path} {route}: frame disagrees with the "
+                                               "plain forward")
+            if route == "default":
+                default = got
+            else:
+                p999, mx = agreement(got, default, f"{path} frame, one-shot off vs default")
+                check(p999 <= 1e-3 and mx <= 0.25, f"{path}: one-shot off disagrees")
+            latency(serve, card, f"{path} {route} (model call)")
+            if route == "default":
+                device_share(serve)
+    gate = tfusion._cells_route_ok
+    tfusion._cells_route_ok = parent_cells_gate(gate)
+    try:
+        serve()  # warm-up
+        latency(serve, card, f"{path} parent's route (flat rows 4 and 4b at k = 64; "
+                             "model call)")
+    finally:
+        tfusion._cells_route_ok = gate
+    del model
+    torch.cuda.empty_cache()
+    return paths
+
+
+# row 12 at k <= 64: (N, k, t), both modes and a one-channel payload
+CELLS64_HOLDS = tuple((N, k, t) for N in LARGE_N for k in (48, 64)
+                      for t in (0.02, 0.2, 0.5, 0.98))
+# row 10's masked passes, F = 3 at k = 64, N points: (ends, budgets) from
+# _multi_budgets' weights (Wnet-like, 5/5/54; even), and by hand: a 40-key
+# segment under a budget of 54 beside a budget of 0
+MASKED_HOLDS = (("wnet", (0.09, 0.09)), ("even", (0.33, 0.33)),
+                ("starved", lambda N: ([[40, N - 5000, N]], [[54, 0, 10]])))
+
+
+def head_sum_errors(got, combined, resi, extra, layers) -> tuple:
+    """A one-shot kernel's weighted sums (residual sums ``got - combined``
+    on a cloud near the origin, and the payload channels) against fp64 on
+    the plain neighbours' residuals: the max abs error of the kernel, of
+    the plain head in fp32 and with one TF32 product a layer."""
+    from pci_tpu_torch.ops.cuda_kernels import _build
+    from pci_tpu_torch.ops.cuda_kernels.fusion_knn_cuda import fusion_head
+
+    zero = torch.zeros_like(combined)
+    layers64 = [(w.double(), b.double()) for w, b in layers]
+    with torch.inference_mode():
+        ref = fusion_head(zero.double(), resi.double(), lambda h: _build.mlp_plain(h, layers64),
+                          extra.double())
+        fp32 = fusion_head(zero, resi, lambda h: _build.mlp_plain(h, layers), extra)
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            tf32 = fusion_head(zero, resi, lambda h: _build.mlp_plain(h, layers), extra)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+    mine = torch.cat([got[..., :3] - combined, got[..., 3:]], -1)
+    return tuple((t.double() - ref).abs().max().item() for t in (mine, fp32, tf32))
+
+
+def hold_cells_k64(card: str) -> None:
+    """Row 12 at k = 48 and 64 (its k <= 64 instantiation) at CELLS64_HOLDS
+    on seeded clouds (sigma 1 m) with hold_fusion_tail's seeded score MLP
+    and a one-channel payload: the residual mode's indices and residuals
+    bit-equal to the plain version's; the one-shot rows within 1e-4 of
+    the plain version's, the payload channel within PAYLOAD_LIMIT, the
+    weighted sums against fp64 within TAIL_SUM_LIMIT and below one TF32
+    product's; each mode timed by CUDA events beside the flat kernels
+    (rows 4 and 4b, the parent's route at k > 32) on the same inputs.  Then
+    row 10's masked passes at MASKED_HOLDS (fusion_cells_multi_knn against
+    fusion_resi_plain, idx and resi bit-equal; the pairs each pass scanned
+    beside the flat scan's; timed beside row 4b), a masked knn_cells with a
+    starved mask, and the resources of the new instantiations beside the
+    k <= 32 ones."""
+    from pci_tpu_torch.nn.fusion import _adaptive_budgets, _multi_budgets
+    from pci_tpu_torch.ops import index_points
+    from pci_tpu_torch.ops.cuda_kernels import _build, knn_cuda
+    from pci_tpu_torch.ops.cuda_kernels import fusion_cells_cuda as FC
+    from pci_tpu_torch.ops.cuda_kernels import fusion_knn_cuda as F
+
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(1700)
+    layers = seeded_score_mlp(g, dev)
+    clouds = {N: torch.randn(1, N, 3, generator=g).to(dev) for N in LARGE_N}
+    payloads = {N: torch.rand(1, N, 1, generator=g).to(dev) for N in LARGE_N}
+    for N, k, t in CELLS64_HOLDS:
+        x, pay = clouds[N], payloads[N]
+        N1, _, k1, k2 = _adaptive_budgets(N, k, torch.tensor([t]))
+        seg_ends = torch.stack([N1, torch.full_like(N1, N)], 1).to(dev)
+        budgets = torch.stack([k1, k2], 1).to(dev)
+        where = f"N={N} k={k} t={t} budgets={budgets.tolist()}"
+        with torch.inference_mode():
+            idx, resi = F.fusion_resi_plain(x, seg_ends, budgets, k)
+            got = FC.fusion_cells_kernel(x, seg_ends, budgets, k)
+            torch.cuda.synchronize()
+            check(torch.equal(got[0], idx) and torch.equal(got[1], resi),
+                  f"fusion_cells k64 hold {where}: residual mode differs from the plain version")
+            extra = index_points(pay, idx)
+            plain = F.fusion_head(x, resi, lambda h: _build.mlp_plain(h, layers), extra)
+            got = FC.fusion_cells_kernel(x, seg_ends, budgets, k, layers, payload=pay)
+            torch.cuda.synchronize()
+        e = compare("fusion_cells", got, plain, f"k64 hold {where}")
+        e_k, e_32, e_tf = head_sum_errors(got, x, resi, extra, layers)
+        check(e_k <= TAIL_SUM_LIMIT and e_k < e_tf,
+              f"fusion_cells k64 hold {where}: weighted sums {e_k} from fp64")
+        with torch.inference_mode():
+            ms = {name: cuda_ms(fn, 5) for name, fn in (
+                ("cells one-shot", lambda: FC.fusion_cells_kernel(x, seg_ends, budgets, k, layers,
+                                                                  payload=pay)),
+                ("flat one-shot", lambda: F.fusion_kernel(x, seg_ends, budgets, layers, k, pay)),
+                ("cells residual", lambda: FC.fusion_cells_kernel(x, seg_ends, budgets, k)),
+                ("flat residual", lambda: F.fusion_resi_kernel(x, seg_ends, budgets, k)))}
+        print(f"fusion_cells k64 hold {where} Cp=1 on {card}: residual mode indices identical "
+              f"and residuals bit-equal; one-shot {e:.3g} from plain, sums vs fp64 {e_k:.3g} "
+              f"(plain fp32 {e_32:.3g}, 1xTF32 {e_tf:.3g}); ms by CUDA events (median of 5, "
+              "the prep included): " + ", ".join(f"{n} {v:.4f}" for n, v in ms.items()),
+              flush=True)
+    for N in LARGE_N:
+        x = clouds[N]
+        for name, spec in MASKED_HOLDS:
+            if callable(spec):
+                ends, buds = (torch.tensor(t, dtype=torch.int32) for t in spec(N))
+            else:
+                n_all, buds = _multi_budgets(N, 64, torch.tensor([spec]))
+                ends = torch.cumsum(n_all, 1)
+            ends, buds = ends.to(dev), buds.to(dev)
+            where = f"N={N} {name} ends={ends.tolist()} budgets={buds.tolist()}"
+            scanned = torch.zeros(3, dtype=torch.int64, device=dev)
+            with torch.inference_mode():
+                got = FC.fusion_cells_multi_knn(x, ends, buds, 64, scanned=scanned)
+                torch.cuda.synchronize()
+                want = F.fusion_resi_plain(x, ends, buds, 64)
+                check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+                      f"knn_cells masked hold {where}: differs from fusion_resi_plain")
+                ms = cuda_ms(lambda: FC.fusion_cells_multi_knn(x, ends, buds, 64), 5)
+                flat = cuda_ms(lambda: F.fusion_resi_kernel(x, ends, buds, 64), 5)
+            sizes = torch.diff(ends[0].cpu(), prepend=torch.zeros(1, dtype=ends.dtype)).tolist()
+            print(f"knn_cells masked hold {where} F=3 emit_resi on {card}: idx and resi "
+                  f"bit-equal to fusion_resi_plain; pairs scanned by pass "
+                  + ", ".join(f"{int(v)} of {N * m}" for v, m in zip(scanned.tolist(), sizes))
+                  + f" (flat scan {N * N}); ms by CUDA events {ms:.4f} (3 passes, preps "
+                  f"included; flat row 4b {flat:.4f})", flush=True)
+        kv = torch.zeros(1, N, dtype=torch.bool, device=dev)
+        kv[0, torch.randperm(N, generator=g)[:20].to(dev)] = True
+        with torch.inference_mode():
+            got = knn_cuda.knn_cells(x, x, 54, key_valid=kv, emit_resi=True)
+            torch.cuda.synchronize()
+            want = knn_cuda.knn_cells_plain(x, x, 54, kv, emit_resi=True)
+        check(all(torch.equal(a, b) for a, b in zip(got, want)),
+              f"knn_cells masked N={N} starved (20 keys, k=54): differs from its plain version")
+        print(f"knn_cells masked hold N={N} 20 valid keys k=54: distances, indices and "
+              "residuals bit-equal (34 sentinel slots a query)")
+    for kname, entry in (("fusion_cells", "pci_fusion_cells_attrs"),
+                         ("fusion_cells", "pci_fusion_cells_payload_attrs"),
+                         ("fusion_cells", "pci_fusion_cells_resi_attrs"),
+                         ("fusion_cells", "pci_fusion_cells64_attrs"),
+                         ("fusion_cells", "pci_fusion_cells64_payload_attrs"),
+                         ("fusion_cells", "pci_fusion_cells_resi64_attrs"),
+                         ("knn_cells", "pci_knn_cells_attrs"),
+                         ("knn_cells", "pci_knn_cells_seg_attrs")):
+        print(f"kernel resources {kname} ({entry}): "
+              f"{resources_text(_build.kernel_attrs(entry))}")
+
 
 
 @contextlib.contextmanager
@@ -3715,6 +4093,9 @@ def main() -> int:
     if sys.argv[1:2] == ["--stages"]:
         stages_only(sys.argv[2].split(",") if len(sys.argv) > 2 else STAGE_KINDS)
         return 0
+    if sys.argv[1:2] == ["--ptxas"]:  # [csrc directory]: the changed sources' ptxas lines
+        ptxas_lines(sys.argv[2] if len(sys.argv) > 2 else "pci_tpu_torch/csrc")
+        return 0
     from pci_tpu_torch.ops.cuda_kernels import build_seconds, plain_versions
     from pci_tpu_torch.ops.cuda_kernels._build import kernel_attrs
     from pci_tpu_torch.serving import DEFAULT_WEIGHTS, Interpolator
@@ -3798,8 +4179,11 @@ def main() -> int:
     counts_intensity = phase_intensity(card, totals, interp.model)
     phase_time("10. intensity")
 
-    # 11. PointINet2 field=2 at eval: a request and the eval step
+    # 11. PointINet2 field=2 at eval: a request and the eval step, then a
+    # request at 65,536 points on the cell-pruned routes and their holds
     counts_pointinet2 = phase_pointinet2(card, totals)
+    counts_pointinet2 += phase_pointinet2_large(card, totals)
+    hold_cells_k64(card)
     phase_time("11. pointinet2")
 
     paths = [counts, counts_stream, *counts_routes, *counts_isapci, counts_train, *counts_large,

@@ -54,7 +54,7 @@ def build_isapci(args, batch_example: dict, device) -> ISAPCInet:
     must hold ``field`` context frames each side of the key pair."""
     if not args.use_tnet:
         raise NotImplementedError(
-            "--use_tnet 0 (ISAPCInet without Tnet) is not ported yet (ROADMAP A.5)")
+            "--use_tnet 0 (ISAPCInet without Tnet) is not ported yet (ROADMAP A.3)")
     for side in ("forward", "backward"):
         if len(batch_example[side]) != args.field:
             raise ValueError(f"the window holds {len(batch_example[side])} {side} frames, "

@@ -62,16 +62,45 @@
 //     payload never rides the Morton sort), an unfilled slot the query's.
 // Residual mode runs the same walk and writes idx and resi.  Each query
 // writes its own original row: no un-permute pass.
+//
+// k <= 64 (KMAX = 64, chosen by k at launch: an instantiation of its own,
+// so that k <= 32 keeps its code, registers and shared memory): a
+// segment's budget can reach 64 and both reach 32 at t = 0.5, so the list
+// pair is chosen per tile by its row's budgets from (32, 32), (64, 16),
+// (48, 32), (32, 48) and (16, 64), each covering its budgets in at most 80
+// entries.  Two such lists take 160 registers, past the 128 a thread of a
+// 16-warp block may hold, so this instantiation runs 8 warps a block (4
+// groups; up to 255 registers a thread) rather than moving a list to shared
+// memory (64 queries x 80 entries x 8 bytes a group would not fit beside
+// the score MLP).  Its slot rows are [FC_TQ][65] ints, 16.6 KB a group,
+// larger than the ring they replace, so a group's region is the larger of
+// the two; the head is fusion_head.cuh's k <= 64 one (fused_row2, two slots
+// a lane, up to four 16-slot tiles, one softmax over both halves), as the
+// flat one-shot kernel's.
 #include "fusion_head.cuh"
 #include "cells.cuh"
 
-#define FC_WARPS 16   // warps a block
 #define FC_TQ 64      // queries a tile: a group of two warps, one thread a query
-#define FC_GROUPS (FC_WARPS * 32 / FC_TQ)
 #define FC_STAGES 3   // chunks in a group's shared-memory ring
 #define FC_SPARSE 4   // lanes a warp at most for the whole warp to scan a chunk for each
 #define FC_STAMPS 8   // a tile's stamps: start, walk end, end (%globaltimer ns), chunks walked,
                       // pairs, list inserts, warp-chunks scanned lane by lane, and for each needer
+
+// The block's shape by the instantiation's largest k: KMAX = 32, 16 warps;
+// KMAX = 64, 8 warps (the two lists' registers).  SS: a query's slot row.
+template <int KMAX>
+struct CellsShape {
+  static constexpr int warps = KMAX > 32 ? 8 : 16;
+  static constexpr int groups = warps * 32 / FC_TQ;
+  static constexpr int ss = KMAX + 1;  // odd: no bank conflicts
+  // a group's region in float4s: its ring, which the slot rows take after the walk
+  static __host__ __device__ int region(int C) {
+    const int ring = FC_STAGES * (C + 4);
+    const int rows = (FC_TQ * ss + 3) / 4;
+    if constexpr (KMAX > 32) return ring > rows ? ring : rows;
+    return ring;
+  }
+};
 
 struct CellsParams {
   const float* pts;     // combined [B][N][3], original order
@@ -150,9 +179,9 @@ __device__ __forceinline__ bool insert2(float (&dA)[KA], int (&iA)[KA], float (&
 // branch-free filter, then inserts the keys it marked; a chunk that at
 // most FC_SPARSE lanes of a warp need is scanned by the whole warp for
 // each of them.  On return the slot ids (slot e: A's (e+1)-th for e < k1,
-// then B's; -1 unfilled or past k1 + k2) are in `slots` [FC_TQ][33] (the
+// then B's; -1 unfilled or past k1 + k2) are in `slots` [FC_TQ][SS] (the
 // ring's space) and the chunks walked in `walked`.
-template <int KA, int KB>
+template <int KA, int KB, int SS>
 __device__ __forceinline__ void tile_walk(const CellsParams& p, int b, int tile, float4 q,
                                           bool real, int N1, int k1, int k2, float4* ring,
                                           int* slots, int bar, int gt, unsigned& nscan,
@@ -246,9 +275,9 @@ __device__ __forceinline__ void tile_walk(const CellsParams& p, int b, int tile,
   cp_async_wait<0>();
   walked = m;
   group_sync(bar);  // the group is done with the ring: the slots take its space
-  int* mine = slots + gt * 33;
+  int* mine = slots + gt * SS;
 #pragma unroll
-  for (int i = 0; i < 32; ++i) mine[i] = -1;
+  for (int i = 0; i < SS - 1; ++i) mine[i] = -1;
 #pragma unroll
   for (int i = 0; i < KA; ++i)
     if (i >= KA - k1) mine[i - (KA - k1)] = iA[i] == CELL_EMPTY ? -1 : iA[i];
@@ -258,22 +287,27 @@ __device__ __forceinline__ void tile_walk(const CellsParams& p, int b, int tile,
   group_sync(bar);
 }
 
-// Persistent blocks of FC_GROUPS groups of two warps: each group takes a
-// tile of FC_TQ sorted queries from the counter, walks it (one thread a
-// query), then its two warps finish its queries, 32 each, one warp a query
-// (lane L slot L): the tensor-core head in one-shot mode, idx and resi in
-// residual mode.  The lists' sizes are chosen per tile by its row's
-// budgets: 16 and 16, or 32 for the segment with more than 16.  PAY (one-shot
-// only): the instantiation with a payload's weighted sums.
-template <bool ONESHOT, bool PAY>
-__global__ void __launch_bounds__(FC_WARPS * 32, 1)
+// Persistent blocks of groups of two warps: each group takes a tile of
+// FC_TQ sorted queries from the counter, walks it (one thread a query),
+// then its two warps finish its queries, 32 each, one warp a query (lane L
+// slot L, and 32 + L at KMAX = 64): the tensor-core head in one-shot mode,
+// idx and resi in residual mode.  The lists' sizes are chosen per tile by
+// its row's budgets: at KMAX = 32, 16 and 16, or 32 for the segment with
+// more than 16; at KMAX = 64 the pairs above.  PAY (one-shot only): the
+// instantiation with a payload's weighted sums.
+template <bool ONESHOT, bool PAY, int KMAX>
+__global__ void __launch_bounds__(CellsShape<KMAX>::warps * 32, 1)
 fusion_cells_kernel(const __grid_constant__ CellsParams p) {
+  using Shape = CellsShape<KMAX>;
+  constexpr int SS = Shape::ss;
   extern __shared__ float4 smem4[];
   float* sw = reinterpret_cast<float*>(smem4);
   const int grp = threadIdx.x / FC_TQ, gt = threadIdx.x % FC_TQ, bar = 1 + grp;
-  float4* ring = smem4 + (ONESHOT ? ONE_NW / 4 : 0) + grp * FC_STAGES * (p.C + 4);
-  int* slots = reinterpret_cast<int*>(ring);  // after the walk: [FC_TQ][33]
-  __shared__ int tile_s[FC_GROUPS];
+  // (k <= 32: the parent's expression, so the instantiation keeps its code)
+  float4* ring = smem4 + (ONESHOT ? ONE_NW / 4 : 0) +
+                 (KMAX > 32 ? grp * Shape::region(p.C) : grp * FC_STAGES * (p.C + 4));
+  int* slots = reinterpret_cast<int*>(ring);  // after the walk: [FC_TQ][SS]
+  __shared__ int tile_s[Shape::groups];
   if (ONESHOT) {
     for (int e = threadIdx.x; e < ONE_NW / 4; e += blockDim.x)
       smem4[e] = reinterpret_cast<const float4*>(p.wtc)[e];
@@ -292,18 +326,31 @@ fusion_cells_kernel(const __grid_constant__ CellsParams p) {
     const int b = tile / p.nt;
     const float* P = p.pts + (size_t)b * p.N * 3;
     const int N = p.N, N1 = p.seg[b * 4];
-    const int k1 = max(0, min(p.seg[b * 4 + 2], 32));
-    const int k2 = max(0, min(p.seg[b * 4 + 3], 32 - k1));
+    const int k1 = max(0, min(p.seg[b * 4 + 2], KMAX));
+    const int k2 = max(0, min(p.seg[b * 4 + 3], KMAX - k1));
     const float4 q = p.keys[(size_t)b * p.Np + (size_t)(tile - b * p.nt) * FC_TQ + gt];
     const int qid = __float_as_int(q.w);
     unsigned nscan = 0, cnt[3] = {0u, 0u, 0u};
     int walked = 0;
-    if (k1 <= 16 && k2 <= 16)
-      tile_walk<16, 16>(p, b, tile, q, qid < N, N1, k1, k2, ring, slots, bar, gt, nscan, walked, cnt);
-    else if (k1 > 16)
-      tile_walk<32, 16>(p, b, tile, q, qid < N, N1, k1, k2, ring, slots, bar, gt, nscan, walked, cnt);
-    else
-      tile_walk<16, 32>(p, b, tile, q, qid < N, N1, k1, k2, ring, slots, bar, gt, nscan, walked, cnt);
+    if constexpr (KMAX <= 32) {
+      if (k1 <= 16 && k2 <= 16)
+        tile_walk<16, 16, SS>(p, b, tile, q, qid < N, N1, k1, k2, ring, slots, bar, gt, nscan, walked, cnt);
+      else if (k1 > 16)
+        tile_walk<32, 16, SS>(p, b, tile, q, qid < N, N1, k1, k2, ring, slots, bar, gt, nscan, walked, cnt);
+      else
+        tile_walk<16, 32, SS>(p, b, tile, q, qid < N, N1, k1, k2, ring, slots, bar, gt, nscan, walked, cnt);
+    } else {
+      if (k1 <= 32 && k2 <= 32)
+        tile_walk<32, 32, SS>(p, b, tile, q, qid < N, N1, k1, k2, ring, slots, bar, gt, nscan, walked, cnt);
+      else if (k1 > 48)  // k2 <= 15
+        tile_walk<64, 16, SS>(p, b, tile, q, qid < N, N1, k1, k2, ring, slots, bar, gt, nscan, walked, cnt);
+      else if (k1 > 32)  // k2 <= 31
+        tile_walk<48, 32, SS>(p, b, tile, q, qid < N, N1, k1, k2, ring, slots, bar, gt, nscan, walked, cnt);
+      else if (k1 > 16)  // 32 < k2 <= 47
+        tile_walk<32, 48, SS>(p, b, tile, q, qid < N, N1, k1, k2, ring, slots, bar, gt, nscan, walked, cnt);
+      else               // 32 < k2 <= 64
+        tile_walk<16, 64, SS>(p, b, tile, q, qid < N, N1, k1, k2, ring, slots, bar, gt, nscan, walked, cnt);
+    }
     const unsigned long long t1 = p.stamps ? global_ns() : 0ull;
     if (p.scanned || p.stamps) {
       const unsigned w = __reduce_add_sync(FULL, nscan);
@@ -326,7 +373,57 @@ fusion_cells_kernel(const __grid_constant__ CellsParams p) {
       if (qi >= N) continue;  // a pad row (warp-uniform)
       const float x = __shfl_sync(FULL, q.x, i), y = __shfl_sync(FULL, q.y, i),
                   z = __shfl_sync(FULL, q.z, i);
-      const int idx = slots[(32 * half + i) * 33 + lane];
+      if constexpr (KMAX > 32) {
+        // slots lane and 32 + lane: the k <= 64 head (fused_row2)
+        const int* row = slots + (32 * half + i) * SS;
+        if (ONESHOT) {
+          const int kk = k1 + k2;
+          const bool act0 = lane < kk, act1 = 32 + lane < kk;
+          const int j0 = row[lane], j1 = row[32 + lane];
+          float rx0 = 0.f, ry0 = 0.f, rz0 = 0.f, rx1 = 0.f, ry1 = 0.f, rz1 = 0.f;
+          if (act0 && j0 >= 0) {
+            rx0 = P[(size_t)j0 * 3] - x;
+            ry0 = P[(size_t)j0 * 3 + 1] - y;
+            rz0 = P[(size_t)j0 * 3 + 2] - z;
+          }
+          if (act1 && j1 >= 0) {
+            rx1 = P[(size_t)j1 * 3] - x;
+            ry1 = P[(size_t)j1 * 3 + 1] - y;
+            rz1 = P[(size_t)j1 * 3 + 2] - z;
+          }
+          float w0, w1, wsum;
+          const float3 o = fused_row2(sw, x, y, z, rx0, ry0, rz0, rx1, ry1, rz1, act0, act1,
+                                      max((kk + 15) / 16, 1), w0, w1, wsum);
+          float* dst = p.out + ((size_t)b * N + qi) * (PAY ? 3 + p.Cp : 3);
+          if (lane == 0) {
+            dst[0] = o.x;
+            dst[1] = o.y;
+            dst[2] = o.z;
+          }
+          if constexpr (PAY) {
+            // the payload by original row: an unfilled active slot takes row qi's own
+            const int s0 = row[lane], s1 = row[32 + lane];
+            const float* x0 = p.payload + ((size_t)b * N + (s0 >= 0 ? s0 : qi)) * p.Cp;
+            const float* x1 = p.payload + ((size_t)b * N + (s1 >= 0 ? s1 : qi)) * p.Cp;
+            payload_sums2(w0, w1, wsum, act0, act1, p.Cp,
+                          [&](int c, int h) { return __ldg((h ? x1 : x0) + c); }, dst + 3);
+          }
+        } else {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int s = 32 * h + lane;
+            if (s >= p.k) continue;
+            const int j = row[s] >= 0 ? row[s] : qi;  // unfilled slot: the row itself
+            const size_t o = ((size_t)b * N + qi) * p.k + s;
+            p.out_i[o] = j;
+            p.out_r[o * 3] = __fsub_rn(P[(size_t)j * 3], x);
+            p.out_r[o * 3 + 1] = __fsub_rn(P[(size_t)j * 3 + 1], y);
+            p.out_r[o * 3 + 2] = __fsub_rn(P[(size_t)j * 3 + 2], z);
+          }
+        }
+        continue;
+      }
+      const int idx = slots[(32 * half + i) * SS + lane];
       if (ONESHOT) {
         const bool active = lane < k1 + k2;
         float rx = 0.f, ry = 0.f, rz = 0.f;
@@ -346,7 +443,7 @@ fusion_cells_kernel(const __grid_constant__ CellsParams p) {
         if constexpr (PAY) {
           // the payload by original row: an unfilled active slot takes row qi's own
           // (the slot read again: kept in a register across the head, it spills)
-          const int src = slots[(32 * half + i) * 33 + lane];
+          const int src = slots[(32 * half + i) * SS + lane];
           const float* xp = p.payload + ((size_t)b * N + (src >= 0 ? src : qi)) * p.Cp;
           payload_sums(w, wsum, active, p.Cp, [&](int c) { return __ldg(xp + c); }, dst + 3);
         }
@@ -370,34 +467,44 @@ fusion_cells_kernel(const __grid_constant__ CellsParams p) {
   }
 }
 
+template <int KMAX>
 static size_t cells_smem(bool oneshot, int C) {
   return sizeof(float) * (oneshot ? ONE_NW : 0) +
-         sizeof(float4) * FC_GROUPS * FC_STAGES * (C + 4);
+         sizeof(float4) * CellsShape<KMAX>::groups * CellsShape<KMAX>::region(C);
 }
 
-template <bool ONESHOT, bool PAY>
+template <bool ONESHOT, bool PAY, int KMAX>
 static cudaError_t launch_cells(const CellsParams& p, cudaStream_t st) {
-  const size_t smem = cells_smem(ONESHOT, p.C);
-  cudaError_t e = allow_smem(fusion_cells_kernel<ONESHOT, PAY>, smem);
+  const auto kernel = fusion_cells_kernel<ONESHOT, PAY, KMAX>;
+  constexpr int threads = CellsShape<KMAX>::warps * 32;
+  const size_t smem = cells_smem<KMAX>(ONESHOT, p.C);
+  cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return e;
   int dev = 0, sms = 0, per_sm = 0;
   if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
   if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
     return e;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fusion_cells_kernel<ONESHOT, PAY>,
-                                                    FC_WARPS * 32, smem);
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
   if (e != cudaSuccess) return e;
   const long long tiles = (long long)p.B * p.nt;
   const int grid = (int)std::max(1LL, std::min((long long)std::max(per_sm, 1) * sms, tiles));
-  fusion_cells_kernel<ONESHOT, PAY><<<grid, FC_WARPS * 32, smem, st>>>(p);
+  kernel<<<grid, threads, smem, st>>>(p);
   return cudaGetLastError();
+}
+
+template <int KMAX>
+static cudaError_t launch_cells_mode(const CellsParams& p, cudaStream_t st) {
+  return !p.wtc ? launch_cells<false, false, KMAX>(p, st)
+                : p.Cp ? launch_cells<true, true, KMAX>(p, st)
+                       : launch_cells<true, false, KMAX>(p, st);
 }
 
 // pts [B, N, 3]; keys [B, Np, 4] (x, y, z, original id bits; pads id N),
 // boxes [B, nc, 4, 4], order and lbs [B, Np / TQ, nc] (nc = Np / C), torder
 // [B * Np / TQ] a permutation of the tiles (the order they are taken), seg
 // [B, 4] = (N1, N, k1, k2), next one zeroed int32, all on the device; TQ =
-// 64.  One-shot mode when wtc is not null (the score MLP 4 -> h1 -> h2 ->
+// 64; 1 <= k <= 64 (the instantiation by k: KMAX = 32 up to 32, else 64).
+// One-shot mode when wtc is not null (the score MLP 4 -> h1 -> h2 ->
 // h3 split by _build.pack_tf32(..., chain=True)), with a payload [B, N, Cp]
 // fp32 in the original row order (0 <= Cp <= PAYLOAD_MAX, null for Cp ==
 // 0): out [B, N, 3 + Cp]; else (Cp == 0) out_i [B, N, k] int64 and out_r
@@ -413,7 +520,7 @@ extern "C" int pci_fusion_cells(const void* pts, const void* keys, const void* b
                                 void* next, int B, int N, int Np, int C, int TQ, int k,
                                 void* stream) {
   if (N < 1 || B < 1 || Np < N || C < 32 || C % 32 || Np % C || TQ != FC_TQ ||
-      Np % TQ || k < 1 || k > 32)
+      Np % TQ || k < 1 || k > 64)
     return (int)cudaErrorInvalidValue;
   if (wtc && (h1 != ONE_H1 || h2 != ONE_H2 || h3 != ONE_H3)) return (int)cudaErrorInvalidValue;
   if (Cp < 0 || Cp > PAYLOAD_MAX || (Cp > 0 && (payload == nullptr || wtc == nullptr)))
@@ -436,17 +543,23 @@ extern "C" int pci_fusion_cells(const void* pts, const void* keys, const void* b
   p.next = static_cast<int*>(next);
   p.B = B, p.N = N, p.Np = Np, p.C = C, p.nc = Np / C, p.nt = Np / TQ, p.k = k, p.Cp = Cp;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return (int)(!wtc ? launch_cells<false, false>(p, st)
-                    : Cp ? launch_cells<true, true>(p, st) : launch_cells<true, false>(p, st));
+  return (int)(k > 32 ? launch_cells_mode<64>(p, st) : launch_cells_mode<32>(p, st));
 }
 
-// The one-shot kernel's resources at chunks of 256 keys (common.cuh's
-// kernel_attrs), without and with the payload.
-extern "C" int pci_fusion_cells_attrs(int* out) {
-  return kernel_attrs(fusion_cells_kernel<true, false>, cells_smem(true, 256), out,
-                      FC_WARPS * 32);
+// The kernel's resources at chunks of 256 keys (common.cuh's kernel_attrs):
+// one-shot without and with the payload, and residual, at k <= 32 and k <= 64.
+template <bool ONESHOT, bool PAY, int KMAX>
+static int cells_attrs(int* out) {
+  return kernel_attrs(fusion_cells_kernel<ONESHOT, PAY, KMAX>, cells_smem<KMAX>(ONESHOT, 256),
+                      out, CellsShape<KMAX>::warps * 32);
 }
-extern "C" int pci_fusion_cells_payload_attrs(int* out) {
-  return kernel_attrs(fusion_cells_kernel<true, true>, cells_smem(true, 256), out,
-                      FC_WARPS * 32);
+extern "C" int pci_fusion_cells_attrs(int* out) { return cells_attrs<true, false, 32>(out); }
+extern "C" int pci_fusion_cells_payload_attrs(int* out) { return cells_attrs<true, true, 32>(out); }
+extern "C" int pci_fusion_cells_resi_attrs(int* out) { return cells_attrs<false, false, 32>(out); }
+extern "C" int pci_fusion_cells64_attrs(int* out) { return cells_attrs<true, false, 64>(out); }
+extern "C" int pci_fusion_cells64_payload_attrs(int* out) {
+  return cells_attrs<true, true, 64>(out);
+}
+extern "C" int pci_fusion_cells_resi64_attrs(int* out) {
+  return cells_attrs<false, false, 64>(out);
 }

@@ -13,7 +13,7 @@ tail (``fusion_attention_tail``), which a CPU tensor also takes.  In
 training, as on the TPU, the residual kNN (with the fixed-neighbour
 backward) and then the head in PyTorch, its BatchNorms on batch
 statistics (``fusion_head``).  At N >= ``_CELLS_FUSION_N`` points on the
-card the same two routes run on the cell-pruned kernel
+card with k <= 64 the same two routes run on the cell-pruned kernel
 (``fusion_cells_attention`` / ``fusion_cells_resi_knn``), as the JAX
 package routes its 65,536-point protocol row; it gives the flat kernels'
 neighbours while scanning a small share of the pairs.
@@ -26,7 +26,13 @@ residual kNN's indices.
 
 ``PointsFusionMulti`` (PointINet2's last fusion) merges F clouds with
 budgets from ``Wnet``'s weights: the budgeted F-segment residual kNN (one
-kernel on the card), then a GroupNorm score MLP in PyTorch.
+kernel on the card), then a GroupNorm score MLP in PyTorch.  From
+``_CELLS_FUSION_N`` points on the card (k <= 64) the kNN is cell-pruned, as
+the JAX package's ``_cells_fusion_knn``: two segments (field 1) on the
+cells kernel's residual mode, in training too; F >= 3 segments at eval,
+where no gradient can flow, as F masked passes of the box-pruned kNN
+(``fusion_cells_multi_knn``, row 10's ``key_valid`` form), each writing its
+budget into its slots.
 
 At eval with a gradient that could flow (``_build.needs_grad``: grad mode
 on and an input or a parameter requiring grad, the counterpart of the
@@ -51,6 +57,7 @@ from ..ops.cuda_kernels import (
     _build,
     fusion_attention_tail,
     fusion_cells_attention,
+    fusion_cells_multi_knn,
     fusion_cells_resi_knn,
     fusion_resi_knn,
     knn_fusion_attention,
@@ -139,20 +146,22 @@ def _fusion_oneshot_ok(train: bool, x: torch.Tensor) -> bool:
 
 
 def _cells_route_ok(points: torch.Tensor, k: int, train: bool, n_seg: int = 2) -> bool:
-    """Route the fusion's kNN to the cell-pruned kernel: a CUDA tensor of
-    at least ``_CELLS_FUSION_N`` points and ``k <= 32``, in training only
-    for two segments (``pci_tpu/nn/fusion.py:_cells_route_ok``; the port's
-    ``PointsFusion`` always has two).  No environment variable, as in the
-    JAX package.  Module-level for tests."""
-    return (points.is_cuda and points.shape[-2] >= _CELLS_FUSION_N and k <= 32
+    """Route the fusion's kNN to the cell-pruned kernels: a CUDA tensor of
+    at least ``_CELLS_FUSION_N`` points and ``k <= 64``, in training only
+    for two segments (``pci_tpu/nn/fusion.py:_cells_route_ok``).  Two
+    segments (``PointsFusion``, and ``PointsFusionMulti`` at field 1) take
+    the cells fusion kernel (row 12); more (``PointsFusionMulti``, eval
+    only) the F masked passes of the box-pruned kNN (row 10,
+    ``fusion_cells_multi_knn``).  No environment variable, as in the JAX
+    package.  Module-level for tests."""
+    return (points.is_cuda and points.shape[-2] >= _CELLS_FUSION_N and k <= 64
             and (n_seg == 2 or not train))
 
 
 def _kernel_shape_ok(k: int, payload: torch.Tensor | None) -> bool:
     """The fusion kernels' shapes: ``k <= MAX_KERNEL_K`` (64: one lane a
-    slot up to 32 and two past it, in csrc/fusion_knn.cu and
-    csrc/fusion_tail.cu; the cells route keeps its own k <= 32,
-    :func:`_cells_route_ok`) and a payload of at most ``MAX_PAYLOAD``
+    slot up to 32 and two past it, in csrc/fusion_knn.cu,
+    csrc/fusion_cells.cu and csrc/fusion_tail.cu) and a payload of at most ``MAX_PAYLOAD``
     channels (the one-shot kernels').  Past either, the fusion takes the
     plain versions on any device: the budgeted kNN inside the same
     fixed-neighbour autograd function, then the head in PyTorch, the
@@ -248,7 +257,7 @@ class PointsFusionWithFeatures(PointsFusion):
         carries the row's own).  Feature rows go through the clouds'
         permutations.  On the card at eval the payload rides the one-shot
         kernel's launch (up to ``MAX_PAYLOAD`` channels; wider ones take
-        the plain versions, as ``k > 32`` does).  ``feats1/2`` None:
+        the plain versions, as ``k > 64`` does).  ``feats1/2`` None:
         :class:`PointsFusion`'s ``[B, N, 3]``."""
         feats = None if feats1 is None else (feats1, feats2)
         return self._fuse(points1, points2, feats, k, t, perms, generator, momentum)
@@ -262,8 +271,9 @@ class PointsFusionMulti(nn.Module):
     last cloud the remainders.  The score MLP has GroupNorm(C/8) layers
     (``PointMLP_0``, flax's name), which no kernel can fold, so after the
     budgeted F-segment residual kNN (one kernel on the card, the plain
-    version on the CPU; its fixed-neighbour backward) the head runs in
-    PyTorch."""
+    version on the CPU; its fixed-neighbour backward; from
+    ``_CELLS_FUSION_N`` points the cell-pruned routes, see the module's
+    docstring) the head runs in PyTorch."""
 
     def __init__(self):
         super().__init__()
@@ -285,7 +295,13 @@ class PointsFusionMulti(nn.Module):
         combined, _ = _composed_shuffle_merge(list(points_list), [p.to(dev) for p in perms],
                                               n_all.to(dev))
         seg_ends = torch.cumsum(n_all, dim=1)
-        if k <= MAX_KERNEL_K and F <= MAX_SEGMENTS:
+        shape_ok = k <= MAX_KERNEL_K and F <= MAX_SEGMENTS
+        cells = _cells_route_ok(combined, k, self.training, F)  # k <= 64, any F
+        if cells and F == 2:  # pci_tpu/nn/fusion.py:189-208, the single-pass kernel
+            _, resi = fusion_cells_resi_knn(combined, seg_ends, k_all, k)
+        elif cells and not _build.needs_grad(combined):  # :209-233, eval only
+            _, resi = fusion_cells_multi_knn(combined, seg_ends, k_all, k)
+        elif shape_ok:
             _, resi = fusion_resi_knn(combined, seg_ends, k_all, k)
         else:
             _, resi = FusionResiKnn.apply(combined, seg_ends, k_all, k, fusion_resi_plain)

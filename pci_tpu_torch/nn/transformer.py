@@ -7,7 +7,13 @@ cloud), the neighbours' xyz and ``[K | V]`` rows gathered apart (each
 contiguous: the tail kernels read a query's K | V block as one span, and a
 slice of a fused ``[xyz | K | V]`` gather would be copied whole first),
 offsets ``delta = xyz - knn_xyz``, then the vector-attention tail and
-``fc2`` plus the residual.
+``fc2`` plus the residual.  On a large cloud (``ops.cells_eligible``: the
+card, at least 32,768 points, ``k <= 64``) where no gradient can flow into
+``xyz``, the offsets come from the box-pruned kNN's own residual output
+(``ops.knn_self_resi``, the JAX layer's cells branch,
+``pci_tpu/nn/transformer.py:116-122``): ``delta = -resi``, bit-equal to
+the gather's (negation is exact and ``a - b = -(b - a)`` in IEEE
+arithmetic), with no xyz gather.
 The tail is one kernel on the card: the eval kernel, or in training the
 trainable route (the same forward kernel and a backward kernel), as the
 TPU's ``vector_attention_trainable``; each routes by shape before any
@@ -24,7 +30,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from ..ops import index_points
+from ..ops import cells_eligible, index_points, knn_self_resi
 from ..ops.cuda_kernels import _build, knn, vector_attention, vector_attention_trainable
 
 
@@ -50,9 +56,13 @@ class TransformerLayer(nn.Module):
         d_points]``, None)."""
         x = self.fc1(feats)
         kv = torch.cat([self.w_ks(x), self.w_vs(x)], -1)
-        _, idx = knn(xyz, xyz, self.k)
-        knn_xyz, g = index_points(xyz.float(), idx), index_points(kv.float(), idx)
-        delta = xyz[:, :, None, :] - knn_xyz  # [B, N, k, 3]
+        if cells_eligible(xyz, self.k) and not _build.needs_grad(xyz):
+            idx, resi = knn_self_resi(xyz, self.k)
+            g, delta = index_points(kv.float(), idx), -resi
+        else:
+            _, idx = knn(xyz, xyz, self.k)
+            knn_xyz, g = index_points(xyz.float(), idx), index_points(kv.float(), idx)
+            delta = xyz[:, :, None, :] - knn_xyz  # [B, N, k, 3]
         tail = [(m.weight, m.bias) for m in (self.fc_delta_0, self.fc_delta_1,
                                             self.fc_gamma_0, self.fc_gamma_1)]
         trainable = self.training or _build.needs_grad(self, xyz, feats)

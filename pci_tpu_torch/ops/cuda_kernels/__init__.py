@@ -26,6 +26,7 @@ from .fps_cuda import fps_kernel
 from .fusion_cells_cuda import (
     fusion_cells_attention,
     fusion_cells_kernel,
+    fusion_cells_multi_knn,
     fusion_cells_resi_knn,
 )
 from .fusion_knn_cuda import (
@@ -35,7 +36,7 @@ from .fusion_knn_cuda import (
     knn_fusion_attention,
 )
 from .fusion_tail_cuda import fusion_attention_tail, fusion_tail_kernel
-from .knn_cuda import knn, knn_cells_kernel, knn_kernel, nearest_launches
+from .knn_cuda import knn, knn_cells, knn_cells_kernel, knn_kernel, nearest_launches
 from .knnconv_cuda import knnconv_fused, knnconv_kernel
 from .pn2mid_cuda import pn2mid_fused, pn2mid_kernel
 from .setconv_cuda import fold_bn_layers, setconv_fused, setconv_kernel
@@ -91,12 +92,14 @@ __all__ = [
     "fusion_attention_tail",
     "fusion_cells_attention",
     "fusion_cells_kernel",
+    "fusion_cells_multi_knn",
     "fusion_cells_resi_knn",
     "fusion_kernel",
     "fusion_resi_kernel",
     "fusion_resi_knn",
     "fusion_tail_kernel",
     "knn",
+    "knn_cells",
     "knn_cells_kernel",
     "knn_fusion_attention",
     "knn_kernel",

@@ -60,6 +60,9 @@ _SIGNATURES = {
     "pci_nearest_shape": [_I, _I, _I, _IP],
     "pci_nearest_attrs": [_IP],
     "pci_knn_cells": [_P] * 9 + [_I] * 7 + [_P],
+    "pci_knn_cells_seg": [_P] * 12 + [_I] * 10 + [_P],
+    "pci_knn_cells_attrs": [_IP],
+    "pci_knn_cells_seg_attrs": [_IP],
     "pci_attention": [_P] * 7 + [_I, _I, _I, _P],
     "pci_attention_attrs": [_IP],
     "pci_attention_bwd_attrs": [_IP],
@@ -77,6 +80,10 @@ _SIGNATURES = {
     "pci_fusion_cells": [_P] * 8 + [_I] * 3 + [_P, _I] + [_P] * 6 + [_I] * 6 + [_P],
     "pci_fusion_cells_attrs": [_IP],
     "pci_fusion_cells_payload_attrs": [_IP],
+    "pci_fusion_cells64_attrs": [_IP],
+    "pci_fusion_cells64_payload_attrs": [_IP],
+    "pci_fusion_cells_resi_attrs": [_IP],
+    "pci_fusion_cells_resi64_attrs": [_IP],
     "pci_pn2mid_scratch": [_IP, _IP, _IP, _I, _I, _I, _IP, _IP, _FP,
                            ctypes.POINTER(ctypes.c_longlong)],
     "pci_pn2mid": [_P, _P, _P, _IP, _IP, _IP, _P, _P, _P, _P, _I, _I, _I, _IP, _IP, _FP,

@@ -13,7 +13,14 @@ and only skips chunks that cannot hold a neighbour.  The Morton sort, the
 chunk boxes and the per-tile chunk order are made here with torch ops, as
 the JAX package makes them with XLA ops outside its ``pallas_call``; on the
 card they replay from a CUDA graph captured once per shape
-(:func:`kernel_plan_graphed`).
+(:func:`kernel_plan_graphed`).  k <= 64: the kernel's k <= 32 and k <= 64
+instantiations, chosen by k at launch.
+
+:func:`fusion_cells_multi_knn` is the F-segment residual kNN at large N
+(``pci_tpu/nn/fusion.py:_cells_fusion_knn``'s two-pass branch, whose TPU
+kernel is ``knn_cells``): one masked pass of the box-pruned kNN
+(``knn_cuda``'s segment form, row 10) a segment, each writing its budget
+straight into its slots of one ``[B, N, k]`` block.
 """
 
 from __future__ import annotations
@@ -23,8 +30,9 @@ import collections
 import torch
 
 from ..cells import box_lb, chunk_boxes, sort_by_morton
-from . import _build
+from . import _build, knn_cuda
 from .fusion_knn_cuda import (
+    MAX_KERNEL_K,
     SCORE_MLP,
     FusionResiKnn,
     as_payload,
@@ -193,8 +201,8 @@ def fusion_cells_kernel(combined, seg_ends, budgets, k, layers=None, scanned=Non
     B, N, C = combined.shape
     if C != 3:
         raise ValueError("fusion_cells kernel takes [B, N, 3] clouds")
-    if not 1 <= k <= 32:
-        raise ValueError("fusion_cells kernel: k <= 32 (one lane a slot)")
+    if not 1 <= k <= MAX_KERNEL_K:
+        raise ValueError(f"fusion_cells kernel: k <= {MAX_KERNEL_K} (two slots a lane)")
     if seg_ends.shape != (B, 2) or budgets.shape != (B, 2):
         raise ValueError("fusion_cells kernel: two segments a batch row")
     seg = torch.cat([seg_ends, budgets], dim=1).to(dev, torch.int32).contiguous()
@@ -213,3 +221,64 @@ def fusion_cells_plain(combined, seg_ends, budgets, k, layers=None, payload=None
     if layers is not None:
         return fusion_plain(combined, seg_ends, budgets, layers, k, payload)
     return fusion_resi_plain(combined, seg_ends, budgets, k)
+
+
+def segment_slots(budgets: torch.Tensor, k: int):
+    """Each segment's slots as the residual kNN caps them
+    (``fusion_resi_plain``): ``(caps [B, F], col0 [B, F])`` int32, segment
+    f filling slots ``[col0, col0 + caps)`` with ``caps = max(0, min(budget,
+    k - used))``; by device ops, no host sync."""
+    caps, col0 = [], []
+    used = torch.zeros_like(budgets[:, 0], dtype=torch.int32)
+    for f in range(budgets.shape[1]):
+        cap = torch.clamp(torch.minimum(budgets[:, f].to(torch.int32), k - used), min=0)
+        caps.append(cap)
+        col0.append(used)
+        used = used + cap
+    return torch.stack(caps, 1).to(torch.int32), torch.stack(col0, 1).to(torch.int32)
+
+
+def fusion_cells_multi_knn(combined: torch.Tensor, seg_ends: torch.Tensor,
+                           budgets: torch.Tensor, k: int, scanned=None):
+    """:func:`fusion_knn_cuda.fusion_resi_knn`'s function for F segments
+    (``seg_ends [B, F]`` cumulative, the last N; ``budgets [B, F]``) ->
+    ``(idx [B, N, k] int64, resi [B, N, k, 3])``, slot for slot: on a CUDA
+    tensor one launch of the box-pruned kNN's segment form a segment (all F
+    launched, a segment whose budgets are all 0 too), its keys those of
+    rows ``[end_{f-1}, end_f)``, pruned against each row's own budget's
+    k-th, written into its slots; a slot its segment cannot fill is the row
+    itself with a zero residual, and the last launch writes the slots past
+    every budget so too.  ``scanned``: an int64 ``[F]`` CUDA tensor whose
+    entry f gains the pairs pass f scanned.  Eval only (no backward: the
+    route is taken where no gradient can flow); else
+    :func:`fusion_resi_plain`."""
+    _build.check_eval_only("fusion_cells_multi_knn", combined)
+    if not _build.use_kernel(combined):
+        return fusion_resi_plain(combined, seg_ends, budgets, k)
+    combined = combined.detach().float().contiguous()
+    dev = combined.device
+    B, N, C = combined.shape
+    F = seg_ends.shape[-1]
+    if C != 3:
+        raise ValueError("fusion_cells_multi_knn takes [B, N, 3] clouds")
+    if seg_ends.shape != (B, F) or budgets.shape != (B, F):
+        raise ValueError("fusion_cells_multi_knn: [B, F] segment ends and budgets")
+    if not 1 <= k <= min(knn_cuda.MAX_K, N):
+        raise ValueError(f"fusion_cells_multi_knn: k={k} needs 1 <= k <= min("
+                         f"{knn_cuda.MAX_K}, N={N})")
+    if scanned is not None and scanned.shape != (F,):
+        raise ValueError(f"fusion_cells_multi_knn: scanned must be [{F}]")
+    ends = seg_ends.to(dev, torch.int32)
+    caps, col0 = segment_slots(budgets.to(dev), k)
+    starts = torch.cat([torch.zeros_like(ends[:, :1]), torch.cummax(ends, 1).values[:, :-1]], 1)
+    pos = torch.arange(N, device=dev, dtype=torch.int32)[None, :]
+    idx = torch.empty((B, N, k), dtype=torch.int64, device=dev)
+    resi = torch.empty((B, N, k, 3), dtype=torch.float32, device=dev)
+    for f in range(F):
+        valid = (pos >= starts[:, f:f + 1]) & (pos < ends[:, f:f + 1])
+        plan = knn_cuda.knn_cells_plan_graphed(combined, combined, True, valid)
+        knn_cuda.knn_cells_seg_launch(
+            combined, combined, k, plan, budgets=caps[:, f].contiguous(),
+            col0=col0[:, f].contiguous(), ks=k, fill=f == F - 1, out_i=idx, out_r=resi,
+            scanned=None if scanned is None else scanned[f:f + 1])
+    return idx, resi

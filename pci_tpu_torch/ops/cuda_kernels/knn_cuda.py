@@ -33,6 +33,16 @@ branch, on any device.
 
 Distances and indices carry no gradient: the inputs are detached, as
 ``knn_pallas`` stop-gradients them.
+
+:func:`knn_cells` is ``knn_cells_tpu.knn_cells``' own signature, with its
+``key_valid`` mask and ``emit_resi`` residuals, on the box-pruned kernel's
+segment form (``csrc/knn_cells.cu:knn_cells_seg_kernel``, counted in
+``knn_cells_kernel.launches``): only keys where ``key_valid`` holds can be
+neighbours, a slot with no valid key left is the query's own row with the
+distance ``SENTINEL`` and a zero residual, and the residuals are the exact
+fp32 ``points[idx] - query``.  The fusion's F-segment route and
+``ops.knn_self_resi`` call it; ``cells_route_ok`` still refuses a mask for
+:func:`knn`.
 """
 
 from __future__ import annotations
@@ -105,18 +115,25 @@ def cells_route_ok(query: torch.Tensor, points: torch.Tensor, k: int, valid_n=No
 
 
 def knn_cells_plan(query: torch.Tensor, points: torch.Tensor, self_knn: bool,
-                   chunk: int = CELLS_CHUNK, tile: int = CELLS_TILE):
+                   chunk: int = CELLS_CHUNK, tile: int = CELLS_TILE,
+                   key_valid: torch.Tensor | None = None):
     """The pruned kernel's inputs besides k: ``(keys [B, Np, 4]`` Morton-
     sorted rows (x, y, z, original index as int32 bits; pad rows NaN),
     ``qry [B, Sp, 4]`` the sorted queries likewise (pad rows with index
-    >= S; the same tensor as ``keys`` when ``self_knn``: one shared sort),
-    ``boxes [B, nc, 2, 4]`` each chunk's (lo, hi) over its real keys,
-    ``order [B, nt, nc]`` int32 each tile of ``tile`` sorted queries' chunks
-    by ascending sort key, ``lbs [B, nt, nc]`` those keys: the tile's box
-    bound, and for the chunks of bound 0 a key below 0 that puts the
-    nearest first (the tile's own chunk, then its neighbours in the sorted
-    order in the self case; by box centres in the cross case), so that a
-    tile's list fills from its nearest keys)."""
+    >= S; the same tensor as ``keys`` when ``self_knn`` with no mask: one
+    shared sort), ``boxes [B, nc, 2, 4]`` each chunk's (lo, hi) over its
+    real keys, ``order [B, nt, nc]`` int32 each tile of ``tile`` sorted
+    queries' chunks by ascending sort key, ``lbs [B, nt, nc]`` those keys:
+    the tile's box bound, and for the chunks of bound 0 a key below 0 that
+    puts the nearest first (the tile's own chunk, then its neighbours in the
+    sorted order in the self case; by box centres in the cross case), so
+    that a tile's list fills from its nearest keys).
+
+    ``key_valid [B, N]`` bool (the segment form only): an invalid key's row
+    is NaN in ``keys`` (it rides the sort; no comparison passes), the chunk
+    boxes cover the valid keys only, and a chunk with none has the sort key
+    NaN, sorted last; ``qry`` keeps every query's coordinates (a query
+    whose own key is invalid is still a query), its tiles' boxes over them."""
     B, N, _ = points.shape
     S = query.shape[1]
     if self_knn and chunk % tile:
@@ -124,25 +141,38 @@ def knn_cells_plan(query: torch.Tensor, points: torch.Tensor, self_knn: bool,
                          f"chunk={chunk}")
     pts, perm = sort_by_morton(points, (-N) % chunk)
     valid = perm < N if N % chunk else None  # None: no pad row
+    kvalid = valid
+    if key_valid is not None:
+        kv = torch.gather(key_valid.to(pts.device, torch.bool), 1, perm.clamp(max=N - 1).long())
+        kvalid = kv if valid is None else kv & valid
     if self_knn:
-        qs, qvalid = pts, valid
+        qs, qperm, qvalid = pts, perm, valid
     else:
         qs, qperm = sort_by_morton(query, (-S) % tile)
         qvalid = qperm < S if S % tile else None
     qlo, qhi = chunk_boxes(qs, tile, qvalid)
-    if self_knn:  # a chunk's box is its tiles' box
+    if self_knn and key_valid is None:  # a chunk's box is its tiles' box
         r = (B, -1, chunk // tile, 3)
         lo, hi = qlo.reshape(r).amin(dim=2), qhi.reshape(r).amax(dim=2)
+    else:
+        lo, hi = chunk_boxes(pts, chunk, kvalid)
+    if self_knn:
         near = _own_chunk_keys(qlo.shape[1], lo.shape[1], chunk // tile, lo.device)
     else:
-        lo, hi = chunk_boxes(pts, chunk, valid)
         g = ((qlo + qhi) * 0.5)[..., :, None, :] - ((lo + hi) * 0.5)[..., None, :, :]
         near = -1.0 / ((g * g).sum(-1) + 1e-30)
     lbs = box_lb(qlo, qhi, lo, hi)
-    lbs, order = torch.sort(torch.where(lbs > 0, lbs, near), dim=-1)
-    rows = pts if valid is None else torch.where(valid[..., None], pts, float("nan"))
+    lbs = torch.where(lbs > 0, lbs, near)
+    if key_valid is not None:  # a chunk with no valid key: last, and the walk's end
+        empty = ~kvalid.reshape(B, -1, chunk).any(-1)
+        lbs = torch.where(empty[:, None, :], float("nan"), lbs)
+    lbs, order = torch.sort(lbs, dim=-1)
+    rows = pts if kvalid is None else torch.where(kvalid[..., None], pts, float("nan"))
     keys = torch.cat([rows, perm[..., None].view(torch.float32)], -1)
-    qry = keys if self_knn else torch.cat([qs, qperm[..., None].view(torch.float32)], -1)
+    if self_knn and key_valid is None:
+        qry = keys
+    else:
+        qry = torch.cat([qs, qperm[..., None].view(torch.float32)], -1)
     boxes = torch.nn.functional.pad(torch.stack([lo, hi], dim=2), (0, 1))
     return keys, qry, boxes, order.to(torch.int32), lbs
 
@@ -162,7 +192,7 @@ _PLAN_GRAPHS: collections.OrderedDict = collections.OrderedDict()
 PLAN_GRAPHS = 4
 
 
-def knn_cells_plan_graphed(query, points, self_knn: bool):
+def knn_cells_plan_graphed(query, points, self_knn: bool, key_valid=None):
     """:func:`knn_cells_plan` of CUDA tensors, replayed from a CUDA graph
     captured once a shape (``_build.graph_replay``): the clouds are copied
     into the graph's inputs and the prep's ~35 small launches run as one,
@@ -175,8 +205,17 @@ def knn_cells_plan_graphed(query, points, self_knn: bool):
     stream raises, as does a call while the stream is being captured.  The
     first call of a shape captures, which synchronizes the device; the
     ``PLAN_GRAPHS`` most recently used shapes keep their graph and its
-    memory, an older one is dropped."""
-    key = (points.device, tuple(query.shape), tuple(points.shape), self_knn)
+    memory, an older one is dropped.  ``key_valid`` (the self case): the
+    mask is one more graph input."""
+    key = (points.device, tuple(query.shape), tuple(points.shape), self_knn,
+           key_valid is not None)
+    if key_valid is not None:
+        if not self_knn:
+            raise ValueError("knn_cells plan: a key mask in the self case only")
+        return _build.graph_replay(
+            _PLAN_GRAPHS, PLAN_GRAPHS, key, "knn_cells plan",
+            lambda p, v: knn_cells_plan(p, p, True, key_valid=v), points,
+            key_valid.to(points.device, torch.bool).contiguous())
     if self_knn:
         return _build.graph_replay(_PLAN_GRAPHS, PLAN_GRAPHS, key, "knn_cells plan",
                                    lambda p: knn_cells_plan(p, p, True), points)
@@ -234,6 +273,126 @@ def knn_cells_kernel(query, points, k, scanned=None):
 
 
 knn_cells_kernel.launches = 0
+
+
+def knn_cells(query: torch.Tensor, points: torch.Tensor, k: int,
+              key_valid: torch.Tensor | None = None, emit_resi: bool = False):
+    """``pci_tpu/ops/pallas_kernels/knn_cells_tpu.py:knn_cells``' function,
+    exact: ``(sq_dists [B, S, k], idx [B, S, k] int64[, resi [B, S, k,
+    3]])``, ascending, ties to the lower key index, over the keys where
+    ``key_valid [B, N]`` holds (every key for None; a mask in the self
+    case only: pass the same tensor as ``query`` and ``points``).  A slot
+    with no valid key left is the query's own row, distance ``SENTINEL``,
+    residual 0.  ``emit_resi``: the exact fp32 ``points[idx] - query``.
+    On a CUDA tensor the segment form of csrc/knn_cells.cu (1 <= k <=
+    min(MAX_K, N), xyz clouds), else :func:`knn_cells_plain`."""
+    self_knn = query is points
+    if key_valid is not None and not self_knn:
+        raise ValueError("knn_cells: key_valid in the self case only (query is points)")
+    query, points = query.detach(), points.detach()
+    if not _build.use_kernel(points):
+        return knn_cells_plain(query, points, k, key_valid, emit_resi)
+    points = points.float().contiguous()
+    query = points if self_knn else query.float().contiguous()
+    dev = points.device
+    for name, t in (("query", query), ("points", points)):
+        _build.require(t, name, torch.float32, 3, dev)
+    B, N, C = points.shape
+    S = query.shape[1]
+    if C != 3 or query.shape[-1] != 3 or query.shape[0] != B:
+        raise ValueError("knn_cells kernel takes [B, S, 3] queries and [B, N, 3] keys")
+    if not 1 <= k <= min(MAX_K, N):
+        raise ValueError(f"knn_cells kernel: k={k} needs 1 <= k <= min({MAX_K}, N={N})")
+    if key_valid is not None and key_valid.shape != (B, N):
+        raise ValueError(f"knn_cells kernel: key_valid must be {(B, N)}")
+    plan = knn_cells_plan_graphed(query, points, self_knn, key_valid)
+    dist = torch.empty((B, S, k), dtype=torch.float32, device=dev)
+    idx = torch.empty((B, S, k), dtype=torch.int64, device=dev)
+    resi = torch.empty((B, S, k, 3), dtype=torch.float32, device=dev) if emit_resi else None
+    knn_cells_seg_launch(query, points, k, plan, out_d=dist, out_i=idx, out_r=resi)
+    return (dist, idx, resi) if emit_resi else (dist, idx)
+
+
+def knn_cells_seg_launch(query, points, k, plan, *, budgets=None, col0=None, ks=None,
+                         fill=False, out_d=None, out_i=None, out_r=None, scanned=None):
+    """One launch of csrc/knn_cells.cu's segment form on a
+    :func:`knn_cells_plan` plan (counted in ``knn_cells_kernel.launches``):
+    it writes each query row's slots ``[col0[b], col0[b] + min(budgets[b],
+    k))`` of ``out_i [B, S, ks]`` int64 (required), ``out_d [B, S, ks]``
+    and ``out_r [B, S, ks, 3]`` (each optional; ``out_r`` takes the
+    residuals from ``points``), and with ``fill`` the row's slots past its
+    budget as unfilled (the query's own row).  ``budgets``/``col0``: ``[B]``
+    int32 CUDA tensors, or None (k, 0).  ``scanned`` as
+    :func:`knn_cells_launch`'s."""
+    dev = points.device
+    B, N, _ = points.shape
+    S = query.shape[1]
+    ks = k if ks is None else ks
+    if not 1 <= k <= min(MAX_K, ks):
+        raise ValueError(f"knn_cells kernel: k={k} needs 1 <= k <= min({MAX_K}, ks={ks})")
+    keys, qry, boxes, order, lbs = plan
+    for name, t in zip(("keys", "qry", "boxes", "order", "lbs"), plan):
+        if t.device != dev or not t.is_contiguous():
+            raise ValueError(f"knn_cells kernel: the plan's {name} must be contiguous on {dev}")
+    _build.require(out_i, "out_i", torch.int64, 3, dev)
+    if out_i.shape != (B, S, ks):
+        raise ValueError(f"knn_cells kernel: out_i must be {(B, S, ks)}")
+    for name, t, shape in (("out_d", out_d, (B, S, ks)), ("out_r", out_r, (B, S, ks, 3))):
+        if t is not None:
+            _build.require(t, name, torch.float32, len(shape), dev)
+            if t.shape != shape:
+                raise ValueError(f"knn_cells kernel: {name} must be {shape}")
+    for name, t in (("budgets", budgets), ("col0", col0)):
+        if t is not None:
+            _build.require(t, name, torch.int32, 1, dev)
+            if t.shape != (B,):
+                raise ValueError(f"knn_cells kernel: {name} must be [B]")
+    if scanned is not None:
+        _build.require(scanned, "scanned", torch.int64, 1, dev)
+    ptr = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
+    Np, Sp, nc = keys.shape[1], qry.shape[1], boxes.shape[1]
+    err = _build.library().pci_knn_cells_seg(
+        keys.data_ptr(), qry.data_ptr(), boxes.data_ptr(), order.data_ptr(), lbs.data_ptr(),
+        points.data_ptr(), ptr(budgets), ptr(col0), ptr(out_d), out_i.data_ptr(), ptr(out_r),
+        ptr(scanned), B, S, N, Np, Sp, Np // nc, Sp // order.shape[1], k, ks,
+        int(fill), _build.stream_ptr(dev),
+    )
+    _build.check_launch("knn_cells", err)
+    knn_cells_kernel.launches += 1
+
+
+def knn_cells_plain(query, points, k, key_valid=None, emit_resi=False):
+    """:func:`knn_cells`' function by PyTorch ops: the exact kNN over the
+    valid keys (an invalid key's distance NaN, which a stable sort puts
+    after every number), then each slot that took an invalid key becomes
+    the query's own row with distance ``SENTINEL``; residuals by the picked
+    indices.  Query blocks of bounded size, as :func:`knn_plain`."""
+    query, points = query.detach().float(), points.detach().float()
+    B, S = query.shape[:2]
+    N = points.shape[1]
+    if not 1 <= k <= N:
+        raise ValueError(f"knn_cells: k={k} needs 1 <= k <= N={N}")
+    rows = max(1, _PLAIN_BLOCK // max(1, B * N))
+    valid = None if key_valid is None else key_valid.to(points.device, torch.bool)
+    dists, idxs = [], []
+    for s in range(0, S, rows):
+        d = square_distance(query[:, s:s + rows], points)
+        if valid is not None:
+            d = torch.where(valid[:, None, :], d, float("nan"))
+        d, i = select_min_k(d, k)
+        if valid is not None:
+            none = ~torch.gather(valid, 1, i.reshape(B, -1)).reshape(i.shape)
+            own = torch.arange(s, s + i.shape[1], device=i.device)[None, :, None]
+            d = torch.where(none, SENTINEL, d)
+            i = torch.where(none, own, i)
+        dists.append(d)
+        idxs.append(i)
+    dist, idx = torch.cat(dists, 1), torch.cat(idxs, 1)
+    if not emit_resi:
+        return dist, idx
+    resi = torch.gather(points, 1, idx.reshape(B, -1, 1).expand(-1, -1, 3)).reshape(
+        B, S, k, 3) - query[:, :, None, :]
+    return dist, idx, resi
 
 
 def _launch(query, points, k, valid_n):

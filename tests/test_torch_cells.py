@@ -186,10 +186,23 @@ def case(name, seed):
         return x, 1024, 16, 16
     if name == "grid16":
         return grid16(cloud(rng, 1, 1536, 0.6)[0]), 768, 20, 12
+    # k = 64 (the kernel's k <= 64 instantiation: the list pairs (32, 32),
+    # (64, 16), (48, 32), (32, 48), (16, 64) by the budgets)
+    if name == "gauss_k64":
+        return cloud(rng, 1, 2048, 10.0)[0], 1024, 32, 32
+    if name == "gauss_k64_t02":
+        return cloud(rng, 1, 2048, 10.0)[0], 1632, 52, 12
+    if name == "grid16_k64":
+        return grid16(cloud(rng, 1, 1536, 0.6)[0]), 384, 20, 44
+    if name == "far_tiny_b_k64":
+        x = cloud(rng, 1, 1024, 2.0)[0]
+        x[960:] = x[960:] * 0.1 + 80.0
+        return x, 960, 58, 6
     raise ValueError(name)
 
 
-CASES = ["gauss", "gauss_t02", "far_tiny_b", "split_0", "split_n", "duplicates", "grid16"]
+CASES = ["gauss", "gauss_t02", "far_tiny_b", "split_0", "split_n", "duplicates", "grid16",
+         "gauss_k64", "gauss_k64_t02", "grid16_k64", "far_tiny_b_k64"]
 
 
 @pytest.mark.parametrize("chunk,tile", [(fusion_cells_cuda.CHUNK, fusion_cells_cuda.TILE),
@@ -207,7 +220,7 @@ def test_emulated_scan_gives_plain_neighbours(name, chunk, tile):
         T(x)[None], torch.tensor([[split, N]]), torch.tensor([[k1, k2]]), k1 + k2)
     np.testing.assert_array_equal(got, want[0].numpy())
     print(f"{name} chunk={chunk}: {skipped} chunks skipped, {scanned / N / N:.3f} of the pairs")
-    if name in ("gauss", "gauss_t02", "grid16") and chunk == 64:
+    if name in ("gauss", "gauss_t02", "grid16", "gauss_k64", "gauss_k64_t02") and chunk == 64:
         assert skipped > 0 and scanned < 0.6 * N * N
 
 
@@ -227,22 +240,28 @@ def jax_fusion(monkeypatch, rng, N, t, train):
     v = jax.tree_util.tree_map(  # non-trivial BatchNorm statistics
         lambda x: x + 0.01 * jnp.arange(x.size, dtype=x.dtype) if x.ndim == 1 else x, v)
 
-    def apply(p1, p2):
+    def apply(p1, p2, k=32):
         draws = iter([J(p) for p in perms])
         monkeypatch.setattr(jfusion, "_random_perms", lambda key, B, n: next(draws))
         kw = dict(train=True, mutable=["batch_stats"]) if train else {}
-        return jmod.apply(v, p1, p2, 32, J(tt), rngs={"sample": jax.random.key(2)}, **kw)
+        return jmod.apply(v, p1, p2, k, J(tt), rngs={"sample": jax.random.key(2)}, **kw)
+
+    # one compiled call a use (the draws are its constants)
+    return v, (a, b, tt), perms, jax.jit(apply, static_argnums=2)
 
     return v, (a, b, tt), perms, apply
 
 
+@pytest.mark.parametrize("k", [32, 64])
 @pytest.mark.parametrize("t", [0.2, 0.5])
 @pytest.mark.parametrize("mode", ["eval_oneshot", "eval_two_kernels", "train"])
-def test_points_fusion_cells_route_matches_jax(monkeypatch, mode, t):
+def test_points_fusion_cells_route_matches_jax(monkeypatch, mode, t, k):
     """``PointsFusion.forward``'s cells branches (the one-shot entry point
     in eval; the residual entry point, then the attention tail in eval or
     the BatchNorm head in training) reach the cells wrappers and compose
-    their output into JAX's rows.  Eval: fused rows within 1e-5 of JAX's.
+    their output into JAX's rows, at k = 32 and 64 (PointINet2's rings, the
+    cells route's k <= 64 since it matches the JAX gate).  Eval: fused rows
+    within 1e-5 of JAX's.
     Training (BatchNorm on the batch's statistics), also the gradients of
     a fixed random projection of the rows into both clouds: within 1e-4
     (rows) and 2e-3 of the largest gradient of JAX's, the flat route's own
@@ -258,7 +277,7 @@ def test_points_fusion_cells_route_matches_jax(monkeypatch, mode, t):
         monkeypatch.setattr(tfusion, name, lambda *a, _fn=fn, _name=name, **kw:
                             reached.append(_name) or _fn(*a, **kw))
     rng = np.random.default_rng(630 + int(10 * t) + 3 * ["eval_oneshot", "eval_two_kernels",
-                                                         "train"].index(mode))
+                                                         "train"].index(mode) + (k > 32) * 20)
     N = 1024
     v, (a, b, tt), perms, apply = jax_fusion(monkeypatch, rng, N, t, mode == "train")
     mod = PointsFusion()
@@ -266,18 +285,18 @@ def test_points_fusion_cells_route_matches_jax(monkeypatch, mode, t):
     tp = tuple(T(p) for p in perms)
     entry = "fusion_cells_attention" if mode == "eval_oneshot" else "fusion_cells_resi_knn"
     if mode != "train":
-        want = np.asarray(apply(J(a), J(b)))
+        want = np.asarray(apply(J(a), J(b), k))
         with torch.inference_mode():
-            got = mod.eval()(T(a), T(b), 32, T(tt), perms=tp).numpy()
+            got = mod.eval()(T(a), T(b), k, T(tt), perms=tp).numpy()
         assert reached == [entry]
         np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
         return
     G = cloud(rng, 1, N)
-    loss = lambda p1, p2: jnp.sum(apply(p1, p2)[0] * J(G))  # noqa: E731
-    want = [np.asarray(apply(J(a), J(b))[0]),
-            *map(np.asarray, jax.grad(loss, argnums=(0, 1))(J(a), J(b)))]
+    loss = lambda p1, p2: jnp.sum(apply(p1, p2, k)[0] * J(G))  # noqa: E731
+    want = [np.asarray(apply(J(a), J(b), k)[0]),
+            *map(np.asarray, jax.jit(jax.grad(loss, argnums=(0, 1)))(J(a), J(b)))]
     ta, tb = T(a).requires_grad_(), T(b).requires_grad_()
-    got = mod.train()(ta, tb, 32, T(tt), perms=tp)
+    got = mod.train()(ta, tb, k, T(tt), perms=tp)
     (got * T(G)).sum().backward()
     assert reached == [entry]
     np.testing.assert_allclose(got.detach().numpy(), want[0], atol=1e-4, rtol=0)
@@ -312,16 +331,19 @@ def test_cells_plan_layout(B):
 
 
 def test_cells_route_gate():
-    """The cells route: a CUDA tensor of >= 32,768 points, k <= 32; in
-    training two segments only; never a CPU tensor."""
+    """The cells route: a CUDA tensor of >= 32,768 points, k <= 64 (the
+    JAX gate, pci_tpu/nn/fusion.py:167-173); in training two segments only;
+    never a CPU tensor."""
     import types
 
     big = types.SimpleNamespace(is_cuda=True, shape=(1, 32768, 3))
     small = types.SimpleNamespace(is_cuda=True, shape=(1, 32767, 3))
     gate = tfusion._cells_route_ok
     assert gate(big, 32, False) and gate(big, 32, True)
-    assert not gate(small, 32, False) and not gate(big, 33, False)
+    assert gate(big, 33, False) and gate(big, 64, False) and gate(big, 64, True)
+    assert not gate(small, 32, False) and not gate(big, 65, False)
     assert gate(big, 32, False, n_seg=3) and not gate(big, 32, True, n_seg=3)
+    assert gate(big, 64, False, n_seg=3) and not gate(big, 64, True, n_seg=3)
     assert not gate(torch.zeros(1, 32768, 3), 32, False)
 
 

@@ -58,6 +58,7 @@ from pci_tpu_torch.train import (
     save_params,
 )
 from tests.test_cli import make_scene
+from tests.test_torch_shared import shared_result
 
 torch.set_num_threads(2)
 
@@ -120,10 +121,16 @@ def save_npz_tree(variables, path) -> str:
 @pytest.fixture(scope="module")
 def runs(scene, tmp_path_factory):
     """Each CLI run once on the CPU, the JAX CLI first, on the same weights
-    and fusion permutations: ``{cli: (port records, JAX records)}``.
-    ISAPCInet takes the JAX CLI's seeded init, exported to npz, as the
-    port's ``--pretrained_self_model``; PointINet the trained weights, at
+    and fusion permutations: ``{cli: (port records, JAX records, the
+    port's argv)}``, once a test run (``shared_result``).  ISAPCInet takes
+    the JAX CLI's seeded init, exported to npz, as the port's
+    ``--pretrained_self_model``; PointINet the trained weights, at
     ``--use_intensity 0`` and 1."""
+    return shared_result("cli_runs", lambda: run_clis(scene, tmp_path_factory),
+                         tmp_path_factory)
+
+
+def run_clis(scene, tmp_path_factory):
     recorded = {}
 
     def build_and_record(args, example):
@@ -216,7 +223,7 @@ def test_cli_cd_is_the_forwards_chamfer(runs, scene, monkeypatch, cli):
 
 @pytest.mark.parametrize("cli,flag", [("isapci", ["--use_tnet", "0"])])
 def test_unported_options_are_refused(scene, tmp_path, cli, flag):
-    with pytest.raises(NotImplementedError, match="ROADMAP A.5"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A.3"):
         test_cli.main(window_args(scene, flag + ["--log_dir", str(tmp_path)]), device="cpu")
 
 

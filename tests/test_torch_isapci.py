@@ -39,6 +39,7 @@ from pci_tpu_torch.convert import flax_to_state_dict, load_npz_tree, load_subtre
 from pci_tpu_torch.models import ISAPCInet
 from pci_tpu_torch.models.isapci import flow_pair_plan
 from pci_tpu_torch.serving import DEFAULT_WEIGHTS, Interpolator
+from tests.test_torch_shared import shared_result
 
 torch.set_num_threads(2)
 
@@ -66,11 +67,16 @@ def as_np(tree):
 
 
 @pytest.fixture(scope="module", params=[1, 2], ids=["field1", "field2"])
-def injected(request):
+def injected(request, tmp_path_factory):
     """JAX ISAPCInet (ff_out_c = tr_out_c = 16, N=512) run on given flows
     and given fusion permutations: (field, inputs, flows, perms, variables,
-    the Outputer's two flows, JAX output)."""
-    field, N = request.param, 512
+    the Outputer's two flows, JAX output), once a test run a field."""
+    return shared_result(f"isapci_field{request.param}", lambda: jax_isapci(request.param),
+                         tmp_path_factory)
+
+
+def jax_isapci(field):
+    N = 512
     fwd, keys, bwd = window(400 + field, field, N)
     rng = np.random.default_rng(410 + field)
     flows = [(0.1 * rng.standard_normal((1, N, 3))).astype(np.float32)

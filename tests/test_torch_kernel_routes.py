@@ -8,7 +8,11 @@ versions, no launch; at k = 32, 48 and 64 the fusion kernels, past 32
 their two-slots-a-lane instantiations) and ``PointsFusionMulti`` (one
 residual kNN launch), and ``TransformerLayer`` at widths its attention
 kernels do not take (the plain versions, no launch; in training both
-directions decided at the forward).
+directions decided at the forward); on the cells route (its size gate
+lowered for the CPU), ``PointsFusion`` at k = 48 and 64 on the cells
+kernel and ``PointsFusionMulti`` by segments and gradient (F = 3 at eval:
+three masked passes of the box-pruned kNN; F = 2: the cells kernel's
+residual mode; F = 3 in training or under a gradient: row 4b).
 
 The CPU has no kernel, so each test forces the CUDA route
 (``_build.use_kernel`` patched true) and replaces the kernel library by a
@@ -25,6 +29,7 @@ import contextlib
 import copy
 import ctypes
 import functools
+import types
 
 import jax.numpy as jnp
 import numpy as np
@@ -248,16 +253,18 @@ def _jax_fusion(seed: int, N: int):
     perms = [rng.permutation(N)[None].astype(np.int32) for _ in range(2)]
     tt = np.array([0.3], np.float32)
     jmod = jfusion.PointsFusion((64, 64, 128))
-    v = jmod.init({"params": jax.random.key(0), "sample": jax.random.key(1)},
-                  jnp.asarray(a), jnp.asarray(b), 32, jnp.asarray(tt))
+    v = jax.jit(lambda a, b, tt: jmod.init({"params": jax.random.key(0),
+                                            "sample": jax.random.key(1)}, a, b, 32, tt))(
+        jnp.asarray(a), jnp.asarray(b), jnp.asarray(tt))
     v = jax.tree_util.tree_map(
         lambda x: np.asarray(x + 0.01 * jnp.arange(x.size, dtype=x.dtype) if x.ndim == 1 else x), v)
     draws = iter([jnp.asarray(p) for p in perms])
     saved = jfusion._random_perms
     jfusion._random_perms = lambda key, B, n: next(draws)
-    try:
-        want = np.asarray(jmod.apply(v, jnp.asarray(a), jnp.asarray(b), 96, jnp.asarray(tt),
-                                     rngs={"sample": jax.random.key(2)}))
+    try:  # one compiled call (the draws are its constants)
+        want = np.asarray(jax.jit(lambda v, a, b, tt: jmod.apply(
+            v, a, b, 96, tt, rngs={"sample": jax.random.key(2)}))(
+            v, jnp.asarray(a), jnp.asarray(b), jnp.asarray(tt)))
     finally:
         jfusion._random_perms = saved
     return (a, b, tt, perms), v, want
@@ -432,6 +439,221 @@ def test_points_fusion_multi_launches_one_residual_knn(cuda_route):
         with _build.plain_versions():
             want = mod(clouds, k, weights, perms=perms)
     torch.testing.assert_close(got, want, atol=1e-6, rtol=1e-6)
+
+
+# ---- the cell-pruned routes at k <= 64 ------------------------------------------
+
+
+def cells_gate(monkeypatch, n_min: int = 256):
+    """The fusion's cells gate as on the card (k <= 64, in training two
+    segments only) from ``n_min`` points on (the plain versions at 32,768
+    points would take minutes on the CPU), and each plan built by torch
+    ops directly (the CUDA graphs need a card)."""
+    import pci_tpu_torch.nn.fusion as tfusion
+    from pci_tpu_torch.ops.cuda_kernels import fusion_cells_cuda
+
+    gate = tfusion._cells_route_ok
+    monkeypatch.setattr(tfusion, "_cells_route_ok", lambda p, k, train, n_seg=2: p.shape[-2] >= n_min
+                        and gate(types.SimpleNamespace(is_cuda=True, shape=(1, 1 << 20, 3)), k,
+                                 train, n_seg))
+    monkeypatch.setattr(fusion_cells_cuda, "kernel_plan_graphed", fusion_cells_cuda.kernel_plan)
+    monkeypatch.setattr(knn_cuda, "knn_cells_plan_graphed",
+                        lambda q, p, self_knn, key_valid=None: knn_cuda.knn_cells_plan(
+                            q, p, self_knn, key_valid=key_valid))
+
+
+def fusion_cells_stub(layers, seen=None):
+    """``pci_fusion_cells`` by the plain versions: the one-shot rows (with
+    ``layers``) or the residual kNN, from the cloud and (N1, N, k1, k2)."""
+    def run(pts, keys, boxes, order, lbs, torder, seg, wtc, h1, h2, h3, payload, Cp, out,
+            out_i, out_r, scanned, stamps, nxt, B, N, Np, C, TQ, k, stream):
+        x = read(pts, (B, N, 3))
+        s4 = read(seg, (B, 4), ctypes.c_int32)
+        if seen is not None:
+            seen.append((int(k), wtc is not None))
+        if wtc is not None:
+            write(out, fusion_knn_cuda.fusion_plain(x, s4[:, :2], s4[:, 2:], layers, k))
+            return
+        i, r = fusion_knn_cuda.fusion_resi_plain(x, s4[:, :2], s4[:, 2:], k)
+        write(out_i, i)
+        write(out_r, r)
+    return run
+
+
+def knn_cells_seg_stub(seen):
+    """``pci_knn_cells_seg`` as the kernel writes: the key mask read back
+    from the plan's NaN rows, each row's budget capped at k and its slots
+    [col0, col0 + budget) from the masked plain kNN (idx, distances,
+    residuals), with ``fill`` the rest of the row as the row itself;
+    nothing else of the output is touched."""
+    def run(keys, qry, boxes, order, lbs, kpts, bud, col0, out_d, out_i, out_r, scanned,
+            B, S, N, Np, Sp, C, TQ, k, ks, fill, stream):
+        rows = read(keys, (B, Np, 4))
+        ids = rows[..., 3].contiguous().view(torch.int32).long()
+        kv = torch.zeros(B, N, dtype=torch.bool)
+        for b in range(B):
+            ok = ~torch.isnan(rows[b, :, 0])
+            kv[b, ids[b][ok]] = True
+        x = read(kpts, (B, N, 3))
+        budgets = read(bud, (B,), ctypes.c_int32)
+        c0 = read(col0, (B,), ctypes.c_int32)
+        seen.append((kv, budgets, c0, bool(fill)))
+        oi, orr = read(out_i, (B, S, ks), ctypes.c_int64), read(out_r, (B, S, ks, 3))
+        for b in range(B):
+            kq, c = min(int(budgets[b]), k), int(c0[b])
+            if kq:
+                _, i, r = knn_cuda.knn_cells_plain(x[b:b + 1], x[b:b + 1], kq, kv[b:b + 1], True)
+                oi[b, :, c:c + kq], orr[b, :, c:c + kq] = i[0], r[0]
+            if fill:
+                oi[b, :, c + kq:] = torch.arange(S)[:, None]
+                orr[b, :, c + kq:] = 0.0
+        write(out_i, oi)
+        write(out_r, orr)
+    return run
+
+
+@pytest.mark.parametrize("k", [48, 64])
+@pytest.mark.parametrize("mode, entries", [
+    ("eval_oneshot", ["pci_fusion_cells"]),
+    ("eval_two_kernels", ["pci_fusion_cells", "pci_fusion_tail"]),
+    ("train", ["pci_fusion_cells"]),
+])
+def test_points_fusion_at_k48_k64_takes_the_cells_kernel(cuda_route, monkeypatch, mode,
+                                                         entries, k):
+    """At k = 48 and 64 on the cells route (PointINet2's rings at 32,768
+    points and more; the gate lowered to 256 points here) PointsFusion
+    launches the cells kernel: one-shot at eval, residual then the tail
+    with one-shot off, residual in training, each with its k; the rows
+    equal the plain route's."""
+    import pci_tpu_torch.nn.fusion as tfusion
+    from pci_tpu_torch.ops.cuda_kernels import fusion_tail_cuda
+    from pci_tpu_torch.serving import init_weights
+
+    cells_gate(monkeypatch)
+    monkeypatch.setattr(tfusion, "_fusion_oneshot_ok",
+                        lambda train, x: mode == "eval_oneshot" and not train)
+    rng = np.random.default_rng(816)
+    N = 512
+    a = (rng.standard_normal((1, N, 3)) * 2).astype(np.float32)
+    b = a + 0.2 * rng.standard_normal((1, N, 3)).astype(np.float32)
+    tp = tuple(torch.from_numpy(rng.permutation(N)[None]) for _ in range(2))
+    tt = torch.tensor([0.3])
+    mod = tnn.PointsFusion()
+    init_weights(mod, 817)
+    seen = []
+
+    def tail(comb, res, extra, wbuf, h1, h2, h3, out, B, N_, k_, Ce, stream):
+        assert k_ == k
+        write(out, fusion_tail_cuda.fusion_tail_plain(read(comb, (B, N_, 3)),
+                                                      read(res, (B, N_, k_, 3)), None,
+                                                      mod.mlp.folded()))
+
+    layers = copy.deepcopy(mod).eval().mlp.folded()
+    stub = cuda_route(StubLibrary(pci_fusion_cells=fusion_cells_stub(layers, seen),
+                                  pci_fusion_tail=tail))
+    x1, x2 = torch.from_numpy(a), torch.from_numpy(b)
+    if mode == "train":
+        got = mod.train()(x1.requires_grad_(), x2.requires_grad_(), k, tt, perms=tp)
+        got.sum().backward()
+    else:
+        with torch.inference_mode():
+            got = mod.eval()(x1, x2, k, tt, perms=tp)
+    assert [n for n, _ in stub.calls] == entries
+    assert seen == [(k, mode == "eval_oneshot")]
+    with _build.plain_versions(), (torch.inference_mode() if mode != "train"
+                                   else contextlib.nullcontext()):
+        want = copy.deepcopy(mod)(torch.from_numpy(a), torch.from_numpy(b), k, tt, perms=tp)
+    torch.testing.assert_close(got.detach(), want.detach(), atol=1e-6, rtol=1e-6)
+
+
+def _multi_inputs(F: int, seed: int):
+    from pci_tpu_torch.serving import init_weights
+
+    rng = np.random.default_rng(seed)
+    N, k = 512, 64
+    clouds = [torch.from_numpy((rng.standard_normal((1, N, 3)) * 2).astype(np.float32))
+              for _ in range(F)]
+    perms = [torch.from_numpy(rng.permutation(N)[None]) for _ in range(F)]
+    weights = torch.softmax(torch.from_numpy(rng.standard_normal((1, 12)).astype(np.float32)), -1)
+    mod = tnn.PointsFusionMulti()
+    init_weights(mod, seed + 1)
+    return clouds, perms, weights, mod, k
+
+
+def test_points_fusion_multi_f3_launches_three_masked_knn_cells(cuda_route, monkeypatch):
+    """PointsFusionMulti over three clouds at k = 64 on the cells route
+    (eval, no gradient) launches row 10's segment form three times: each
+    pass's key mask is its segment's rows of the combined cloud, its
+    budgets and first slots the capped ``_multi_budgets``, the last pass
+    filling; the rows equal the plain route's, and the launches count in
+    ``knn_cells_kernel.launches``."""
+    from pci_tpu_torch.nn.fusion import _multi_budgets
+    from pci_tpu_torch.ops.cuda_kernels.fusion_cells_cuda import segment_slots
+
+    cells_gate(monkeypatch)
+    clouds, perms, weights, mod, k = _multi_inputs(3, 818)
+    N = clouds[0].shape[1]
+    seen = []
+    stub = cuda_route(StubLibrary(pci_knn_cells_seg=knn_cells_seg_stub(seen)))
+    before = knn_cuda.knn_cells_kernel.launches
+    with torch.inference_mode():
+        got = mod.eval()(clouds, k, weights, perms=perms)
+        with _build.plain_versions():
+            want = mod(clouds, k, weights, perms=perms)
+    assert [n for n, _ in stub.calls] == ["pci_knn_cells_seg"] * 3
+    assert knn_cuda.knn_cells_kernel.launches - before == 3
+    n_all, k_all = _multi_budgets(N, k, weights[:, :2])
+    caps, col0 = segment_slots(k_all, k)
+    ends = torch.cumsum(n_all, 1)[0].tolist()
+    for f, (kv, budgets, c0, fill) in enumerate(seen):
+        pos = torch.arange(N)
+        assert torch.equal(kv[0], (pos >= ([0] + ends)[f]) & (pos < ends[f]))
+        assert torch.equal(budgets, caps[:, f]) and torch.equal(c0, col0[:, f])
+        assert fill == (f == 2)
+    torch.testing.assert_close(got, want, atol=1e-6, rtol=1e-6)
+
+
+@pytest.mark.parametrize("case, entries", [
+    ("f2_eval", ["pci_fusion_cells"]),
+    ("f2_train", ["pci_fusion_cells"]),
+    ("f3_train", ["pci_fusion_resi"]),
+    ("f3_eval_grad", ["pci_fusion_resi"]),
+])
+def test_points_fusion_multi_cells_routes_by_segments_and_grad(cuda_route, monkeypatch, case,
+                                                               entries):
+    """On the cells route two segments (field 1) take row 12's residual
+    mode once, at eval and in training (its fixed-neighbour backward); at
+    F = 3 training and an eval call through which a gradient could flow
+    into the clouds keep row 4b's residual kNN (JAX's F > 2 cells branch is
+    eval only).  The rows equal the plain route's."""
+    cells_gate(monkeypatch)
+    F = 2 if case.startswith("f2") else 3
+    clouds, perms, weights, mod, k = _multi_inputs(F, 820 + F)
+
+    def resi(pts, ends, buds, F_, oi, orr, B, N_, k_, parts, stamps, stream):
+        i, r = fusion_knn_cuda.fusion_resi_plain(
+            read(pts, (B, N_, 3)), read(ends, (B, F_), ctypes.c_int32),
+            read(buds, (B, F_), ctypes.c_int32), k_)
+        write(oi, i)
+        write(orr, r)
+
+    seen = []
+    stub = cuda_route(StubLibrary(pci_fusion_cells=fusion_cells_stub(None, seen),
+                                  pci_fusion_resi=resi))
+    train = case.endswith("train")
+    grad = train or case.endswith("grad")
+    cl = [c.clone().requires_grad_(grad) for c in clouds]
+    with torch.inference_mode() if not grad else contextlib.nullcontext():
+        got = mod.train(train)(cl, k, weights, perms=perms)
+    if grad:
+        got.sum().backward()
+        assert all(c.grad is not None for c in cl)
+    assert [n for n, _ in stub.calls] == entries
+    if F == 2:
+        assert seen == [(k, False)]
+    with _build.plain_versions(), torch.no_grad():
+        want = copy.deepcopy(mod).train(train)(clouds, k, weights, perms=perms)
+    torch.testing.assert_close(got.detach(), want, atol=1e-5, rtol=1e-5)
 
 
 # ---- TransformerLayer at widths its attention kernels do not take -----------------

@@ -57,9 +57,9 @@ def test_point_mlp_fold_matches_flax():
     chain both equal the flax module in eval mode."""
     rng = np.random.default_rng(200)
     x = cloud(rng, 2, 50, 7, scale=1.0)
-    jm = jnn.PointMLP((16, 24, 8))
-    v = shifted(jm.init(jax.random.key(0), jnp.asarray(x)))
-    want = np.asarray(jm.apply(v, jnp.asarray(x)))
+    jm = jnn.PointMLP((16, 24, 8))  # each JAX init and apply one compiled call
+    v = shifted(jax.jit(lambda x: jm.init(jax.random.key(0), x))(jnp.asarray(x)))
+    want = np.asarray(jax.jit(jm.apply)(v, jnp.asarray(x)))
     tm = port(tnn.PointMLP(7, (16, 24, 8)), v)
     np.testing.assert_allclose(run(tm, x), want, **TOL)
     h = torch.from_numpy(x)
@@ -75,15 +75,15 @@ def test_point_mlp_train_matches_flax():
     rng = np.random.default_rng(218)
     x = cloud(rng, 2, 50, 7, scale=1.0)
     cot = cloud(rng, 2, 50, 8, scale=1.0)
-    jm = jnn.PointMLP((16, 24, 8))
-    v = shifted(jm.init(jax.random.key(0), jnp.asarray(x)))
+    jm = jnn.PointMLP((16, 24, 8))  # the JAX init and gradient each one compiled call
+    v = shifted(jax.jit(lambda x: jm.init(jax.random.key(0), x))(jnp.asarray(x)))
 
     def loss(params):
         out, upd = jm.apply({"params": params, "batch_stats": v["batch_stats"]},
                             jnp.asarray(x), train=True, momentum=0.5, mutable=["batch_stats"])
         return jnp.sum(out * cot), (out, upd)
 
-    (_, (want, upd)), grads = jax.value_and_grad(loss, has_aux=True)(v["params"])
+    (_, (want, upd)), grads = jax.jit(jax.value_and_grad(loss, has_aux=True))(v["params"])
     tm = port(tnn.PointMLP(7, (16, 24, 8)), v).train()
     got = tm(torch.from_numpy(x), 0.5)
     (got * torch.from_numpy(cot)).sum().backward()
@@ -320,15 +320,15 @@ def test_transformer_layer_matches_flax():
 def test_tnet_and_outputer_match_flax():
     rng = np.random.default_rng(216)
     t = np.array([[0.2], [0.9]], np.float32)
-    jm = jnn.Tnet(field=2)
-    v = shifted(jm.init(jax.random.key(0), jnp.asarray(t)))
+    jm = jnn.Tnet(field=2)  # each JAX init and apply one compiled call
+    v = shifted(jax.jit(lambda t: jm.init(jax.random.key(0), t))(jnp.asarray(t)))
     np.testing.assert_allclose(run(port(tnn.Tnet(2), v), t),
-                               np.asarray(jm.apply(v, jnp.asarray(t))), **GN_TOL)
+                               np.asarray(jax.jit(jm.apply)(v, jnp.asarray(t))), **GN_TOL)
     x = cloud(rng, 2, 70, 48, scale=1.0)
-    jm = jnn.Outputer()
-    v = shifted(jm.init(jax.random.key(0), jnp.asarray(x)))
+    jo = jnn.Outputer()
+    v = shifted(jax.jit(lambda x: jo.init(jax.random.key(0), x))(jnp.asarray(x)))
     np.testing.assert_allclose(run(port(tnn.Outputer(48), v), x),
-                               np.asarray(jm.apply(v, jnp.asarray(x))), **GN_TOL)
+                               np.asarray(jax.jit(jo.apply)(v, jnp.asarray(x))), **GN_TOL)
 
 
 def test_isapci_layers_refuse_train_mode():

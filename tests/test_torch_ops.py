@@ -375,13 +375,15 @@ def test_fusion_plain_matches_jax_points_fusion(monkeypatch, t):
     tt = np.array([t, 1 - t], np.float32)
     jmod = jfusion.PointsFusion((64, 64, 128))
     rngs = {"params": jax.random.key(0), "sample": jax.random.key(1)}
-    v = jmod.init(rngs, jnp.asarray(a), jnp.asarray(b), k, jnp.asarray(tt))
+    v = jax.jit(lambda a, b, tt: jmod.init(rngs, a, b, k, tt))(
+        jnp.asarray(a), jnp.asarray(b), jnp.asarray(tt))
     v = jax.tree_util.tree_map(  # non-trivial BatchNorm statistics
         lambda x: x + 0.01 * jnp.arange(x.size, dtype=x.dtype) if x.ndim == 1 else x, v)
     draws = iter([p1, p2])
     monkeypatch.setattr(jfusion, "_random_perms", lambda key, B, n: jnp.asarray(next(draws)))
-    want = jmod.apply(v, jnp.asarray(a), jnp.asarray(b), k, jnp.asarray(tt),
-                      rngs={"sample": jax.random.key(2)})
+    want = jax.jit(lambda v, a, b, tt: jmod.apply(  # one compiled call, the draws its constants
+        v, a, b, k, tt, rngs={"sample": jax.random.key(2)}))(
+        v, jnp.asarray(a), jnp.asarray(b), jnp.asarray(tt))
     mod = PointsFusion()
     mod.load_state_dict(flax_to_state_dict(jax.tree_util.tree_map(np.asarray, v)))
     with torch.inference_mode():
@@ -460,25 +462,36 @@ def _grad_calls():
         "fusion_cells_payload": lambda: fusion_cells_cuda.fusion_cells_attention(
             x.detach(), seg, torch.tensor([[16, 16]]), fu, 32, payload=pay),
         "pn2mid": lambda: pn2mid_cuda.pn2mid_fused(x, f.repeat(1, 1, 2), pn2, (32, 16, 8)),
+        # the cells fusion's k <= 64 instantiation, the F-segment route on
+        # row 10's masked passes, and row 10's key_valid / emit_resi form
+        "fusion_cells_k64": lambda: fusion_cells_cuda.fusion_cells_attention(
+            x, seg, torch.tensor([[32, 32]]), fu, 64),
+        "fusion_cells_multi": lambda: fusion_cells_cuda.fusion_cells_multi_knn(
+            x, torch.tensor([[20, 40, 64]]), torch.tensor([[4, 4, 8]]), 16),
+        "knn_cells": lambda: knn_cuda.knn_cells(x, x, 4, key_valid=torch.arange(64)[None] < 40,
+                                                emit_resi=True),
+        "knn_self_resi": lambda: tops.knn_self_resi(x, 4),
     }
 
 
 @pytest.mark.parametrize("kernel", ["fps", "setconv", "knnconv", "fusion", "fusion_payload",
                                     "ball", "knn", "attention", "flowenc", "flowmid",
                                     "fusion_tail", "fusion_cells", "fusion_cells_payload",
-                                    "pn2mid", "fusion_k64", "fusion_tail_k64"])
+                                    "pn2mid", "fusion_k64", "fusion_tail_k64",
+                                    "fusion_cells_k64", "fusion_cells_multi", "knn_cells",
+                                    "knn_self_resi"])
 def test_eval_only_kernels_refuse_grad(kernel):
     """The eval kernels of differentiable values (set-conv, kNN-conv, the
     one-shot fusion (flat and cell-pruned, also for a payload that needs a
     gradient beside a cloud that does not; the flat one and the tail also
     at k = 64, their two-slots-a-lane instantiations), the eval attention, the
     FlowNet3D megakernels, the fusion's attention tail, PointNet++'s
-    mid-section) define no backward and refuse an
-    input that needs a gradient; the index-only ones (FPS, ball query,
-    kNN) take such an input detached, as their JAX counterparts
-    stop-gradient theirs."""
+    mid-section, the F-segment route's residuals) define no backward and
+    refuse an input that needs a gradient; the index-only ones (FPS, ball
+    query, kNN, the masked kNN with residuals, knn_self_resi) take such an
+    input detached, as their JAX counterparts stop-gradient theirs."""
     call = _grad_calls()[kernel]
-    if kernel in ("fps", "ball", "knn"):
+    if kernel in ("fps", "ball", "knn", "knn_cells", "knn_self_resi"):
         got = call()
         with torch.no_grad():
             want = call()

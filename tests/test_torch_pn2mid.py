@@ -37,6 +37,7 @@ from pci_tpu.ops.pallas_kernels import pn2mid_tpu
 from pci_tpu_torch import nn as tnn
 from pci_tpu_torch.convert import flax_to_state_dict
 from pci_tpu_torch.ops.cuda_kernels import pn2mid_cuda
+from tests.test_torch_shared import shared_result
 
 torch.set_num_threads(2)
 
@@ -51,9 +52,14 @@ def shifted(variables):
 
 
 @pytest.fixture(scope="module")
-def case():
+def case(tmp_path_factory):
     """(dense cloud [1, 2048, 3], variables, JAX's output on its pn2mid
-    route, the sparse cloud [1, 1200, 3] of tests/test_layers.py)."""
+    route, the sparse cloud [1, 1200, 3] of tests/test_layers.py), once a
+    test run."""
+    return shared_result("pn2mid_case", jax_pn2mid_case, tmp_path_factory)
+
+
+def jax_pn2mid_case():
     rng = np.random.default_rng(700)
     sparse = rng.standard_normal((1, 1200, 3)).astype(np.float32)
     xyz = (0.1 * rng.standard_normal((1, 2048, 3))).astype(np.float32)

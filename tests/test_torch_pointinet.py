@@ -24,6 +24,7 @@ from pci_tpu.models import FlowNet3D as JFlowNet3D
 from pci_tpu_torch.convert import flax_to_state_dict, load_npz_tree
 from pci_tpu_torch.models import FlowNet3D, PointINet
 from pci_tpu_torch.serving import DEFAULT_WEIGHTS, Interpolator
+from tests.test_torch_shared import shared_result
 
 torch.set_num_threads(2)
 
@@ -38,11 +39,16 @@ def golden_clouds():
 
 
 @pytest.fixture(scope="module")
-def flow_vars():
-    """FlowNet3D variables from init with key 0 (the golden case)."""
+def flow_vars(tmp_path_factory):
+    """FlowNet3D variables from init with key 0 (the golden case), once a
+    test run."""
+    return shared_result("flownet3d_golden_vars", jax_flow_vars, tmp_path_factory)
+
+
+def jax_flow_vars():
     x1, x2 = (jnp.asarray(c) for c in golden_clouds())
     z = jnp.zeros_like(x1)
-    v = JFlowNet3D().init(jax.random.key(0), x1, x2, z, z, train=False)
+    v = jax.jit(lambda: JFlowNet3D().init(jax.random.key(0), x1, x2, z, z, train=False))()
     return jax.tree_util.tree_map(np.asarray, v)
 
 
@@ -81,8 +87,8 @@ def test_flownet3d_bidirectional_matches_jax(flow_vars):
     a, b = pair(300, 1024)
     z = np.zeros_like(a)
     J = jnp.asarray
-    j12, j21 = JFlowNet3D().apply(v, J(a), J(b), J(z), J(z), train=False,
-                                  bidirectional=True)
+    j12, j21 = jax.jit(lambda v, *x: JFlowNet3D().apply(v, *x, train=False, bidirectional=True))(
+        v, J(a), J(b), J(z), J(z))
     with torch.inference_mode():
         t12, t21 = port_flownet(v).bidirectional(*(torch.from_numpy(x) for x in (a, b, z, z)))
     np.testing.assert_allclose(t12.numpy(), np.asarray(j12), **MODEL_TOL)
@@ -102,9 +108,9 @@ def test_pointinet_matches_jax(flow_vars, monkeypatch, t):
     p1, p2 = (rng.permutation(N)[None].astype(np.int32) for _ in range(2))
     tt = np.array([t], np.float32)
     J = jnp.asarray
-    fus = jfusion.PointsFusion((64, 64, 128)).init(
-        {"params": jax.random.key(3), "sample": jax.random.key(4)},
-        J(a), J(b), 32, J(tt))
+    fus = jax.jit(lambda a, b, tt: jfusion.PointsFusion((64, 64, 128)).init(
+        {"params": jax.random.key(3), "sample": jax.random.key(4)}, a, b, 32, tt))(
+        J(a), J(b), J(tt))
     v = shifted({
         "params": {"flow": flow_vars["params"], "fusion": fus["params"]},
         "batch_stats": {"flow": flow_vars["batch_stats"],
@@ -113,9 +119,8 @@ def test_pointinet_matches_jax(flow_vars, monkeypatch, t):
     v = jax.tree_util.tree_map(np.asarray, v)
     draws = iter([p1, p2])
     monkeypatch.setattr(jfusion, "_random_perms", lambda key, B, n: J(next(draws)))
-    want = JPointINet(freeze_flow=True).apply(
-        v, J(a), J(b), J(z), J(z), J(tt), train=False,
-        rngs={"sample": jax.random.key(5)})
+    want = jax.jit(lambda v, *x: JPointINet(freeze_flow=True).apply(
+        v, *x, train=False, rngs={"sample": jax.random.key(5)}))(v, J(a), J(b), J(z), J(z), J(tt))
     model = PointINet()
     model.load_state_dict(flax_to_state_dict(v))
     with torch.inference_mode():

@@ -22,6 +22,7 @@ rtol 1e-4 / atol 1e-5, the budgets exactly.
 from __future__ import annotations
 
 import functools
+import types
 from pathlib import Path
 
 import numpy as np
@@ -135,11 +136,11 @@ def test_multi_budgets_match_jax():
 # ---- PointsFusionMulti ---------------------------------------------------------
 
 
-@pytest.mark.parametrize("F", [2, 3])
-def test_points_fusion_multi_matches_jax(F):
-    """F clouds at k = 64 with Wnet-like weights ``[B, 6 (F - 1)]`` (only
-    the first F - 1 read): the budgeted merge, the F-segment residual kNN
-    and the GroupNorm head, on JAX's permutations."""
+@functools.lru_cache(maxsize=None)
+def multi_case(F: int):
+    """F clouds at k = 64 (N = 512) with Wnet-like weights ``[B, 6 (F -
+    1)]``, the JAX PointsFusionMulti's variables, its rows (its exact XLA
+    route on the CPU) and the permutations it drew; once a process."""
     rng = np.random.default_rng(1720 + F)
     N, k = 512, 64
     base = cloud(rng, N)
@@ -151,12 +152,87 @@ def test_points_fusion_multi_matches_jax(F):
         {"params": jax.random.key(0), "sample": jax.random.key(1)}, c, k, w))(jc, J(w))))
     want, perms = recorded(lambda v, c, w: jm.apply(v, c, k, w, rngs={
         "sample": jax.random.key(2)}))(v, jc, J(w))
-    assert len(perms) == F
+    return clouds, w, k, v, np.asarray(want), perms
+
+
+def multi_fusion(F: int):
+    """The port's PointsFusionMulti on :func:`multi_case`'s variables, and
+    a call of it (eval, inference mode) on the case's clouds and draws."""
+    clouds, w, k, v, _, perms = multi_case(F)
     mod = PointsFusionMulti()
     mod.load_state_dict(flax_to_state_dict(v))
-    with torch.inference_mode():
-        got = mod.eval()([T(c) for c in clouds], k, T(w), perms=[T(p) for p in perms])
-    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+    def call():
+        with torch.inference_mode():
+            return mod.eval()([T(c) for c in clouds], k, T(w), perms=[T(p) for p in perms])
+    return call
+
+
+@pytest.mark.parametrize("F", [2, 3])
+def test_points_fusion_multi_matches_jax(F):
+    """F clouds at k = 64 with Wnet-like weights ``[B, 6 (F - 1)]`` (only
+    the first F - 1 read): the budgeted merge, the F-segment residual kNN
+    and the GroupNorm head, on JAX's permutations."""
+    *_, want, perms = multi_case(F)
+    assert len(perms) == F
+    np.testing.assert_allclose(multi_fusion(F)().numpy(), want, **TOL)
+
+
+def cells_route(monkeypatch):
+    """The fusion's cells gate patched on for CPU tensors (its own rule
+    otherwise: k <= 64, in training two segments only); returns the cells
+    entry points reached, in order."""
+    import pci_tpu_torch.nn.fusion as tfusion
+
+    gate = tfusion._cells_route_ok
+    monkeypatch.setattr(tfusion, "_cells_route_ok", lambda p, k, train, n_seg=2: gate(
+        types.SimpleNamespace(is_cuda=True, shape=(1, tfusion._CELLS_FUSION_N, 3)), k, train,
+        n_seg))
+    reached = []
+    for name in ("fusion_cells_resi_knn", "fusion_cells_multi_knn"):
+        fn = getattr(tfusion, name)
+        monkeypatch.setattr(tfusion, name, lambda *a, _fn=fn, _name=name, **kw:
+                            reached.append(_name) or _fn(*a, **kw))
+    return reached
+
+
+@pytest.mark.parametrize("F", [2, 3])
+def test_points_fusion_multi_cells_route_matches_jax(monkeypatch, F):
+    """With the cells gate on (the plain versions on the CPU), F = 3
+    reaches the F masked passes of row 10 (``fusion_cells_multi_knn``) and
+    F = 2 row 12's residual entry (``fusion_cells_resi_knn``), as JAX's
+    ``_cells_fusion_knn`` branches; the rows equal JAX PointsFusionMulti's
+    within 1e-5."""
+    reached = cells_route(monkeypatch)
+    got = multi_fusion(F)()
+    assert reached == ["fusion_cells_multi_knn" if F == 3 else "fusion_cells_resi_knn"]
+    np.testing.assert_allclose(got.numpy(), multi_case(F)[4], atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("F", [2, 3])
+def test_points_fusion_multi_cells_route_equals_the_flat_route(monkeypatch, F):
+    """The cells routes are the flat route's function slot for slot: the
+    F-segment entry's idx and residuals equal ``fusion_resi_knn``'s on the
+    case's combined cloud and budgets, and the module's rows on the cells
+    route equal its flat route's bit for bit; in training, F = 3 keeps the
+    flat route (JAX's F > 2 cells branch is eval only)."""
+    from pci_tpu_torch.nn.fusion import _composed_shuffle_merge
+    from pci_tpu_torch.ops.cuda_kernels import fusion_cells_multi_knn, fusion_resi_knn
+
+    clouds, w, k, _, _, perms = multi_case(F)
+    flat = multi_fusion(F)()
+    reached = cells_route(monkeypatch)
+    assert torch.equal(multi_fusion(F)(), flat)
+    n_all, k_all = _multi_budgets(clouds[0].shape[1], k, T(w[:, :F - 1]))
+    combined, _ = _composed_shuffle_merge([T(c) for c in clouds], [T(p) for p in perms], n_all)
+    ends = torch.cumsum(n_all, 1)
+    for got, want in zip(fusion_cells_multi_knn(combined, ends, k_all, k),
+                         fusion_resi_knn(combined, ends, k_all, k)):
+        assert torch.equal(got, want)
+    reached.clear()
+    mod = PointsFusionMulti().train()
+    mod([T(c) for c in clouds], k, T(w), perms=[T(p) for p in perms])
+    assert reached == ([] if F == 3 else ["fusion_cells_resi_knn"])
 
 
 # ---- the model -----------------------------------------------------------------

@@ -47,6 +47,7 @@ from pci_tpu_torch.models import ISAPCInet
 from pci_tpu_torch.nn import BatchNorm
 from pci_tpu_torch.ops.cuda_kernels import attention_cuda, fusion_knn_cuda
 from pci_tpu_torch.serving import init_weights
+from tests.test_torch_shared import shared_result
 
 torch.set_num_threads(2)
 
@@ -382,8 +383,8 @@ def run_jax_step():
 
 
 @pytest.fixture(scope="module")
-def jax_step():
-    return run_jax_step()
+def jax_step(tmp_path_factory):
+    return shared_result("train_jax_step", run_jax_step, tmp_path_factory)
 
 
 def port_model(js, flow_ulps: int = 0):
