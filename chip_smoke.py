@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (pci_tpu_torch) of PointINet (at 16,384,
 32,768 and 65,536 points, on xyz clouds and with the intensity channel),
-ISAPCInet (field=2, served and trained), PointINet2 (field=2, at eval),
-and both eval CLIs with the EMD metric, on one NVIDIA card.
+ISAPCInet (field=2, served and trained; its published width variants
+noT_96 and field 1 at 128), PointINet2 (field=2, at eval), and both eval
+CLIs with the EMD metric, on one NVIDIA card.
 
 Run from the repository root on a machine with a CUDA card:
 
@@ -38,9 +39,10 @@ each printing its own lines:
      points, interleaved chains of 16,385 points at 131,073).  ops.knn's
      route by shape: a 4-channel cloud takes the plain version with no
      launch, k = 96 the flat kernel (hold_knn_routes).  The attention
-     kernels at ATTENTION_HOLDS (ragged N, k = 7 with d = 40 and 24, and
-     the forward's scalar route at k = 32 and d = 128), the backward also
-     run twice for the same bits.  The ball query at BALL_HOLDS (far
+     kernels at ATTENTION_HOLDS (ragged N, k = 7 with d = 40 and 24, the
+     block-wide forward and the wide backward at d = 72, 96 and 128, and
+     the forward's scalar route at k = 32 and d = 64 and 128), the backward
+     also run twice for the same bits.  The ball query at BALL_HOLDS (far
      outliers whose scans become whole-range tasks, an empty ball, N ragged
      against the prefix, the task range and the ring stage, S < 8, eight
      scales; indices equal), the residual fusion kNN at FUSION_RESI_HOLDS
@@ -55,7 +57,7 @@ each printing its own lines:
      every part count, rows 4 and 7 within 1e-4 and their weighted sums
      against fp64 within TAIL_SUM_LIMIT, then their resources.
      TransformerLayer at ATTENTION_ROUTE_HOLDS (d_model 20 and 256 at eval,
-     128 in training): no attention launch, equal to the plain route.
+     256 in training): no attention launch, equal to the plain route.
      The k = 1 kNN (csrc/knn.cu nearest_kernel) at NEAREST_HOLDS
      (the eval windows' shapes, a cluster edge, prefixes of 0 and past N,
      duplicates tied across the ranks; indices and distances equal) and
@@ -206,6 +208,24 @@ each printing its own lines:
      shorter than its budget beside a budget of 0; idx and resi bit-equal;
      each pass's scanned pairs beside the flat scan's), each timed beside
      the flat kernels, then their resources beside the k <= 32 ones.
+ 12. ISAPCInet's published width variants (VARIANTS; seeded weights, the
+     flow and fusion of the trained PointINet): noT_96 (field 2 without
+     Tnet, ff/tr 96) and field 1 at 128, one 16,384-point request each
+     (phase 6's seeded window at the variant's field): one plain request's
+     dispatches against PER_REQUEST_NOT96 / PER_REQUEST_FIELD1 and its
+     attention calls against their plain versions, five requests with those
+     counts, the frame against the plain forward from the same flows (phase
+     6's limits), ms/frame and the busy share; field 1 at 128's training
+     step (phase 7's batch at field 1): a plain step's dispatches against
+     PER_STEP_FIELD1 and its attention forward and backward against their
+     plain versions, one step against the plain step (phase 7's limits),
+     five steps with their counts, ms/step and peak memory; cli.test
+     --field 2 --use_tnet 0 --ff_out_c 96 --tr_out_c 96 over phase 9's scene
+     (chamfer only; PER_WINDOW_ISAPCI a record); the attention at the
+     variants' widths (ATTENTION_WIDTHS: the request's 65,536 queries at d
+     = 96 and 32,768 at 128, the step's 64,000 at 128) against its plain
+     versions, timed beside them and its bound; the wide instantiations'
+     resources.
 Each phase prints the seconds since the start when it ends.
 Then a resources line for each kernel whose dense products run on the
 tensor cores (the one-shot fusion, the attention tail, flowmid, kNN-conv,
@@ -223,7 +243,10 @@ Exits non-zero, with no result line, when CUDA is missing or a phase fails.
 
 `python3 chip_smoke.py --stages [kinds]` prints only the `stages` lines;
 `python3 chip_smoke.py --ptxas [csrc directory]` only the ptxas lines of
-PTXAS_SOURCES (this tree's, or an older tree's unpacked by `git archive`).
+PTXAS_SOURCES (this tree's, or an older tree's unpacked by `git archive`);
+`--variants` runs phase 12 alone; `--attention` the attention holds, the
+route holds and the variants' widths (attention_widths, which loaded by
+path from an older tree's root times that tree's routes).
 """
 
 from __future__ import annotations
@@ -371,6 +394,22 @@ PER_REQUEST_POINTINET2_LARGE = per(fps=2 + 6, flowenc=2 + 6, flowmid=2 + 4, knnc
 PER_REQUEST_POINTINET2_LARGE_ONESHOT_OFF = per(fps=2 + 6, flowenc=2 + 6, flowmid=2 + 4,
                                                knnconv=2 + 4, fusion_cells=1 + 2,
                                                knn_cells=3, fusion_tail=3)
+# ISAPCInet's published width variants (phase 12), one request each at
+# 16,384 points: noT_96 (field 2, no Tnet, ff/tr 96) launches field 2's
+# kernels (Tnet is PyTorch's); field 1 at 128 encodes 4 distinct frames and
+# decodes 4 pairs, its transformers over the 32,768-point flow cloud (the
+# attention on the block-wide tensor-core kernel at d = 96 and 128)
+PER_REQUEST_NOT96 = PER_REQUEST_ISAPCI
+PER_REQUEST_FIELD1 = per(fps=4 + 2, flowenc=4, flowmid=4, knnconv=4 + 2, fusion=1, ball=2,
+                         knn_cells=2, attention=2, pn2mid=2)
+# field 1 at 128, one training step (16,000 points, batch 2): phase 7's
+# step with 4 encodings and 4 decodes; the attention backward on its wide
+# kernel, 64,000 queries a launch at d = 128
+PER_STEP_FIELD1 = per(fps=4 + 8, flowenc=4, flowmid=4, knnconv=4, ball=8, knn=8, knn_cells=2,
+                      attention=2, attention_bwd=2, fusion_resi=1, nearest=2)
+VARIANTS = (("noT_96", dict(field=2, use_tnet=False, ff_out_c=96, tr_out_c=96),
+             PER_REQUEST_NOT96),
+            ("field 1 at 128", dict(field=1, ff_out_c=128, tr_out_c=128), PER_REQUEST_FIELD1))
 FUSION_KINDS = ("fusion", "fusion_resi", "fusion_tail")
 LARGE_FUSION_KINDS = ("fusion_cells", "knn_cells_multi", "fusion_tail")
 STREAMS = 8
@@ -1593,7 +1632,12 @@ def fusion_tail_stages_line(args, card: str, path: str) -> None:
 # the attention tail's holds beyond the paths' shapes: (B, N, k, d, backward
 # too); the forward's scalar route at k = 32 and at d = 128
 ATTENTION_HOLDS = ((1, 1000, 7, 40, False), (1, 1000, 7, 24, True), (1, 1000, 16, 64, True),
-                   (1, 1000, 32, 64, True), (1, 1000, 16, 128, False))
+                   (1, 1000, 32, 64, True), (1, 1000, 16, 128, False),
+                   # the wide tensor-core forward and the wide backward (ISAPCInet's
+                   # widths 96 and 128) at ragged N, a k below 16, and the
+                   # scalar route at k = 32 and d = 128
+                   (1, 1001, 16, 96, True), (1, 997, 16, 128, True), (2, 515, 11, 72, True),
+                   (1, 1000, 32, 128, False))
 
 
 def attention_inputs(B: int, N: int, k: int, d: int, seed: int, dev):
@@ -1606,20 +1650,30 @@ def attention_inputs(B: int, N: int, k: int, d: int, seed: int, dev):
     return r(B, N, d), r(B, N, k, 2 * d), r(B, N, k, 3, s=0.3), tail, r(B, N, d)
 
 
+def attention_route(d: int, k: int) -> str:
+    """The forward route csrc/attention.cu takes at (d, k)."""
+    from pci_tpu_torch.ops.cuda_kernels.attention_cuda import tc_route_ok
+
+    if not tc_route_ok(d, k):
+        return "scalar"
+    return "tensor cores, per warp" if d <= 64 else "tensor cores, block-wide"
+
+
 def hold_attention(card: str) -> None:
     """The attention kernels against their plain versions at ATTENTION_HOLDS
-    (ragged N, k < 16, d not a multiple of 16, and the forward's scalar
+    (ragged N, k < 16, d not a multiple of 16, the block-wide forward and
+    the wide backward at d = 72, 96 and 128, and the forward's scalar
     route), the forward within 1e-4 (compare), the backward by
-    compare_attention_bwd; each timed beside its plain version."""
+    compare_attention_bwd and bit-equal on a second run; each timed beside
+    its plain version."""
     from pci_tpu_torch.ops.cuda_kernels.attention_cuda import (
-        attention_bwd_kernel, attention_bwd_plain, attention_kernel, attention_plain,
-        tc_route_ok)
+        attention_bwd_kernel, attention_bwd_plain, attention_kernel, attention_plain)
 
     dev = torch.device("cuda")
     for i, (B, N, k, d, bwd) in enumerate(ATTENTION_HOLDS):
         q, g, delta, tail, gout = attention_inputs(B, N, k, d, 20 + i, dev)
         where = f"B={B} N={N} k={k} d={d}"
-        route = "tensor cores" if tc_route_ok(d, k) else "scalar"
+        route = attention_route(d, k)
         with torch.inference_mode():
             got = attention_kernel(q, g, delta, tail)
             torch.cuda.synchronize()
@@ -1645,9 +1699,79 @@ def hold_attention(card: str) -> None:
 
 
 # TransformerLayer shapes outside the attention kernels (d_points, d_model,
-# mode): d_model 20 (not a multiple of 8) and 256 (past the forward's 128)
-# at eval, 128 in training (past the backward's 64)
-ATTENTION_ROUTE_HOLDS = ((64, 20, "eval"), (64, 256, "eval"), (64, 128, "train"))
+# mode): d_model 20 (not a multiple of 8) and 256 (past both kernels' 128)
+# at eval and in training
+ATTENTION_ROUTE_HOLDS = ((64, 20, "eval"), (64, 256, "eval"), (64, 256, "train"))
+# the variants' attention shapes (queries, k, d, path): the served noT_96
+# request's 65,536 flow vectors at d = 96 and field 1's 32,768 at d = 128,
+# and the field-1 training step's 64,000 (batch 2) at d = 128
+ATTENTION_WIDTHS = ((65536, 16, 96, "noT_96 request"), (32768, 16, 128, "field 1 request"),
+                    (64000, 16, 128, "field 1 step"))
+
+
+def attention_widths(card: str) -> None:
+    """The attention tail at ATTENTION_WIDTHS on the route this tree takes
+    there: the forward kernel (its route named) and the backward kernel
+    where the tree's bwd_route_ok takes it, each held against its plain
+    version (the forward within 1e-4, the backward by
+    compare_attention_bwd, its output gradient zeroed at the queries at a
+    ReLU gate) and timed (CUDA events, median of 5, and queued_ms; in a
+    long process torch.profiler read these kernels as 0 ms) beside the
+    plain versions and each kernel's bound
+    (work, bound_terms).  Loaded by path from an older tree's root it times
+    that tree's routes (the parent's: the scalar forward, the plain
+    backward)."""
+    from pci_tpu_torch.ops.cuda_kernels.attention_cuda import (
+        attention_bwd_kernel, attention_bwd_plain, attention_kernel, attention_plain,
+        bwd_route_ok, kernel_route_ok, tc_route_ok)
+
+    dev = torch.device("cuda")
+    for i, (n, k, d, path) in enumerate(ATTENTION_WIDTHS):
+        q, g, delta, tail, gout = attention_inputs(1, n, k, d, 40 + i, dev)
+        where = f"{path} N={n} k={k} d={d}"
+        fwd_args, bwd_args = (q, g, delta, tail), (q, g, delta, tail, gout)
+        with torch.inference_mode():
+            plain_ms = cuda_ms(lambda: attention_plain(*fwd_args), 5)
+            line = f"attention widths {where} on {card}: forward plain {plain_ms:.4f} ms"
+            if kernel_route_ok(d, k):
+                route = ("tensor cores" if tc_route_ok(d, k) else "scalar") + (
+                    ", block-wide" if tc_route_ok(d, k) and d > 64 else "")
+                err = compare("attention", attention_kernel(*fwd_args),
+                              attention_plain(*fwd_args), where)
+                ms = cuda_ms(lambda: attention_kernel(*fwd_args), 5)
+                qms = queued_ms(lambda: attention_kernel(*fwd_args))
+                bound = max(bound_terms(*work("attention", fwd_args, {}, q)))
+                line += (f", kernel ({route}) {ms:.4f} ms, queued {qms:.4f} ms, bound "
+                         f"{bound:.4f} ms, max |kernel - plain| {err:.3g}")
+            if "step" in path:
+                # a ReLU gate that rounding flips moves a weight gradient by a
+                # whole row's product (O(1e-2) of 20 here, at 1M rows): the
+                # gated queries get no output gradient, so no row of theirs
+                # enters any gradient, in either version
+                gout[relu_gates(q, g, delta, tail).view(1, n)] = 0.0
+                bplain_ms = cuda_ms(lambda: attention_bwd_plain(*bwd_args), 3)
+                line += f"; backward plain {bplain_ms:.4f} ms"
+                if bwd_route_ok(d, k):
+                    got = attention_bwd_kernel(*bwd_args)
+                    err = compare_attention_bwd(got, attention_bwd_plain(*bwd_args), bwd_args,
+                                                where)
+                    again = attention_bwd_kernel(*bwd_args)
+                    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                          f"attention_bwd {where}: a second run gives other bits")
+                    del got, again
+                    ms = cuda_ms(lambda: attention_bwd_kernel(*bwd_args), 5)
+                    qms = queued_ms(lambda: attention_bwd_kernel(*bwd_args), 5)
+                    bound = max(bound_terms(*work("attention_bwd", bwd_args, {}, (
+                        q, g, delta, *[t for wb in tail for t in wb]))))
+                    line += (f", kernel {ms:.4f} ms, queued {qms:.4f} ms, bound {bound:.4f} "
+                             f"ms, max |kernel - plain| {err:.3g}, a second run bit-equal")
+                else:
+                    line += " (this tree's route: the plain backward)"
+        print(line)
+        if tc_route_ok(d, k) and bwd_route_ok(d, k) and "step" in path:
+            attention_stages_line(bwd_args, card, f"widths {path}")
+        del q, g, delta, tail, gout
+        torch.cuda.empty_cache()
 
 
 def hold_attention_routes(card: str) -> None:
@@ -1718,7 +1842,8 @@ def attention_stages_line(args, card: str, path: str) -> None:
         t = st[name]
         shares = ", ".join(f"{k} {v:.3f}" for k, v in t.items()
                            if k not in ("span_ms", "units_mean", "units_max"))
-        unit = "queries a warp" if name == "forward" else "tiles a block"
+        unit = ("tiles a block" if name == "backward" or args[0].shape[-1] > 64
+                else "queries a warp")
         print(f"stages attention {path} {name} {label('attention', args, {})} on {card}: "
               f"{ms:.4f} ms (CUDA events); stage shares of the summed "
               f"%globaltimer time: {shares}; longest warp/block {t['span_ms']:.4f} ms; {unit} "
@@ -1874,7 +1999,7 @@ STAGE_KINDS = ("fusion_cells", "pn2mid", "ball", "fusion_resi", "fusion_tail", "
                "fusion_payload")
 
 
-PTXAS_SOURCES = ("knn_cells.cu", "fusion_cells.cu")  # the sources PR 17 changed
+PTXAS_SOURCES = ("attention.cu", "attention_bwd.cu")  # the sources the variants' slice changed
 
 
 def ptxas_lines(csrc: str, sources=PTXAS_SOURCES) -> None:
@@ -2795,20 +2920,21 @@ def phase_streams(interp, card: str, totals: dict):
     return counts, route_counts
 
 
-def synthetic_window(n: int = NPOINTS, seed: int = 0, t: float = 0.5):
+def synthetic_window(n: int = NPOINTS, seed: int = 0, t: float = 0.5, field: int = FIELD):
     """Seeded six-frame window ``frame_i = a + i * v + 0.05 noise`` at
     times -2, -1 (the forward context, nearest first), 0, 1 (the key
     pair), 2, 3 (the backward context): ``a`` as in synthetic_pair (for
     seed 0), ``v`` a per-point velocity of 0.5 m a frame that turns with
     the position (a slow rotation plus a drift), so the flows spread over
-    a metre; then the ground truth, the same formula at time ``t``."""
+    a metre; then the ground truth, the same formula at time ``t``.  At
+    another ``field``, ``field`` context frames each side."""
     rng = np.random.default_rng(seed)
     a = (rng.standard_normal((n, 3)) * 10).astype(np.float32)
     v = 0.05 * np.stack([-a[:, 1], a[:, 0], np.zeros(n, np.float32)], 1) + np.float32([0.3, 0.1, 0.0])
     frame = {i: (a + i * v + 0.05 * rng.standard_normal((n, 3))).astype(np.float32)
-             for i in range(-FIELD, FIELD + 2)}
-    fwd = [frame[-1 - j] for j in range(FIELD)]
-    bwd = [frame[2 + j] for j in range(FIELD)]
+             for i in range(-field, field + 2)}
+    fwd = [frame[-1 - j] for j in range(field)]
+    bwd = [frame[2 + j] for j in range(field)]
     gt = (a + np.float32(t) * v + 0.05 * rng.standard_normal((n, 3))).astype(np.float32)
     return fwd, (frame[0], frame[1]), bwd, gt
 
@@ -2907,14 +3033,15 @@ def phase_isapci(card: str, totals: dict) -> dict:
     return counts, counts_off
 
 
-def train_batch(dev):
+def train_batch(dev, field: int = FIELD):
     """The trainer's batch of two: sample b is synthetic_window(TRAIN_N,
     seed=b) with its ground truth at t = TRAIN_T[b]."""
-    wins = [synthetic_window(TRAIN_N, seed=b, t=t) for b, t in enumerate(TRAIN_T)]
+    wins = [synthetic_window(TRAIN_N, seed=b, t=t, field=field)
+            for b, t in enumerate(TRAIN_T)]
     stack = lambda xs: torch.from_numpy(np.stack(xs)).to(dev)  # noqa: E731
-    return {"forward": [stack([w[0][j] for w in wins]) for j in range(FIELD)],
+    return {"forward": [stack([w[0][j] for w in wins]) for j in range(field)],
             "keys": [stack([w[1][j] for w in wins]) for j in range(2)],
-            "backward": [stack([w[2][j] for w in wins]) for j in range(FIELD)],
+            "backward": [stack([w[2][j] for w in wins]) for j in range(field)],
             "t": torch.tensor(TRAIN_T, dtype=torch.float32, device=dev),
             "gt": stack([w[3] for w in wins]),
             "ini": torch.zeros((len(wins), TRAIN_N, 3), device=dev)}
@@ -3715,6 +3842,192 @@ def hold_cells_k64(card: str) -> None:
               f"{resources_text(_build.kernel_attrs(entry))}")
 
 
+def phase_variants(card: str) -> list:
+    """ISAPCInet's published width variants (VARIANTS): each served at
+    16,384 points (seeded weights, the flow and fusion of the trained
+    PointINet): one plain request's dispatches against its PER_REQUEST_*
+    and its attention calls against their plain versions; five requests
+    with those launch counts, the frame against the plain forward from the
+    same flows, ms/frame, the busy share.  Then field 1 at 128's training
+    step (phase 7's), one cli.test run of noT_96 (chamfer only), the
+    attention at the variants' widths (attention_widths) and the wide
+    instantiations' resources."""
+    from pci_tpu_torch.ops.cuda_kernels import plain_versions
+    from pci_tpu_torch.ops.cuda_kernels._build import kernel_attrs
+    from pci_tpu_torch.serving import DEFAULT_WEIGHTS, Interpolator
+
+    dev = torch.device("cuda")
+    T = lambda x: torch.from_numpy(x)[None].to(dev)  # noqa: E731
+    tt = torch.tensor([0.5], device=dev)
+    perms = tuple(torch.randperm(NPOINTS, generator=torch.Generator().manual_seed(s))[None].to(dev)
+                  for s in (3, 4))
+    out = []
+    for name, kw, expected in VARIANTS:
+        interp = Interpolator.isapci(npoints=NPOINTS, weights=DEFAULT_WEIGHTS, device="cuda", **kw)
+        model = interp.model
+        fwd, (k0, k1), bwd, _ = synthetic_window(field=kw["field"])
+        context = (fwd, bwd)
+        fwd_t, keys_t, bwd_t = [T(x) for x in fwd], [T(k0), T(k1)], [T(x) for x in bwd]
+        z = torch.zeros_like(keys_t[0])
+        calls = []
+        with torch.inference_mode(), plain_versions(), record_calls(calls):
+            model(fwd_t, keys_t, bwd_t, tt, z, perms=perms)
+        counts = dispatch_counts(calls)
+        check(counts == expected, f"{name} dispatches {counts} a request, expected {expected}")
+        att = [c for c in calls if c[0] == "attention"]
+        hold_kernels(att, len(att), per(attention=len(att)), new_totals(), name)
+        del calls, att
+        interp(k0, k1, 0.5, context=context)  # warm-up
+        out.append(serve_counts(
+            lambda: [interp(k0, k1, 0.5, context=context)]
+            + interp.upsample(k0, k1, factor=5, context=context), expected, name))
+        with torch.inference_mode():  # the frame from the same flows (phase 6)
+            flows = model.window_flows(fwd_t, keys_t, bwd_t, z)
+            got = model.from_flows(*flows, keys_t, tt, perms=perms)[0].cpu().numpy()
+            with plain_versions():
+                want = model.from_flows(*flows, keys_t, tt, perms=perms)[0].cpu().numpy()
+        p999, mx = agreement(got, want, f"{name} frame vs plain, same flows")
+        check(p999 <= 1e-3 and mx <= 0.25, f"{name}: frame disagrees with the plain forward")
+        latency(lambda: interp(k0, k1, 0.5, context=context), card, name)
+        device_share(lambda: interp(k0, k1, 0.5, context=context))
+        del interp, model, flows
+    out.append(variant_train(card))
+    out.append(variant_cli())
+    attention_widths(card)
+    for kname, entry in (("attention_wide", "pci_attention_wide_attrs"),
+                         ("attention_bwd_wide", "pci_attention_bwd_wide_attrs")):
+        print(f"kernel resources {kname} (d = 128): {resources_text(kernel_attrs(entry))}")
+    return out
+
+
+def variant_train(card: str) -> dict:
+    """ISAPCInet field 1 at 128 (Tnet, the flow frozen) training at the
+    trainer's defaults (phase 7's batch at field 1): one plain step's
+    dispatches against PER_STEP_FIELD1 and its attention calls (forward and
+    backward) against their plain versions; one step through the kernels
+    against the plain step from the same flows, permutations and FPS starts
+    (phase 7's limits); five steps with their launch counts, ms/step, peak
+    memory."""
+    from pci_tpu_torch.convert import load_npz_tree, load_subtrees
+    from pci_tpu_torch.models import ISAPCInet
+    from pci_tpu_torch.ops.cuda_kernels import launch_counts, plain_versions, reset_launch_counts
+    from pci_tpu_torch.serving import DEFAULT_WEIGHTS, init_weights
+    from pci_tpu_torch.train import make_interp_train_step, make_optimizer
+
+    dev = torch.device("cuda")
+    batch = train_batch(dev, field=1)
+    base = ISAPCInet(1, ff_out_c=128, tr_out_c=128)
+    init_weights(base, 0)
+    load_subtrees(base, load_npz_tree(DEFAULT_WEIGHTS))
+    base = base.to(dev)
+
+    def trainer():
+        model = copy.deepcopy(base)
+        opt = make_optimizer(TRAIN_LR, model, ("flow",))
+        return model, make_interp_train_step(model, opt, ("flow",))
+
+    def draws():
+        return torch.Generator(device=dev).manual_seed(7)
+
+    calls = []
+    _, step = trainer()
+    with plain_versions(), record_calls(calls):
+        step(batch, draws(), TRAIN_MOMENTUM)
+    counts = dispatch_counts(calls)
+    check(counts == PER_STEP_FIELD1, f"field 1 at 128 step dispatches {counts}, expected "
+                                     f"{PER_STEP_FIELD1}")
+    att = [c for c in calls if c[0] in ("attention", "attention_bwd")]
+    hold_kernels(att, len(att), per(attention=2, attention_bwd=2), new_totals(),
+                 "field 1 at 128 train", unit="step")
+    del calls, att
+    with torch.no_grad():
+        flows = base.window_flows(batch["forward"], batch["keys"], batch["backward"],
+                                  batch["ini"])
+    losses, grads = [], []
+    for plain in (False, True):
+        model, step = trainer()
+        model.window_flows = lambda *a, f=flows: f
+        with plain_versions() if plain else contextlib.nullcontext():
+            losses.append(step(batch, draws(), TRAIN_MOMENTUM).item())
+        grads.append({n: p.grad for n, p in model.named_parameters() if p.requires_grad})
+        del model, step
+    rel = abs(losses[0] - losses[1]) / abs(losses[1])
+    print(f"field 1 at 128 train step loss: kernels {losses[0]!r}, plain {losses[1]!r} "
+          f"(rel {rel:.3g})")
+    check(rel <= 1e-4, "field 1 at 128: the step's loss disagrees with the plain step's")
+    compare_grads(*grads)
+    del grads
+    model, step = trainer()
+    gen = torch.Generator(device=dev).manual_seed(11)
+    step(batch, gen, TRAIN_MOMENTUM)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    marks, out = [], []
+    for _ in range(5):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out.append(step(batch, gen, TRAIN_MOMENTUM))
+        end.record()
+        marks.append((start, end))
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    losses = [float(x) for x in out]
+    check(all(np.isfinite(losses)), "field 1 at 128 train: a loss is not finite")
+    check(counts == {k: v * 5 for k, v in PER_STEP_FIELD1.items()},
+          f"field 1 at 128 train launch counts {counts} != {PER_STEP_FIELD1} x 5")
+    step_ms = [a.elapsed_time(b) for a, b in marks]
+    print(f"field 1 at 128 train: 5 steps, losses {losses}, launches {counts}; on {card}: "
+          f"{statistics.median(step_ms):.3f} ms/step (CUDA events, median of 5 after a "
+          f"warm-up step), peak memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    device_share(lambda: step(batch, gen, TRAIN_MOMENTUM), requests=3, unit="step")
+    return counts
+
+
+def variant_cli() -> dict:
+    """python -m pci_tpu_torch.cli.test --field 2 --use_tnet 0 --ff_out_c
+    96 --tr_out_c 96 (noT_96, chamfer only) over phase 9's scene (26
+    frames of 24,000 points, seed 0: one window at interval 5, its four
+    times), with the launch counts set to 0 just before: PER_WINDOW_ISAPCI a
+    record, every CD finite; the seconds a record."""
+    import tempfile
+    from pathlib import Path
+
+    from pci_tpu_torch.cli import test as isapci_cli
+    from pci_tpu_torch.data import generate_scenes
+    from pci_tpu_torch.ops.cuda_kernels import launch_counts, reset_launch_counts
+    from pci_tpu_torch.serving import DEFAULT_WEIGHTS
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        generate_scenes(str(root / "window"), n_scenes=1, n_frames=26, npts=24000, seed=0)
+        argv = ["--root", str(root / "window" / "lidar"),
+                "--scenes_list", str(root / "window" / "scenes.txt"),
+                "--scene_split_lib", str(root / "window" / "split"), "--field", "2",
+                "--use_tnet", "0", "--ff_out_c", "96", "--tr_out_c", "96", "--npoints", "16000",
+                "--interval", "5", "--sample_method", "random", "--pretrained_flow_model",
+                str(DEFAULT_WEIGHTS), "--log_dir", str(root / "log")]
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        isapci_cli.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+        with open(root / "log" / "metrics.jsonl") as f:
+            recs = [json.loads(line) for line in f if line.strip()]
+    check(len(recs) == EVAL_WINDOWS and all(np.isfinite(r["cd"]) for r in recs),
+          f"noT_96 cli: {len(recs)} records {recs}")
+    want = {k: v * len(recs) for k, v in PER_WINDOW_ISAPCI.items()}
+    check(counts == want, f"noT_96 cli launch counts {counts} != {want}")
+    steps = [b["time"] - a["time"] for a, b in zip(recs, recs[1:])]
+    print(f"eval cli noT_96 (cli.test --field 2 --use_tnet 0 --ff_out_c 96 --tr_out_c 96): "
+          f"{len(recs)} records, mean CD {np.mean([r['cd'] for r in recs]):.6f}, "
+          f"{statistics.median(steps):.3f} s a record (median of records 2-{len(recs)}), "
+          f"{wall:.3f} s the whole run; launches {counts}")
+    return counts
+
 
 @contextlib.contextmanager
 def emd_calls(calls: list):
@@ -4096,6 +4409,19 @@ def main() -> int:
     if sys.argv[1:2] == ["--ptxas"]:  # [csrc directory]: the changed sources' ptxas lines
         ptxas_lines(sys.argv[2] if len(sys.argv) > 2 else "pci_tpu_torch/csrc")
         return 0
+    if sys.argv[1:2] == ["--variants"]:  # phase 12 alone
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        phase_variants(card_line())
+        return 0
+    if sys.argv[1:2] == ["--attention"]:  # the attention holds and the variants' widths only
+        card = card_line()
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        hold_attention(card)
+        hold_attention_routes(card)
+        attention_widths(card)
+        return 0
     from pci_tpu_torch.ops.cuda_kernels import build_seconds, plain_versions
     from pci_tpu_torch.ops.cuda_kernels._build import kernel_attrs
     from pci_tpu_torch.serving import DEFAULT_WEIGHTS, Interpolator
@@ -4186,8 +4512,12 @@ def main() -> int:
     hold_cells_k64(card)
     phase_time("11. pointinet2")
 
+    # 12. ISAPCInet's published width variants: noT_96 and field 1 at 128
+    counts_variants = phase_variants(card)
+    phase_time("12. isapci variants")
+
     paths = [counts, counts_stream, *counts_routes, *counts_isapci, counts_train, *counts_large,
-             *counts_eval, *counts_intensity, *counts_pointinet2]
+             *counts_eval, *counts_intensity, *counts_pointinet2, *counts_variants]
     for kname, entry in RESOURCE_KERNELS.items():  # the tensor-core and auction kernels
         t = totals[kname]
         print(f"kernel resources {kname}: {resources_text(kernel_attrs(entry))}; max |kernel - "

@@ -48,18 +48,17 @@ def example_from_loader(dataset, device) -> dict:
 
 
 def build_isapci(args, batch_example: dict, device) -> ISAPCInet:
-    """ISAPCInet for ``args`` on ``device`` in eval mode: a seeded init, then
+    """ISAPCInet for ``args`` (``--use_tnet 0``: no Tnet, the noT_96
+    variant) on ``device`` in eval mode: a seeded init, then
     ``--pretrained_flow_model`` into its flow, then
     ``--pretrained_self_model`` over the whole model.  ``batch_example``
     must hold ``field`` context frames each side of the key pair."""
-    if not args.use_tnet:
-        raise NotImplementedError(
-            "--use_tnet 0 (ISAPCInet without Tnet) is not ported yet (ROADMAP A.3)")
     for side in ("forward", "backward"):
         if len(batch_example[side]) != args.field:
             raise ValueError(f"the window holds {len(batch_example[side])} {side} frames, "
                              f"--field is {args.field}")
-    model = ISAPCInet(field=args.field, ff_out_c=args.ff_out_c, tr_out_c=args.tr_out_c)
+    model = ISAPCInet(field=args.field, ff_out_c=args.ff_out_c, tr_out_c=args.tr_out_c,
+                      use_tnet=bool(args.use_tnet))
     init_weights(model, args.seed)
     if args.pretrained_flow_model:
         load_flow_into(model, args.pretrained_flow_model)

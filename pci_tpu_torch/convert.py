@@ -82,7 +82,9 @@ def load_subtrees(model: torch.nn.Module, variables: dict) -> list:
     Every key must name a tensor of ``model`` of the same shape, and each
     top-level module the variables touch must be covered completely, so a
     PointINet tree (``flow`` and ``fusion``) loads into ISAPCInet's
-    ``flow`` and ``fusion`` and leaves the rest as it was.
+    ``flow`` and ``fusion`` and leaves the rest as it was.  A tree with
+    ``tnet_forward`` / ``tnet_backward`` loaded into an ISAPCInet built
+    without Tnet (``use_tnet=False``) raises: its Tnet is not dropped.
     """
     sd = flax_to_state_dict(variables)
     own = model.state_dict()

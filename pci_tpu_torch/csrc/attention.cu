@@ -43,8 +43,27 @@
 // k-step, the small ones apart, then (acc + small) + bias), so a query's
 // result does not depend on the batch or the launch.
 //
+// The wide tensor-core route (attention_wide_kernel: d in 72..128 a
+// multiple of 8, k <= 16; ISAPCInet's published width variants, 96 and 128):
+// the per-warp design does not fit there (its chained split pack alone is
+// 224 KB at d = 96 and 394 KB at d = 128, and a warp's accumulator
+// fragments double), so the work is block-wide:
+//   - a tile is 64 (query, slot) rows, 64 / k whole queries;
+//   - the four layers run over the tile's rows in shared memory (aw_dense:
+//     3xTF32 in mma_tf32.cuh's summation order, the per-warp route's), a
+//     warp taking two output n-tiles over all four m-tiles, the split
+//     weights (_build.pack_tf32, unchained, 198 KB at d = 128) streamed
+//     from device memory (L2) through each lane's 8-deep cp.async ring, so
+//     no layer sits in shared memory;
+//   - K, V and q are read as float4 from device memory where they are used
+//     (h, the softmax), each once; the softmax and the weighted sum run
+//     one thread a query and four channels;
+//   - persistent blocks of 256 threads, one an SM: at d = 128 three
+//     [64][d + 4] activation buffers (101 KB), the ring (64 KB) and delta
+//     (3 KB) take 168 KB.
+//
 // The scalar route (attention_kernel, every other shape the wrapper takes:
-// d in 72..128, or k in 17..32): the weights (d = 64: 50 KB) in shared
+// k in 17..32): the weights (d = 64: 50 KB) in shared
 // memory; one warp a query, each lane owning the channels lane, lane + 32,
 // ...; the k slots four at a time, their activations in a per-warp [d][4]
 // shared buffer, so one weight load feeds four slots' FMAs; an online
@@ -445,11 +464,237 @@ static cudaError_t launch_attention_tc(const float* q, const float* g, const flo
   return cudaGetLastError();
 }
 
+// ---- the wide tensor-core route ---------------------------------------------
+
+#define AW_ROWS 64     // (query, slot) rows a tile: four 16-row m-tiles
+#define AW_THREADS 256
+#define AW_NTW 2       // output n-tiles a warp's item
+#define AW_DEPTH 8     // weight k-steps a lane keeps in flight through its ring
+#define AW_DL 12       // delta's row stride: x, y, z, zeros (ld % 8 == 4)
+
+// Float offsets in the wide kernel's shared memory at width d: the
+// activation buffers X, P (pos) and Y ([AW_ROWS][d + 4] each), delta
+// ([AW_ROWS][AW_DL]), the weight ring (AW_DEPTH x AW_NTW float4 a thread).
+struct AwLayout {
+  int ld, P, Y, DL, RING, total;
+  __host__ __device__ explicit AwLayout(int d)
+      : ld(d + 4), P(AW_ROWS * ld), Y(2 * AW_ROWS * ld), DL(3 * AW_ROWS * ld),
+        RING(DL + AW_ROWS * AW_DL), total(RING + AW_DEPTH * AW_NTW * 4 * AW_THREADS) {}
+};
+
+// Float offsets of layer l's fragments and bias in the unchained split pack
+// of the tail at width d (_build.pack_tf32: 3 -> d, one k-step, then three
+// d -> d layers; make_tf32_spec's layout).
+__device__ __forceinline__ int aw_woff(int l, int d) {
+  return l == 0 ? 0 : 17 * d + (l - 1) * (2 * d * d + d);
+}
+__device__ __forceinline__ int aw_boff(int l, int d) {
+  return aw_woff(l, d) + (l == 0 ? 16 * d : 2 * d * d);
+}
+
+// hout = act((hin x W) + bias) over the tile's four m-tiles, by every
+// thread of the block: mma_tf32.cuh's mma_dense_tiles with its summation
+// order, each warp's item AW_NTW n-tiles over all four m-tiles, each lane
+// streaming the B fragments it reads AW_DEPTH - 1 k-steps ahead of its mma
+// through its own ring slots (cp.async from the pack in device memory, L2:
+// at 8 warps an SM the shallower shared ring left every k-step waiting on
+// L2).  hin's columns [cin, 8 KT) are zero; ldi and ldo are % 8 == 4.
+__device__ __forceinline__ void aw_dense(const float* __restrict__ wf,
+                                         const float* __restrict__ bias, const float* hin,
+                                         int ldi, float* hout, int ldo, int cin, int cout,
+                                         bool relu, float4* ring) {
+  const int KT = round_up(cin, 8) / 8, NT = round_up(cout, 8) / 8;
+  const int nwarps = blockDim.x >> 5, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const float4* wf4 = reinterpret_cast<const float4*>(wf);
+  float4* mine = ring + threadIdx.x;  // slot s: mine[s * blockDim.x]
+  for (int it = warp; it * AW_NTW < NT; it += nwarps) {
+    const int n0 = it * AW_NTW, nn = min(AW_NTW, NT - n0);
+    auto issue = [&](int kt) {  // this lane's fragments of k-step kt
+      if (kt < KT) {
+        const float4* src = wf4 + ((size_t)kt * NT + n0) * 32 + lane;
+        float4* dst = mine + (kt % AW_DEPTH) * AW_NTW * blockDim.x;
+#pragma unroll
+        for (int j = 0; j < AW_NTW; ++j)
+          if (j < nn) cp_async16(dst + j * blockDim.x, src + j * 32);
+      }
+      cp_async_commit();
+    };
+    float acc[4][AW_NTW][4], small[4][AW_NTW][4];
+#pragma unroll
+    for (int m = 0; m < 4; ++m)
+#pragma unroll
+      for (int j = 0; j < AW_NTW; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[m][j][e] = small[m][j][e] = 0.f;
+#pragma unroll
+    for (int d = 0; d < AW_DEPTH - 1; ++d) issue(d);
+    for (int kt = 0; kt < KT; ++kt) {
+      issue(kt + AW_DEPTH - 1);     // into the slot k-step kt - 1 read
+      cp_async_wait<AW_DEPTH - 1>();  // k-step kt's fragments are in
+      const float4* sl = mine + (kt % AW_DEPTH) * AW_NTW * blockDim.x;
+      float4 w[AW_NTW];
+#pragma unroll
+      for (int j = 0; j < AW_NTW; ++j)
+        if (j < nn) w[j] = sl[j * blockDim.x];
+#pragma unroll
+      for (int m = 0; m < 4; ++m) {
+        uint32_t ahi[4], alo[4];
+        load_a_split(hin, ldi, m * 16, kt * 8, ahi, alo);
+#pragma unroll
+        for (int j = 0; j < AW_NTW; ++j)
+          if (j < nn) mma_3xtf32_apart(acc[m][j], small[m][j], ahi, alo, w[j]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < AW_NTW; ++j) {
+      if (j < nn) {
+        const int c = (n0 + j) * 8 + 2 * t;
+        const float b0 = __ldg(bias + c), b1 = __ldg(bias + c + 1);
+#pragma unroll
+        for (int m = 0; m < 4; ++m) {
+          float v0 = (acc[m][j][0] + small[m][j][0]) + b0;
+          float v1 = (acc[m][j][1] + small[m][j][1]) + b1;
+          float v2 = (acc[m][j][2] + small[m][j][2]) + b0;
+          float v3 = (acc[m][j][3] + small[m][j][3]) + b1;
+          if (relu) {
+            v0 = fmaxf(v0, 0.f), v1 = fmaxf(v1, 0.f), v2 = fmaxf(v2, 0.f), v3 = fmaxf(v3, 0.f);
+          }
+          const int r = m * 16 + g;
+          *reinterpret_cast<float2*>(hout + (size_t)r * ldo + c) = make_float2(v0, v1);
+          *reinterpret_cast<float2*>(hout + (size_t)(r + 8) * ldo + c) = make_float2(v2, v3);
+        }
+      }
+    }
+  }
+  cp_async_wait_all();  // the trailing (empty) groups
+  __syncthreads();      // hout is whole for the next step
+}
+
+// stamps: null, or rows blockIdx.x * ATC_WARPS of [grid * ATC_WARPS]
+// [ATC_STAMPS + 1] (the per-warp kernel's layout; thread 0's ns loading
+// delta, in the pos MLP, forming h, in the gamma MLP, in the softmax; then
+// its tiles).
+__global__ void __launch_bounds__(AW_THREADS, 1)
+attention_wide_kernel(const float* __restrict__ q, const float* __restrict__ g,
+                      const float* __restrict__ delta, const float* __restrict__ wtc,
+                      float* __restrict__ out, unsigned long long* __restrict__ stamps, int M,
+                      int d, int k) {
+  extern __shared__ float4 smem4[];
+  float* sm = reinterpret_cast<float*>(smem4);
+  const AwLayout L(d);
+  float* X = sm;
+  float* P = sm + L.P;
+  float* Y = sm + L.Y;
+  float* DL = sm + L.DL;
+  float4* ring = reinterpret_cast<float4*>(sm + L.RING);
+  // delta's columns 3..7 stay zero (the first layer's k-step pads)
+  for (int e = threadIdx.x; e < AW_ROWS * AW_DL; e += blockDim.x) DL[e] = 0.f;
+  const int QT = AW_ROWS / k, two_d = 2 * d, d4 = d / 4;
+  const int tiles = (M + QT - 1) / QT;
+  const float scale = 1.4426950408889634f / sqrtf((float)d);  // log2(e) / sqrt(d)
+  const bool timed = stamps != nullptr && threadIdx.x == 0;
+  unsigned long long tacc[ATC_STAMPS] = {0, 0, 0, 0, 0}, tprev = timed ? global_ns() : 0;
+  auto mark = [&](int i) {
+    if (timed) {
+      const unsigned long long now = global_ns();
+      tacc[i] += now - tprev;
+      tprev = now;
+    }
+  };
+  int done = 0;
+  for (int tl = blockIdx.x; tl < tiles; tl += gridDim.x, ++done) {
+    const int q0 = tl * QT, nq = min(QT, M - q0), R = nq * k;
+    const size_t row0 = (size_t)q0 * k;  // the tile's first (query, slot) row
+    __syncthreads();  // the previous tile's readers are done
+    for (int e = threadIdx.x; e < R * 3; e += blockDim.x)
+      DL[(e / 3) * AW_DL + e % 3] = __ldg(delta + row0 * 3 + e);
+    __syncthreads();
+    mark(0);
+    // pos MLP: 3 -> d as one k-step of delta's padded rows, then d -> d
+    aw_dense(wtc + aw_woff(0, d), wtc + aw_boff(0, d), DL, AW_DL, X, L.ld, 3, d, true, ring);
+    aw_dense(wtc + aw_woff(1, d), wtc + aw_boff(1, d), X, L.ld, P, L.ld, d, d, false, ring);
+    mark(1);
+    // h = (q - K) + pos, four channels a thread: K and q as float4 from
+    // device memory, read once where they are used
+#pragma unroll 4
+    for (int e = threadIdx.x; e < R * d4; e += blockDim.x) {
+      const int r = e / d4, c = 4 * (e - r * d4);
+      const float4 kv = __ldg(reinterpret_cast<const float4*>(g + (row0 + r) * two_d + c));
+      const float4 qv = __ldg(reinterpret_cast<const float4*>(q + (size_t)(q0 + r / k) * d + c));
+      float* x = X + r * L.ld + c;
+      const float* pp = P + r * L.ld + c;
+      x[0] = (qv.x - kv.x) + pp[0];
+      x[1] = (qv.y - kv.y) + pp[1];
+      x[2] = (qv.z - kv.z) + pp[2];
+      x[3] = (qv.w - kv.w) + pp[3];
+    }
+    __syncthreads();
+    mark(2);
+    // gamma MLP
+    aw_dense(wtc + aw_woff(2, d), wtc + aw_boff(2, d), X, L.ld, Y, L.ld, d, d, true, ring);
+    aw_dense(wtc + aw_woff(3, d), wtc + aw_boff(3, d), Y, L.ld, X, L.ld, d, d, false, ring);
+    mark(3);
+    // softmax over each query's slots per channel (as exp2 of a scaled by
+    // log2(e) / sqrt(d)), weighted sum of V + pos: four channels a thread,
+    // V as float4 from device memory
+    for (int e = threadIdx.x; e < nq * d4; e += blockDim.x) {
+      const int qi = e / d4, c = 4 * (e - qi * d4), rb = qi * k;
+      float m[4] = {-CUDART_INF_F, -CUDART_INF_F, -CUDART_INF_F, -CUDART_INF_F};
+      for (int s = 0; s < k; ++s) {
+        const float* a = X + (rb + s) * L.ld + c;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) m[i] = fmaxf(m[i], a[i] * scale);
+      }
+      float den[4] = {0.f, 0.f, 0.f, 0.f}, num[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 4
+      for (int s = 0; s < k; ++s) {
+        const int r = rb + s;
+        const float4 v = __ldg(reinterpret_cast<const float4*>(g + (row0 + r) * two_d + d + c));
+        const float vv[4] = {v.x, v.y, v.z, v.w};
+        const float* a = X + r * L.ld + c;
+        const float* pp = P + r * L.ld + c;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float ex = exp2f(a[i] * scale - m[i]);
+          den[i] += ex;
+          num[i] += ex * (vv[i] + pp[i]);
+        }
+      }
+      *reinterpret_cast<float4*>(out + (size_t)(q0 + qi) * d + c) =
+          make_float4(num[0] / den[0], num[1] / den[1], num[2] / den[2], num[3] / den[3]);
+    }
+    __syncthreads();
+    mark(4);
+  }
+  if (timed) {
+    unsigned long long* st = stamps + (size_t)blockIdx.x * ATC_WARPS * (ATC_STAMPS + 1);
+    for (int i = 0; i < ATC_STAMPS; ++i) st[i] = tacc[i];
+    st[ATC_STAMPS] = done;
+  }
+}
+
+static size_t aw_smem(int d) { return sizeof(float) * (size_t)AwLayout(d).total; }
+
+static cudaError_t launch_attention_wide(const float* q, const float* g, const float* delta,
+                                         const float* wtc, float* out,
+                                         unsigned long long* stamps, int M, int d, int k,
+                                         cudaStream_t stream) {
+  const size_t smem = aw_smem(d);
+  cudaError_t e = allow_smem(attention_wide_kernel, smem);
+  if (e != cudaSuccess) return e;
+  attention_wide_kernel<<<atc_blocks(M, AW_ROWS / k), AW_THREADS, smem, stream>>>(
+      q, g, delta, wtc, out, stamps, M, d, k);
+  return cudaGetLastError();
+}
+
 // q [M, d], g [M, k, 2d] (K | V), delta [M, k, 3], out [M, d], M = B * N;
 // d <= 128 and a multiple of 8, 1 <= k <= 32.  wtc non-null: the
-// tensor-core route (d <= 64, k <= 16; wtc the chained split pack of the
-// four layers), with optional stamps [grid * ATC_WARPS][ATC_STAMPS + 1];
-// else the scalar route on wbuf (common.cuh's attention layout).
+// tensor-core routes (k <= 16): d <= 64 per warp (wtc the chained split
+// pack of the four layers), d in 72..128 block-wide (wtc the unchained
+// pack), with optional stamps [grid * ATC_WARPS][ATC_STAMPS + 1] (the
+// block-wide kernel's in each block's first row); else the scalar route on
+// wbuf (common.cuh's attention layout).
 extern "C" int pci_attention(const void* q, const void* g, const void* delta,
                              const void* wbuf, const void* wtc, void* out, void* stamps,
                              int M, int d, int k, void* stream) {
@@ -461,9 +706,10 @@ extern "C" int pci_attention(const void* q, const void* g, const void* delta,
   float* o = static_cast<float*>(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (wtc != nullptr) {
-    if (d > 64 || k > 16) return (int)cudaErrorInvalidValue;
+    if (k > 16) return (int)cudaErrorInvalidValue;
     const float* w = static_cast<const float*>(wtc);
     auto* sp = static_cast<unsigned long long*>(stamps);
+    if (d > 64) return (int)launch_attention_wide(qq, gg, dd, w, o, sp, M, d, k, st);
     switch (d / 8) {
       case 1: return (int)launch_attention_tc<1>(qq, gg, dd, w, o, sp, M, k, st);
       case 2: return (int)launch_attention_tc<2>(qq, gg, dd, w, o, sp, M, k, st);
@@ -484,4 +730,9 @@ extern "C" int pci_attention(const void* q, const void* g, const void* delta,
 // The tensor-core kernel's resources at d = 64 (_build.kernel_attrs).
 extern "C" int pci_attention_attrs(int* out) {
   return kernel_attrs(attention_tc_kernel<8>, atc_smem<8>(), out, ATC_WARPS * 32);
+}
+
+// The wide kernel's resources at d = 128 (_build.kernel_attrs).
+extern "C" int pci_attention_wide_attrs(int* out) {
+  return kernel_attrs(attention_wide_kernel, aw_smem(128), out, AW_THREADS);
 }

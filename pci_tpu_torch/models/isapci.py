@@ -1,7 +1,8 @@
 """ISAPCInet and PointINet2 (counterparts of ``pci_tpu/models/isapci.py``
 ``ISAPCInet`` and ``PointINet2`` with the flow frozen).  ISAPCInet:
 4*field FlowNet3D flows over the window (each distinct frame encoded
-once), Tnet time weighting, PointNet++ feature abstraction and a point
+once), Tnet time weighting (or none: ``use_tnet=False``, the reference's
+noT_96 variant), PointNet++ feature abstraction and a point
 transformer over the 2*field*N-point flow cloud, flow regression, linear
 warp, adaptive attentive fusion.
 
@@ -49,14 +50,21 @@ def flow_pair_plan(field: int):
 
 
 class ISAPCInet(nn.Module):
-    """ISAPCInet with Tnet and fusion k=32 and the flow frozen (the JAX
-    model's ``freeze_flow=True``); submodule names are the flax module's."""
+    """ISAPCInet with fusion k=32 and the flow frozen (the JAX model's
+    ``freeze_flow=True``); submodule names are the flax module's.  The
+    reference's published variants are widths and this switch:
+    ``use_tnet=False`` builds no ``tnet_forward`` / ``tnet_backward`` and
+    sends the flows into PointNet++ unweighted (``New_Models0_noT_96.py``,
+    at ``ff_out_c = tr_out_c = 96``); ``New_Models_field_{0,1}.py`` run
+    ``field`` 0 and 1 at 128.  field 0 has no Tnet either way."""
 
-    def __init__(self, field: int, ff_out_c: int = 64, tr_out_c: int = 64):
+    def __init__(self, field: int, ff_out_c: int = 64, tr_out_c: int = 64,
+                 use_tnet: bool = True):
         super().__init__()
         self.field, self.ff_out_c = field, ff_out_c
+        self.use_tnet = use_tnet
         self.flow = FlowNet3D()
-        if field >= 1:
+        if field >= 1 and use_tnet:
             self.tnet_forward = Tnet(field)
             self.tnet_backward = Tnet(field)
         self.ffab = Pointnet2FeatureAbstract(ff_out_c)
@@ -100,7 +108,8 @@ class ISAPCInet(nn.Module):
 
     def from_flows(self, flows_fwd, flows_bwd, key_pcds, t, perms=None,
                    generator: torch.Generator | None = None, momentum: float = 0.1):
-        """Everything after the flows: Tnet weighting, the flows as one
+        """Everything after the flows: Tnet weighting (none without Tnet or
+        at field 0), the flows as one
         ``C*N``-point cloud (Tnet-weighted into PointNet++, unweighted into
         the transformer), the chunk-major fold ``[B, C*N, ch] -> [B, N,
         C*ch]``, Outputer, warp and fusion -> ``[B, N, 3]``.  In training
@@ -108,7 +117,7 @@ class ISAPCInet(nn.Module):
         is the fusion's BatchNorm momentum."""
         B, C, N, _ = flows_fwd.shape
         t32 = t.float()
-        if self.field >= 1:
+        if self.field >= 1 and self.use_tnet:
             weighted_fwd = flows_fwd * self.tnet_forward(t32[:, None])[:, :, None, None]
             weighted_bwd = flows_bwd * self.tnet_backward(t32[:, None])[:, :, None, None]
         else:

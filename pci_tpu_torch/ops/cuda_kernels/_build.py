@@ -65,7 +65,9 @@ _SIGNATURES = {
     "pci_knn_cells_seg_attrs": [_IP],
     "pci_attention": [_P] * 7 + [_I, _I, _I, _P],
     "pci_attention_attrs": [_IP],
+    "pci_attention_wide_attrs": [_IP],
     "pci_attention_bwd_attrs": [_IP],
+    "pci_attention_bwd_wide_attrs": [_IP],
     "pci_fusion_resi": [_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _P, _P],
     "pci_fusion_resi_attrs": [_IP],
     "pci_fusion_resi64_attrs": [_IP],

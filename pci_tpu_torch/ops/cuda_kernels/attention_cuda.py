@@ -24,12 +24,18 @@ import torch
 
 from . import _build
 
-BWD_MAX_D = 64  # the backward holds five [64, d] tiles and its weight
-# gradients' partial in shared memory
+# the backward's widths: d <= 64 holds five [64, d] tiles, the fp32 weights
+# and its weight gradients' partial in shared memory; d in 72..128 (a
+# multiple of 8, csrc/attention_bwd.cu attention_bwd_wide_kernel) keeps the
+# five tiles there and reads the weights and its partial in device memory
+BWD_MAX_D = 128
 FWD_MAX_D, MAX_K = 128, 32  # the forward kernel's widths, both kernels' slots
-# the forward's tensor-core route (csrc/attention.cu attention_tc_kernel):
-# one warp a query, its slots one 16-row tile, up to 8 n-tiles in registers
-TC_MAX_D, TC_MAX_K = 64, 16
+# the forward's tensor-core routes (k <= 16): d <= WARP_MAX_D one warp a
+# query (csrc/attention.cu attention_tc_kernel, its slots one 16-row tile,
+# up to 8 n-tiles in registers, the chained split pack in shared memory);
+# d in 72..128 block-wide over 64-row tiles (attention_wide_kernel, the
+# unchained split pack streamed from device memory)
+TC_MAX_D, TC_MAX_K, WARP_MAX_D = 128, 16, 64
 FWD_WARPS, FWD_STAMPS = 12, 5  # csrc/attention.cu ATC_WARPS, ATC_STAMPS
 BWD_STAMPS = 5  # csrc/attention_bwd.cu PCI_ABWD_STAMPS
 _PACKS = []  # the most recent weight packs: (kind, tensors, versions, buffer)
@@ -44,10 +50,11 @@ def vector_attention(q: torch.Tensor, g: torch.Tensor, delta: torch.Tensor,
     ``[(W [d, 3], b), (W [d, d], b), (W, b), (W, b)]`` of fc_delta_0,
     fc_delta_1, fc_gamma_0, fc_gamma_1 (``nn.Linear`` layout) ->
     ``res [B, N, d]`` fp32.  The kernel takes ``d <= 128`` (a multiple of 8)
-    and ``k <= 32`` (:func:`kernel_route_ok`): on the tensor cores at ``d
-    <= 64`` and ``k <= 16`` (:func:`tc_route_ok`), the scalar route
-    otherwise; other shapes take the plain version on any device, decided
-    before any launch (the JAX layer's XLA expression)."""
+    and ``k <= 32`` (:func:`kernel_route_ok`): on the tensor cores at ``k
+    <= 16`` (:func:`tc_route_ok`; per warp at ``d <= 64``, block-wide
+    above), the scalar route at ``k`` in 17..32; other shapes take the
+    plain version on any device, decided before any launch (the JAX
+    layer's XLA expression)."""
     _build.check_eval_only("vector_attention", q, g, delta,
                            *[t for wb in tail for t in wb])
     if _build.use_kernel(q) and kernel_route_ok(q.shape[-1], g.shape[2]):
@@ -63,15 +70,16 @@ def kernel_route_ok(d: int, k: int) -> bool:
 
 
 def bwd_route_ok(d: int, k: int) -> bool:
-    """The trainable route's kernels: the forward's shapes with ``d <=
-    64``, where the backward kernel also fits."""
+    """The trainable route's kernels: the forward's shapes where the
+    backward kernel also takes them (``d <= 128``: every one)."""
     return kernel_route_ok(d, k) and d <= BWD_MAX_D
 
 
 def tc_route_ok(d: int, k: int) -> bool:
-    """The forward's tensor-core route: ``d <= 64`` (a multiple of 8) and
-    ``k <= 16`` (the transformer's d = 64, k = 16); the scalar kernel
-    serves the rest of the wrapper's shapes."""
+    """The forward's tensor-core routes: ``d <= 128`` (a multiple of 8) and
+    ``k <= 16`` (the transformer's k = 16 at ISAPCInet's widths 64, 96 and
+    128): one warp a query at ``d <= 64``, block-wide tiles above; the
+    scalar kernel serves the rest of the wrapper's shapes (k in 17..32)."""
     return d % 8 == 0 and 8 <= d <= TC_MAX_D and 1 <= k <= TC_MAX_K
 
 
@@ -107,9 +115,11 @@ def pack_tail(tail, device) -> torch.Tensor:
 
 def pack_tail_tc(tail, device) -> torch.Tensor:
     """The tensor-core forward's weights: the four layers split for 3xTF32
-    in :func:`_build.pack_tf32`'s layout, layers 1-3 chained (their A
-    operand is the previous layer's accumulator fragments)."""
-    return _build.pack_tf32(tail, device, chain=True)
+    in :func:`_build.pack_tf32`'s layout; at ``d <= 64`` layers 1-3 chained
+    (their A operand is the previous layer's accumulator fragments), above
+    unchained (the block-wide kernel's A operand is rows in shared
+    memory)."""
+    return _build.pack_tf32(tail, device, chain=tail[1][0].shape[0] <= WARP_MAX_D)
 
 
 def attention_kernel(q, g, delta, tail, stamps=None):
@@ -131,7 +141,7 @@ def attention_kernel(q, g, delta, tail, stamps=None):
     tc = tc_route_ok(d, k)
     if stamps is not None:
         if not tc:
-            raise ValueError("attention kernel: stamps are the tensor-core route's")
+            raise ValueError("attention kernel: stamps are the tensor-core routes'")
         _build.require(stamps, "stamps", torch.int64, 2, dev)
         if stamps.shape[1] != FWD_STAMPS + 1 or stamps.shape[0] < _sm_count(dev) * FWD_WARPS:
             raise ValueError(f"attention kernel: stamps must be [>= SMs x {FWD_WARPS}, "
@@ -235,9 +245,9 @@ def attention_bwd_kernel(q, g, delta, tail, gout, stamps=None):
     if g.shape != (B, N, k, 2 * d) or delta.shape != (B, N, k, 3) or gout.shape != q.shape:
         raise ValueError(f"attention backward: q {tuple(q.shape)}, g {tuple(g.shape)}, "
                          f"delta {tuple(delta.shape)}, gout {tuple(gout.shape)} do not fit")
-    if not 1 <= d <= BWD_MAX_D or not 1 <= k <= MAX_K:
-        raise ValueError(f"attention backward kernel takes d <= {BWD_MAX_D} and k <= {MAX_K}, "
-                         f"got d={d} k={k}")
+    if not (1 <= d <= WARP_MAX_D or d % 8 == 0 and d <= BWD_MAX_D) or not 1 <= k <= MAX_K:
+        raise ValueError(f"attention backward kernel takes d <= {WARP_MAX_D}, or d <= "
+                         f"{BWD_MAX_D} a multiple of 8, and k <= {MAX_K}, got d={d} k={k}")
     wbuf = _cached("fp32", tail, lambda: pack_tail(tail, dev))
     blocks = _sm_count(dev)
     if stamps is not None:
@@ -264,13 +274,15 @@ attention_bwd_kernel.launches = 0
 def attention_stages(q, g, delta, tail, gout) -> dict:
     """One measurement launch of the forward and one of the backward on
     CUDA inputs with their ``%globaltimer`` stamps on: each kernel's stage
-    times summed over its warps (forward: waiting for the query's copies,
-    the pos MLP, forming h and V + pos, the gamma MLP, the softmax) or its
-    blocks (backward: the tile's loads, the forward's layers, the softmax
-    and gradient sums, the input gradients' products, the weight
-    gradients), as shares of the summed time, with the kernel's span
-    (the longest warp's or block's sum, ms) and queries or tiles a warp or
-    block (mean and max)."""
+    times summed over its warps (forward at d <= 64: waiting for the
+    query's copies, the pos MLP, forming h and V + pos, the gamma MLP, the
+    softmax; block-wide at d > 64, thread 0 of each block: loading delta,
+    the pos MLP, forming h, the gamma MLP, the softmax) or its blocks
+    (backward: the tile's loads, the forward's layers, the softmax and
+    gradient sums, the input gradients' products, the weight gradients),
+    as shares of the summed time, with the kernel's span (the longest
+    warp's or block's sum, ms) and queries or tiles a warp or block (mean
+    and max)."""
     dev = q.device
     fs = torch.zeros((_sm_count(dev) * FWD_WARPS, FWD_STAMPS + 1), dtype=torch.int64,
                      device=dev)

@@ -88,7 +88,9 @@ class Interpolator:
     @classmethod
     def isapci(cls, field: int = 2, npoints: int = 16000, weights=None,
                seed: int = 0, device=None, **model_kw) -> "Interpolator":
-        """ISAPCInet (``model_kw``: ``ff_out_c``, ``tr_out_c``) with a
+        """ISAPCInet (``model_kw``: ``ff_out_c``, ``tr_out_c``,
+        ``use_tnet``; the published variants: noT_96 is ``use_tnet=False,
+        ff_out_c=96, tr_out_c=96``, field 0 and 1 run at 128) with a
         random init from ``seed``, over
         which ``weights`` (an npz of flat flax keys) loads whole sub-trees:
         a full ISAPCInet tree, or a PointINet one such as

@@ -312,8 +312,10 @@ def test_backward_emulation_block_count_changes_only_rounding(case):
 
 
 def test_tc_route_shapes():
-    """The forward's tensor-core route takes d <= 64 (a multiple of 8) and
-    k <= 16; the scalar kernel the rest of what the wrapper takes."""
+    """The forward's tensor-core routes take d <= 128 (a multiple of 8) and
+    k <= 16 (per warp to d = 64, block-wide at 72-128, ISAPCInet's width
+    variants); the scalar kernel the rest of what the wrapper takes."""
     assert ac.tc_route_ok(64, 16) and ac.tc_route_ok(40, 7) and ac.tc_route_ok(8, 1)
-    assert not ac.tc_route_ok(64, 17) and not ac.tc_route_ok(72, 16)
-    assert not ac.tc_route_ok(128, 16) and not ac.tc_route_ok(20, 4)
+    assert ac.tc_route_ok(72, 16) and ac.tc_route_ok(96, 16) and ac.tc_route_ok(128, 16)
+    assert not ac.tc_route_ok(64, 17) and not ac.tc_route_ok(128, 17)
+    assert not ac.tc_route_ok(136, 16) and not ac.tc_route_ok(20, 4)

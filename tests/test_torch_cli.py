@@ -11,7 +11,7 @@ against the JAX package's, on CPU at the tiny sizes of
   the JAX CLIs' keys, each window's CD and EMD agree with the JAX CLI's
   within 1e-3 relative, and
   each CD equals ``chamfer_per_sample`` of the port's own forward.
-- ``--use_tnet 0`` is refused.
+- ``--use_tnet 0`` over a checkpoint that holds a Tnet is refused.
 - ``load_params`` / ``load_flow_into`` from the JAX variable tree as npz
   equal ``convert``'s conversion; the port's own files round-trip; an
   orbax directory is refused; ``BestKeeper.best_path`` picks the lowest
@@ -223,8 +223,15 @@ def test_cli_cd_is_the_forwards_chamfer(runs, scene, monkeypatch, cli):
 
 @pytest.mark.parametrize("cli,flag", [("isapci", ["--use_tnet", "0"])])
 def test_unported_options_are_refused(scene, tmp_path, cli, flag):
-    with pytest.raises(NotImplementedError, match="ROADMAP A.3"):
-        test_cli.main(window_args(scene, flag + ["--log_dir", str(tmp_path)]), device="cpu")
+    """``--use_tnet 0`` builds ISAPCInet without Tnet (the noT_96 variant,
+    held against the JAX CLI in tests/test_torch_variants.py); over a
+    ``--pretrained_self_model`` whose weights hold a Tnet it is refused,
+    not served with that Tnet dropped."""
+    with_tnet = save_params(str(tmp_path / "ckpt"), ISAPCInet(field=1, ff_out_c=32,
+                                                                tr_out_c=32))
+    with pytest.raises(RuntimeError, match="tnet_forward"):
+        test_cli.main(window_args(scene, flag + ["--pretrained_self_model", with_tnet,
+                                                 "--log_dir", str(tmp_path)]), device="cpu")
 
 
 def test_checkpoint_formats(tmp_path):

@@ -7,8 +7,8 @@ chain (the long-chain kernel), ``PointsFusion`` past k = 64 (the plain
 versions, no launch; at k = 32, 48 and 64 the fusion kernels, past 32
 their two-slots-a-lane instantiations) and ``PointsFusionMulti`` (one
 residual kNN launch), and ``TransformerLayer`` at widths its attention
-kernels do not take (the plain versions, no launch; in training both
-directions decided at the forward); on the cells route (its size gate
+kernels do not take (d_model 20 and 256: the plain versions, no launch;
+in training both directions decided at the forward); on the cells route (its size gate
 lowered for the CPU), ``PointsFusion`` at k = 48 and 64 on the cells
 kernel and ``PointsFusionMulti`` by segments and gradient (F = 3 at eval:
 three masked passes of the box-pruned kNN; F = 2: the cells kernel's
@@ -680,13 +680,14 @@ def test_transformer_eval_outside_the_kernels_widths_launches_nothing(cuda_route
     torch.testing.assert_close(got, want, atol=0, rtol=0)
 
 
-def test_transformer_training_at_d128_runs_the_plain_directions(cuda_route):
-    """Training ``TransformerLayer(64, 128, 16)``: the forward kernel takes
-    d = 128 but the backward kernel stops at 64, so the trainable route
-    decides at its forward to run both directions plain: no attention
-    launch, and the rows and every gradient equal the plain route's."""
+def test_transformer_training_past_d128_runs_the_plain_directions(cuda_route):
+    """Training ``TransformerLayer(64, 256, 16)``: past both attention
+    kernels' 128, the trainable route decides at its forward to run both
+    directions plain: no attention launch, and the rows and every gradient
+    equal the plain route's.  (At 96 and 128 both kernels launch:
+    tests/test_torch_variants.py.)"""
     torch.manual_seed(814)
-    base = tnn.TransformerLayer(64, 128, 16).train()
+    base = tnn.TransformerLayer(64, 256, 16).train()
     rng = np.random.default_rng(815)
     xyz, feats = _cloud(rng, 1, 200, 3), _cloud(rng, 1, 200, 64)
     G = _cloud(rng, 1, 200, 64)
@@ -700,6 +701,6 @@ def test_transformer_training_at_d128_runs_the_plain_directions(cuda_route):
             (out * G).sum().backward()
         outs.append([out.detach(), f.grad] + [p.grad for p in layer.parameters()])
     assert {n for n, _ in stub.calls} == {"pci_knn"}
-    assert attention_cuda.kernel_route_ok(128, 16) and not attention_cuda.bwd_route_ok(128, 16)
+    assert not attention_cuda.kernel_route_ok(256, 16) and not attention_cuda.bwd_route_ok(256, 16)
     for got, want in zip(*outs, strict=True):
         torch.testing.assert_close(got, want, atol=0, rtol=0)

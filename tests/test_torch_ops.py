@@ -471,7 +471,20 @@ def _grad_calls():
         "knn_cells": lambda: knn_cuda.knn_cells(x, x, 4, key_valid=torch.arange(64)[None] < 40,
                                                 emit_resi=True),
         "knn_self_resi": lambda: tops.knn_self_resi(x, 4),
+        # the forward's block-wide tensor-core route at ISAPCInet's widths
+        "attention_d96": lambda: attention_cuda.vector_attention(*wide_attention(96, x)),
+        "attention_d128": lambda: attention_cuda.vector_attention(*wide_attention(128, x)),
     }
+
+
+def wide_attention(d: int, x):
+    """The eval attention's arguments at width d (its own draws), delta
+    needing a gradient through ``x``."""
+    rng = np.random.default_rng(112 + d)
+    _, tail = folded_layers(rng, (3, d, d, d, d))
+    q = t_(cloud(rng, 1, 64, d))
+    g = t_(cloud(rng, 1, 64 * 4, 2 * d)).reshape(1, 64, 4, 2 * d)
+    return q, g, x[:, :, None].expand(-1, -1, 4, -1), tail
 
 
 @pytest.mark.parametrize("kernel", ["fps", "setconv", "knnconv", "fusion", "fusion_payload",
@@ -479,12 +492,13 @@ def _grad_calls():
                                     "fusion_tail", "fusion_cells", "fusion_cells_payload",
                                     "pn2mid", "fusion_k64", "fusion_tail_k64",
                                     "fusion_cells_k64", "fusion_cells_multi", "knn_cells",
-                                    "knn_self_resi"])
+                                    "knn_self_resi", "attention_d96", "attention_d128"])
 def test_eval_only_kernels_refuse_grad(kernel):
     """The eval kernels of differentiable values (set-conv, kNN-conv, the
     one-shot fusion (flat and cell-pruned, also for a payload that needs a
     gradient beside a cloud that does not; the flat one and the tail also
-    at k = 64, their two-slots-a-lane instantiations), the eval attention, the
+    at k = 64, their two-slots-a-lane instantiations), the eval attention
+    (also at d = 96 and 128, its block-wide instantiation), the
     FlowNet3D megakernels, the fusion's attention tail, PointNet++'s
     mid-section, the F-segment route's residuals) define no backward and
     refuse an input that needs a gradient; the index-only ones (FPS, ball
