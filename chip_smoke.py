@@ -48,9 +48,10 @@ each printing its own lines:
      scales; indices equal), the residual fusion kNN at FUSION_RESI_HOLDS
      (three and four segments, a segment shorter than its budget, a budget
      past 16, duplicates, a cloud 300 m out; at 1, 2 and 4 key parts,
-     indices identical and residuals bit-equal), and PointsFusion at k = 96
-     at eval and in training (no kernel launched, equal to the plain
-     route).  Rows 4, 4b and 7 at k = 48 and 64, their k <= 64
+     indices identical and residuals bit-equal), and PointsFusion at k =
+     160, past the flat kernels, at eval (one tail launch, no kNN launch,
+     within 1e-4 of the plain route) and in training (no kernel launched,
+     bit-equal to the plain route).  Rows 4, 4b and 7 at k = 48 and 64, their k <= 64
      instantiations, at FUSION64_HOLDS and FUSION64_MULTI_HOLDS (t near 0
      and 1, a segment shorter than its budget, payloads, three segments
      with a cloud the budgets' clamp leaves empty): row 4b bit-equal at
@@ -69,8 +70,8 @@ each printing its own lines:
      channels at smaller N; a segment shorter than its budget, whose
      unfilled slots carry the row's own payload; the cells kernel at
      65,536 and 32,768): xyz within 1e-4 of the plain version, the payload
-     channels within PAYLOAD_LIMIT, the payload sums against fp64 beside
-     a single TF32 product's, the cells kernel within 1e-6 m of the flat
+     sums against fp64 within TAIL_SUM_LIMIT beside a single TF32
+     product's, the cells kernel within 1e-6 m of the flat
      one on the same cloud and payload; both kernels' resources with the
      payload.  The `stages fusion_resi` line of the all-gates-off request's
      residual kNN: its time at 1, 2 and 4 parts and its items' scan, merge
@@ -175,7 +176,8 @@ each printing its own lines:
      request's dispatches on the default route and with one-shot off
      (PER_REQUEST / PER_REQUEST_CELLS and their one-shot-off counts: the
      payload rides the same launch), the one-shot call with its payload
-     and the tail with its extra channel against their plain versions,
+     and the tail with its extra channel against their plain versions
+     (the payload channel against the call in fp64, PAYLOAD_LIMIT),
      the `stages fusion_payload` line (the one-shot kernel without and
      with the payload on the request's cloud, CUDA events and device
      time); five requests on each route with those launch counts, [N, 4]
@@ -226,6 +228,28 @@ each printing its own lines:
      = 96 and 32,768 at 128, the step's 64,000 at 128) against its plain
      versions, timed beside them and its bound; the wide instantiations'
      resources.
+ 13. The fusion at k in 65-128 (rows 4, 4b and 7 on their k <= 128
+     kernels, four slots a lane; row 7's streaming kernel past k = 64):
+     the kernel holds at FUSION128_HOLDS / FUSION128_MULTI_HOLDS (k = 65,
+     96 and 128 at 16,384 and 65,536 points, t near 0 and 1, segments
+     shorter than their budgets, payloads of 1 and 2 channels, F = 3 and
+     4; as phase 3's k <= 64 holds, timed) and row 7 at k = 160
+     (TAIL_K160_HOLDS), the new
+     kernels' resources; then requests through the models' constructors:
+     PointINet(fusion_k=128) at 16,384 and 65,536 points, xyz and with an
+     intensity channel (PER_REQUEST_K128), at 16,384 xyz also with
+     one-shot off (PER_REQUEST_K128_ONESHOT_OFF), PointINet2(field=2,
+     fusion_k=128) at 16,384 (PER_REQUEST_POINTINET2_K128) and
+     ISAPCInet(field=2, fusion_k=96, fusion_sampling="fps") at 16,384
+     (PER_REQUEST_ISAPCI_FPS): a plain request's dispatches against the
+     counts, its fusion calls (and the FPS orders over all points) against
+     their plain versions with `stages fusion128` lines, five requests with
+     the counts set to 0 before, the frame against the plain forward (with
+     the same permutations; ISAPCInet's from the same flows on the FPS
+     orders its kernel route took, its warped clouds within 1e-5 m),
+     ms/frame.
+     FPS at npoint = N (16,384 and 65,536 points, 10% duplicates) is among
+     phase 3's FPS_HOLDS.
 Each phase prints the seconds since the start when it ends.
 Then a resources line for each kernel whose dense products run on the
 tensor cores (the one-shot fusion, the attention tail, flowmid, kNN-conv,
@@ -244,7 +268,8 @@ Exits non-zero, with no result line, when CUDA is missing or a phase fails.
 `python3 chip_smoke.py --stages [kinds]` prints only the `stages` lines;
 `python3 chip_smoke.py --ptxas [csrc directory]` only the ptxas lines of
 PTXAS_SOURCES (this tree's, or an older tree's unpacked by `git archive`);
-`--variants` runs phase 12 alone; `--attention` the attention holds, the
+`--variants` runs phase 12 alone; `--k128` phase 13 alone (with the FPS
+holds); `--attention` the attention holds, the
 route holds and the variants' widths (attention_widths, which loaded by
 path from an older tree's root times that tree's routes).
 """
@@ -410,6 +435,18 @@ PER_STEP_FIELD1 = per(fps=4 + 8, flowenc=4, flowmid=4, knnconv=4, ball=8, knn=8,
 VARIANTS = (("noT_96", dict(field=2, use_tnet=False, ff_out_c=96, tr_out_c=96),
              PER_REQUEST_NOT96),
             ("field 1 at 128", dict(field=1, ff_out_c=128, tr_out_c=128), PER_REQUEST_FIELD1))
+# phase 13, the fusion past k = 64 through the models' fusion_k and
+# fusion_sampling: PointINet(fusion_k=128) launches PointINet's kernels, its
+# one-shot fusion on the k <= 128 kernel (pci_fusion128) at every N (the
+# cells route stops at k = 64), with one-shot off the residual kNN's k > 64
+# kernel and the tail's streaming kernel; PointINet2(field=2, fusion_k=128) phase 11's
+# launches, its rings and fusion2 at k = 128; ISAPCInet(field=2,
+# fusion_k=96, fusion_sampling="fps") phase 6's and the fusion's two exact
+# FPS orders over all 16,384 points
+PER_REQUEST_K128 = PER_REQUEST
+PER_REQUEST_K128_ONESHOT_OFF = PER_REQUEST_ONESHOT_OFF  # rows 4b and 7 at k = 128
+PER_REQUEST_POINTINET2_K128 = PER_REQUEST_POINTINET2
+PER_REQUEST_ISAPCI_FPS = per(**{**PER_REQUEST_ISAPCI, "fps": PER_REQUEST_ISAPCI["fps"] + 2})
 FUSION_KINDS = ("fusion", "fusion_resi", "fusion_tail")
 LARGE_FUSION_KINDS = ("fusion_cells", "knn_cells_multi", "fusion_tail")
 STREAMS = 8
@@ -997,9 +1034,11 @@ def compare_attention_bwd(got, want, args, where: str) -> float:
     return err
 
 
-def compare(name, got, want, where: str, args=()) -> float:
+def compare(name, got, want, where: str, args=(), kw=None) -> float:
     """Hold a kernel's result against its plain version's; returns the
-    max abs error (0 for exact index results)."""
+    max abs error (0 for exact index results).  ``args`` / ``kw``: the
+    call's, where a hold needs them (the attention backward's inputs, a
+    one-shot fusion's payload held against the call in fp64)."""
     if name == "fps":
         check(torch.equal(got, want), f"fps {where}: indices differ")
         return 0.0
@@ -1028,14 +1067,38 @@ def compare(name, got, want, where: str, args=()) -> float:
     if name == "flowenc":
         check(torch.equal(got[2], want[2]), f"flowenc {where}: set_conv2's centres differ")
         return max(compare("setconv", g, w, where) for g, w in zip(got[:2], want[:2]))
-    if name in ("fusion", "fusion_cells") and got.shape[-1] > 3:  # a payload's channels
-        pay = (got[..., 3:] - want[..., 3:]).abs().max().item()
-        check(pay <= PAYLOAD_LIMIT, f"{name} {where}: payload channels max |kernel - plain| "
-                                    f"{pay} > {PAYLOAD_LIMIT}")
+    if name in ("fusion", "fusion_cells") and got.shape[-1] > 3 and args:
+        # a payload's channels, its weighted sums alone, against the call in
+        # fp64 at every k, beside the plain fp32 and 1xTF32 controls (the
+        # seeded holds pass no args and hold them within TAIL_SUM_LIMIT)
+        call = dict(zip(("combined", "seg_ends", "budgets", "layers", "k", "payload"), args),
+                    **(kw or {}))
+        e_k, e_32, e_tf = payload_sum_errors(got, **call)
+        print(f"{name} {where}: payload channels max |kernel - fp64| {e_k:.3g} (<= "
+              f"{PAYLOAD_LIMIT:g}), |plain fp32 - fp64| {e_32:.3g}, |plain 1xTF32 - fp64| "
+              f"{e_tf:.3g}")
+        check(e_k <= PAYLOAD_LIMIT and e_k < e_tf,
+              f"{name} {where}: payload channels {e_k} from fp64 (limit {PAYLOAD_LIMIT}, one "
+              f"TF32 product {e_tf})")
     err = (got - want).abs().max().item()
     ok = torch.allclose(got, want, atol=1e-4, rtol=1e-4)
     check(ok, f"{name} {where}: max |kernel - plain| {err}")
     return err
+
+
+def fusion_fp64(combined, seg_ends, budgets, layers, k, payload=None) -> torch.Tensor:
+    """A one-shot fusion call in fp64 on the plain version's neighbours:
+    ``[B, N, 3 + Cp]``."""
+    from pci_tpu_torch.ops import index_points
+    from pci_tpu_torch.ops.cuda_kernels import _build
+    from pci_tpu_torch.ops.cuda_kernels.fusion_knn_cuda import fusion_head, fusion_resi_plain
+
+    layers64 = [(w.double(), b.double()) for w, b in layers]
+    with torch.inference_mode():
+        idx, resi = fusion_resi_plain(combined, seg_ends, budgets, k)
+        extra = None if payload is None else index_points(payload, idx).double()
+        return fusion_head(combined.double(), resi.double(),
+                           lambda h: _build.mlp_plain(h, layers64), extra)
 
 
 def cdist_topk(query, points, k, chunk: int = 2048):
@@ -1110,7 +1173,7 @@ def hold_kernels(calls, request: int, expected: dict, totals: dict, path: str,
             with plain_versions():
                 want = fn(*args, **kw)
             torch.cuda.synchronize()
-            err = compare(name, got, want, label(name, args, kw), args)
+            err = compare(name, got, want, label(name, args, kw), args, kw)
             rel = 0.0
             if name in TENSOR_KERNELS and not isinstance(got, tuple) or name in (
                     "flowenc", "attention_bwd"):  # flowenc: relative to f_1's and f_2's largest
@@ -1177,6 +1240,9 @@ FPS_HOLDS = (
     # the long-chain route (over 16,384 points a chain): ops.fps exact at
     # 32,768 points, and exact=False (P = 8) at 131,073
     (1, 32768, 1024, 1, "random", "gauss"), (1, 131073, 1024, 8, "random", "gauss"),
+    # fusion_sampling="fps": every point ordered (npoint = N, exact), the
+    # chain ending on picks at distance 0 among the duplicates
+    (1, 16384, 16384, 1, "zero", "dups"), (1, 65536, 65536, 1, "random", "dups"),
 )
 
 
@@ -1434,7 +1500,8 @@ FUSION_PAYLOAD_HOLDS = (("fusion", 16384, 1, 0.5), ("fusion", 16384, 1, 0.2),
                         ("fusion", 3000, 0, 0.5), ("fusion", 3000, 2, 0.3),
                         ("fusion", 5000, 5, 0.7), ("fusion", 2048, 1, (10, 20, 12)),
                         ("fusion_cells", 65536, 1, 0.5), ("fusion_cells", 32768, 1, 0.5))
-# a payload channel (intensity in [0, 1]) against the plain version
+# a payload channel (intensity in [0, 1]) of a model's one-shot call against
+# the call in fp64 (compare(); PERF.md, the k <= 128 findings, says why 1e-5)
 PAYLOAD_LIMIT = 1e-5
 
 
@@ -1444,17 +1511,10 @@ def payload_sum_errors(got, combined, seg_ends, budgets, layers, k, payload) -> 
     residuals: the max abs error of the kernel, of the plain version in
     fp32 and of the plain version with one TF32 product a layer (cuBLAS
     with TF32 allowed)."""
-    from pci_tpu_torch.ops import index_points
-    from pci_tpu_torch.ops.cuda_kernels import _build
-    from pci_tpu_torch.ops.cuda_kernels.fusion_knn_cuda import (
-        fusion_head, fusion_plain, fusion_resi_plain)
+    from pci_tpu_torch.ops.cuda_kernels.fusion_knn_cuda import fusion_plain
 
-    layers64 = [(w.double(), b.double()) for w, b in layers]
+    ref = fusion_fp64(combined, seg_ends, budgets, layers, k, payload)[..., 3:]
     with torch.inference_mode():
-        idx, resi = fusion_resi_plain(combined, seg_ends, budgets, k)
-        ref = fusion_head(combined.double(), resi.double(),
-                          lambda h: _build.mlp_plain(h, layers64),
-                          index_points(payload, idx).double())[..., 3:]
         fp32 = fusion_plain(combined, seg_ends, budgets, layers, k, payload)[..., 3:]
         torch.backends.cuda.matmul.allow_tf32 = True
         try:
@@ -1469,9 +1529,8 @@ def hold_fusion_payload(card: str) -> None:
     cloud (sigma 10 m) with a seeded payload in [0, 1] and a seeded score
     MLP at the init scale (hold_fusion_tail's; phase 10 holds both kernels
     with the trained one): against the plain version, the xyz within the
-    kernel holds' 1e-4 and the payload channels within PAYLOAD_LIMIT; the
-    payload channels against fp64 within TAIL_SUM_LIMIT and below a single
-    TF32 product's error (which the 1e-5 hold cannot tell from 3xTF32);
+    kernel holds' 1e-4; the payload channels against fp64 within
+    TAIL_SUM_LIMIT and below a single TF32 product's error;
     row 12 against row 4 on the same cloud and payload within 1e-6 m (the
     same head on the same neighbours).  Then both kernels' resources with
     the payload."""
@@ -1510,7 +1569,7 @@ def hold_fusion_payload(card: str) -> None:
             e_pay = (got[..., 3:] - want[..., 3:]).abs().max().item()
             e_k, e_32, e_tf = payload_sum_errors(got, combined, seg_ends, budgets, layers, k,
                                                  payload)
-            line += (f", payload {e_pay:.3g} (<= {PAYLOAD_LIMIT:g}); payload sums vs fp64: "
+            line += (f", payload {e_pay:.3g}; payload sums vs fp64: "
                      f"kernel {e_k:.3g} (<= {TAIL_SUM_LIMIT:g}), plain fp32 {e_32:.3g}, plain "
                      f"1xTF32 {e_tf:.3g}")
             checks.append((e_k <= TAIL_SUM_LIMIT and e_k < e_tf,
@@ -1999,7 +2058,9 @@ STAGE_KINDS = ("fusion_cells", "pn2mid", "ball", "fusion_resi", "fusion_tail", "
                "fusion_payload")
 
 
-PTXAS_SOURCES = ("attention.cu", "attention_bwd.cu")  # the sources the variants' slice changed
+# the sources the k <= 128 slice changed (fusion_cells.cu includes the
+# changed fusion_head.cuh)
+PTXAS_SOURCES = ("fusion_knn.cu", "fusion_tail.cu", "fusion_cells.cu")
 
 
 def ptxas_lines(csrc: str, sources=PTXAS_SOURCES) -> None:
@@ -2363,11 +2424,13 @@ def fusion_resi_stages_line(args, card: str, path: str) -> None:
           f"{float(t[:, 5].sum()) / (B * N):.1f} a query")
 
 
-def hold_fusion_k96(card: str) -> None:
-    """PointsFusion at k = 96 on the card (the fusion kernels take k <=
-    64): at eval and in training it launches no kernel and equals the same
-    call through the plain versions (training: the rows and the gradients
-    into both clouds)."""
+def hold_fusion_k160(card: str) -> None:
+    """PointsFusion at k = 160 on the card (the flat fusion kernels take k
+    <= 128, the tail any k): at eval the kNN's plain version and one launch
+    of the tail (the TPU's XLA kNN, then its tail kernel), the rows within
+    the kernel holds' 1e-4 of the plain route's; in training no kernel
+    launches and the rows and the gradients into both clouds are bit-equal
+    to the plain route's."""
     import copy
 
     from pci_tpu_torch.nn import PointsFusion
@@ -2375,7 +2438,7 @@ def hold_fusion_k96(card: str) -> None:
     from pci_tpu_torch.serving import init_weights
 
     dev = torch.device("cuda")
-    n, k = 4096, 96
+    n, k = 4096, 160
     a_np, b_np = synthetic_pair(17, n)
     a, b = (torch.from_numpy(x)[None].to(dev) for x in (a_np, b_np))
     g = torch.Generator().manual_seed(18)
@@ -2407,12 +2470,17 @@ def hold_fusion_k96(card: str) -> None:
                         outs.append([out.detach(), x1.grad, x2.grad])
                 torch.cuda.synchronize()
                 fired = {name: c for name, c in launch_counts().items() if c}
-                check(not fired, f"fusion k={k} {mode}: launched {fired}")
+                want = {"fusion_tail": 1} if mode == "eval" and not plain else {}
+                check(fired == want, f"fusion k={k} {mode}: launched {fired}, expected {want}")
+            if mode == "eval":
+                err = compare("fusion_tail", outs[0][0], outs[1][0], f"k={k} eval route")
+                print(f"fusion k={k} eval at {n} points on {card}: one fusion_tail launch, no "
+                      f"kNN launch; rows {err:.3g} from the plain route's (<= 1e-4)")
+                continue
             for got, want in zip(*outs):
                 check(torch.equal(got, want), f"fusion k={k} {mode}: differs from the plain route")
-            print(f"fusion k={k} {mode} at {n} points on {card}: no kernel launched; "
-                  f"{'rows' if mode == 'eval' else 'rows and both gradients'} bit-equal to the "
-                  f"plain route's")
+            print(f"fusion k={k} train at {n} points on {card}: no kernel launched; rows and "
+                  f"both gradients bit-equal to the plain route's")
     finally:
         torch.use_deterministic_algorithms(was)
 
@@ -2460,26 +2528,47 @@ def fusion_sum_errors(got, combined, seg_ends, budgets, layers, k) -> tuple:
 
 def hold_fusion_k64(card: str) -> None:
     """Rows 4, 4b and 7 at k = 48 and 64 (their k <= 64 instantiations) at
-    FUSION64_HOLDS and FUSION64_MULTI_HOLDS, on seeded clouds (sigma 1 m)
-    with hold_fusion_tail's seeded score MLP: row 4b's indices identical and
-    residuals bit-equal to the plain version's at 1, 2 and 4 parts and the
-    kernel's choice; row 4 and row 7 (on row 4b's residuals, with the
-    payload gathered by its indices as extra) within 1e-4 of their plain
-    versions, payload channels within PAYLOAD_LIMIT, and their weighted
-    sums against fp64 within TAIL_SUM_LIMIT and below one TF32 product's
-    error (row 4 on its residual sums, row 7 with combined = 0, the
-    payloads' sums alone).  Then the k <= 64 instantiations' resources."""
+    FUSION64_HOLDS and FUSION64_MULTI_HOLDS (hold_fusion_rows, row 4b at
+    1, 2 and 4 parts and the kernel's choice).  Then the k <= 64
+    instantiations' resources."""
+    from pci_tpu_torch.ops.cuda_kernels._build import kernel_attrs
+
+    hold_fusion_rows(card, "k64", FUSION64_HOLDS, FUSION64_MULTI_HOLDS, 1650, (0, 1, 2, 4))
+    for kname, entry in (("fusion", "pci_fusion64_attrs"),
+                         ("fusion", "pci_fusion64_payload_attrs"),
+                         ("fusion_resi", "pci_fusion_resi64_attrs"),
+                         ("fusion_tail", "pci_fusion_tail64_attrs")):
+        print(f"kernel resources {kname} at k <= 64 ({entry}): "
+              f"{resources_text(kernel_attrs(entry))}")
+
+
+def hold_fusion_rows(card: str, tag: str, holds, multi_holds, seed: int, parts,
+                     timed: bool = False) -> None:
+    """Rows 4, 4b and 7 at ``holds`` ((N, k, t, Cp): t gives PointsFusion's
+    budgets, a tuple (N1, k1, k2) a segment shorter than its budget) and
+    ``multi_holds`` ((N, k, w): PointsFusionMulti's F = len(w) + 1
+    segments), on seeded clouds (sigma 1 m) with hold_fusion_tail's seeded
+    score MLP: row 4b's indices identical and residuals bit-equal to the
+    plain version's at each of ``parts``; row 4 and row 7 (on row 4b's
+    residuals, with the payload gathered by its indices as extra) within
+    1e-4 of their plain versions, and their weighted sums (payload
+    channels too) against fp64 within TAIL_SUM_LIMIT and below
+    one TF32 product's error (row 4 on its residual sums, row 7 with
+    combined = 0, the payloads' sums alone).  ``timed``: each kernel's and
+    plain version's ms (CUDA events) on the hold's line."""
     from pci_tpu_torch.nn.fusion import _adaptive_budgets, _multi_budgets
     from pci_tpu_torch.ops import index_points
     from pci_tpu_torch.ops.cuda_kernels import fusion_knn_cuda as F
     from pci_tpu_torch.ops.cuda_kernels import fusion_tail_cuda as T
-    from pci_tpu_torch.ops.cuda_kernels._build import kernel_attrs
+
+    from pci_tpu_torch.ops.cuda_kernels._build import PackedLayers
 
     dev = torch.device("cuda")
-    g = torch.Generator().manual_seed(1650)
-    layers = seeded_score_mlp(g, dev)
+    g = torch.Generator().manual_seed(seed)
+    # packed once, as a module's folded layers are: no split a launch
+    layers = PackedLayers(seeded_score_mlp(g, dev))
     cases = []
-    for N, k, t, Cp in FUSION64_HOLDS:
+    for N, k, t, Cp in holds:
         if isinstance(t, tuple):
             seg_ends, budgets = torch.tensor([[t[0], N]]), torch.tensor([t[1:]])
         else:
@@ -2487,60 +2576,73 @@ def hold_fusion_k64(card: str) -> None:
             seg_ends = torch.stack([N1, torch.full_like(N1, N)], 1)
             budgets = torch.stack([k1, k2], 1)
         cases.append((N, k, seg_ends, budgets, Cp))
-    for N, k, w in FUSION64_MULTI_HOLDS:
+    for N, k, w in multi_holds:
         n_all, k_all = _multi_budgets(N, k, torch.tensor([w]))
         cases.append((N, k, torch.cumsum(n_all, 1), k_all, 0))
+
+    def times(kernel, plain) -> str:
+        return (f" ({cuda_ms(kernel, 5):.4f} ms, plain {cuda_ms(plain, 1):.4f} ms)"
+                if timed else "")
+
     for N, k, seg_ends, budgets, Cp in cases:
         combined = torch.randn(1, N, 3, generator=g).to(dev)
         payload = torch.rand(1, N, Cp, generator=g).to(dev) if Cp else None
         where = f"N={N} k={k} ends={seg_ends.tolist()} budgets={budgets.tolist()} Cp={Cp}"
         with torch.inference_mode():
             want = F.fusion_resi_plain(combined, seg_ends, budgets, k)
-            for parts in (0, 1, 2, 4):
-                got = F.fusion_resi_kernel(combined, seg_ends, budgets, k, parts=parts)
+            for p in parts:
+                got = F.fusion_resi_kernel(combined, seg_ends, budgets, k, parts=p)
                 torch.cuda.synchronize()
                 check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
-                      f"fusion_resi k64 hold {where} parts={parts}: differs from the plain "
+                      f"fusion_resi {tag} hold {where} parts={p}: differs from the plain "
                       "version")
-        line = (f"fusion k64 hold {where}: fusion_resi indices identical and residuals "
-                f"bit-equal at 1, 2, 4 parts and the kernel's choice")
+            spent = times(lambda: F.fusion_resi_kernel(combined, seg_ends, budgets, k),
+                          lambda: F.fusion_resi_plain(combined, seg_ends, budgets, k))
+        del got
+        line = (f"fusion {tag} hold {where}: fusion_resi indices identical and residuals "
+                f"bit-equal at parts {', '.join(map(str, parts))} (0: the kernel's choice)"
+                + spent)
         idx, resi = want
         extra = index_points(payload, idx) if Cp else None
         with torch.inference_mode():
             got = T.fusion_tail_kernel(combined, resi, extra, layers)
             torch.cuda.synchronize()
             plain = T.fusion_tail_plain(combined, resi, extra, layers)
-        e = compare("fusion_tail", got, plain, f"k64 hold {where}")
+            spent = times(lambda: T.fusion_tail_kernel(combined, resi, extra, layers),
+                          lambda: T.fusion_tail_plain(combined, resi, extra, layers))
+        e = compare("fusion_tail", got, plain, f"{tag} hold {where}")
         e_k, e_32, e_tf = tail_sum_errors(resi, extra, layers)
         line += (f"; fusion_tail {e:.3g} from plain, sums vs fp64 {e_k:.3g} (plain fp32 "
-                 f"{e_32:.3g}, 1xTF32 {e_tf:.3g})")
+                 f"{e_32:.3g}, 1xTF32 {e_tf:.3g}){spent}")
         check(e_k <= TAIL_SUM_LIMIT and e_k < e_tf,
-              f"fusion_tail k64 hold {where}: weighted sums {e_k} from fp64")
+              f"fusion_tail {tag} hold {where}: weighted sums {e_k} from fp64")
+        del want, idx, resi, extra, got, plain
         if seg_ends.shape[1] == 2:
             with torch.inference_mode():
                 got = F.fusion_kernel(combined, seg_ends, budgets, layers, k, payload)
                 torch.cuda.synchronize()
                 plain = F.fusion_plain(combined, seg_ends, budgets, layers, k, payload)
-            check(got.shape == (1, N, 3 + Cp), f"fusion k64 hold {where}: rows {tuple(got.shape)}")
-            e = compare("fusion", got, plain, f"k64 hold {where}")
+                spent = times(lambda: F.fusion_kernel(combined, seg_ends, budgets, layers, k,
+                                                      payload),
+                              lambda: F.fusion_plain(combined, seg_ends, budgets, layers, k,
+                                                     payload))
+            check(got.shape == (1, N, 3 + Cp), f"fusion {tag} hold {where}: rows "
+                                               f"{tuple(got.shape)}")
+            e = compare("fusion", got, plain, f"{tag} hold {where}")
             e_k, e_32, e_tf = fusion_sum_errors(got, combined, seg_ends, budgets, layers, k)
             line += (f"; fusion {e:.3g} from plain, residual sums vs fp64 {e_k:.3g} (plain fp32 "
-                     f"{e_32:.3g}, 1xTF32 {e_tf:.3g})")
+                     f"{e_32:.3g}, 1xTF32 {e_tf:.3g}){spent}")
             check(e_k <= TAIL_SUM_LIMIT and e_k < e_tf,
-                  f"fusion k64 hold {where}: weighted sums {e_k} from fp64")
+                  f"fusion {tag} hold {where}: weighted sums {e_k} from fp64")
             if Cp:
                 p_k, p_32, p_tf = payload_sum_errors(got, combined, seg_ends, budgets, layers, k,
                                                      payload)
                 line += f", payload sums vs fp64 {p_k:.3g} (1xTF32 {p_tf:.3g})"
                 check(p_k <= TAIL_SUM_LIMIT and p_k < p_tf,
-                      f"fusion k64 hold {where}: payload sums {p_k} from fp64")
+                      f"fusion {tag} hold {where}: payload sums {p_k} from fp64")
+            del got, plain
+        torch.cuda.empty_cache()
         print(line + f" on {card}", flush=True)
-    for kname, entry in (("fusion", "pci_fusion64_attrs"),
-                         ("fusion", "pci_fusion64_payload_attrs"),
-                         ("fusion_resi", "pci_fusion_resi64_attrs"),
-                         ("fusion_tail", "pci_fusion_tail64_attrs")):
-        print(f"kernel resources {kname} at k <= 64 ({entry}): "
-              f"{resources_text(kernel_attrs(entry))}")
 
 
 def knn_walk_pairs(points, kth, chunk: int, tile: int) -> float:
@@ -3456,31 +3558,32 @@ def queued_ms(fn, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
-def fusion64_stages_lines(calls, card: str, path: str) -> None:
-    """The `stages fusion64` line of each recorded fusion call past k = 32
-    (rows 4, 4b and 7 on their k <= 64 instantiations): CUDA events around
-    one call (median of 10, the host's launch included) and a call's share
-    of 20 queued back to back (the device's time)."""
+def fusion_stages_lines(calls, card: str, path: str, kind: str, past: int) -> None:
+    """The `stages <kind>` line (`fusion64` past k = 32, `fusion128` past 64)
+    of each recorded fusion call (rows 4, 4b and 7) past k = ``past``: CUDA
+    events around one call (median of 10,
+    the host's launch included) and a call's share of 20 queued back to
+    back (the device's time)."""
     with torch.inference_mode():
         for name, fn, args, kw in calls:
-            if fusion_k(name, args) <= 32:
+            if name not in FUSION_KINDS or fusion_k(name, args) <= past:
                 continue
             call = lambda: fn(*args, **kw)  # noqa: E731
-            print(f"stages fusion64 {path} {name} {label(name, args, kw)} on {card}: "
+            print(f"stages {kind} {path} {name} {label(name, args, kw)} on {card}: "
                   f"{cuda_ms(call, 10):.4f} ms (CUDA events, one call), {queued_ms(call):.4f} "
                   f"ms a call of 20 queued")
 
 
-def pointinet2_model(dev):
-    """PointINet2 field=2 on ``dev``, eval: the trained PointINet
-    (assets/pointinet_synth16k.npz) as its key PointINet (flow and fusion)
-    and as its ring flow; Wnet, the ring fusions and fusion2 a seeded
-    init."""
+def pointinet2_model(dev, fusion_k: int = 64):
+    """PointINet2 field=2 on ``dev``, eval, its rings and fusion2 at
+    ``fusion_k``: the trained PointINet (assets/pointinet_synth16k.npz) as
+    its key PointINet (flow and fusion) and as its ring flow; Wnet, the ring
+    fusions and fusion2 a seeded init."""
     from pci_tpu_torch.convert import flax_to_state_dict, load_npz_tree
     from pci_tpu_torch.models import PointINet2
     from pci_tpu_torch.serving import DEFAULT_WEIGHTS, init_weights
 
-    model = PointINet2(FIELD)
+    model = PointINet2(FIELD, fusion_k=fusion_k)
     init_weights(model, 1100)
     trained = flax_to_state_dict(load_npz_tree(DEFAULT_WEIGHTS))
     own = {f"pointinet.{k}": v for k, v in trained.items()}
@@ -3532,7 +3635,7 @@ def phase_pointinet2(card: str, totals: dict) -> list:
         fus = [c for c in part if c[0] in FUSION_KINDS]
         hold_kernels(fus, len(fus), per(**{n: want[n] for n in FUSION_KINDS}), totals,
                      f"{path} {route}")
-        fusion64_stages_lines(fus, card, f"{path} {route}")
+        fusion_stages_lines(fus, card, f"{path} {route}", "fusion64", 32)
     del calls
 
     def serve(p=None):
@@ -3575,7 +3678,7 @@ def phase_pointinet2(card: str, totals: dict) -> list:
     fus = [c for c in calls if c[0] in FUSION_KINDS]
     hold_kernels(fus, len(fus), per(**{n: PER_EVAL_STEP_POINTINET2[n] for n in FUSION_KINDS}),
                  totals, path)
-    fusion64_stages_lines(fus, card, path)
+    fusion_stages_lines(fus, card, path, "fusion64", 32)
     del calls
     step(batch, draws())  # warm-up
     torch.cuda.synchronize()
@@ -3665,7 +3768,7 @@ def phase_pointinet2_large(card: str, totals: dict) -> list:
         fus = [c for c in calls if c[0] in LARGE_FUSION_KINDS]
         hold_kernels(fus, len(fus), per(**{kind: want[kind] for kind in (
             "fusion_cells", "knn_cells", "fusion_tail")}), totals, f"{path} {route}")
-        fusion64_stages_lines(fus, card, f"{path} {route}")
+        fusion_stages_lines(fus, card, f"{path} {route}", "fusion64", 32)
     del calls, fus
 
     def serve(p=None):
@@ -3743,8 +3846,8 @@ def hold_cells_k64(card: str) -> None:
     on seeded clouds (sigma 1 m) with hold_fusion_tail's seeded score MLP
     and a one-channel payload: the residual mode's indices and residuals
     bit-equal to the plain version's; the one-shot rows within 1e-4 of
-    the plain version's, the payload channel within PAYLOAD_LIMIT, the
-    weighted sums against fp64 within TAIL_SUM_LIMIT and below one TF32
+    the plain version's, the weighted sums (the payload channel too)
+    against fp64 within TAIL_SUM_LIMIT and below one TF32
     product's; each mode timed by CUDA events beside the flat kernels
     (rows 4 and 4b, the parent's route at k > 32) on the same inputs.  Then
     row 10's masked passes at MASKED_HOLDS (fusion_cells_multi_knn against
@@ -4399,6 +4502,217 @@ def phase_eval(totals: dict) -> list:
     return [isapci[0], pointinet[0], intensity[0]]
 
 
+# rows 4, 4b and 7 past k = 64 (their k <= 128 kernels, four slots a lane;
+# row 7's streaming kernel): (N, k, t, Cp) as FUSION64_HOLDS, at k = 65, 96
+# and 128 at the requests' 16,384 and 65,536 points, t near 0 and 1 (a
+# segment's budget past 64), segments shorter than their budgets, payloads
+# of 1 and 2 channels; row 4b at F = 3 and 4 (PointsFusionMulti's weights)
+FUSION128_HOLDS = ((16384, 65, 0.5, 0), (16384, 96, 0.3, 1), (16384, 128, 0.6, 2),
+                   (65536, 65, 0.4, 0), (65536, 96, 0.5, 1), (65536, 128, 0.7, 0),
+                   (4096, 128, 0.02, 0), (4096, 128, 0.98, 1), (2048, 128, (20, 100, 28), 0),
+                   (3000, 96, (2950, 30, 66), 2))
+FUSION128_MULTI_HOLDS = ((16384, 128, (0.3, 0.2)), (16384, 96, (0.2, 0.3, 0.1)),
+                         (4096, 128, (0.6, 0.1, 0.1)))
+# row 7 at k = 160, past the flat kernels (PointsFusion's eval tail after the
+# kNN's plain version): (B, N, k, Ce)
+TAIL_K160_HOLDS = ((1, 16384, 160, 0), (1, 4096, 160, 1))
+
+
+def hold_fusion_k128(card: str) -> None:
+    """Rows 4, 4b and 7 at FUSION128_HOLDS / FUSION128_MULTI_HOLDS
+    (hold_fusion_rows, timed; row 4b's k > 64 kernel takes no parts), row
+    7 at TAIL_K160_HOLDS as
+    hold_fusion_tail holds it, then the new kernels' resources."""
+    from pci_tpu_torch.ops.cuda_kernels._build import kernel_attrs
+    from pci_tpu_torch.ops.cuda_kernels.fusion_tail_cuda import fusion_tail_kernel, fusion_tail_plain
+
+    from pci_tpu_torch.ops.cuda_kernels._build import PackedLayers
+
+    hold_fusion_rows(card, "k128", FUSION128_HOLDS, FUSION128_MULTI_HOLDS, 1900, (0,), timed=True)
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(1901)
+    layers = PackedLayers(seeded_score_mlp(g, dev))
+    for B, N, k, Ce in TAIL_K160_HOLDS:
+        combined = (torch.randn(B, N, 3, generator=g) * 10).to(dev)
+        resi = torch.randn(B, N, k, 3, generator=g).to(dev)
+        resi[:, ::7, k // 2:] = 0.0  # unfilled slots: zero residuals, still active
+        extra = torch.randn(B, N, k, Ce, generator=g).to(dev) if Ce else None
+        where = f"B={B} N={N} k={k} Ce={Ce}"
+        with torch.inference_mode():
+            got = fusion_tail_kernel(combined, resi, extra, layers)
+            torch.cuda.synchronize()
+            want = fusion_tail_plain(combined, resi, extra, layers)
+            ms = cuda_ms(lambda: fusion_tail_kernel(combined, resi, extra, layers), 5)
+            plain_ms = cuda_ms(lambda: fusion_tail_plain(combined, resi, extra, layers), 1)
+        err = compare("fusion_tail", got, want, f"hold {where}")
+        e_k, e_32, e_tf = tail_sum_errors(resi, extra, layers)
+        print(f"fusion_tail hold {where}: max |kernel - plain| {err:.3g} (<= 1e-4); weighted "
+              f"sums vs fp64: kernel {e_k:.3g} (<= {TAIL_SUM_LIMIT:g}), plain fp32 {e_32:.3g}, "
+              f"plain 1xTF32 {e_tf:.3g}; {ms:.4f} ms (plain {plain_ms:.4f} ms) on {card}")
+        check(e_k <= TAIL_SUM_LIMIT and e_k < e_tf,
+              f"fusion_tail hold {where}: weighted sums {e_k} from fp64")
+    for kname, entry in (("fusion", "pci_fusion128_attrs"),
+                         ("fusion", "pci_fusion128_payload_attrs"),
+                         ("fusion_resi", "pci_fusion_resi128_attrs"),
+                         ("fusion_tail", "pci_fusion_tail_stream_attrs")):
+        print(f"kernel resources {kname} at k <= 128 ({entry}): "
+              f"{resources_text(kernel_attrs(entry))}")
+
+
+def fusion_request(card: str, totals: dict, path: str, model, args, kw, expected: dict,
+                   kinds, width: int, n: int) -> dict:
+    """One model's request through its forward: a plain call's dispatches
+    against ``expected``, its calls of ``kinds`` held against their plain
+    versions (timed, their bounds; `stages fusion128` lines for the fusion
+    calls past k = 64); then five requests with the counts set to 0 before
+    and read after, the frame against the plain forward with the same
+    ``kw`` (permutations), ms a frame by CUDA events."""
+    from pci_tpu_torch.ops.cuda_kernels import plain_versions
+
+    calls = []
+    with torch.inference_mode(), plain_versions(), record_calls(calls):
+        model(*args, **kw)
+    got = dispatch_counts(calls)
+    check(got == expected, f"{path}: dispatches {got}, expected {expected}")
+    held = [c for c in calls if c[0] in kinds]
+    hold_kernels(held, len(held), per(**{k_: expected[k_] for k_ in kinds}), totals, path)
+    fusion_stages_lines(held, card, path, "fusion128", 64)
+    del calls, held
+
+    def serve(**kw_):
+        with torch.inference_mode():
+            return model(*args, **kw_)[0].cpu().numpy()
+
+    serve()  # warm-up
+    counts = serve_counts(lambda: [serve() for _ in range(5)], expected, path, npoints=n,
+                          width=width)
+    got = serve(**kw)
+    with plain_versions():
+        want = serve(**kw)
+    p999, mx = agreement(got, want, f"{path} frame vs plain")
+    check(p999 <= 1e-3 and mx <= 0.25, f"{path}: frame disagrees with the plain forward")
+    latency(serve, card, f"{path} (model call)")
+    return counts
+
+
+def phase_fusion_k128(card: str, totals: dict) -> list:
+    """The fusion at k in 65-128 through the models' fields (phase 13):
+    the kernel holds (hold_fusion_k128), then requests on the default route
+    (fusion_request): PointINet(fusion_k=128) at 16,384 and 65,536 points,
+    xyz and with a seeded intensity channel, at 16,384 xyz also with
+    one-shot off (rows 4b and 7 past k = 64); PointINet2(field=2,
+    fusion_k=128) at 16,384; ISAPCInet(field=2, fusion_k=96,
+    fusion_sampling="fps") at 16,384 (its FPS orders over all points held
+    too; from the same flows, as phase 6 holds it, its warped clouds
+    against the plain route's and its fusion on the same warped clouds
+    against the plain route, since FPS over warped clouds that differ by
+    rounding may order a point elsewhere)."""
+    from pci_tpu_torch.convert import flax_to_state_dict, load_npz_tree
+    from pci_tpu_torch.models import PointINet
+    from pci_tpu_torch.ops.cuda_kernels import plain_versions
+    from pci_tpu_torch.serving import DEFAULT_WEIGHTS, Interpolator
+
+    hold_fusion_k128(card)
+    dev = torch.device("cuda")
+    paths = []
+    tree = flax_to_state_dict(load_npz_tree(DEFAULT_WEIGHTS))
+    for n in (NPOINTS, LARGE_N[0]):
+        model = PointINet(fusion_k=128)
+        model.load_state_dict(tree)
+        model = model.to(dev).eval()
+        perms = tuple(torch.randperm(n, generator=torch.Generator().manual_seed(s))[None].to(dev)
+                      for s in (1, 2))
+        z = torch.zeros(1, n, 3, device=dev)
+        t = torch.tensor([0.5], device=dev)
+        for width in (3, 4):
+            a, b = (torch.from_numpy(x[:, :width].copy())[None].to(dev)
+                    for x in intensity_pair(n))
+            path = f"pointinet k=128 {n} {'xyz' if width == 3 else 'intensity'}"
+            paths.append(fusion_request(card, totals, path, model, (a, b, z, z, t),
+                                        {"perms": perms}, PER_REQUEST_K128, ("fusion",), width,
+                                        n))
+            if n == NPOINTS and width == 3:  # rows 4b and 7 past k = 64 on a request
+                with gates(ONESHOT_OFF):
+                    paths.append(fusion_request(
+                        card, totals, f"{path}, one-shot off", model, (a, b, z, z, t),
+                        {"perms": perms}, PER_REQUEST_K128_ONESHOT_OFF,
+                        ("fusion_resi", "fusion_tail"), width, n))
+        del model
+        torch.cuda.empty_cache()
+
+    model = pointinet2_model(dev, fusion_k=128)
+    fwd, (k0, k1), bwd, _ = synthetic_window(NPOINTS)
+    T = lambda x: torch.from_numpy(x)[None].to(dev)  # noqa: E731
+    args = ([T(x) for x in fwd], [T(k0), T(k1)], [T(x) for x in bwd],
+            torch.tensor([0.5], device=dev), torch.zeros(1, NPOINTS, 3, device=dev))
+    g = torch.Generator().manual_seed(1301)
+    perms = [torch.randperm(NPOINTS, generator=g)[None].to(dev)
+             for _ in range(2 + 2 * FIELD + FIELD + 1)]
+    paths.append(fusion_request(card, totals, f"pointinet2 k=128 {NPOINTS}", model, args,
+                                {"perms": perms}, PER_REQUEST_POINTINET2_K128, FUSION_KINDS, 3,
+                                NPOINTS))
+    del model
+    torch.cuda.empty_cache()
+
+    model = Interpolator.isapci(field=FIELD, npoints=NPOINTS, weights=DEFAULT_WEIGHTS,
+                                device="cuda", fusion_k=96, fusion_sampling="fps").model
+    path = f"isapci k=96 fps {NPOINTS}"
+    calls = []
+    with torch.inference_mode(), plain_versions(), record_calls(calls):
+        model(*args)
+    got = dispatch_counts(calls)
+    check(got == PER_REQUEST_ISAPCI_FPS, f"{path}: dispatches {got}, expected "
+                                         f"{PER_REQUEST_ISAPCI_FPS}")
+    # the fusion's FPS orders (npoint = N) and its one-shot call
+    held = [c for c in calls if c[0] == "fusion" or c[0] == "fps" and c[2][1] == NPOINTS]
+    check(len(held) == 3, f"{path}: {len(held)} FPS-over-all-points and fusion calls")
+    hold_kernels(held, len(held), per(fps=2, fusion=1), totals, path)
+    fusion_stages_lines(held, card, path, "fusion128", 64)
+    del calls, held
+
+    def serve():
+        with torch.inference_mode():
+            return model(*args)[0].cpu().numpy()
+
+    serve()  # warm-up
+    paths.append(serve_counts(lambda: [serve() for _ in range(5)], PER_REQUEST_ISAPCI_FPS, path))
+    # the request's flows, then the rest of its forward on the kernel route
+    # with the fusion's FPS orders and warped clouds recorded, and the plain
+    # versions' from the same flows on those orders: FPS over all points
+    # may order a near-tied point of a warped cloud elsewhere on rounding
+    # alone, which moves it across the cloud's sampled prefix (and
+    # PointNet++'s picks over the flow cloud flip as phase 4 says)
+    orders, warped = [], []
+    fps_orders = model.fusion._orders
+    model.fusion._orders = lambda *a: orders.append(fps_orders(*a)) or orders[-1]
+    hook = model.fusion.register_forward_pre_hook(lambda mod, a: warped.append(a))
+    try:
+        with torch.inference_mode():
+            flows = model.window_flows(*args[:3], args[4])
+            got = model.from_flows(*flows, args[1], args[3])[0].cpu().numpy()
+            with plain_versions():
+                want = model.from_flows(*flows, args[1], args[3],
+                                        perms=orders[0])[0].cpu().numpy()
+                whole = model(*args, perms=orders[0])[0].cpu().numpy()
+    finally:
+        hook.remove()
+        del model.fusion._orders
+    check(len(orders) == 1 and len(warped) == 3, f"{path}: {len(orders)} FPS orders taken, "
+                                                 f"{len(warped)} fusion calls")
+    (w1, w2, _, _), (p1, p2, _, _) = warped[:2]
+    err = max((w1 - p1).abs().max().item(), (w2 - p2).abs().max().item())
+    print(f"{path} warped clouds vs plain, same flows: max {err:.3g} m")
+    check(err <= 1e-5, f"{path}: the warped clouds disagree with the plain route's by {err} m")
+    p999, mx = agreement(got, want, f"{path} frame vs plain, same flows and FPS orders")
+    check(p999 <= 1e-3 and mx <= 0.25, f"{path}: frame disagrees with the plain forward")
+    agreement(got, whole, f"{path} frame vs the whole plain forward on its FPS orders "
+                          "(flows included)")
+    latency(serve, card, f"{path} (model call)")
+    del model
+    torch.cuda.empty_cache()
+    return paths
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4413,6 +4727,14 @@ def main() -> int:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         phase_variants(card_line())
+        return 0
+    if sys.argv[1:2] == ["--k128"]:  # phase 13 alone, with the FPS holds
+        card = card_line()
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        hold_fps(card)
+        hold_fusion_k160(card)
+        phase_fusion_k128(card, new_totals())
         return 0
     if sys.argv[1:2] == ["--attention"]:  # the attention holds and the variants' widths only
         card = card_line()
@@ -4461,7 +4783,7 @@ def main() -> int:
     hold_ball(card)
     hold_fusion_resi(card)
     hold_fusion_tail(card)
-    hold_fusion_k96(card)
+    hold_fusion_k160(card)
     hold_fusion_k64(card)
     hold_fusion_payload(card)
     phase_time("3. kernels")
@@ -4516,8 +4838,14 @@ def main() -> int:
     counts_variants = phase_variants(card)
     phase_time("12. isapci variants")
 
+    # 13. the fusion at k in 65-128 through the models' fusion_k and
+    # fusion_sampling
+    counts_k128 = phase_fusion_k128(card, totals)
+    phase_time("13. fusion k128")
+
     paths = [counts, counts_stream, *counts_routes, *counts_isapci, counts_train, *counts_large,
-             *counts_eval, *counts_intensity, *counts_pointinet2, *counts_variants]
+             *counts_eval, *counts_intensity, *counts_pointinet2, *counts_variants,
+             *counts_k128]
     for kname, entry in RESOURCE_KERNELS.items():  # the tensor-core and auction kernels
         t = totals[kname]
         print(f"kernel resources {kname}: {resources_text(kernel_attrs(entry))}; max |kernel - "

@@ -1,6 +1,8 @@
 // The fusion's attention head for one query, one warp a query and lane L
-// holding slot L (k <= 32), or slots L and 32 + L (k <= 64: head_weight2,
-// fused_row2, payload_sums2): the folded score MLP over [resi |
+// holding slot L (k <= 32), slots L and 32 + L (k <= 64: head_weight2,
+// fused_row2, payload_sums2) or slots 32 h + L, h < 4 (k <= 128:
+// head_weight4, fused_row4, payload_sums4); the tail past k = 64 takes the
+// scores 32 slots at a time (head_score): the folded score MLP over [resi |
 // safe_norm(resi)], the max over channels, and the softmax over the slots,
 // on the tensor cores in 3xTF32 (csrc/mma_tf32.cuh), the split weights in
 // shared memory (score_tile, head_weight, fused_row), then the weighted
@@ -151,6 +153,23 @@ __device__ __forceinline__ void score_tile(const float* sw, float rx, float ry, 
   mhi = fmaxf(mhi, __shfl_xor_sync(FULL, mhi, 2));
 }
 
+// Slot `lane`'s score, max_c MLP([r | safe_norm(r)]), on the tensor-core
+// head: the score MLP over `tiles` 16-slot tiles (2, or 1 where no slot
+// past 15 is read), slot `lane` holding the residual (rx, ry, rz).
+__device__ __forceinline__ float head_score(const float* sw, float rx, float ry, float rz,
+                                            int tiles) {
+  const int lane = threadIdx.x & 31;
+  const float nr = sqrtf(rx * rx + ry * ry + rz * rz + 1e-12f);
+  float lo0, hi0, lo1 = 0.f, hi1 = 0.f;
+  score_tile(sw, rx, ry, rz, nr, 0, lo0, hi0);
+  if (tiles > 1) score_tile(sw, rx, ry, rz, nr, 1, lo1, hi1);
+  // slot s = 16 mt + r sits on lane 4 (r % 8), lo for r < 8, hi above
+  const int src = (lane & 7) * 4;
+  const float s00 = __shfl_sync(FULL, lo0, src), s01 = __shfl_sync(FULL, hi0, src);
+  const float s10 = __shfl_sync(FULL, lo1, src), s11 = __shfl_sync(FULL, hi1, src);
+  return lane < 16 ? (lane < 8 ? s00 : s01) : (lane < 24 ? s10 : s11);
+}
+
 // Slot `lane`'s softmax weight before normalisation on the tensor-core
 // head (the caller divides by warp_sum): slot `lane` holds the residual
 // (rx, ry, rz) (zero for a slot that is inactive or unfilled), the score
@@ -161,17 +180,7 @@ __device__ __forceinline__ void score_tile(const float* sw, float rx, float ry, 
 // memory.
 __device__ __forceinline__ float head_weight(const float* sw, float rx, float ry, float rz,
                                              bool active, int tiles = 2) {
-  const int lane = threadIdx.x & 31;
-  const float nr = sqrtf(rx * rx + ry * ry + rz * rz + 1e-12f);
-  float lo0, hi0, lo1 = 0.f, hi1 = 0.f;
-  score_tile(sw, rx, ry, rz, nr, 0, lo0, hi0);
-  if (tiles > 1) score_tile(sw, rx, ry, rz, nr, 1, lo1, hi1);
-  // slot s = 16 mt + r sits on lane 4 (r % 8), lo for r < 8, hi above
-  const int src = (lane & 7) * 4;
-  const float s00 = __shfl_sync(FULL, lo0, src), s01 = __shfl_sync(FULL, hi0, src);
-  const float s10 = __shfl_sync(FULL, lo1, src), s11 = __shfl_sync(FULL, hi1, src);
-  const float score = lane < 16 ? (lane < 8 ? s00 : s01) : (lane < 24 ? s10 : s11);
-  return slot_weight(score, active);
+  return slot_weight(head_score(sw, rx, ry, rz, tiles), active);
 }
 
 // The fused row of one query from its slots on the tensor-core head
@@ -269,6 +278,84 @@ __device__ __forceinline__ void payload_sums2(float w0, float w1, float wsum, bo
                                               float* dst) {
   for (int c = 0; c < Cp; ++c) {
     const float v = warp_sum(w0 * (act0 ? value(c, 0) : 0.f) + w1 * (act1 ? value(c, 1) : 0.f));
+    if ((threadIdx.x & 31) == 0 && dst) dst[c] = v / wsum;
+  }
+}
+
+// ---- up to 128 slots, four a lane -----------------------------------------
+
+// Slots 32 h + lane (h < 4, residual x[h] y[h] z[h]) of one query, k <=
+// 128: the same score_tile over `tiles` 16-slot tiles (1 to 8, one loop;
+// tile mt reads quarter mt / 2, selected by warp-uniform compares so that
+// the slots stay in registers), then the softmax over all four at once (the
+// max of every active slot first, so no partial sum is rescaled).  w[h]:
+// slot 32 h + lane's weight before normalisation, 0 for an inactive slot.
+__device__ __forceinline__ void head_weight4(const float* sw, const float (&x)[4],
+                                             const float (&y)[4], const float (&z)[4],
+                                             const bool (&act)[4], int tiles, float (&w)[4]) {
+  const int lane = threadIdx.x & 31, src = (lane & 7) * 4;
+  float nr[4], s[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int h = 0; h < 4; ++h) nr[h] = sqrtf(x[h] * x[h] + y[h] * y[h] + z[h] * z[h] + 1e-12f);
+#pragma unroll 1
+  for (int mt = 0; mt < tiles; ++mt) {
+    const int h = mt >> 1;
+    const float rx = h == 0 ? x[0] : h == 1 ? x[1] : h == 2 ? x[2] : x[3];
+    const float ry = h == 0 ? y[0] : h == 1 ? y[1] : h == 2 ? y[2] : y[3];
+    const float rz = h == 0 ? z[0] : h == 1 ? z[1] : h == 2 ? z[2] : z[3];
+    const float rn = h == 0 ? nr[0] : h == 1 ? nr[1] : h == 2 ? nr[2] : nr[3];
+    float lo, up;
+    score_tile(sw, rx, ry, rz, rn, mt & 1, lo, up);
+    // slot 16 (mt & 1) + r of the quarter sits on lane 4 (r % 8), lo for r < 8
+    const float a = __shfl_sync(FULL, lo, src), b = __shfl_sync(FULL, up, src);
+    if ((lane >> 4) == (mt & 1)) {
+      const float v = (lane & 8) ? b : a;
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        if (q == h) s[q] = v;
+    }
+  }
+  float m = -CUDART_INF_F;
+#pragma unroll
+  for (int h = 0; h < 4; ++h) m = fmaxf(m, act[h] ? s[h] : -CUDART_INF_F);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) m = fmaxf(m, __shfl_xor_sync(FULL, m, off));
+#pragma unroll
+  for (int h = 0; h < 4; ++h) w[h] = act[h] ? expf(s[h] - m) : 0.f;
+}
+
+// The fused row of one query over up to 128 slots (head_weight4): q + sum
+// w r / sum w on every lane; w and wsum return the lane's four slot weights
+// and the weights' sum, for payload_sums4.
+__device__ __forceinline__ float3 fused_row4(const float* sw, float qx, float qy, float qz,
+                                             const float (&x)[4], const float (&y)[4],
+                                             const float (&z)[4], const bool (&act)[4],
+                                             int tiles, float (&w)[4], float& wsum) {
+  head_weight4(sw, x, y, z, act, tiles, w);
+  float sw_ = 0.f, ax = 0.f, ay = 0.f, az = 0.f;
+#pragma unroll
+  for (int h = 0; h < 4; ++h) {
+    sw_ += w[h];
+    ax += w[h] * x[h];
+    ay += w[h] * y[h];
+    az += w[h] * z[h];
+  }
+  wsum = warp_sum(sw_);
+  ax = warp_sum(ax), ay = warp_sum(ay), az = warp_sum(az);
+  return make_float3(qx + ax / wsum, qy + ay / wsum, qz + az / wsum);
+}
+
+// payload_sums over four slots a lane (head_weight4): value(c, h) reads
+// channel c of slot 32 h + lane, for an active slot only.
+template <class Value>
+__device__ __forceinline__ void payload_sums4(const float (&w)[4], float wsum,
+                                              const bool (&act)[4], int Cp, const Value& value,
+                                              float* dst) {
+  for (int c = 0; c < Cp; ++c) {
+    float v = 0.f;
+#pragma unroll
+    for (int h = 0; h < 4; ++h) v += w[h] * (act[h] ? value(c, h) : 0.f);
+    v = warp_sum(v);
     if ((threadIdx.x & 31) == 0 && dst) dst[c] = v / wsum;
   }
 }

@@ -54,7 +54,10 @@
 // holds list entries L and 32 + L (list_insert2: two ballots, the shifts
 // of both halves), and the head runs the same 16-slot tiles up to four
 // times (fusion_head.cuh head_weight2), the softmax taken over both halves
-// at once.
+// at once.  k <= 128 (pci_fusion128, the models' fusion_k past 64) is a
+// kernel of its own, fusion_wide_kernel: four list entries a lane, the
+// segments scanned one after another, the head over up to eight tiles
+// (head_weight4); see "k <= 128" below.
 //
 // The same file holds the training route's kernel, fusion_resi_kernel: it
 // replaces fusion_knn_tpu.py:knn_fusion_adaptive / knn_fusion_multi
@@ -66,7 +69,8 @@
 // package.  Bound: the N^2 distances a cloud (8 flops each), so
 // operations; its design is set out above the kernel.  k <= 64 runs the
 // KMAX = 64 instantiation (a 64-entry list for a segment's budget past 32,
-// and shared-memory lists and slot rows sized for it).
+// and shared-memory lists and slot rows sized for it); k <= 128 the
+// warp-a-query fusion_resi_wide_kernel (why: "k <= 128" below).
 #include "fusion_head.cuh"
 #include "cells.cuh"
 
@@ -415,6 +419,286 @@ extern "C" int pci_fusion64_payload_attrs(int* out) {
   return kernel_attrs(fusion_kernel<true, 2>, oneshot_smem(), out, ONE_WARPS * 32);
 }
 
+
+// ---- k <= 128: four list entries a lane ------------------------------------
+//
+// Budgets past 64 (rows 4 and 4b at k in 65-128) take kernels of their own,
+// so that the k <= 32 and k <= 64 instantiations above and below keep their
+// code and registers.  Both are one warp a query, lane L holding entries
+// L, 32 + L, 64 + L and 96 + L of one sorted list: a 128-entry list of
+// (distance, index) a thread (the residual kernel's layout) is 256
+// registers, past the 255 cap, and a list a query in shared memory does
+// not fit beside the residual kernel's rings (231,728 of 232,448 bytes at
+// four parts), so the residual kNN past 64 uses the one-shot kernel's
+// warp-a-query scan.  The segments are scanned one after another (a
+// query's list of the current segment only is live, 8 registers a query
+// at QW = 2), the block streaming each segment's keys through two
+// cp.async tiles, every lane testing one key of a 32-key chunk against the
+// list's cap-th distance and the few that pass going in by list_insert4,
+// as list_insert / list_insert2 do: the same slots, rounding and ties.
+// Each segment's list is then placed into the query's slots [cum, cum +
+// cap) by shuffles (place_slots).
+
+// list_insert for a list of up to 128 entries, four a lane: entry 32 h +
+// lane in (d[h], id[h]); `cap` <= 128.
+__device__ __forceinline__ void list_insert4(float (&d)[4], int (&id)[4], float& thr, int cap,
+                                             float dn, int jn, int lane) {
+  if (!(dn < thr)) return;  // warp-uniform
+  int p = 0;
+#pragma unroll
+  for (int h = 0; h < 4; ++h) p += __popc(__ballot_sync(FULL, d[h] <= dn));
+  float ud[4];
+  int ui[4];
+#pragma unroll
+  for (int h = 0; h < 4; ++h) {
+    ud[h] = __shfl_up_sync(FULL, d[h], 1);
+    ui[h] = __shfl_up_sync(FULL, id[h], 1);
+  }
+#pragma unroll
+  for (int h = 1; h < 4; ++h) {  // entry 32 h - 1 moves to entry 32 h
+    const float e = __shfl_sync(FULL, d[h - 1], 31);
+    const int j = __shfl_sync(FULL, id[h - 1], 31);
+    if (lane == 0) {
+      ud[h] = e;
+      ui[h] = j;
+    }
+  }
+#pragma unroll
+  for (int h = 0; h < 4; ++h) {
+    const int s = 32 * h + lane;
+    if (s > p) {
+      d[h] = ud[h];
+      id[h] = ui[h];
+    } else if (s == p) {
+      d[h] = dn;
+      id[h] = jn;
+    }
+    if (s >= cap) {
+      d[h] = CUDART_INF_F;
+      id[h] = -1;
+    }
+  }
+  const int hc = (cap - 1) >> 5;
+  float v = d[0];
+#pragma unroll
+  for (int h = 1; h < 4; ++h)
+    if (h == hc) v = d[h];
+  thr = __shfl_sync(FULL, v, (cap - 1) & 31);
+}
+
+// The block's scan of keys [lo, hi) of P (block-uniform bounds) for QW
+// queries a warp into lists of `cap` <= 128 entries (d, id; -1 for an
+// entry the range cannot fill): the keys through two tile buffers of
+// ONE_TILE rows (`keys`), the next tile loading while every warp scans
+// this one; four 32-key chunks' distances at once, then each chunk's
+// test and inserts, query by query.
+template <int QW>
+__device__ __forceinline__ void range_scan4(const float* __restrict__ P, int lo, int hi,
+                                            int cap, const float (&qx)[QW],
+                                            const float (&qy)[QW], const float (&qz)[QW],
+                                            float* keys, int lane, float (&d)[QW][4],
+                                            int (&id)[QW][4]) {
+  float thr[QW];
+#pragma unroll
+  for (int i = 0; i < QW; ++i) {
+#pragma unroll
+    for (int h = 0; h < 4; ++h) {
+      d[i][h] = CUDART_INF_F;
+      id[i][h] = -1;
+    }
+    thr[i] = cap > 0 ? CUDART_INF_F : -CUDART_INF_F;
+  }
+  const int n = hi - lo;
+  if (n <= 0 || cap <= 0) return;  // block-uniform
+  const int tiles = (n + ONE_TILE - 1) / ONE_TILE;
+  stage_keys(P, lo, min(ONE_TILE, n), keys);
+  for (int ti = 0; ti < tiles; ++ti) {
+    const int t0 = ti * ONE_TILE, tn = min(ONE_TILE, n - t0);
+    if (ti + 1 < tiles)
+      stage_keys(P, lo + t0 + ONE_TILE, min(ONE_TILE, n - t0 - ONE_TILE),
+                 keys + ((ti + 1) & 1) * 3 * ONE_TILE);
+    else
+      cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();  // tile ti is in for every thread
+    const float* kt = keys + (ti & 1) * 3 * ONE_TILE;
+    for (int base = 0; base < tn; base += 128) {
+      float dd[QW][4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int jl = base + 32 * u + lane;
+        const bool in = jl < tn;
+        const float kx = in ? kt[3 * jl] : 0.f, ky = in ? kt[3 * jl + 1] : 0.f,
+                    kz = in ? kt[3 * jl + 2] : 0.f;
+#pragma unroll
+        for (int i = 0; i < QW; ++i)
+          dd[i][u] = in ? sqdist3(kx, ky, kz, qx[i], qy[i], qz[i]) : CUDART_INF_F;
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+#pragma unroll
+        for (int i = 0; i < QW; ++i) {
+          unsigned mask = __ballot_sync(FULL, dd[i][u] < thr[i]);
+          while (mask) {
+            const int src = __ffs(mask) - 1;
+            mask &= mask - 1;
+            const float dn = __shfl_sync(FULL, dd[i][u], src);
+            list_insert4(d[i], id[i], thr[i], cap, dn, lo + t0 + base + 32 * u + src, lane);
+          }
+        }
+      }
+    }
+    __syncthreads();  // every warp is done with the buffer the next copy reuses
+  }
+}
+
+// A segment's list (entry e of query i in li[i][e / 32] on lane e % 32) into
+// the query's slots [cum, cum + cap): slot s = 32 h + lane of idx[i][h].
+template <int QW>
+__device__ __forceinline__ void place_slots(const int (&li)[QW][4], int cum, int cap, int lane,
+                                            int (&idx)[QW][4]) {
+#pragma unroll
+  for (int i = 0; i < QW; ++i) {
+#pragma unroll
+    for (int h = 0; h < 4; ++h) {
+      const int e = 32 * h + lane - cum;
+      int v[4];
+#pragma unroll
+      for (int g = 0; g < 4; ++g) v[g] = __shfl_sync(FULL, li[i][g], e & 31);
+      if (e >= 0 && e < cap) {
+        const int g = e >> 5;
+        idx[i][h] = g == 0 ? v[0] : g == 1 ? v[1] : g == 2 ? v[2] : v[3];
+      }
+    }
+  }
+}
+
+// the k <= 128 one-shot kernel's warps a block: at 65,536 points, k = 128,
+// 16 warps (128 registers, 540 bytes spilled) ran 14.72 ms against 18.80 at
+// 8 (255 registers, 340 bytes) on an H100 80GB HBM3 at 700 W (PERF.md)
+#define WIDE_WARPS 16
+
+// The one-shot kernel at k <= 128 (pci_fusion128): persistent blocks of NW
+// = WIDE_WARPS warps, one an SM, the split score MLP in shared memory as in
+// fusion_kernel; a group of NW x ONE_QW queries of one batch row scans
+// segment A = [0, n1) then B = [n1, N) (range_scan4), then each warp runs
+// its queries' heads over up to eight 16-slot tiles (fused_row4) and, in the
+// PAY instantiation, the payload sums.  Slot s = 32 h + lane: A's entry s
+// for s < cap0, B's entry s - cap0 below cap0 + cap1; an unfilled slot
+// below cap0 + cap1 is the query itself (zero residual, its own payload).
+template <bool PAY>
+__global__ void __launch_bounds__(WIDE_WARPS * 32, 1)
+fusion_wide_kernel(const float* __restrict__ pts, const int* __restrict__ seg,
+                   const float* __restrict__ wtc, const float* __restrict__ payload, int Cp,
+                   float* __restrict__ out, int B, int N) {
+  extern __shared__ float4 smem4[];
+  float* sw = reinterpret_cast<float*>(smem4);
+  float* keys = sw + ONE_NW;  // 2 x ONE_TILE x 3
+  for (int e = threadIdx.x; e < ONE_NW / 4; e += blockDim.x)
+    smem4[e] = reinterpret_cast<const float4*>(wtc)[e];
+  __syncthreads();  // (a group whose segments are empty syncs nowhere else)
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  constexpr int NW = WIDE_WARPS;
+  constexpr int G = NW * ONE_QW;  // queries a group
+  const int per_row = (N + G - 1) / G;
+  for (int grp = blockIdx.x; grp < B * per_row; grp += gridDim.x) {
+    const int b = grp / per_row;
+    const int q0 = (grp - b * per_row) * G + warp;  // queries q0 + i NW
+    const float* P = pts + (size_t)b * N * 3;
+    const int n1 = min(max(seg[b * 4 + 0], 0), N);
+    const int cap0 = max(0, min(seg[b * 4 + 2], 128));
+    const int cap1 = max(0, min(seg[b * 4 + 3], 128 - cap0));
+    float qx[ONE_QW], qy[ONE_QW], qz[ONE_QW];
+#pragma unroll
+    for (int i = 0; i < ONE_QW; ++i) {
+      const int qq = min(q0 + i * NW, N - 1);
+      qx[i] = P[qq * 3], qy[i] = P[qq * 3 + 1], qz[i] = P[qq * 3 + 2];
+    }
+    int idx[ONE_QW][4];
+#pragma unroll
+    for (int i = 0; i < ONE_QW; ++i)
+#pragma unroll
+      for (int h = 0; h < 4; ++h) idx[i][h] = -1;
+    {
+      float d[ONE_QW][4];
+      int li[ONE_QW][4];
+      range_scan4<ONE_QW>(P, 0, n1, cap0, qx, qy, qz, keys, lane, d, li);
+      place_slots<ONE_QW>(li, 0, cap0, lane, idx);
+      range_scan4<ONE_QW>(P, n1, N, cap1, qx, qy, qz, keys, lane, d, li);
+      place_slots<ONE_QW>(li, cap0, cap1, lane, idx);
+    }
+    const int kk = cap0 + cap1;
+#pragma unroll
+    for (int i = 0; i < ONE_QW; ++i) {
+      float x[4], y[4], z[4], w[4], wsum;
+      bool act[4];
+#pragma unroll
+      for (int h = 0; h < 4; ++h) {
+        const int j = idx[i][h];
+        act[h] = 32 * h + lane < kk;
+        x[h] = y[h] = z[h] = 0.f;
+        if (act[h] && j >= 0) {
+          x[h] = P[(size_t)j * 3] - qx[i];
+          y[h] = P[(size_t)j * 3 + 1] - qy[i];
+          z[h] = P[(size_t)j * 3 + 2] - qz[i];
+        }
+      }
+      const float3 o = fused_row4(sw, qx[i], qy[i], qz[i], x, y, z, act,
+                                  max((kk + 15) / 16, 1), w, wsum);
+      const int q = q0 + i * NW;
+      float* dst = out + ((size_t)b * N + q) * (PAY ? 3 + Cp : 3);
+      if (lane == 0 && q < N) {
+        dst[0] = o.x;
+        dst[1] = o.y;
+        dst[2] = o.z;
+      }
+      if constexpr (PAY) {  // a pad query (q >= N) reads row N - 1 and stores nothing
+        const size_t self = (size_t)b * N + min(q, N - 1);
+        const float* xs[4];  // slot 32 h + lane's payload row
+#pragma unroll
+        for (int h = 0; h < 4; ++h)
+          xs[h] = payload + (idx[i][h] >= 0 ? (size_t)b * N + idx[i][h] : self) * Cp;
+        payload_sums4(w, wsum, act, Cp, [&](int c, int h) { return __ldg(xs[h] + c); },
+                      q < N ? dst + 3 : nullptr);
+      }
+    }
+  }
+}
+
+// pci_fusion's arguments at k1 + k2 <= 128.
+extern "C" int pci_fusion128(const void* pts, const void* seg, const void* wtc,
+                             int h1, int h2, int h3, const void* payload, int Cp, void* out,
+                             int B, int N, void* stream) {
+  if (h1 != ONE_H1 || h2 != ONE_H2 || h3 != ONE_H3 || N < 1 || B < 1 || Cp < 0 ||
+      Cp > PAYLOAD_MAX || (Cp > 0 && payload == nullptr))
+    return (int)cudaErrorInvalidValue;
+  constexpr int NW = WIDE_WARPS;
+  const auto kernel = Cp > 0 ? fusion_wide_kernel<true> : fusion_wide_kernel<false>;
+  const size_t smem = oneshot_smem();
+  cudaError_t e = allow_smem(kernel, smem);
+  if (e != cudaSuccess) return (int)e;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
+  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return (int)e;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, NW * 32, smem);
+  if (e != cudaSuccess) return (int)e;
+  const long long groups = (long long)B * ((N + NW * ONE_QW - 1) / (NW * ONE_QW));
+  const int grid = (int)std::max(1LL, std::min((long long)std::max(per_sm, 1) * sms, groups));
+  kernel<<<grid, NW * 32, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(pts), static_cast<const int*>(seg),
+      static_cast<const float*>(wtc), static_cast<const float*>(payload), Cp,
+      static_cast<float*>(out), B, N);
+  return (int)cudaGetLastError();
+}
+extern "C" int pci_fusion128_attrs(int* out) {
+  return kernel_attrs(fusion_wide_kernel<false>, oneshot_smem(), out,
+                      WIDE_WARPS * 32);
+}
+extern "C" int pci_fusion128_payload_attrs(int* out) {
+  return kernel_attrs(fusion_wide_kernel<true>, oneshot_smem(), out,
+                      WIDE_WARPS * 32);
+}
 
 // ---- the residual kernel --------------------------------------------------
 //
@@ -786,22 +1070,110 @@ fusion_resi_kernel(ResiParams p) {
   }
 }
 
+// The residual kNN at k in 65-128 (a segment's budget may pass 64): one
+// warp a query, persistent blocks of RESW_WARPS warps over groups of
+// RESW_WARPS x ONE_QW queries of one batch row (see "k <= 128" above); 64
+// registers and 48 KB of key tiles a block, so several blocks an SM.
+#define RESW_WARPS 8
+// The segments one after another, each through range_scan4 and
+// place_slots; then lane L writes slots L, 32 + L, 64 + L, 96 + L of its
+// query: the index (the query itself for an unfilled slot) and the residual
+// by __fsub_rn, as the KMAX kernels' epilogue computes it.
+__global__ void __launch_bounds__(RESW_WARPS * 32)
+fusion_resi_wide_kernel(ResiParams p) {
+  extern __shared__ float4 smem4[];
+  float* keys = reinterpret_cast<float*>(smem4);  // 2 x ONE_TILE x 3
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  constexpr int G = RESW_WARPS * ONE_QW;
+  const int N = p.N, k = p.k, per_row = (N + G - 1) / G;
+  for (int grp = blockIdx.x; grp < p.B * per_row; grp += gridDim.x) {
+    const int b = grp / per_row;
+    const int q0 = (grp - b * per_row) * G + warp;  // queries q0 + i RESW_WARPS
+    const float* P = p.pts + (size_t)b * N * 3;
+    float qx[ONE_QW], qy[ONE_QW], qz[ONE_QW];
+    int idx[ONE_QW][4];
+#pragma unroll
+    for (int i = 0; i < ONE_QW; ++i) {
+      const int qq = min(q0 + i * RESW_WARPS, N - 1);
+      qx[i] = P[qq * 3], qy[i] = P[qq * 3 + 1], qz[i] = P[qq * 3 + 2];
+#pragma unroll
+      for (int h = 0; h < 4; ++h) idx[i][h] = -1;
+    }
+    int used = 0, start = 0;
+    for (int f = 0; f < p.F; ++f) {
+      const int end = min(p.ends[b * p.F + f], N);
+      const int cap = max(0, min(p.buds[b * p.F + f], k - used));
+      float d[ONE_QW][4];
+      int li[ONE_QW][4];
+      range_scan4<ONE_QW>(P, start, end, cap, qx, qy, qz, keys, lane, d, li);
+      place_slots<ONE_QW>(li, used, cap, lane, idx);
+      used += cap;
+      start = max(start, end);
+    }
+#pragma unroll
+    for (int i = 0; i < ONE_QW; ++i) {
+      const int q = q0 + i * RESW_WARPS;
+      if (q >= N) continue;
+      const size_t row = (size_t)b * N + q;
+#pragma unroll
+      for (int h = 0; h < 4; ++h) {
+        const int s = 32 * h + lane;
+        if (s >= k) break;
+        const int j = idx[i][h] >= 0 ? idx[i][h] : q;
+        p.out_i[row * k + s] = j;
+        float* r = p.out_r + (row * k + s) * 3;
+        r[0] = __fsub_rn(P[(size_t)j * 3], qx[i]);
+        r[1] = __fsub_rn(P[(size_t)j * 3 + 1], qy[i]);
+        r[2] = __fsub_rn(P[(size_t)j * 3 + 2], qz[i]);
+      }
+    }
+  }
+}
+
+static size_t resi_wide_smem() { return sizeof(float) * 2 * 3 * ONE_TILE; }
+
+static int resi_wide_launch(const ResiParams& p, int sms, cudaStream_t stream) {
+  const size_t smem = resi_wide_smem();
+  cudaError_t e = allow_smem(fusion_resi_wide_kernel, smem);
+  if (e != cudaSuccess) return (int)e;
+  int per_sm = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fusion_resi_wide_kernel,
+                                                    RESW_WARPS * 32, smem);
+  if (e != cudaSuccess) return (int)e;
+  const long long groups =
+      (long long)p.B * ((p.N + RESW_WARPS * ONE_QW - 1) / (RESW_WARPS * ONE_QW));
+  const int grid = (int)std::max(1LL, std::min((long long)std::max(per_sm, 1) * sms, groups));
+  fusion_resi_wide_kernel<<<grid, RESW_WARPS * 32, smem, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
 // pts [B, N, 3] fp32; ends, buds: device int32 [B, F] (cumulative segment
 // ends, the last == N; budgets) -> out_i [B, N, k] int64, out_r [B, N, k,
-// 3] fp32.  1 <= F <= 4, 1 <= k <= 64.  parts: 1, 2 or 4 key ranges a
+// 3] fp32.  1 <= F <= 4, 1 <= k <= 128.  parts: 1, 2 or 4 key ranges a
 // segment, or 0 to choose by the query count; stamps: null, or zeroed
-// int64 [B * ceil(N / 64)][RES_STAMPS].
+// int64 [B * ceil(N / 64)][RES_STAMPS].  k > 64 runs
+// fusion_resi_wide_kernel, which takes neither (parts 0 and null stamps).
 extern "C" int pci_fusion_resi(const void* pts, const void* ends, const void* buds, int F,
                                void* out_i, void* out_r, int B, int N, int k, int parts,
                                void* stamps, void* stream) {
-  if (F < 1 || F > 4 || k < 1 || k > 64 || N < 1 || B < 1 ||
-      !(parts == 0 || parts == 1 || parts == 2 || parts == 4))
+  if (F < 1 || F > 4 || k < 1 || k > 128 || N < 1 || B < 1 ||
+      !(parts == 0 || parts == 1 || parts == 2 || parts == 4) ||
+      (k > 64 && (parts != 0 || stamps != nullptr)))
     return (int)cudaErrorInvalidValue;
   int dev = 0, sms = 0;
   cudaError_t e;
   if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
   if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
     return (int)e;
+  ResiParams p;
+  p.pts = static_cast<const float*>(pts);
+  p.ends = static_cast<const int*>(ends);
+  p.buds = static_cast<const int*>(buds);
+  p.out_i = static_cast<long long*>(out_i);
+  p.out_r = static_cast<float*>(out_r);
+  p.stamps = static_cast<unsigned long long*>(stamps);
+  p.F = F, p.B = B, p.N = N, p.k = k, p.P = 1;
+  if (k > 64) return resi_wide_launch(p, sms, static_cast<cudaStream_t>(stream));
   const long long items = (long long)B * ((N + RES_Q - 1) / RES_Q);
   // the kernel's choice: split only where the items leave the card short
   // of warps (on the H100, 4 parts took 16,384 points at B = 1 in 0.24 ms
@@ -814,14 +1186,7 @@ extern "C" int pci_fusion_resi(const void* pts, const void* ends, const void* bu
   int per_sm = 0;
   e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, parts * RES_Q, smem);
   if (e != cudaSuccess) return (int)e;
-  ResiParams p;
-  p.pts = static_cast<const float*>(pts);
-  p.ends = static_cast<const int*>(ends);
-  p.buds = static_cast<const int*>(buds);
-  p.out_i = static_cast<long long*>(out_i);
-  p.out_r = static_cast<float*>(out_r);
-  p.stamps = static_cast<unsigned long long*>(stamps);
-  p.F = F, p.B = B, p.N = N, p.k = k, p.P = parts;
+  p.P = parts;
   const int grid = (int)std::max(1LL, std::min((long long)std::max(per_sm, 1) * sms, items));
   kernel<<<grid, parts * RES_Q, smem, static_cast<cudaStream_t>(stream)>>>(p);
   return (int)cudaGetLastError();
@@ -835,4 +1200,7 @@ extern "C" int pci_fusion_resi_attrs(int* out) {
 extern "C" int pci_fusion_resi64_attrs(int* out) {
   return kernel_attrs(fusion_resi_kernel<64>, resi_smem(RES_MAXP, 64, 64), out,
                       RES_MAXP * RES_Q);
+}
+extern "C" int pci_fusion_resi128_attrs(int* out) {
+  return kernel_attrs(fusion_resi_wide_kernel, resi_wide_smem(), out, RESW_WARPS * 32);
 }

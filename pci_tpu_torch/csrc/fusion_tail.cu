@@ -34,7 +34,8 @@
 //   - k <= 64 (PointINet2's ring fusions with the one-shot kernel off) is
 //     the S = 2 instantiation: two slots a lane, up to four 16-slot tiles
 //     through the same head (head_weight2), a 64 x 3 row buffer; k <= 32
-//     keeps its own.
+//     keeps its own; any k past 64 the streaming kernel
+//     (fusion_tail_stream_kernel, an online softmax over 32-slot chunks).
 #include "fusion_head.cuh"
 
 #define TAIL_WARPS 12
@@ -135,24 +136,96 @@ fusion_tail_kernel(const __grid_constant__ TailParams p) {
   cp_async_wait<0>();
 }
 
+// Any k past 64 (the TPU kernel's tail has no k limit): one warp a row
+// streams the row's slots 32 at a time (lane L slot c0 + L of chunk c0),
+// loading the next chunk's residuals into registers while the head scores
+// this one (head_score: one or two 16-slot tiles), and keeps an online
+// softmax: a running max m over the slots seen, and the sums of exp(s - m)
+// times 1, the residual and each payload channel, rescaled by exp(m_old -
+// m) when a chunk raises m (fusion_knn_tpu.py:online_softmax_step).  No
+// row buffer and no instantiation by k; payloads of at most PAYLOAD_MAX
+// channels (their sums live in registers).
+__global__ void __launch_bounds__(TAIL_WARPS * 32, TAIL_BLOCKS_PER_SM)
+fusion_tail_stream_kernel(const __grid_constant__ TailParams p) {
+  extern __shared__ float4 smem4[];
+  float* sw = reinterpret_cast<float*>(smem4);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int e = threadIdx.x; e < ONE_NW / 4; e += blockDim.x)
+    cp_async16(smem4 + e, reinterpret_cast<const float4*>(p.wtc) + e);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();  // the weights are in
+  const long long W = (long long)gridDim.x * TAIL_WARPS;
+  const int k = p.k, Ce = p.Ce;
+  for (long long row = (long long)blockIdx.x * TAIL_WARPS + warp; row < p.rows; row += W) {
+    const float* r = p.resi + row * k * 3;
+    float nx = 0.f, ny = 0.f, nz = 0.f;  // the next chunk's slot
+    if (lane < k) {
+      nx = __ldg(r + 3 * lane);
+      ny = __ldg(r + 3 * lane + 1);
+      nz = __ldg(r + 3 * lane + 2);
+    }
+    float m = -CUDART_INF_F, wsum = 0.f, ax = 0.f, ay = 0.f, az = 0.f;
+    float acc[PAYLOAD_MAX];
+#pragma unroll
+    for (int c = 0; c < PAYLOAD_MAX; ++c) acc[c] = 0.f;
+    for (int c0 = 0; c0 < k; c0 += 32) {
+      const int s = c0 + lane;
+      const bool active = s < k;
+      const float rx = nx, ry = ny, rz = nz;
+      if (s + 32 < k) {
+        nx = __ldg(r + 3 * (s + 32));
+        ny = __ldg(r + 3 * (s + 32) + 1);
+        nz = __ldg(r + 3 * (s + 32) + 2);
+      }
+      const float score = head_score(sw, rx, ry, rz, k - c0 > 16 ? 2 : 1);
+      float cm = active ? score : -CUDART_INF_F;
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) cm = fmaxf(cm, __shfl_xor_sync(FULL, cm, off));
+      const float mn = fmaxf(m, cm), scale = expf(m - mn);  // exp(-inf) = 0 at the first chunk
+      const float w = active ? expf(score - mn) : 0.f;
+      wsum = wsum * scale + warp_sum(w);
+      ax = ax * scale + warp_sum(w * rx);
+      ay = ay * scale + warp_sum(w * ry);
+      az = az * scale + warp_sum(w * rz);
+      const float* x = p.extra + (row * k + s) * Ce;  // slot s's channels
+#pragma unroll
+      for (int c = 0; c < PAYLOAD_MAX; ++c)
+        if (c < Ce) acc[c] = acc[c] * scale + warp_sum(active ? w * __ldg(x + c) : 0.f);
+      m = mn;
+    }
+    if (lane == 0) {
+      float* o = p.out + row * (3 + Ce);
+      o[0] = p.comb[row * 3] + ax / wsum;
+      o[1] = p.comb[row * 3 + 1] + ay / wsum;
+      o[2] = p.comb[row * 3 + 2] + az / wsum;
+#pragma unroll
+      for (int c = 0; c < PAYLOAD_MAX; ++c)
+        if (c < Ce) o[3 + c] = acc[c] / wsum;
+    }
+  }
+}
+
 static size_t tail_smem(int S) {
   return sizeof(float) * (ONE_NW + TAIL_WARPS * 2 * S * TAIL_BUF);
 }
 
 // comb [B, N, 3], resi [B, N, k, 3], extra [B, N, k, Ce] (null for Ce == 0)
 // fp32; wtc the score MLP (4 -> h1 -> h2 -> h3) split by
-// _build.pack_tf32(..., chain=True); out [B, N, 3 + Ce]; 1 <= k <= 64 (the
-// instantiation by k: S = 2 past 32).  A grid of TAIL_BLOCKS_PER_SM blocks
-// an SM (at most one a warp's row).
+// _build.pack_tf32(..., chain=True); out [B, N, 3 + Ce]; k >= 1 (the
+// kernel by k: S = 2 past 32, the streaming kernel past 64, with Ce <=
+// PAYLOAD_MAX there).  A grid of TAIL_BLOCKS_PER_SM blocks an SM (at most
+// one a warp's row).
 extern "C" int pci_fusion_tail(const void* comb, const void* resi,
                                const void* extra, const void* wtc, int h1,
                                int h2, int h3, void* out, int B, int N, int k,
                                int Ce, void* stream) {
-  if (h1 != ONE_H1 || h2 != ONE_H2 || h3 != ONE_H3 || k < 1 || k > 64 || Ce < 0 ||
-      (Ce > 0 && extra == nullptr) || B < 1 || N < 1)
+  if (h1 != ONE_H1 || h2 != ONE_H2 || h3 != ONE_H3 || k < 1 || Ce < 0 ||
+      (k > 64 && Ce > PAYLOAD_MAX) || (Ce > 0 && extra == nullptr) || B < 1 || N < 1)
     return (int)cudaErrorInvalidValue;
-  const int S = k > 32 ? 2 : 1;
-  const auto fusion_tail_kernel_s = S == 2 ? fusion_tail_kernel<2> : fusion_tail_kernel<1>;
+  const int S = k > 64 ? 0 : k > 32 ? 2 : 1;
+  const auto fusion_tail_kernel_s = S == 0 ? fusion_tail_stream_kernel
+                                    : S == 2 ? fusion_tail_kernel<2> : fusion_tail_kernel<1>;
   const size_t smem = tail_smem(S);
   cudaError_t e = allow_smem(fusion_tail_kernel_s, smem);
   if (e != cudaSuccess) return (int)e;
@@ -184,4 +257,7 @@ extern "C" int pci_fusion_tail_attrs(int* out) {
 }
 extern "C" int pci_fusion_tail64_attrs(int* out) {
   return kernel_attrs(fusion_tail_kernel<2>, tail_smem(2), out, TAIL_WARPS * 32);
+}
+extern "C" int pci_fusion_tail_stream_attrs(int* out) {
+  return kernel_attrs(fusion_tail_stream_kernel, tail_smem(0), out, TAIL_WARPS * 32);
 }

@@ -29,7 +29,7 @@ from ..nn.heads import Outputer, Tnet, Wnet
 from ..nn.pointnet2 import Pointnet2FeatureAbstract
 from ..nn.transformer import TransformerLayer
 from .flownet3d import FlowNet3D
-from .pointinet import FUSION_K, PointINet
+from .pointinet import PointINet
 
 
 def flow_pair_plan(field: int):
@@ -50,19 +50,22 @@ def flow_pair_plan(field: int):
 
 
 class ISAPCInet(nn.Module):
-    """ISAPCInet with fusion k=32 and the flow frozen (the JAX model's
+    """ISAPCInet with the flow frozen (the JAX model's
     ``freeze_flow=True``); submodule names are the flax module's.  The
     reference's published variants are widths and this switch:
     ``use_tnet=False`` builds no ``tnet_forward`` / ``tnet_backward`` and
     sends the flows into PointNet++ unweighted (``New_Models0_noT_96.py``,
     at ``ff_out_c = tr_out_c = 96``); ``New_Models_field_{0,1}.py`` run
-    ``field`` 0 and 1 at 128.  field 0 has no Tnet either way."""
+    ``field`` 0 and 1 at 128.  field 0 has no Tnet either way.
+    ``fusion_k`` (32) and ``fusion_sampling`` (``"random"`` | ``"fps"``) set
+    the fusion's neighbours and each warped cloud's order, as the JAX
+    model's fields of those names; neither adds a parameter."""
 
     def __init__(self, field: int, ff_out_c: int = 64, tr_out_c: int = 64,
-                 use_tnet: bool = True):
+                 use_tnet: bool = True, fusion_k: int = 32, fusion_sampling: str = "random"):
         super().__init__()
         self.field, self.ff_out_c = field, ff_out_c
-        self.use_tnet = use_tnet
+        self.use_tnet, self.fusion_k = use_tnet, fusion_k
         self.flow = FlowNet3D()
         if field >= 1 and use_tnet:
             self.tnet_forward = Tnet(field)
@@ -71,7 +74,7 @@ class ISAPCInet(nn.Module):
         self.flow_tr_forward = TransformerLayer(ff_out_c, tr_out_c, 16)
         self.flow_tr_backward = TransformerLayer(ff_out_c, tr_out_c, 16)
         self.outputer = Outputer(ff_out_c * max(2 * field, 1))
-        self.fusion = PointsFusion()
+        self.fusion = PointsFusion(fusion_sampling)
         self.train()  # the frozen flow starts in eval mode too
 
     def train(self, mode: bool = True):
@@ -132,7 +135,7 @@ class ISAPCInet(nn.Module):
         tb = t32[:, None, None]
         warped_fwd = key_pcds[0] + nets[0] * tb
         warped_bwd = key_pcds[1] + nets[1] * (1.0 - tb)
-        return self.fusion(warped_fwd, warped_bwd, FUSION_K, t32,
+        return self.fusion(warped_fwd, warped_bwd, self.fusion_k, t32,
                            perms=perms, generator=generator, momentum=momentum)
 
     def forward(self, forward_pcds, key_pcds, backward_pcds, t, ini_feature,
@@ -150,8 +153,6 @@ class ISAPCInet(nn.Module):
                                momentum=momentum)
 
 
-RING_FUSION_K = 64  # PointINet2's ring and multi-cloud fusions (the reference's k = 64)
-
 
 class PointINet2(nn.Module):
     """Key-pair PointINet, a ``PointsFusion`` of each ring's warped pair,
@@ -162,18 +163,18 @@ class PointINet2(nn.Module):
     ``fusion``, ``flow``, ``fusion_ring{i}``, ``fusion2``), so
     ``convert.flax_to_state_dict`` loads a JAX checkpoint unchanged.  The
     key PointINet fuses at k = 32, the rings and ``fusion2`` at
-    ``RING_FUSION_K``.
+    ``fusion_k`` (the reference's 64).
 
     ``field`` >= 1: the JAX module cannot be built at field 0 (its
     ``Wnet`` ends in a Dense of 6 field = 0 features, whose initializer
     divides by zero), so neither can this one."""
 
-    def __init__(self, field: int):
+    def __init__(self, field: int, fusion_k: int = 64):
         super().__init__()
         if field < 1:
             raise ValueError(f"PointINet2: field >= 1 (the JAX PointINet2 cannot be built at "
                              f"field {field})")
-        self.field = field
+        self.field, self.fusion_k = field, fusion_k
         self.wnet = Wnet(field)
         self.pointinet = PointINet()
         self.flow = FlowNet3D()
@@ -215,6 +216,6 @@ class PointINet2(nn.Module):
             warped1 = key_pcds[0] + flows[2 * (i - 1)] / i * tb
             warped2 = key_pcds[1] + flows[2 * (i - 1) + 1] / i * (1.0 - tb)
             fused.append(getattr(self, f"fusion_ring{i}")(
-                warped1, warped2, RING_FUSION_K, t32, perms=take(2), generator=generator))
-        return self.fusion2(fused, RING_FUSION_K, weights, perms=take(field + 1),
+                warped1, warped2, self.fusion_k, t32, perms=take(2), generator=generator))
+        return self.fusion2(fused, self.fusion_k, weights, perms=take(field + 1),
                             generator=generator)

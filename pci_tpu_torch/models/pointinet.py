@@ -14,16 +14,19 @@ from ..nn.fusion import PointsFusionWithFeatures
 from .flownet3d import FlowNet3D
 
 
-FUSION_K = 32  # fusion neighbours (PointINet's fusion_k)
-
-
 class PointINet(nn.Module):
-    def __init__(self):
+    """``fusion_k``: the fusion's neighbours (the reference's 32);
+    ``fusion_sampling``: ``"random"`` or ``"fps"``, the order of each warped
+    cloud for xyz clouds (clouds with extra channels sample randomly, as
+    in the JAX model).  Neither adds a parameter."""
+
+    def __init__(self, fusion_k: int = 32, fusion_sampling: str = "random"):
         super().__init__()
+        self.fusion_k = fusion_k
         self.flow = FlowNet3D()
         # one score MLP for both widths, as the JAX package builds either
         # fusion class under the name "fusion"
-        self.fusion = PointsFusionWithFeatures()
+        self.fusion = PointsFusionWithFeatures(fusion_sampling)
 
     def forward(self, points1, points2, feats1, feats2, t, perms=None,
                 generator: torch.Generator | None = None):
@@ -44,5 +47,5 @@ class PointINet(nn.Module):
         warped2 = xyz2 + flow21 * (1.0 - tb)
         # no extra channel: PointsFusion's fusion (no payload)
         extra = (extra1, extra2) if extra1.shape[-1] else (None, None)
-        return self.fusion(warped1, warped2, *extra, FUSION_K, t, perms=perms,
+        return self.fusion(warped1, warped2, *extra, self.fusion_k, t, perms=perms,
                            generator=generator)

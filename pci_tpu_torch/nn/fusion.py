@@ -43,6 +43,14 @@ then the head in PyTorch on the BatchNorms' running statistics.
 The permutations come from ``torch.randperm`` with the caller's
 ``torch.Generator``: torch cannot reproduce ``jax.random``'s draws, so a
 caller that needs given permutations passes ``perms=(perm1, perm2)``.
+``PointsFusion(sampling="fps")`` orders each cloud by greedy FPS over all
+N points instead (``pci_tpu/nn/fusion.py:PointsFusion._orders``), from a
+start drawn from the generator in training and 0 at eval.
+
+The flat kernels serve k <= 128 (one, two or four slots a lane, chosen by
+k at launch), the cell-pruned ones k <= 64, and the tail any k; past
+those the budgeted kNN runs its plain version (on the card too) and the
+head the tail kernel at eval, PyTorch in training.
 """
 
 from __future__ import annotations
@@ -53,6 +61,7 @@ import torch
 from torch import nn
 
 from ..ops import index_points
+from ..ops.fps import fps
 from ..ops.cuda_kernels import (
     _build,
     fusion_attention_tail,
@@ -71,7 +80,10 @@ from ..ops.cuda_kernels.fusion_knn_cuda import (
     fusion_resi_plain,
 )
 from ..ops.cuda_kernels.fusion_tail_cuda import fusion_tail_plain
+from .layers import fps_start
 from .mlp import PointMLP
+
+SAMPLINGS = ("random", "fps")  # PointsFusion's orders of each cloud
 
 # N2 rounds to a multiple of _ALIGN; with k <= _ALIGN a segment with a
 # positive neighbour budget always holds at least k points (past it, a
@@ -159,16 +171,25 @@ def _cells_route_ok(points: torch.Tensor, k: int, train: bool, n_seg: int = 2) -
 
 
 def _kernel_shape_ok(k: int, payload: torch.Tensor | None) -> bool:
-    """The fusion kernels' shapes: ``k <= MAX_KERNEL_K`` (64: one lane a
-    slot up to 32 and two past it, in csrc/fusion_knn.cu,
-    csrc/fusion_cells.cu and csrc/fusion_tail.cu) and a payload of at most ``MAX_PAYLOAD``
-    channels (the one-shot kernels').  Past either, the fusion takes the
-    plain versions on any device: the budgeted kNN inside the same
-    fixed-neighbour autograd function, then the head in PyTorch, the
-    counterpart of the JAX package's XLA route
-    (``pci_tpu/nn/fusion.py:422-433``), which serves any k.  Module-level
-    for tests."""
-    return k <= MAX_KERNEL_K and (payload is None or payload.shape[-1] <= MAX_PAYLOAD)
+    """The flat fusion kernels' shapes (rows 4 and 4b): ``k <=
+    MAX_KERNEL_K`` (128: one lane a slot up to 32, two up to 64, four past
+    it, in csrc/fusion_knn.cu; the cells route stops at 64) and a payload
+    of at most ``MAX_PAYLOAD`` channels (the one-shot kernels').  Past
+    either, the budgeted kNN takes its plain version on any device, inside
+    the same fixed-neighbour autograd function, the counterpart of the JAX
+    package's XLA kNN (``pci_tpu/nn/fusion.py:422-433``), which serves any
+    k; the head then runs as :func:`_tail_shape_ok` says.  Module-level for
+    tests."""
+    return k <= MAX_KERNEL_K and _tail_shape_ok(payload)
+
+
+def _tail_shape_ok(payload: torch.Tensor | None) -> bool:
+    """The attention tail kernel's shapes (row 7, csrc/fusion_tail.cu): any
+    k and a payload of at most ``MAX_PAYLOAD`` channels, as the JAX
+    package sends every eval head to ``fusion_attention_tail``
+    (``_apply_fusion_tail``).  Past it the head takes its plain version.
+    Module-level for tests."""
+    return payload is None or payload.shape[-1] <= MAX_PAYLOAD
 
 
 def _neighbour_payload(payload, idx):
@@ -187,10 +208,15 @@ def random_perms(B: int, N: int, generator: torch.Generator | None,
 
 class PointsFusion(nn.Module):
     """Fuse two warped clouds with adaptive sampling and learned attention
-    over ``k`` adaptive neighbours."""
+    over ``k`` adaptive neighbours.  ``sampling``: each cloud's order,
+    ``"random"`` (a permutation) or ``"fps"`` (greedy FPS over all N
+    points); any other raises ``ValueError``."""
 
-    def __init__(self):
+    def __init__(self, sampling: str = "random"):
         super().__init__()
+        if sampling not in SAMPLINGS:
+            raise ValueError(f"unknown sampling {sampling!r}")
+        self.sampling = sampling
         self.mlp = PointMLP(4, (64, 64, 128))  # the score MLP
 
     def forward(self, points1, points2, k: int, t, perms=None,
@@ -209,8 +235,7 @@ class PointsFusion(nn.Module):
         B, N, _ = points1.shape
         N1, N2, k1, k2 = _adaptive_budgets(N, k, t)
         if perms is None:
-            perms = (random_perms(B, N, generator, points1.device),
-                     random_perms(B, N, generator, points1.device))
+            perms = self._orders(points1, points2, feats is None, generator)
         combined, gidx = _composed_shuffle_merge(
             [points1, points2], [p.to(points1.device) for p in perms],
             torch.stack([N1, N2], dim=1),
@@ -237,8 +262,19 @@ class PointsFusion(nn.Module):
             # the head in PyTorch (pci_tpu/nn/fusion.py:282-292), at eval on
             # the BatchNorms' running statistics
             return fusion_head(combined, resi, lambda h: self.mlp(h, momentum), extra)
-        tail = fusion_attention_tail if shape_ok else fusion_tail_plain
+        tail = fusion_attention_tail if _tail_shape_ok(payload) else fusion_tail_plain
         return tail(combined, resi, extra, self.mlp.folded())
+
+    def _orders(self, points1, points2, xyz_only: bool, generator):
+        """Both clouds' orders ``[B, N]``: FPS for ``sampling="fps"`` on a
+        call without features (the JAX PointINet builds its xyz fusion with
+        ``fusion_sampling`` and the one with features without it), random
+        permutations otherwise."""
+        B, N, _ = points1.shape
+        if self.sampling == "fps" and xyz_only:
+            return tuple(fps(p, N, fps_start(self, p, generator)) for p in (points1, points2))
+        return (random_perms(B, N, generator, points1.device),
+                random_perms(B, N, generator, points1.device))
 
 
 class PointsFusionWithFeatures(PointsFusion):
@@ -257,8 +293,11 @@ class PointsFusionWithFeatures(PointsFusion):
         carries the row's own).  Feature rows go through the clouds'
         permutations.  On the card at eval the payload rides the one-shot
         kernel's launch (up to ``MAX_PAYLOAD`` channels; wider ones take
-        the plain versions, as ``k > 64`` does).  ``feats1/2`` None:
-        :class:`PointsFusion`'s ``[B, N, 3]``."""
+        the plain versions; past k = 128 the kNN takes its plain version
+        and the head the tail kernel).  ``feats1/2`` None:
+        :class:`PointsFusion`'s ``[B, N, 3]``, ordered by ``sampling``;
+        with features the orders are random, as the JAX class draws
+        them."""
         feats = None if feats1 is None else (feats1, feats2)
         return self._fuse(points1, points2, feats, k, t, perms, generator, momentum)
 
@@ -295,7 +334,7 @@ class PointsFusionMulti(nn.Module):
         combined, _ = _composed_shuffle_merge(list(points_list), [p.to(dev) for p in perms],
                                               n_all.to(dev))
         seg_ends = torch.cumsum(n_all, dim=1)
-        shape_ok = k <= MAX_KERNEL_K and F <= MAX_SEGMENTS
+        shape_ok = k <= MAX_KERNEL_K and F <= MAX_SEGMENTS  # k <= 128
         cells = _cells_route_ok(combined, k, self.training, F)  # k <= 64, any F
         if cells and F == 2:  # pci_tpu/nn/fusion.py:189-208, the single-pass kernel
             _, resi = fusion_cells_resi_knn(combined, seg_ends, k_all, k)

@@ -51,6 +51,9 @@ _SIGNATURES = {
     "pci_fusion_payload_attrs": [_IP],
     "pci_fusion64_attrs": [_IP],
     "pci_fusion64_payload_attrs": [_IP],
+    "pci_fusion128": [_P, _P, _P, _I, _I, _I, _P, _I, _P, _I, _I, _P],
+    "pci_fusion128_attrs": [_IP],
+    "pci_fusion128_payload_attrs": [_IP],
     "pci_flowenc_attrs": [_IP],
     "pci_flowmid_attrs": [_IP],
     "pci_ball": [_P, _P, _P, _IP, _I, _I, _I, _I, _P, _P, _P],
@@ -71,6 +74,7 @@ _SIGNATURES = {
     "pci_fusion_resi": [_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _P, _P],
     "pci_fusion_resi_attrs": [_IP],
     "pci_fusion_resi64_attrs": [_IP],
+    "pci_fusion_resi128_attrs": [_IP],
     "pci_attention_bwd": [_P] * 11 + [_I, _I, _I, _I, _P],
     "pci_flowenc": [_P, _P, _P, _P, _IP, _I, _P, _IP, _I, _P, _P, _P, _P, _P, _I, _I,
                     _I, _I, _I, _F, _I, _F, _I, _P],
@@ -79,6 +83,7 @@ _SIGNATURES = {
     "pci_fusion_tail": [_P, _P, _P, _P, _I, _I, _I, _P, _I, _I, _I, _I, _P],
     "pci_fusion_tail_attrs": [_IP],
     "pci_fusion_tail64_attrs": [_IP],
+    "pci_fusion_tail_stream_attrs": [_IP],
     "pci_fusion_cells": [_P] * 8 + [_I] * 3 + [_P, _I] + [_P] * 6 + [_I] * 6 + [_P],
     "pci_fusion_cells_attrs": [_IP],
     "pci_fusion_cells_payload_attrs": [_IP],

@@ -32,7 +32,7 @@ import torch
 from ..cells import box_lb, chunk_boxes, sort_by_morton
 from . import _build, knn_cuda
 from .fusion_knn_cuda import (
-    MAX_KERNEL_K,
+    PAIR_K,
     SCORE_MLP,
     FusionResiKnn,
     as_payload,
@@ -201,8 +201,8 @@ def fusion_cells_kernel(combined, seg_ends, budgets, k, layers=None, scanned=Non
     B, N, C = combined.shape
     if C != 3:
         raise ValueError("fusion_cells kernel takes [B, N, 3] clouds")
-    if not 1 <= k <= MAX_KERNEL_K:
-        raise ValueError(f"fusion_cells kernel: k <= {MAX_KERNEL_K} (two slots a lane)")
+    if not 1 <= k <= PAIR_K:
+        raise ValueError(f"fusion_cells kernel: k <= {PAIR_K} (two slots a lane)")
     if seg_ends.shape != (B, 2) or budgets.shape != (B, 2):
         raise ValueError("fusion_cells kernel: two segments a batch row")
     seg = torch.cat([seg_ends, budgets], dim=1).to(dev, torch.int32).contiguous()

@@ -33,8 +33,10 @@ from .knn_cuda import knn_plain
 
 MAX_SEGMENTS = 4  # the residual kernel keeps one top list a segment
 # the flat fusion kernels' slots a query: one lane a slot up to 32, two a
-# lane up to 64 (each kernel's k <= 64 instantiation, chosen by k at launch)
-MAX_KERNEL_K = 64
+# lane up to 64, four up to 128 (each kernel's k <= 64 instantiation and its
+# k <= 128 kernel, chosen by k at launch)
+MAX_KERNEL_K = 128
+PAIR_K = 64  # the k <= 64 instantiations' slots (and the cell-pruned kernels' limit)
 LANE_K = 32  # the k <= 32 instantiations' slots
 MAX_PAYLOAD = 8  # payload channels the one-shot kernels carry (csrc/fusion_head.cuh PAYLOAD_MAX)
 RESI_ITEM = 64  # queries a residual kernel item (csrc/fusion_knn.cu RES_Q)
@@ -95,13 +97,15 @@ def payload_channels(payload, combined, name: str) -> int:
 
 
 def fusion_kernel(combined, seg_ends, budgets, layers, k, payload=None):
+    """One launch of the one-shot kernel: ``pci_fusion`` at k <= 32,
+    ``pci_fusion64`` at k <= 64, ``pci_fusion128`` above."""
     dev = combined.device
     _build.require(combined, "combined", torch.float32, 3, dev)
     B, N, C = combined.shape
     if C != 3:
         raise ValueError("fusion kernel takes [B, N, 3] clouds")
     if not 1 <= k <= MAX_KERNEL_K:
-        raise ValueError(f"fusion kernel: k <= {MAX_KERNEL_K} (two slots a lane at most)")
+        raise ValueError(f"fusion kernel: k <= {MAX_KERNEL_K} (four slots a lane at most)")
     if seg_ends.shape != (B, 2) or budgets.shape != (B, 2):
         raise ValueError("fusion kernel: two segments a batch row")
     Cp = payload_channels(payload, combined, "fusion")
@@ -111,7 +115,9 @@ def fusion_kernel(combined, seg_ends, budgets, layers, k, payload=None):
     wtc = _build.pack_tf32(layers, dev, chain=True)
     seg = torch.cat([seg_ends, budgets], dim=1).to(dev, torch.int32).contiguous()
     out = torch.empty((B, N, 3 + Cp), dtype=torch.float32, device=dev)
-    entry = _build.library().pci_fusion if k <= LANE_K else _build.library().pci_fusion64
+    lib = _build.library()
+    entry = (lib.pci_fusion if k <= LANE_K else lib.pci_fusion64 if k <= PAIR_K
+             else lib.pci_fusion128)
     err = entry(
         combined.data_ptr(), seg.data_ptr(), wtc.data_ptr(), *dims[1:],
         payload.data_ptr() if Cp else None, Cp, out.data_ptr(), B, N,
@@ -158,7 +164,7 @@ def fusion_resi_knn(combined: torch.Tensor, seg_ends: torch.Tensor,
     cannot fill (fewer rows than budget) holds the row itself.
 
     ``seg_ends`` / ``budgets``: ``[B, F]`` int, ``F <= 4``, the last end
-    ``N``, budgets summing to ``k <= 64``.  Returns ``(idx [B, N, k]``
+    ``N``, budgets summing to ``k <= 128``.  Returns ``(idx [B, N, k]``
     int64, ``resi [B, N, k, 3]`` = neighbour - row``)``.  ``resi`` is
     differentiable in ``combined`` with the neighbours held fixed:
     ``d combined = scatter_add(idx, d resi) - sum_k d resi``, the JAX
@@ -197,7 +203,8 @@ def fusion_resi_kernel(combined, seg_ends, budgets, k, parts: int = 0, stamps=No
     by the query count); ``stamps``: a zeroed int64 ``[B * ceil(N / 64),
     RESI_STAMPS]`` CUDA tensor that takes each 64-query item's start and end
     (``%globaltimer`` ns), its scan, merge and write ns, and its list
-    inserts (measurement only)."""
+    inserts (measurement only).  k > 64 runs the warp-a-query kernel,
+    which takes neither."""
     dev = combined.device
     _build.require(combined, "combined", torch.float32, 3, dev)
     B, N, C = combined.shape
@@ -212,6 +219,8 @@ def fusion_resi_kernel(combined, seg_ends, budgets, k, parts: int = 0, stamps=No
                          f"{MAX_KERNEL_K} a segment)")
     if parts not in (0, 1, 2, 4):
         raise ValueError(f"fusion_resi kernel: parts {parts} not in 0, 1, 2, 4")
+    if k > PAIR_K and (parts or stamps is not None):
+        raise ValueError(f"fusion_resi kernel: no parts or stamps past k = {PAIR_K}")
     if stamps is not None:
         _build.require(stamps, "stamps", torch.int64, 2, dev)
         if stamps.shape != (B * -(-N // RESI_ITEM), RESI_STAMPS):

@@ -7,7 +7,9 @@ Replaces ``pci_tpu/ops/pallas_kernels/fusion_tail_tpu.py:fusion_attention_tail``
 kNN ``fusion_resi_knn``).  The kernel runs the one-shot kernels' head
 (csrc/fusion_head.cuh) on the tensor cores in 3xTF32, from the score MLP
 split by ``_build.pack_tf32(..., chain=True)``, in persistent blocks that
-prefetch each warp's next row.
+prefetch each warp's next row; any k past 64 streams each row's slots 32
+at a time through an online softmax, with a payload of at most
+``MAX_PAYLOAD`` channels there.
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from .fusion_knn_cuda import MAX_KERNEL_K, SCORE_MLP, fusion_head
+from .fusion_knn_cuda import MAX_PAYLOAD, PAIR_K, SCORE_MLP, fusion_head
 
 
 def fusion_attention_tail(combined: torch.Tensor, resi: torch.Tensor,
@@ -39,15 +41,17 @@ def fusion_tail_kernel(combined, resi, extra, layers):
     _build.require(resi, "resi", torch.float32, 4, dev)
     B, N, C = combined.shape
     k = resi.shape[2]
-    if C != 3 or resi.shape != (B, N, k, 3) or not 1 <= k <= MAX_KERNEL_K:
-        raise ValueError(f"fusion_tail kernel: [B, N, 3] rows, [B, N, k <= {MAX_KERNEL_K}, 3] "
-                         "residuals")
+    if C != 3 or resi.shape != (B, N, k, 3) or k < 1:
+        raise ValueError("fusion_tail kernel: [B, N, 3] rows, [B, N, k >= 1, 3] residuals")
     Ce = 0
     if extra is not None:
         _build.require(extra, "extra", torch.float32, 4, dev)
         if extra.shape[:3] != (B, N, k):
             raise ValueError("fusion_tail kernel: extra is [B, N, k, Ce]")
         Ce = extra.shape[3]
+        if k > PAIR_K and Ce > MAX_PAYLOAD:
+            raise ValueError(f"fusion_tail kernel: past k = {PAIR_K} a payload of at most "
+                             f"{MAX_PAYLOAD} channels")
     dims = tuple(_build.layer_widths(layers))
     if dims != SCORE_MLP:
         raise ValueError(f"fusion_tail kernel is built for the {SCORE_MLP} score MLP, got {dims}")

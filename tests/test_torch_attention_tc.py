@@ -23,12 +23,28 @@ held on the CPU through their host packing and their dataflow:
   N = 300, k = 4, d = 16; rtol 2e-4, atol 2e-5), at the transformer's
   k = 16, d = 64 (N = 256), and at k = 7, d = 24.
 
+JAX's references run once a test run, in a process of their own
+(:func:`jax_references`): in one run of the suite under six workers the
+``ragged`` forward emulation differed from ``attention_plain`` by 6.4e-5 at
+23 of 2,328 outputs, a change no rounding of these well-conditioned inputs
+makes (ROADMAP C.7), right after the worker ran the JAX reference through
+buffers that alias the test's numpy arrays, with the suite's shared
+persistent compilation cache.  The cause is not confirmed, so the forward
+test also checks its inputs against a fresh draw of its seed before and
+after each call (:func:`assert_inputs_unchanged`).
+
 The card runs the same products in its mma instructions; chip_smoke.py
 holds the kernels against the plain versions there."""
 
 from __future__ import annotations
 
+import hashlib
 import math
+import os
+import pickle
+import subprocess
+import sys
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -39,9 +55,11 @@ import torch
 from pci_tpu.ops.pallas_kernels.attention_tpu import vector_attention_trainable
 from pci_tpu_torch.ops.cuda_kernels import _build
 from pci_tpu_torch.ops.cuda_kernels import attention_cuda as ac
+from tests.test_torch_shared import shared_result
 from tests.test_torch_tf32 import _decode
 
 CPU = torch.device("cpu")
+ROOT = Path(__file__).resolve().parents[1]
 ROWS = 64  # csrc/attention_bwd.cu PCI_ABWD_ROWS
 # (B, N, k, d, weight scale, seed)
 CASES = {"train_test": (1, 300, 4, 16, 0.4, 611), "transformer": (1, 256, 16, 64, 0.125, 612),
@@ -64,19 +82,58 @@ def _tail(ws, bs):
     return [(torch.from_numpy(w.T.copy()), torch.from_numpy(b)) for w, b in zip(ws, bs)]
 
 
-@pytest.fixture(scope="module", params=sorted(CASES))
-def case(request):
-    """(torch inputs, JAX's forward and its 11 gradients) for one case, JAX
-    run once for the module in interpret mode."""
-    B, N, k, d, sc, seed = CASES[request.param]
+def jax_reference(name: str):
+    """JAX's ``vector_attention_trainable`` (interpret mode, the forward
+    and ``jax.vjp`` in one jit) on ``CASES[name]``'s inputs: its forward and
+    its 11 gradients (weights in nn.Linear's ``[out, in]``), as numpy arrays
+    of their own."""
+    B, N, k, d, sc, seed = CASES[name]
     q, g, delta, ws, bs, cot = _inputs(B, N, k, d, sc, seed)
     flat = [a for wb in zip(ws, bs) for a in wb]
     f = lambda *a: vector_attention_trainable(*a, True)  # noqa: E731
-    out, vjp = jax.vjp(f, *map(jnp.asarray, (q, g, delta, *flat)))
-    grads = [np.asarray(x) for x in vjp(jnp.asarray(cot))]
-    grads[3::2] = [x.T for x in grads[3::2]]  # flax [in, out] -> nn.Linear [out, in]
+
+    def forward_and_vjp(cot, *args):
+        out, vjp = jax.vjp(f, *args)
+        return out, vjp(cot)
+
+    out, grads = jax.jit(forward_and_vjp)(*(jnp.array(x) for x in (cot, q, g, delta, *flat)))
+    grads = [np.array(x) for x in grads]
+    grads[3::2] = [x.T.copy() for x in grads[3::2]]  # flax [in, out] -> nn.Linear [out, in]
+    return np.array(out), grads
+
+
+def jax_references(path) -> dict:
+    """:func:`jax_reference` of every case, computed in a process of its own
+    (JAX on the CPU, no persistent compilation cache) and read back from
+    ``path``: no XLA computation runs in the process that holds the torch
+    tensors, and no buffer is shared between the two packages (ROADMAP
+    C.7)."""
+    code = ("import pickle, sys, jax; jax.config.update('jax_platforms', 'cpu'); "
+            "from tests.test_torch_attention_tc import CASES, jax_reference; "
+            "pickle.dump({n: jax_reference(n) for n in sorted(CASES)}, open(sys.argv[1], 'wb'))")
+    env = {k: v for k, v in os.environ.items() if not k.startswith(("JAX_", "XLA_", "PYTEST"))}
+    env.update(JAX_PLATFORMS="cpu", PYTHONPATH=str(ROOT))
+    subprocess.run([sys.executable, "-c", code, str(path)], cwd=ROOT, env=env, check=True,
+                   timeout=600, capture_output=True)
+    with open(path, "rb") as f:
+        return pickle.load(f)
+
+
+@pytest.fixture(scope="module")
+def jax_refs(tmp_path_factory):
+    """Every case's JAX forward and gradients, once a test run."""
+    return shared_result("attention_tc_jax", lambda: jax_references(
+        tmp_path_factory.mktemp("attention_tc") / "refs.pkl"), tmp_path_factory)
+
+
+@pytest.fixture(scope="module", params=sorted(CASES))
+def case(request, jax_refs):
+    """(torch inputs, JAX's forward and its 11 gradients) for one case."""
+    B, N, k, d, sc, seed = CASES[request.param]
+    q, g, delta, ws, bs, cot = _inputs(B, N, k, d, sc, seed)
+    out, grads = jax_refs[request.param]
     T = torch.from_numpy
-    return (T(q), T(g), T(delta), _tail(ws, bs), T(cot)), np.asarray(out), grads
+    return (T(q), T(g), T(delta), _tail(ws, bs), T(cot)), out, grads
 
 
 def _product(x, hi, lo):
@@ -194,11 +251,31 @@ def emulate_forward(q, g, delta, tail):
     return ((e * vp).sum(1) / e.sum(1))[:, :d].reshape(B, N, d)
 
 
-def test_forward_emulation_matches_plain_and_jax(case):
-    (q, g, delta, tail, _), jax_out, _ = case
+def assert_inputs_unchanged(name: str, args, jax_out, jax_sum: str, stage: str) -> None:
+    """The case's torch inputs equal to a fresh :func:`_inputs` of its seed,
+    and JAX's output to its digest ``jax_sum``: a run whose inputs changed
+    under the test reports that, not a tolerance miss (ROADMAP C.7)."""
+    q, g, delta, ws, bs, cot = _inputs(*CASES[name])
+    fresh = [torch.from_numpy(x) for x in (q, g, delta)]
+    fresh += [t for wb in _tail(ws, bs) for t in wb] + [torch.from_numpy(cot)]
+    held = [*args[:3], *[t for wb in args[3] for t in wb], args[4]]
+    labels = "q g delta wd0 bd0 wd1 bd1 wg0 bg0 wg1 bg1 cot".split()
+    changed = [n for n, a, b in zip(labels, held, fresh) if not torch.equal(a, b)]
+    assert not changed, f"{stage}: the case's torch inputs {changed} changed"
+    assert hashlib.sha256(jax_out.tobytes()).hexdigest() == jax_sum, \
+        f"{stage}: JAX's output changed"
+
+
+def test_forward_emulation_matches_plain_and_jax(case, request):
+    args, jax_out, _ = case
+    name, (q, g, delta, tail, _) = request.node.callspec.params["case"], args
+    jax_sum = hashlib.sha256(jax_out.tobytes()).hexdigest()
+    assert_inputs_unchanged(name, args, jax_out, jax_sum, "before the emulation")
     got = emulate_forward(q, g, delta, tail)
-    np.testing.assert_allclose(got.numpy(), ac.attention_plain(q, g, delta, tail).numpy(),
-                               rtol=2e-4, atol=2e-5)
+    assert_inputs_unchanged(name, args, jax_out, jax_sum, "after the emulation")
+    plain = ac.attention_plain(q, g, delta, tail)
+    assert_inputs_unchanged(name, args, jax_out, jax_sum, "after the plain version")
+    np.testing.assert_allclose(got.numpy(), plain.numpy(), rtol=2e-4, atol=2e-5)
     np.testing.assert_allclose(got.numpy(), jax_out, rtol=2e-4, atol=2e-5)
 
 

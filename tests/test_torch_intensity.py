@@ -15,8 +15,9 @@ KITTI 4-channel mode) in the port, held on the CPU against the JAX package.
   the stub records each C entry's arguments and writes the plain version's
   result): the one-shot kernel (flat, and cell-pruned with the cells gate
   patched low) launched once with the payload; one-shot off, the residual
-  kNN and the tail with ``Ce = 1``; k = 96 and a payload wider than
-  ``MAX_PAYLOAD`` launch nothing and give the plain route's rows.
+  kNN and the tail with ``Ce = 1``; k = 160 (the tail alone) and a payload
+  wider than ``MAX_PAYLOAD`` (nothing) launch no kNN kernel and give the
+  plain route's rows.
 
 chip_smoke.py holds the payload kernels themselves against their plain
 versions on the card."""
@@ -301,21 +302,30 @@ def test_oneshot_off_runs_the_tail_with_the_payload(cuda_route, monkeypatch):
     torch.testing.assert_close(got, plain_rows(mod, args, k, tt, perms), atol=1e-6, rtol=1e-6)
 
 
-@pytest.mark.parametrize("k, C", [(96, 1), (32, fusion_knn_cuda.MAX_PAYLOAD + 1)])
+@pytest.mark.parametrize("k, C", [(160, 1), (32, fusion_knn_cuda.MAX_PAYLOAD + 1)])
 @pytest.mark.parametrize("oneshot", [True, False])
 def test_past_the_kernels_shapes_launches_nothing(cuda_route, monkeypatch, k, C, oneshot):
-    """k = 96 (past the fusion kernels' k <= 64), or a payload of
-    MAX_PAYLOAD + 1 channels, on the forced CUDA
-    route at eval (either one-shot gate): the plain versions by the explicit
-    route, no launch (the stub fails any), the rows of the plain route; the
-    one-shot wrapper itself refuses the wide payload."""
+    """k = 160 (past the flat fusion kernels' k <= 128), or a payload of
+    MAX_PAYLOAD + 1 channels, on the forced CUDA route at eval (either
+    one-shot gate): no one-shot and no residual kNN launch (the kNN's plain
+    version by the explicit route); at k = 160 the attention tail, which
+    takes any k, launches once with ``Ce = 1`` (its stub writes the plain
+    version's rows), and with the wide payload nothing launches (the stub
+    fails any); the rows of the plain route; the one-shot wrapper itself
+    refuses the wide payload."""
     monkeypatch.setattr(tfusion, "_fusion_oneshot_ok", lambda train, x: oneshot and not train)
     mod, args, perms = stub_inputs(1522, C=C)
     tt = torch.tensor([0.3])
-    stub = cuda_route(StubLibrary())
+
+    def tail(comb, res, extra, wbuf, h1, h2, h3, out, B, N, k_, Ce, stream):
+        assert extra and (Ce, k_) == (C, k)
+        write(out, fusion_tail_plain(floats(comb, (B, N, 3)), floats(res, (B, N, k_, 3)),
+                                     floats(extra, (B, N, k_, Ce)), mod.mlp.folded()))
+
+    stub = cuda_route(StubLibrary(pci_fusion_tail=tail))
     with torch.inference_mode():
         got = mod(*args, k, tt, perms=perms)
-    assert stub.calls == []
+    assert [n for n, _ in stub.calls] == (["pci_fusion_tail"] if k > 128 else [])
     assert got.shape == (1, 256, 3 + C)
     torch.testing.assert_close(got, plain_rows(mod, args, k, tt, perms), atol=0, rtol=0)
     if C > fusion_knn_cuda.MAX_PAYLOAD:

@@ -3,10 +3,11 @@ where the JAX package runs a kernel or XLA: pn2mid over more than 16
 samples (split into launches of at most 16), ``ops.knn`` on clouds that
 are not xyz or with k in (64, 128] (the plain version, or the flat
 kernel's local-memory list), ``ops.fps`` over more than 16,384 points a
-chain (the long-chain kernel), ``PointsFusion`` past k = 64 (the plain
-versions, no launch; at k = 32, 48 and 64 the fusion kernels, past 32
-their two-slots-a-lane instantiations) and ``PointsFusionMulti`` (one
-residual kNN launch), and ``TransformerLayer`` at widths its attention
+chain (the long-chain kernel), ``PointsFusion`` past k = 128 (the kNN's
+plain version, no kNN launch; at eval the attention tail, which takes any
+k; at k = 32, 48 and 64 the fusion kernels, past 32 their
+two-slots-a-lane instantiations) and ``PointsFusionMulti`` (one residual
+kNN launch), and ``TransformerLayer`` at widths its attention
 kernels do not take (d_model 20 and 256: the plain versions, no launch;
 in training both directions decided at the forward); on the cells route (its size gate
 lowered for the CPU), ``PointsFusion`` at k = 48 and 64 on the cells
@@ -239,10 +240,10 @@ def test_fps_long_chains_take_the_long_chain_kernel(cuda_route, N, exact, entry)
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_fusion(seed: int, N: int):
+def _jax_fusion(seed: int, N: int, k: int):
     """Two seeded clouds, two permutations and t for PointsFusion, the JAX
     module, its variables (non-trivial BatchNorm statistics) as numpy, and
-    its eval rows at k = 96 with those permutations."""
+    its eval rows at ``k`` with those permutations."""
     import jax
 
     import pci_tpu.nn.fusion as jfusion
@@ -263,19 +264,19 @@ def _jax_fusion(seed: int, N: int):
     jfusion._random_perms = lambda key, B, n: next(draws)
     try:  # one compiled call (the draws are its constants)
         want = np.asarray(jax.jit(lambda v, a, b, tt: jmod.apply(
-            v, a, b, 96, tt, rngs={"sample": jax.random.key(2)}))(
+            v, a, b, k, tt, rngs={"sample": jax.random.key(2)}))(
             v, jnp.asarray(a), jnp.asarray(b), jnp.asarray(tt)))
     finally:
         jfusion._random_perms = saved
     return (a, b, tt, perms), v, want
 
 
-def _fusion_inputs(seed: int, N: int = 1024):
+def _fusion_inputs(seed: int, k: int, N: int = 1024):
     """:func:`_jax_fusion`'s inputs and JAX rows, and a port module holding
     its variables."""
     from pci_tpu_torch.convert import flax_to_state_dict
 
-    inputs, v, want = _jax_fusion(seed, N)
+    inputs, v, want = _jax_fusion(seed, N, k)
     mod = tnn.PointsFusion()
     mod.load_state_dict(flax_to_state_dict(v))
     return inputs, want, mod
@@ -283,26 +284,35 @@ def _fusion_inputs(seed: int, N: int = 1024):
 
 @pytest.mark.parametrize("mode", ["eval_oneshot", "eval_two_kernels", "train"])
 def test_points_fusion_past_k32_launches_nothing(cuda_route, monkeypatch, mode):
-    """PointsFusion at k = 96, past the fusion kernels' k <= 64, on the
-    forced CUDA route (each eval gate forced as the mode says) launches no
-    kernel (the stub fails any launch): at eval its rows equal the JAX
-    PointsFusion's at k = 96 on the same weights and permutations (its XLA
-    route; 1e-5, the cells route test's tolerance); in training its rows
-    and the gradients into both clouds through FusionResiKnn equal the
-    plain route's bit for bit."""
+    """PointsFusion at k = 160, past the flat fusion kernels' k <= 128, on
+    the forced CUDA route (each eval gate forced as the mode says) launches
+    no kNN kernel: at eval the kNN's plain version, then the attention tail
+    once at k = 160 (the TPU's XLA kNN and its tail kernel; the stub writes
+    the tail's plain version), its rows equal to the JAX PointsFusion's at
+    k = 160 on the same weights and permutations (its XLA route; 1e-5, the
+    cells route test's tolerance); in training nothing launches (the stub
+    fails any) and its rows and the gradients into both clouds through
+    FusionResiKnn equal the plain route's bit for bit."""
     import pci_tpu_torch.nn.fusion as tfusion
+    from pci_tpu_torch.ops.cuda_kernels.fusion_tail_cuda import fusion_tail_plain
 
     monkeypatch.setattr(tfusion, "_fusion_oneshot_ok",
                         lambda train, x: mode == "eval_oneshot" and not train)
-    (a, b, tt, perms), want, mod = _fusion_inputs(806)
+    k = 160
+    (a, b, tt, perms), want, mod = _fusion_inputs(806, k)
     tp = tuple(torch.from_numpy(p) for p in perms)
-    stub = cuda_route(StubLibrary())
-    k = 96
+
+    def tail(comb, res, extra, wbuf, h1, h2, h3, out, B, N, k_, Ce, stream):
+        assert (k_, Ce, extra) == (k, 0, 0)
+        write(out, fusion_tail_plain(read(comb, (B, N, 3)), read(res, (B, N, k_, 3)), None,
+                                     mod.mlp.folded()))
+
+    stub = cuda_route(StubLibrary(**({} if mode == "train" else {"pci_fusion_tail": tail})))
     if mode != "train":
         with torch.inference_mode():
             got = mod.eval()(*(torch.from_numpy(x) for x in (a, b)), k, torch.from_numpy(tt),
                              perms=tp).numpy()
-        assert stub.calls == []
+        assert [n for n, _ in stub.calls] == ["pci_fusion_tail"]
         np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
         return
     G = torch.from_numpy(np.random.default_rng(807).standard_normal((1, a.shape[1], 3))

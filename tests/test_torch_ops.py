@@ -471,6 +471,14 @@ def _grad_calls():
         "knn_cells": lambda: knn_cuda.knn_cells(x, x, 4, key_valid=torch.arange(64)[None] < 40,
                                                 emit_resi=True),
         "knn_self_resi": lambda: tops.knn_self_resi(x, 4),
+        # the k <= 128 kernels (four slots a lane) and the tail's streaming
+        # kernel past k = 64
+        "fusion_k128": lambda: fusion_knn_cuda.knn_fusion_attention(
+            x, seg, torch.tensor([[64, 64]]), fu, 128),
+        "fusion_payload_k128": lambda: fusion_knn_cuda.knn_fusion_attention(
+            x.detach(), seg, torch.tensor([[40, 56]]), fu, 96, payload=pay),
+        "fusion_tail_k160": lambda: fusion_tail_cuda.fusion_attention_tail(
+            x, resi.repeat(1, 1, 20, 1), None, fu),
         # the forward's block-wide tensor-core route at ISAPCInet's widths
         "attention_d96": lambda: attention_cuda.vector_attention(*wide_attention(96, x)),
         "attention_d128": lambda: attention_cuda.vector_attention(*wide_attention(128, x)),
@@ -492,12 +500,15 @@ def wide_attention(d: int, x):
                                     "fusion_tail", "fusion_cells", "fusion_cells_payload",
                                     "pn2mid", "fusion_k64", "fusion_tail_k64",
                                     "fusion_cells_k64", "fusion_cells_multi", "knn_cells",
-                                    "knn_self_resi", "attention_d96", "attention_d128"])
+                                    "knn_self_resi", "attention_d96", "attention_d128",
+                                    "fusion_k128", "fusion_payload_k128", "fusion_tail_k160"])
 def test_eval_only_kernels_refuse_grad(kernel):
     """The eval kernels of differentiable values (set-conv, kNN-conv, the
     one-shot fusion (flat and cell-pruned, also for a payload that needs a
     gradient beside a cloud that does not; the flat one and the tail also
-    at k = 64, their two-slots-a-lane instantiations), the eval attention
+    at k = 64, their two-slots-a-lane instantiations, the flat one at k =
+    96 and 128, its four-slots-a-lane kernel, and the tail at k = 160, its
+    streaming kernel), the eval attention
     (also at d = 96 and 128, its block-wide instantiation), the
     FlowNet3D megakernels, the fusion's attention tail, PointNet++'s
     mid-section, the F-segment route's residuals) define no backward and
