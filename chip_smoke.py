@@ -28,7 +28,13 @@ each printing its own lines:
      the `stages` lines: flowenc's FPS chain, set_conv1's and set_conv2's
      tiles at one request's and one 8-stream call's shapes, from its
      %globaltimer stage stamps, beside the ball scan alone (csrc/ball.cu);
-     the FeaturePropagation's kNN-conv whole and without its MLP2.  Then
+     the FeaturePropagation's kNN-conv whole and without its MLP2.  Row 2
+     (the per-stage set-conv) at FlowNet3D's four stages at 16,384 and
+     65,536 points and in an 8-stream call (hold_setconv: against its plain version, and against
+     the call in fp64 within SETCONV_FP64_LIMIT and below the 1xTF32
+     control), with a `stages setconv` line each (events, device and host
+     enqueue; the stamped plan and scan / gather / MLP / pool shares).
+     Then
      FPS against its plain version at every shape its paths use
      (FPS_HOLDS: random starts, a start clamped to a shorter chain, 10%
      duplicate points), timed a launch and a greedy iteration, and the
@@ -266,6 +272,8 @@ count apart, at 3 x FLOP over TF32_FLOPS.
 Exits non-zero, with no result line, when CUDA is missing or a phase fails.
 
 `python3 chip_smoke.py --stages [kinds]` prints only the `stages` lines;
+`--setconv` only row 2's holds and `stages setconv` lines (hold_setconv,
+which loaded by path from an older tree's root times that tree's kernel);
 `python3 chip_smoke.py --ptxas [csrc directory]` only the ptxas lines of
 PTXAS_SOURCES (this tree's, or an older tree's unpacked by `git archive`);
 `--variants` runs phase 12 alone; `--k128` phase 13 alone (with the FPS
@@ -296,7 +304,8 @@ TF32_FLOPS = 495e12  # H100 SXM dense TF32 on the tensor cores
 # kernels whose dense products run on the tensor cores in 3xTF32 (three TF32
 # products a multiply-add, csrc/mma_tf32.cuh): their bound counts those
 # products apart, at 3 x FLOP / TF32_FLOPS, beside the scalar work
-TENSOR_KERNELS = {"fusion": "pci_fusion_attrs", "flowmid": "pci_flowmid_attrs",
+TENSOR_KERNELS = {"setconv": "pci_setconv_attrs", "fusion": "pci_fusion_attrs",
+                  "flowmid": "pci_flowmid_attrs",
                   "knnconv": "pci_knnconv_attrs", "flowenc": "pci_flowenc_attrs",
                   "attention": "pci_attention_attrs",
                   "attention_bwd": "pci_attention_bwd_attrs",
@@ -304,7 +313,8 @@ TENSOR_KERNELS = {"fusion": "pci_fusion_attrs", "flowmid": "pci_flowmid_attrs",
                   "fusion_tail": "pci_fusion_tail_attrs"}
 # the bound of these rows' earlier scalar ports is printed beside theirs
 # (scalar_bound_ms: every operation at FP32_FLOPS)
-SCALAR_BOUND_KERNELS = ("attention", "attention_bwd", "fusion_cells", "pn2mid", "fusion_tail")
+SCALAR_BOUND_KERNELS = ("setconv", "attention", "attention_bwd", "fusion_cells", "pn2mid",
+                        "fusion_tail")
 # kernels whose resources print on the `kernel resources` lines (C entry)
 RESOURCE_KERNELS = {**TENSOR_KERNELS, "auction_pass": "pci_auction_pass_attrs",
                     "auction_chase": "pci_auction_chase_attrs",
@@ -807,8 +817,10 @@ def work(name, args, kw, out):
         S = new_xyz.shape[1]
         scanned = scanned_keys(new_xyz, xyz, [radius], [K])
         w = [t for wb in layers for t in wb]
-        ops = 9.0 * scanned + mlp_flops(layers, B * S * K) + B * S * K * layers[-1][0].shape[0]
-        return nbytes(xyz, feats, new_xyz, out, *w), ops
+        # the ball scan and a max a slot channel; the MLP over every slot on
+        # the tensor cores, counted apart
+        ops = 9.0 * scanned + B * S * K * layers[-1][0].shape[0]
+        return nbytes(xyz, feats, new_xyz, out, *w), ops, mlp_flops(layers, B * S * K)
     if name == "flowenc":
         xyz, feats, c1, l1, l2, s2, r1, k1, r2, k2 = args
         B, S1 = c1.shape[:2]
@@ -1909,6 +1921,124 @@ def attention_stages_line(args, card: str, path: str) -> None:
               f"mean {t['units_mean']:.1f} max {t['units_max']:.0f}")
 
 
+# (points, streams) of row 2's holds: a request at 16,384 and 65,536
+# points, and an 8-stream call (its layers take more n-tiles a block than
+# warps: the slabs' groups)
+SETCONV_HOLDS = ((16384, 1), (65536, 1), (16384, STREAMS))
+SETCONV_FP64_LIMIT = 1e-5  # row 2 against fp64, of the output's largest magnitude
+
+
+def setconv_fp64(xyz, feats, new_xyz, radius, K, layers, tf32: bool = False):
+    """A set-conv call on the plain version's slots in fp64 (``tf32``: each
+    product's operands rounded to TF32 once and fp32 sums, one TF32
+    product's error: the control the kernel's 3xTF32 must beat)."""
+    from pci_tpu_torch.ops import index_points
+    from pci_tpu_torch.ops.cuda_kernels._build import tf32_round
+    from pci_tpu_torch.ops.cuda_kernels.ball_cuda import ball_plain
+
+    (idx,) = ball_plain(xyz, new_xyz, [radius], [K], empty="first")
+    h = torch.cat([index_points(xyz, idx) - new_xyz[:, :, None, :],
+                   index_points(feats.float(), idx)], dim=-1)
+    h = h.float() if tf32 else h.double()
+    for w, b in layers:
+        if tf32:
+            h = torch.relu(tf32_round(h) @ tf32_round(w.float()).t() + b.float())
+        else:
+            h = torch.relu(h @ w.double().t() + b.double())
+    return h.amax(dim=2)
+
+
+def setconv_calls(n: int, streams: int = 1) -> list:
+    """The first call of each of FlowNet3D's four set-conv stages in a
+    PointINet call of ``streams`` streams at ``n`` points with all gates
+    off (the per-stage route), recorded on the plain versions (both clouds'
+    encodings come first, then each direction's set_conv3 and set_conv4)."""
+    from pci_tpu_torch.ops.cuda_kernels import plain_versions
+    from pci_tpu_torch.serving import DEFAULT_WEIGHTS, Interpolator
+
+    dev = torch.device("cuda")
+    model = Interpolator.pointinet(npoints=n, weights=DEFAULT_WEIGHTS, device="cuda").model
+    pairs = [synthetic_pair(seed, n) for seed in range(streams)]
+    a, b = (torch.from_numpy(np.stack(x)).to(dev) for x in zip(*pairs))
+    z = torch.zeros_like(a)
+    calls = []
+    with torch.inference_mode(), plain_versions(), record_calls(calls), gates(ALL_OFF):
+        model.flow.bidirectional(a, b, z, z)
+    stages = {}
+    for c in calls:
+        if c[0] == "setconv":
+            stages.setdefault(c[2][1].shape[-1], c)  # by the stage's feature width
+    return list(stages.values())
+
+
+def hold_setconv(card: str, path: str = "", holds: bool = True) -> None:
+    """Row 2 at FlowNet3D's four set-conv stages of one direction, at
+    SETCONV_HOLDS' points and streams: against its plain version (compare's limit)
+    and, its pooled rows, against the call in fp64 within
+    SETCONV_FP64_LIMIT of the output's largest magnitude and below the
+    1xTF32 control (``holds``); then the `stages setconv` line of each:
+    the call by CUDA events (median of 10, host launch included), device
+    time (torch.profiler) and host enqueue, the plan (the tile, Q centres
+    a tile, C blocks a cluster, R rows a chunk, blocks) and, where the
+    cluster tile runs, from its %globaltimer stamps the scan's, gather's,
+    MLP's and pool's shares of the blocks' summed time, the longest and
+    the mean block; then both tiles' resources.  Loaded by path from an
+    older tree's root, it times that tree's kernel (``holds=False``; no
+    stamps where its kernel takes none)."""
+    from pci_tpu_torch.ops.cuda_kernels import setconv_cuda
+
+    stamped = hasattr(setconv_cuda, "setconv_stages")
+    for n, streams in SETCONV_HOLDS:
+        for i, (_, _, args, _) in enumerate(setconv_calls(n, streams)):
+            xyz, feats, new_xyz, radius, K, layers = args
+            where = f"set_conv{i + 1} {label('setconv', args, {})}"
+            call = lambda: setconv_cuda.setconv_kernel(*args)  # noqa: E731
+            with torch.inference_mode():
+                if holds:
+                    got = call()
+                    torch.cuda.synchronize()
+                    want = setconv_cuda.setconv_plain(*args)
+                    err = compare("setconv", got, want, f"hold {where}")
+                    ref = setconv_fp64(*args)
+                    top = ref.abs().max().item()
+                    e_k = (got.double() - ref).abs().max().item() / top
+                    e_32 = (want.double() - ref).abs().max().item() / top
+                    e_tf = (setconv_fp64(*args, tf32=True).double() - ref).abs().max().item() / top
+                    print(f"setconv hold {where} on {card}: max |kernel - plain| {err:.3g}; "
+                          f"of the output's largest magnitude {top:.4g}: |kernel - fp64| "
+                          f"{e_k:.3g} (<= {SETCONV_FP64_LIMIT:g}), |plain fp32 - fp64| "
+                          f"{e_32:.3g}, |plain 1xTF32 - fp64| {e_tf:.3g}")
+                    check(e_k <= SETCONV_FP64_LIMIT and e_k < e_tf,
+                          f"setconv {where}: {e_k} of the largest magnitude from fp64 (limit "
+                          f"{SETCONV_FP64_LIMIT}, one TF32 product {e_tf})")
+                ev = cuda_ms(call, 10)
+                dev_ms = device_ms(call)
+                for _ in range(2):  # torch.profiler at times reads a whole kernel as 0 ms
+                    dev_ms = dev_ms or device_ms(call)
+                host = host_us(call)
+            line = (f"stages setconv {path}{where} on {card}: call {ev:.4f} ms (CUDA events), "
+                    f"device {dev_ms:.4f} ms, host {host:.1f} us (enqueue)")
+            if not stamped:
+                print(line + "; no stamps in this kernel")
+                continue
+            with torch.inference_mode():
+                runs = [setconv_cuda.setconv_stages(*args) for _ in range(5)]
+            st = {k: statistics.median(r[k] for r in runs) for k in runs[0]}
+            line += (f"; {'cluster tile' if st['cluster'] else 'ball_conv_tile'} Q={st['Q']} "
+                     f"C={st['C']} R={st['R']} blocks={st['blocks']}")
+            if st["cluster"]:
+                line += (f": scan {st['scan']:.3f}, gather {st['gather']:.3f}, mlp "
+                         f"{st['mlp']:.3f}, pool {st['pool']:.3f} of the summed block time, "
+                         f"longest block {st['span_ms']:.4f} ms, mean {st['block_ms']:.4f} ms")
+            print(line)
+    if stamped:
+        from pci_tpu_torch.ops.cuda_kernels._build import kernel_attrs
+
+        print(f"kernel resources setconv tiles on {card}: cluster tile "
+              f"{resources_text(kernel_attrs('pci_setconv_attrs'))}; ball_conv_tile "
+              f"{resources_text(kernel_attrs('pci_setconv_ball_attrs'))}")
+
+
 def hold_pn2mid_batch(args, card: str) -> None:
     """pn2mid_fused at a batch of 17, over the kernel's 16 samples a
     launch: the recorded request's l1 cloud and features, each sample
@@ -2058,9 +2188,9 @@ STAGE_KINDS = ("fusion_cells", "pn2mid", "ball", "fusion_resi", "fusion_tail", "
                "fusion_payload")
 
 
-# the sources the k <= 128 slice changed (fusion_cells.cu includes the
-# changed fusion_head.cuh)
-PTXAS_SOURCES = ("fusion_knn.cu", "fusion_tail.cu", "fusion_cells.cu")
+# the source the row 2 slice changed, and rows 5 and 6, whose set-conv tile
+# (stages.cuh:ball_conv_tile) it left as it was
+PTXAS_SOURCES = ("setconv.cu", "flowenc.cu", "flowmid.cu")
 
 
 def ptxas_lines(csrc: str, sources=PTXAS_SOURCES) -> None:
@@ -4736,6 +4866,11 @@ def main() -> int:
         hold_fusion_k160(card)
         phase_fusion_k128(card, new_totals())
         return 0
+    if sys.argv[1:2] == ["--setconv"]:  # row 2's holds and stages lines only
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        hold_setconv(card_line())
+        return 0
     if sys.argv[1:2] == ["--attention"]:  # the attention holds and the variants' widths only
         card = card_line()
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -4774,6 +4909,7 @@ def main() -> int:
     b = torch.from_numpy(b_np)[None].cuda()
     perms = phase_kernels(interp.model, a, b, totals, card)
     phase_stages(interp.model, card)
+    hold_setconv(card)
     hold_fps(card)
     hold_knn_cells(card)
     hold_knn_routes(card)

@@ -14,37 +14,15 @@
 
 #define PCI_MAX_LAYERS 8
 
-// A folded (BatchNorm-free) MLP chain packed into one float buffer:
-// for each layer l, W_l row-major [dims[l]][dims[l+1]] (input-major, so
-// neighbouring threads read neighbouring output channels), then b_l.
+// A folded (BatchNorm-free) MLP chain in one float buffer: its widths and
+// each layer's weight and bias offsets (csrc/mma_tf32.cuh's
+// make_tf32_spec lays the weights out for the tensor cores).
 struct MlpSpec {
   int n;
   int dims[PCI_MAX_LAYERS + 1];
   long long woff[PCI_MAX_LAYERS];
   long long boff[PCI_MAX_LAYERS];
 };
-
-// Builds the spec from the layer widths dims[0..n] (host side) with the
-// packing above, starting at float offset `base` of the buffer.
-static inline MlpSpec make_mlp_spec(const int* dims, int n, long long base) {
-  MlpSpec s;
-  s.n = n;
-  long long off = base;
-  for (int l = 0; l <= n && l <= PCI_MAX_LAYERS; ++l) s.dims[l] = dims[l];
-  for (int l = 0; l < n && l < PCI_MAX_LAYERS; ++l) {
-    s.woff[l] = off;
-    off += (long long)dims[l] * dims[l + 1];
-    s.boff[l] = off;
-    off += dims[l + 1];
-  }
-  return s;
-}
-
-static inline long long mlp_floats(const int* dims, int n) {
-  long long t = 0;
-  for (int l = 0; l < n; ++l) t += (long long)dims[l] * dims[l + 1] + dims[l + 1];
-  return t;
-}
 
 __host__ __device__ inline int round_up(int x, int m) { return (x + m - 1) / m * m; }
 
@@ -118,78 +96,6 @@ __device__ __forceinline__ void ball_pad(T* id, int count, int K, T empty) {
   __syncwarp();
   const T fill = count > 0 ? id[0] : empty;
   for (int s = min(count, K) + (threadIdx.x & 31); s < K; s += 32) id[s] = fill;
-}
-
-// One dense layer over R rows held in shared memory:
-//   hout[r][o] = act(b[o] + sum_i hin[r][i] * W[i][o])
-// W is [cin][cout] in global memory (read through L1/L2: the widest layer
-// of the path, set_conv4's 256x512, does not fit in shared memory).  Each
-// thread owns one output channel for RT consecutive rows, so one weight
-// load feeds RT FMAs and the row reads are warp-wide broadcasts.  hin rows
-// are ldi floats apart, ldi % 4 == 0 and the buffer holds whole RT-row
-// groups (rows >= R are computed from whatever is there and never stored).
-template <int RT>
-__device__ void dense_rows(const float* __restrict__ W,
-                           const float* __restrict__ b, const float* hin,
-                           int ldi, float* hout, int ldo, int R, int cin,
-                           int cout, bool relu) {
-  const int groups = (R + RT - 1) / RT;
-  const int cin4 = cin & ~3;
-  for (int w = threadIdx.x; w < cout * groups; w += blockDim.x) {
-    const int o = w % cout;
-    const int r0 = (w / cout) * RT;
-    float acc[RT];
-#pragma unroll
-    for (int rr = 0; rr < RT; ++rr) acc[rr] = 0.f;
-    for (int i = 0; i < cin4; i += 4) {
-      const float w0 = __ldg(W + (size_t)(i + 0) * cout + o);
-      const float w1 = __ldg(W + (size_t)(i + 1) * cout + o);
-      const float w2 = __ldg(W + (size_t)(i + 2) * cout + o);
-      const float w3 = __ldg(W + (size_t)(i + 3) * cout + o);
-#pragma unroll
-      for (int rr = 0; rr < RT; ++rr) {
-        const float4 h =
-            *reinterpret_cast<const float4*>(hin + (size_t)(r0 + rr) * ldi + i);
-        acc[rr] = fmaf(h.x, w0, acc[rr]);
-        acc[rr] = fmaf(h.y, w1, acc[rr]);
-        acc[rr] = fmaf(h.z, w2, acc[rr]);
-        acc[rr] = fmaf(h.w, w3, acc[rr]);
-      }
-    }
-    for (int i = cin4; i < cin; ++i) {
-      const float wv = __ldg(W + (size_t)i * cout + o);
-#pragma unroll
-      for (int rr = 0; rr < RT; ++rr)
-        acc[rr] = fmaf(hin[(size_t)(r0 + rr) * ldi + i], wv, acc[rr]);
-    }
-    const float bo = __ldg(b + o);
-#pragma unroll
-    for (int rr = 0; rr < RT; ++rr) {
-      if (r0 + rr < R) {
-        const float v = acc[rr] + bo;
-        hout[(size_t)(r0 + rr) * ldo + o] = relu ? fmaxf(v, 0.f) : v;
-      }
-    }
-  }
-}
-
-// Runs the whole chain over R rows, ping-ponging between two buffers of
-// `ld` floats a row; returns the buffer that holds the last layer's output
-// (a == input when the chain is empty).  Every layer ends in ReLU but the
-// last n_linear, which are linear.
-__device__ __forceinline__ float* mlp_rows(const float* __restrict__ wbuf,
-                                           const MlpSpec& m, float* a,
-                                           float* b, int ld, int R,
-                                           int n_linear = 0) {
-  for (int l = 0; l < m.n; ++l) {
-    dense_rows<8>(wbuf + m.woff[l], wbuf + m.boff[l], a, ld, b, ld, R,
-                  m.dims[l], m.dims[l + 1], l < m.n - n_linear);
-    __syncthreads();
-    float* t = a;
-    a = b;
-    b = t;
-  }
-  return a;
 }
 
 // Lexicographic (distance, index) minimum across a warp.

@@ -114,7 +114,7 @@ extern "C" int pci_flowenc(const void* xyz, const void* feats, const void* c1,
   p.sc2.out = static_cast<float*>(f2);
   p.sc2.m = make_tf32_spec(dims2, n2, 0);
   p.sc2.N = S1, p.sc2.S = S2, p.sc2.D = dims1[n1], p.sc2.K = K2, p.sc2.r2 = r2sq;
-  if (!ball_conv_plan(p.sc1, B, budget, true) || !ball_conv_plan(p.sc2, B, budget, true))
+  if (!ball_conv_plan(p.sc1, B, budget) || !ball_conv_plan(p.sc2, B, budget))
     return (int)cudaErrorInvalidValue;
   p.bar = static_cast<unsigned int*>(bar);
   p.stamps = static_cast<unsigned long long*>(stamps);

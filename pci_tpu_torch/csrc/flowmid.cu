@@ -45,8 +45,8 @@
 // read it again through the read-only cache for every 8 rows.  The
 // selections, the FPS and the scratch layout are the per-stage kernels';
 // its kNN-conv tiles are the per-stage kNN-conv kernel's, its set-conv
-// tiles take TensorMlp where the per-stage set-conv kernel keeps the
-// scalar routine.
+// tiles ball_conv_tile<TensorMlp>, as the per-stage set-conv kernel's
+// where its plan takes that tile.
 #include "stages.cuh"
 
 struct FlowmidParams {
@@ -162,7 +162,7 @@ extern "C" int pci_flowmid(const void* pa1, const void* fa1, const void* pa2,
                     nl[6], W(7), Dm(7), nl[7], O(nf1), N2, N1, c_nf2, 0, C1, 0, k_up);
   if (!knn_conv_plan(p.fe, budget, B) || !knn_conv_plan(p.su1, budget, B) ||
       !knn_conv_plan(p.su2, budget, B) || !knn_conv_plan(p.su3, budget, B) ||
-      !ball_conv_plan(p.sc3, B, budget, true) || !ball_conv_plan(p.sc4, B, budget, true))
+      !ball_conv_plan(p.sc3, B, budget) || !ball_conv_plan(p.sc4, B, budget))
     return (int)cudaErrorInvalidValue;
   p.pa2 = F(pa2);
   p.x3 = O(x3), p.x4 = O(x4);

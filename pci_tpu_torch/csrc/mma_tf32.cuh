@@ -269,8 +269,7 @@ __device__ __forceinline__ void mma_dense_rows(const float* __restrict__ wf,
     mma_dense_tiles<4, 2>(wf, bias, hin, ldi, hout, ldo, cin, cout, relu, ring);
 }
 
-// The tensor-core counterpart of common.cuh's mlp_rows: the chain over R
-// rows, ping-ponging between a (lda floats a row) and b (ldb), both % 8 ==
+// The chain over R rows on the tensor cores, ping-ponging between a (lda floats a row) and b (ldb), both % 8 ==
 // 4 and wide enough for the layers that land there, whole 16-row tiles,
 // a's columns [dims[0], K8) zero; returns the buffer that holds the last
 // layer's output and its row stride in ld_out.  wbuf / m: make_tf32_spec's
@@ -294,7 +293,7 @@ __device__ __forceinline__ float* mma_mlp_rows(const float* __restrict__ wbuf,
 }
 
 // The MLP routine of csrc/stages.cuh's tiles on the tensor cores (see
-// ScalarMlp there): rows in 16-row tiles, row strides % 8 == 4, the
+// ball_conv_tile there): rows in 16-row tiles, row strides % 8 == 4, the
 // layers' input pads zeroed by the tile, a weight ring after the tile's
 // buffers.
 struct TensorMlp {

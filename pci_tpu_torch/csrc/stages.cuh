@@ -223,22 +223,12 @@ __device__ __forceinline__ void fps_centres(const float* X, int L, int npick, fl
 
 // ---- the MLP routine a tile runs -----------------------------------------
 
-// ball_conv_tile takes its MLP routine as a template parameter: ScalarMlp
-// (common.cuh's mlp_rows, scalar fp32, weights in common.cuh's layout) for
-// the per-stage set-conv kernel, or TensorMlp (csrc/mma_tf32.cuh, 3xTF32 on
-// the tensor cores, weights split in make_tf32_spec's layout) for the
-// megakernels.  run() returns the buffer holding the chain's output and its
-// row stride.  The kNN-conv tiles run TensorMlp's routine.
-struct ScalarMlp {
-  static constexpr bool kTensor = false;
-  static constexpr int kRows = 8;  // rows a buffer holds a multiple of
-  __device__ static __forceinline__ float* run(const float* __restrict__ w, const MlpSpec& m,
-                                               float* a, int lda, float* b, int, int R,
-                                               int n_linear, MmaRing, int& ld_out) {
-    ld_out = lda;
-    return mlp_rows(w, m, a, b, lda, R, n_linear);
-  }
-};
+// ball_conv_tile takes its MLP routine as a template parameter: every
+// caller (the megakernels and the per-stage set-conv kernel's
+// setconv_ball_kernel) passes TensorMlp (csrc/mma_tf32.cuh, 3xTF32 on the
+// tensor cores, weights split in make_tf32_spec's layout).  run() returns
+// the buffer holding the chain's output and its row stride.  The kNN-conv
+// tiles run TensorMlp's routine.
 
 // Host side, the tensor-core plans: a row stride % 8 == 4 (conflict-free A
 // fragments) that holds `w` columns padded to 8.
@@ -319,39 +309,24 @@ static inline size_t ball_conv_smem(const BallConvStage& s) {
                           (s.tc ? MMA_RING_FLOATS(s.ring_ntw) : 0));
 }
 
-// Host side: checks the widths and plans the tiles for B streams: Q = 4
-// centres a tile once there are 512 centres in all, else 1; R <= 64 rows in
-// 96 KB of MLP buffers and no more than a tile's Q * K rows, then halved
-// while the tile's shared memory exceeds `budget` bytes.  tensor (the
+// Host side: checks the widths and plans the tiles for B streams (the
 // TensorMlp plan): Q = tc_queries centres (up to 8: every warp scans),
-// R <= 64 rows in 16-row tiles, fitted to the budget by tc_fit.
-static inline bool ball_conv_plan(BallConvStage& s, int B, size_t budget,
-                                  bool tensor = false) {
+// R <= 64 rows in 16-row tiles, fitted to `budget` bytes by tc_fit.
+static inline bool ball_conv_plan(BallConvStage& s, int B, size_t budget) {
   if (s.m.n < 1 || s.m.n > PCI_MAX_LAYERS || s.m.dims[0] != 3 + s.D || s.K < 1)
     return false;
-  s.tc = tensor;
-  if (tensor) {
-    s.ld = tc_ld(chain_width(s.m, true));
-    s.ldb = tc_ld(chain_width(s.m, false));
-    s.Q = tc_queries(B, s.S, 8);
-    s.R = std::min(64, round_up(s.Q * s.K, 16));
-    tc_fit(s, budget, ball_conv_smem);
-    return true;
-  }
-  int ld = 0;
-  for (int l = 0; l <= s.m.n; ++l) ld = std::max(ld, s.m.dims[l]);
-  s.ld = round_up(ld, 4);
-  s.ldb = s.ld, s.ring_ntw = 0;
-  s.Q = B * s.S >= 512 ? 4 : 1;
-  s.R = std::max(8, std::min(64, (96 * 1024 / (2 * s.ld * 4)) / 8 * 8));
-  s.R = std::min(s.R, round_up(s.Q * s.K, 8));
-  while (ball_conv_smem(s) > budget && s.R > 8) s.R = std::max(8, s.R / 2);
+  s.tc = 1;
+  s.ld = tc_ld(chain_width(s.m, true));
+  s.ldb = tc_ld(chain_width(s.m, false));
+  s.Q = tc_queries(B, s.S, 8);
+  s.R = std::min(64, round_up(s.Q * s.K, 16));
+  tc_fit(s, budget, ball_conv_smem);
   return true;
 }
 
 // Centres q0 .. q0 + Q - 1 of stream b (a tail tile repeats the last
 // centre and writes only the real ones).
-template <typename Mlp = ScalarMlp>
+template <typename Mlp>
 __device__ __forceinline__ void ball_conv_tile(const BallConvStage& st, int b,
                                                int q0, float* smem) {
   const int Q = st.Q, K = st.K, N = st.N, S = st.S, D = st.D, ld = st.ld;

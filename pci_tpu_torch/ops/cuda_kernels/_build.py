@@ -42,7 +42,10 @@ _FP = ctypes.POINTER(ctypes.c_float)
 _SIGNATURES = {
     "pci_fps": [_P, _P, _P, _I, _I, _I, _I, _P],
     "pci_fps_long": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "pci_setconv": [_P, _P, _P, _P, _IP, _I, _P, _I, _I, _I, _I, _F, _I, _P],
+    "pci_setconv": [_P, _P, _P, _P, _IP, _I, _P, _I, _I, _I, _I, _F, _I, _P, _P],
+    "pci_setconv_plan": [_IP, _I, _I, _I, _I, _I, _I, _IP],
+    "pci_setconv_attrs": [_IP],
+    "pci_setconv_ball_attrs": [_IP],
     "pci_knnconv": [_P, _P, _P, _P, _P, _P, _P, _IP, _I, _IP, _I, _P] + [_I] * 10 + [_P],
     "pci_knnconv_attrs": [_IP],
     "pci_fusion": [_P, _P, _P, _I, _I, _I, _P, _I, _P, _I, _I, _P],
@@ -295,15 +298,6 @@ class PackedLayers(list):
         if chain not in self._tf32:
             self._tf32[chain] = _tf32_pack(self, self.buf.device, chain)
         return self._tf32[chain]
-
-
-def pack_layers(layers, device: torch.device):
-    """Folded ``[(W [cout, cin], b [cout]), ...]`` -> (one contiguous float
-    buffer of ``W.T`` then ``b`` per layer, widths ``[cin_0, cout_0, ...]``)
-    in the csrc/common.cuh layout."""
-    if isinstance(layers, PackedLayers) and layers.buf.device == device:
-        return layers.buf, layers.dims
-    return _pack(layers, device)
 
 
 def layer_widths(layers) -> list:

@@ -24,14 +24,19 @@ held on the CPU through their host packing and their dataflow:
   k = 16, d = 64 (N = 256), and at k = 7, d = 24.
 
 JAX's references run once a test run, in a process of their own
-(:func:`jax_references`): in one run of the suite under six workers the
-``ragged`` forward emulation differed from ``attention_plain`` by 6.4e-5 at
-23 of 2,328 outputs, a change no rounding of these well-conditioned inputs
-makes (ROADMAP C.7), right after the worker ran the JAX reference through
-buffers that alias the test's numpy arrays, with the suite's shared
-persistent compilation cache.  The cause is not confirmed, so the forward
-test also checks its inputs against a fresh draw of its seed before and
-after each call (:func:`assert_inputs_unchanged`).
+(:func:`jax_references`).  In two runs of the suite under six workers one
+comparison here missed by far more than any rounding of these
+well-conditioned inputs (ROADMAP C.7): the ``ragged`` forward emulation
+against ``attention_plain`` (6.4e-5 at 23 of 2,328 outputs), then the
+``train_test`` backward emulation's ``delta`` gradient against
+``attention_bwd_plain`` (8.2e-5 at 33 of 3,600).  The cause is not
+confirmed, so every emulation test checks its inputs against a fresh draw
+of its seed before and after each call (:func:`assert_inputs_unchanged`),
+records the worker's numeric state as it starts (:func:`numeric_state`),
+and on a miss reports the elements that differ, that state, and which
+side moved: the case is recomputed from its seed in a fresh process
+(:func:`clean_outputs`) and each side is held against that clean run
+(:func:`assert_close`).
 
 The card runs the same products in its mma instructions; chip_smoke.py
 holds the kernels against the plain versions there."""
@@ -126,14 +131,107 @@ def jax_refs(tmp_path_factory):
         tmp_path_factory.mktemp("attention_tc") / "refs.pkl"), tmp_path_factory)
 
 
+def case_args(name: str):
+    """``CASES[name]``'s torch inputs: (q, g, delta, tail, output gradient)."""
+    q, g, delta, ws, bs, cot = _inputs(*CASES[name])
+    T = torch.from_numpy
+    return T(q), T(g), T(delta), _tail(ws, bs), T(cot)
+
+
 @pytest.fixture(scope="module", params=sorted(CASES))
 def case(request, jax_refs):
     """(torch inputs, JAX's forward and its 11 gradients) for one case."""
-    B, N, k, d, sc, seed = CASES[request.param]
-    q, g, delta, ws, bs, cot = _inputs(B, N, k, d, sc, seed)
     out, grads = jax_refs[request.param]
-    T = torch.from_numpy
-    return (T(q), T(g), T(delta), _tail(ws, bs), T(cot)), out, grads
+    return case_args(request.param), out, grads
+
+
+def numeric_state() -> dict:
+    """The process's torch settings that a CPU product's numbers can depend
+    on, and whether a denormal survives a multiply (flush-to-zero)."""
+    tiny = torch.tensor([1e-39], dtype=torch.float32)
+    return {"threads": torch.get_num_threads(),
+            "matmul_precision": torch.get_float32_matmul_precision(),
+            "mkldnn": torch.backends.mkldnn.enabled,
+            "deterministic": torch.are_deterministic_algorithms_enabled(),
+            "default_dtype": str(torch.get_default_dtype()),
+            "denormal_survives": bool((tiny * 3.0).item() != 0.0)}
+
+
+@pytest.fixture(autouse=True)
+def worker_state() -> dict:
+    """:func:`numeric_state` as each test of the module starts (ROADMAP C.7)."""
+    return numeric_state()
+
+
+def clean_outputs(name: str, kind: str) -> dict:
+    """Both sides of one comparison on ``CASES[name]``, recomputed from the
+    seed in a fresh process at this process's thread count (torch only, no
+    JAX call): ``kind`` "forward"
+    (emulation, plain), "backward" (the 3-block emulation, plain) or
+    "blocks" (the emulation at 1 and 5 blocks).  Returns ``{side: [numpy
+    arrays]}`` and that process's :func:`numeric_state`."""
+    code = ("import pickle, sys, torch; torch.set_num_threads(int(sys.argv[3])); "
+            "from tests.test_torch_attention_tc import sides; "
+            "pickle.dump(sides(sys.argv[1], sys.argv[2], numpy=True), sys.stdout.buffer)")
+    env = {k: v for k, v in os.environ.items() if not k.startswith(("JAX_", "XLA_", "PYTEST"))}
+    env.update(JAX_PLATFORMS="cpu", PYTHONPATH=str(ROOT))
+    run = subprocess.run([sys.executable, "-c", code, name, kind, str(torch.get_num_threads())],
+                         cwd=ROOT, env=env,
+                         check=True, timeout=600, capture_output=True)
+    return pickle.loads(run.stdout)
+
+
+def sides(name: str, kind: str, numpy: bool = False) -> dict:
+    """The two sides :func:`clean_outputs` names, computed here on
+    :func:`case_args`."""
+    args = case_args(name)
+    if kind == "forward":
+        out = {"emulation": [emulate_forward(*args[:4])], "plain": [ac.attention_plain(*args[:4])]}
+    elif kind == "backward":
+        out = {"emulation": list(emulate_backward(*args, blocks=3)),
+               "plain": list(ac.attention_bwd_plain(*args))}
+    else:
+        out = {"one": list(emulate_backward(*args, blocks=1)),
+               "five": list(emulate_backward(*args, blocks=5))}
+    if numpy:
+        out = {k: [t.numpy() for t in v] for k, v in out.items()}
+        out["state"] = numeric_state()
+    return out
+
+
+def miss_report(name: str, kind: str, label: str, index: int, held: dict, bad,
+                state: dict) -> str:
+    """What a tolerance miss of output ``index`` (``label``) shows: the
+    elements that differ (at most 12), the worker's numeric state as the
+    test started and now, and for each side the largest difference of its
+    output here from a clean recomputation in a fresh process."""
+    where = np.argwhere(bad)
+    a, b = held.values()
+    rows = "; ".join(f"{tuple(int(i) for i in at)}: {a[tuple(at)]!r} vs {b[tuple(at)]!r}"
+                     for at in where[:12])
+    lines = [f"{label}: {len(where)} elements differ, at {rows}",
+             f"worker state at the start {state}, now {numeric_state()}"]
+    try:
+        clean = clean_outputs(name, kind)
+    except (subprocess.SubprocessError, OSError) as e:  # the report, not the verdict
+        lines.append(f"no clean recomputation: {e!r}")
+        return "\n".join(lines)
+    for side, out in held.items():
+        moved = np.abs(out - clean[side][index])
+        lines.append(f"{side} here vs a clean process: max |diff| {moved.max():.3g} at "
+                     f"{int((moved > 0).sum())} elements")
+    lines.append(f"clean process state {clean['state']}")
+    return "\n".join(lines)
+
+
+def assert_close(name: str, kind: str, label: str, index: int, held: dict, state: dict,
+                 rtol: float = 2e-4, atol: float = 2e-5) -> None:
+    """``np.testing.assert_allclose`` of the two sides in ``held`` ({side:
+    array}, actual first), whose message on a miss is :func:`miss_report`'s."""
+    a, b = held.values()
+    bad = ~(np.abs(a - b) <= atol + rtol * np.abs(b))
+    msg = miss_report(name, kind, label, index, held, bad, state) if bad.any() else label
+    np.testing.assert_allclose(a, b, rtol=rtol, atol=atol, err_msg=msg)
 
 
 def _product(x, hi, lo):
@@ -251,10 +349,19 @@ def emulate_forward(q, g, delta, tail):
     return ((e * vp).sum(1) / e.sum(1))[:, :d].reshape(B, N, d)
 
 
-def assert_inputs_unchanged(name: str, args, jax_out, jax_sum: str, stage: str) -> None:
+def digest(*arrays) -> str:
+    """One sha256 over the bytes of numpy arrays."""
+    h = hashlib.sha256()
+    for a in arrays:
+        h.update(np.ascontiguousarray(a).tobytes())
+    return h.hexdigest()
+
+
+def assert_inputs_unchanged(name: str, args, jax_arrays, jax_sum: str, stage: str) -> None:
     """The case's torch inputs equal to a fresh :func:`_inputs` of its seed,
-    and JAX's output to its digest ``jax_sum``: a run whose inputs changed
-    under the test reports that, not a tolerance miss (ROADMAP C.7)."""
+    and JAX's results to their :func:`digest` ``jax_sum``: a run whose
+    inputs changed under the test reports that, not a tolerance miss
+    (ROADMAP C.7)."""
     q, g, delta, ws, bs, cot = _inputs(*CASES[name])
     fresh = [torch.from_numpy(x) for x in (q, g, delta)]
     fresh += [t for wb in _tail(ws, bs) for t in wb] + [torch.from_numpy(cot)]
@@ -262,20 +369,20 @@ def assert_inputs_unchanged(name: str, args, jax_out, jax_sum: str, stage: str) 
     labels = "q g delta wd0 bd0 wd1 bd1 wg0 bg0 wg1 bg1 cot".split()
     changed = [n for n, a, b in zip(labels, held, fresh) if not torch.equal(a, b)]
     assert not changed, f"{stage}: the case's torch inputs {changed} changed"
-    assert hashlib.sha256(jax_out.tobytes()).hexdigest() == jax_sum, \
-        f"{stage}: JAX's output changed"
+    assert digest(*jax_arrays) == jax_sum, f"{stage}: JAX's results changed"
 
 
-def test_forward_emulation_matches_plain_and_jax(case, request):
+def test_forward_emulation_matches_plain_and_jax(case, request, worker_state):
     args, jax_out, _ = case
     name, (q, g, delta, tail, _) = request.node.callspec.params["case"], args
-    jax_sum = hashlib.sha256(jax_out.tobytes()).hexdigest()
-    assert_inputs_unchanged(name, args, jax_out, jax_sum, "before the emulation")
+    jax_sum = digest(jax_out)
+    assert_inputs_unchanged(name, args, [jax_out], jax_sum, "before the emulation")
     got = emulate_forward(q, g, delta, tail)
-    assert_inputs_unchanged(name, args, jax_out, jax_sum, "after the emulation")
+    assert_inputs_unchanged(name, args, [jax_out], jax_sum, "after the emulation")
     plain = ac.attention_plain(q, g, delta, tail)
-    assert_inputs_unchanged(name, args, jax_out, jax_sum, "after the plain version")
-    np.testing.assert_allclose(got.numpy(), plain.numpy(), rtol=2e-4, atol=2e-5)
+    assert_inputs_unchanged(name, args, [jax_out], jax_sum, "after the plain version")
+    assert_close(name, "forward", "out", 0, {"emulation": got.numpy(), "plain": plain.numpy()},
+                 worker_state)
     np.testing.assert_allclose(got.numpy(), jax_out, rtol=2e-4, atol=2e-5)
 
 
@@ -362,30 +469,50 @@ def emulate_backward(q, g, delta, tail, gout, blocks: int):
     return (dq.reshape(q.shape), dg.reshape(g.shape), ddelta.reshape(delta.shape), *dw)
 
 
-def test_backward_emulation_matches_plain_and_jax(case):
+GRAD_NAMES = "q g delta wd0 bd0 wd1 bd1 wg0 bg0 wg1 bg1".split()
+
+
+def test_backward_emulation_matches_plain_and_jax(case, request, worker_state):
     """The emulated tile dataflow (3 blocks, so every block's partial holds
     several tiles) against attention_bwd_plain and JAX's vjp, every input
     and weight gradient."""
-    args, _, jax_grads = case
+    args, jax_out, jax_grads = case
+    case_name = request.node.callspec.params["case"]
+    jax_sum = digest(jax_out, *jax_grads)
+    check = lambda stage: assert_inputs_unchanged(  # noqa: E731
+        case_name, args, [jax_out, *jax_grads], jax_sum, stage)
+    check("before the emulation")
     got = emulate_backward(*args, blocks=3)
+    check("after the emulation")
     plain = ac.attention_bwd_plain(*args)
-    names = "q g delta wd0 bd0 wd1 bd1 wg0 bg0 wg1 bg1".split()
-    for name, e, p, j in zip(names, got, plain, jax_grads):
-        np.testing.assert_allclose(e.numpy(), p.numpy(), rtol=2e-4, atol=2e-5, err_msg=name)
+    check("after the plain version")
+    for i, (name, e, p, j) in enumerate(zip(GRAD_NAMES, got, plain, jax_grads)):
+        assert_close(case_name, "backward", name, i,
+                     {"emulation": e.numpy(), "plain": p.numpy()}, worker_state)
         np.testing.assert_allclose(e.numpy(), j, rtol=2e-4, atol=2e-5, err_msg=name)
 
 
-def test_backward_emulation_block_count_changes_only_rounding(case):
+def test_backward_emulation_block_count_changes_only_rounding(case, request, worker_state):
     """The blocks' partials cover every tile once: one block and 5 blocks
     give the same input gradients bit for bit (a tile's rows do not depend
     on its block) and weight gradients within rounding of the sum order
     (1e-5 of each gradient's largest magnitude)."""
-    args, _, _ = case
-    one, five = emulate_backward(*args, blocks=1), emulate_backward(*args, blocks=5)
-    for a, b in zip(one[:3], five[:3]):
-        assert torch.equal(a, b)
-    for a, b in zip(one[3:], five[3:]):
-        assert (a - b).abs().max().item() <= 1e-5 * b.abs().max().item()
+    args, jax_out, jax_grads = case
+    case_name = request.node.callspec.params["case"]
+    jax_sum = digest(jax_out, *jax_grads)
+    check = lambda stage: assert_inputs_unchanged(  # noqa: E731
+        case_name, args, [jax_out, *jax_grads], jax_sum, stage)
+    check("before the emulations")
+    one = emulate_backward(*args, blocks=1)
+    check("after one block's emulation")
+    five = emulate_backward(*args, blocks=5)
+    check("after five blocks' emulation")
+    for i, (name, a, b) in enumerate(zip(GRAD_NAMES, one, five)):
+        held = {"one": a.numpy(), "five": b.numpy()}
+        tol = 0.0 if i < 3 else 1e-5 * b.abs().max().item()  # the message runs on a miss only
+        assert (a - b).abs().max().item() <= tol if i >= 3 else torch.equal(a, b), miss_report(
+            case_name, "blocks", name, i, held, np.abs(held["one"] - held["five"]) > tol,
+            worker_state)
 
 
 def test_tc_route_shapes():

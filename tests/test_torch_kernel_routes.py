@@ -9,7 +9,10 @@ k; at k = 32, 48 and 64 the fusion kernels, past 32 their
 two-slots-a-lane instantiations) and ``PointsFusionMulti`` (one residual
 kNN launch), and ``TransformerLayer`` at widths its attention
 kernels do not take (d_model 20 and 256: the plain versions, no launch;
-in training both directions decided at the forward); on the cells route (its size gate
+in training both directions decided at the forward), and the per-stage
+set-conv (row 2: FlowNet3D's stage widths launch ``pci_setconv``, whose
+tiles both run on the tensor cores, with ``_build.pack_tf32``'s weights; nsample past 128 or a
+layer past 1,024 channels, the plain version, no launch); on the cells route (its size gate
 lowered for the CPU), ``PointsFusion`` at k = 48 and 64 on the cells
 kernel and ``PointsFusionMulti`` by segments and gradient (F = 3 at eval:
 three masked passes of the box-pruned kNN; F = 2: the cells kernel's
@@ -48,6 +51,7 @@ from pci_tpu_torch.ops.cuda_kernels import (
     fusion_knn_cuda,
     knn_cuda,
     pn2mid_cuda,
+    setconv_cuda,
 )
 
 
@@ -714,3 +718,60 @@ def test_transformer_training_past_d128_runs_the_plain_directions(cuda_route):
     assert not attention_cuda.kernel_route_ok(256, 16) and not attention_cuda.bwd_route_ok(256, 16)
     for got, want in zip(*outs, strict=True):
         torch.testing.assert_close(got, want, atol=0, rtol=0)
+
+
+# ---- the per-stage set-conv (row 2) -------------------------------------------------
+
+
+def _setconv_case(rng, N, D, widths, S):
+    xyz = torch.from_numpy((rng.random((1, N, 3)) * 6.0).astype(np.float32))
+    feats = torch.from_numpy(np.maximum(rng.standard_normal((1, N, D)), 0).astype(np.float32))
+    layers, cin = [], 3 + D
+    for cout in widths:
+        layers.append((torch.from_numpy((rng.standard_normal((cout, cin)) / np.sqrt(cin))
+                                        .astype(np.float32)),
+                       torch.from_numpy((0.1 * rng.standard_normal(cout)).astype(np.float32))))
+        cin = cout
+    return xyz, feats, xyz[:, :S].contiguous(), layers
+
+
+@pytest.mark.parametrize("D, widths, K", [(3, (32, 32, 64), 16), (128, (128, 128, 256), 8),
+                                          (256, (256, 256, 512), 8)],
+                         ids=["set_conv1", "set_conv3", "set_conv4"])
+def test_setconv_stages_launch_the_tensor_tile(cuda_route, D, widths, K):
+    """FlowNet3D's set-conv widths launch ``pci_setconv`` once (no
+    stamps), with the chain's widths and the
+    weights in ``_build.pack_tf32``'s layout, bit for bit; the result the
+    stub writes (the plain version on the arrays the launch passed) comes
+    back whole."""
+    rng = np.random.default_rng(830 + D)
+    xyz, feats, q, layers = _setconv_case(rng, 200, D, widths, 24)
+    dims = [3 + D, *widths]
+    pack = _build.pack_tf32(layers, torch.device("cpu"))
+
+    def pci_setconv(xp, fp, qp, wp, dp, n, op, B, N, S, Dd, r2, k, stamps, stream):
+        assert (n, list(dp)[:n + 1], stamps, k, Dd) == (len(widths), dims, None, K, D)
+        assert torch.equal(read(wp, (pack.numel(),)), pack)
+        args = (read(xp, (B, N, 3)), read(fp, (B, N, Dd)), read(qp, (B, S, 3)))
+        write(op, setconv_cuda.setconv_plain(*args, float(r2) ** 0.5, k, layers))
+
+    stub = cuda_route(StubLibrary(pci_setconv=pci_setconv))
+    got = setconv_cuda.setconv_fused(xyz, feats, q, 1.5, K, layers)
+    assert len(stub.named("pci_setconv")) == 1
+    want = setconv_cuda.setconv_plain(xyz, feats, q, 1.5, K, layers)
+    torch.testing.assert_close(got, want, atol=1e-6, rtol=1e-6)
+
+
+@pytest.mark.parametrize("K, widths", [(129, (32, 64)), (200, (32, 64)), (16, (1032, 64))],
+                         ids=["k129", "k200", "width1032"])
+def test_setconv_past_the_kernels_shapes_launches_nothing(cuda_route, K, widths):
+    """nsample past 128 (the JAX package's gate) or a layer past 1,024
+    channels: the wrapper takes the plain version before any launch."""
+    rng = np.random.default_rng(840 + K)
+    xyz, feats, q, layers = _setconv_case(rng, 300, 5, widths, 16)
+    stub = cuda_route(StubLibrary())
+    got = setconv_cuda.setconv_fused(xyz, feats, q, 2.0, K, layers)
+    assert stub.calls == []
+    assert not setconv_cuda.kernel_route_ok(K, [8, *widths])
+    want = setconv_cuda.setconv_plain(xyz, feats, q, 2.0, K, layers)
+    torch.testing.assert_close(got, want, atol=0, rtol=0)

@@ -438,6 +438,7 @@ def _grad_calls():
     return {
         "fps": lambda: fps_cuda.fps_index(x, 8, torch.zeros(1, dtype=torch.long), 1),
         "setconv": lambda: setconv_cuda.setconv_fused(x, f, x[:, :8], 0.5, 4, sc),
+        "setconv_k200": lambda: setconv_cuda.setconv_fused(x, f, x[:, :8], 0.5, 200, sc),
         "knnconv": lambda: knnconv_cuda.knnconv_fused(x, x, f, None, None, 4, sc, []),
         "fusion": lambda: fusion_knn_cuda.knn_fusion_attention(x, seg, torch.tensor([[16, 16]]), fu, 32),
         "fusion_payload": lambda: fusion_knn_cuda.knn_fusion_attention(
@@ -495,7 +496,8 @@ def wide_attention(d: int, x):
     return q, g, x[:, :, None].expand(-1, -1, 4, -1), tail
 
 
-@pytest.mark.parametrize("kernel", ["fps", "setconv", "knnconv", "fusion", "fusion_payload",
+@pytest.mark.parametrize("kernel", ["fps", "setconv", "setconv_k200", "knnconv", "fusion",
+                                    "fusion_payload",
                                     "ball", "knn", "attention", "flowenc", "flowmid",
                                     "fusion_tail", "fusion_cells", "fusion_cells_payload",
                                     "pn2mid", "fusion_k64", "fusion_tail_k64",
@@ -503,7 +505,8 @@ def wide_attention(d: int, x):
                                     "knn_self_resi", "attention_d96", "attention_d128",
                                     "fusion_k128", "fusion_payload_k128", "fusion_tail_k160"])
 def test_eval_only_kernels_refuse_grad(kernel):
-    """The eval kernels of differentiable values (set-conv, kNN-conv, the
+    """The eval kernels of differentiable values (set-conv, also past its
+    kernel's nsample, where the wrapper takes the plain version, kNN-conv, the
     one-shot fusion (flat and cell-pruned, also for a payload that needs a
     gradient beside a cloud that does not; the flat one and the tail also
     at k = 64, their two-slots-a-lane instantiations, the flat one at k =
